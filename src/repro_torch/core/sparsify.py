@@ -1,0 +1,139 @@
+"""Top-k gradient sparsification with error feedback (paper §III-D).
+
+S(x) is magnitude thresholding at the (1 - k/s) quantile of |x|, with k a
+per-device tensor:
+
+* ``exact``  — threshold from a full descending sort;
+* ``sampled`` — threshold from a strided sample of ~m elements (what the
+  training CLI picks above 2M parameters, so ResNet-9 at full width).
+
+The port works on flat (N, s) buffers, one row per device, with the
+model's ``TreeLayout`` giving each leaf's columns; the flat column index
+is the reference's flat coordinate.  ``sparsify_tree`` sends the mask,
+error and count through the fused ``sparsify_ef`` op (the CUDA kernel on
+the card) — the same arithmetic the reference computes inline.  Bit
+accounting uses the realised count: bits = k_actual * (u + log2 s)
+(eq. 7c).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.utils.fmath import div
+
+
+def _ceil_log2_f32(s: int) -> float:
+    """ceil(log2(float32(s))) as the reference computes it (in f32)."""
+    return float(torch.ceil(torch.log2(torch.tensor(float(s), dtype=torch.float32))))
+
+
+def bits_for_k(k, s: int, u: int = 32):
+    """Upload payload in bits for k selected of s parameters (paper §III-D)."""
+    return k * (u + _ceil_log2_f32(s))
+
+
+def k_for_bits(bits, s: int, u: int = 32):
+    """Largest k transmittable within ``bits`` (Proposition 1, bits=tau*A)."""
+    return torch.clamp(div(bits, u + _ceil_log2_f32(s)), 0.0, float(s))
+
+
+def _pick(srt: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return torch.gather(srt, -1, idx.to(torch.int64)[..., None])[..., 0]
+
+
+def threshold_for_k(x_abs: torch.Tensor, k, *, method: str = "exact",
+                    sample: int = 65536) -> torch.Tensor:
+    """Per-row |x| threshold such that ~k[row] elements of x_abs (N, n) pass."""
+    s = x_abs.shape[-1]
+    k = torch.clamp(torch.as_tensor(k, dtype=torch.float32,
+                                    device=x_abs.device), 0.0, float(s))
+    if method == "exact":
+        srt = torch.sort(x_abs, dim=-1, descending=True).values
+        idx = torch.clamp(torch.floor(k).to(torch.int32) - 1, 0, s - 1)
+    elif method == "sampled":
+        m = min(sample, s)
+        stride = max(s // m, 1)
+        srt = torch.sort(x_abs[..., : m * stride : stride], dim=-1,
+                         descending=True).values
+        idx = torch.clamp(torch.floor(div(k, float(s)) * m).to(torch.int32) - 1,
+                          0, m - 1)
+    else:
+        raise ValueError(f"unknown method {method!r}")
+    return torch.where(k < 1.0, torch.inf, _pick(srt, idx))
+
+
+def _strided_sample(leaf: torch.Tensor, m: int) -> torch.Tensor:
+    """~m-element |x| sample per row of ``leaf`` (N, *shape) by a
+    rectangular strided slice — the reference's ``_strided_sample`` under
+    its device vmap, stride for stride: leading dims are strided first,
+    largest first, the last dim last."""
+    n, shape = leaf.shape[0], tuple(leaf.shape[1:])
+    size = math.prod(shape)
+    if size <= m or not shape:
+        return leaf.to(torch.float32).abs().reshape(n, -1)
+    strides = [1] * len(shape)
+    red = size / m
+    order = sorted(range(len(shape)),
+                   key=lambda i: (i == len(shape) - 1, -shape[i]))
+    for i in order:
+        if red <= 1.0:
+            break
+        st = int(min(shape[i], max(1, round(red))))
+        strides[i] = st
+        red /= st
+    block = leaf[(slice(None),) + tuple(slice(None, None, st) for st in strides)]
+    return block.to(torch.float32).abs().reshape(n, -1)
+
+
+def sample_abs(x: torch.Tensor, layout, sample: int) -> torch.Tensor:
+    """The concatenated per-leaf strided |x| samples of x (N, s)."""
+    s = layout.size
+    m_per = [max(int(sample * sz / s), 16) for sz in layout.sizes]
+    return torch.cat([_strided_sample(l, m)
+                      for l, m in zip(layout.leaves(x), m_per)], dim=1)
+
+
+def tree_threshold(x: torch.Tensor, layout, k, *, method: str = "exact",
+                   sample: int = 65536) -> torch.Tensor:
+    """GLOBAL |x| threshold per device across all leaves such that ~k pass
+    (the paper treats x_n as one flat vector).  x (N, s), k (N,)."""
+    if method == "exact":
+        return threshold_for_k(x.to(torch.float32).abs(), k, method="exact")
+    s = layout.size
+    flat = sample_abs(x, layout, sample)
+    kf = torch.as_tensor(k, dtype=torch.float32, device=x.device)
+    frac = torch.clamp(div(kf, float(s)), 0.0, 1.0)
+    srt = torch.sort(flat, dim=-1, descending=True).values
+    m = flat.shape[-1]
+    idx = torch.clamp(torch.floor(frac * m).to(torch.int32) - 1, 0, m - 1)
+    return torch.where(kf < 1.0, torch.inf, _pick(srt, idx))
+
+
+def sparsify_tree(x: torch.Tensor, layout, k, *, method: str = "exact",
+                  sample: int = 65536):
+    """Tree-level S(x) for every device at once: (upload, error, k_actual).
+
+    x (N, s) contiguous, k (N,); one global threshold per device across all
+    leaves (``tree_threshold``), then ONE fused sparsify_ef call.
+    """
+    t = tree_threshold(x, layout, k, method=method, sample=sample)
+    return ops.sparsify_ef(x, t.contiguous())
+
+
+def quantize_values(x: torch.Tensor, layout, bits: int) -> torch.Tensor:
+    """Symmetric uniform quantisation of the upload VALUES to ``bits`` bits,
+    one scale per leaf and device (round half to even, as ``jnp.round``).
+    x (N, s); bits >= 32 is a no-op."""
+    if bits >= 32:
+        return x
+    levels = float(2 ** (bits - 1) - 1)
+    out = torch.empty_like(x)
+    for src, dst in zip(layout.leaves(x), layout.leaves(out)):
+        lf = src.to(torch.float32)
+        amax = lf.abs().amax(dim=tuple(range(1, lf.dim())), keepdim=True)
+        scale = div(torch.clamp(amax, min=1e-12), levels)
+        dst.copy_((torch.round(lf / scale) * scale).to(x.dtype))
+    return out

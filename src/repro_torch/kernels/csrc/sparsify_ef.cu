@@ -1,0 +1,251 @@
+// Fused sparsify + error feedback (and its quantising twin) for sm_90a.
+//
+// Replaces the two Pallas TPU kernels of src/repro/kernels/sparsify_ef.py:
+//   sparsify_ef           (:60, body _kernel :49)
+//   sparsify_quantize_ef  (:124, body _kernel_q :102)
+//
+// Per row (one federated device) of x (rows, cols) with the row's
+// threshold t:
+//   sparsify_ef:           upload = x*[|x| >= t], error = x*[|x| < t]
+//   sparsify_quantize_ef:  upload = [|x| >= t] * clip(floor(x/step + u),
+//                          -levels, levels) * step, error = x - upload,
+//                          u = lowbias32(seed, base + column) / 2^32
+//   both:                  count = #{|x| >= t}
+// The mask is taken on the f32 value; outputs are stored in x's dtype.
+//
+// Bound: bytes. Each element is read once and written twice (12 B in f32,
+// 6 B in bf16) for a few ALU operations (about 20 integer and float ops
+// with the dither hash), far below the card's operation rate, so the time
+// floor is the HBM rate. Design for that: the whole federation in ONE
+// launch (the TPU version is vmapped per device and per leaf); the grid is
+// (blocks_per_row, rows) and each block streams its row with 16-byte
+// vector loads and stores in a grid-stride loop. Rows need not start on a
+// 16-byte boundary (s = 6,573,130 is not a multiple of 4), so the few
+// elements before a row's first aligned vector and its ragged tail are
+// done one by one. Nothing is padded, so the count needs no correction.
+// The count is reduced in registers, by warp shuffles and shared memory,
+// with one atomicAdd per block into the row's int32 total.
+//
+// Bit-exactness with the reference: x/step is an IEEE round-to-nearest
+// divide (__fdiv_rn), and every add/multiply/subtract after it is an
+// explicit _rn intrinsic so that nothing is contracted into an FMA; the
+// error is computed from the upload after its rounding to x's dtype. The
+// hash works in uint32, which wraps as the reference's does.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  static constexpr int n = 4;
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int n = 8;
+};
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ float dither_u01(uint32_t seed, uint32_t idx) {
+  uint32_t h = idx ^ seed;
+  h ^= h >> 16;
+  h *= 0x7FEB352Du;
+  h ^= h >> 15;
+  h *= 0x846CA68Bu;
+  h ^= h >> 16;
+  return __fmul_rn(__uint2float_rn(h), 2.3283064365386963e-10f);  // 2^-32
+}
+
+struct SparsifyOp {
+  float t;
+
+  template <typename T>
+  __device__ __forceinline__ int operator()(T x, uint32_t, T& up,
+                                            T& err) const {
+    const bool keep = fabsf(to_f32(x)) >= t;
+    const T z = from_f32<T>(0.0f);
+    up = keep ? x : z;
+    err = keep ? z : x;
+    return keep;
+  }
+};
+
+struct SparsifyParams {
+  const float* t;
+  __device__ __forceinline__ SparsifyOp row(int r) const { return {t[r]}; }
+};
+
+struct QuantizeOp {
+  float t, step, levels;
+  uint32_t seed, base;
+
+  template <typename T>
+  __device__ __forceinline__ int operator()(T x, uint32_t col, T& up,
+                                            T& err) const {
+    const float xf = to_f32(x);
+    const bool keep = fabsf(xf) >= t;
+    const float u = dither_u01(seed, base + col);
+    float q = floorf(__fadd_rn(__fdiv_rn(xf, step), u));
+    q = fminf(fmaxf(q, -levels), levels);
+    const T v = from_f32<T>(keep ? __fmul_rn(q, step) : 0.0f);
+    up = v;
+    err = from_f32<T>(__fsub_rn(xf, to_f32(v)));
+    return keep;
+  }
+};
+
+struct QuantizeParams {
+  const float* t;
+  const float* step;
+  const float* levels;
+  const int32_t* seed;
+  uint32_t base;
+  __device__ __forceinline__ QuantizeOp row(int r) const {
+    return {t[r], step[r], levels[r], static_cast<uint32_t>(seed[r]), base};
+  }
+};
+
+template <typename T, typename P>
+__global__ void __launch_bounds__(kThreads)
+    row_pass(const T* __restrict__ x, T* __restrict__ up, T* __restrict__ err,
+             int* __restrict__ counts, int64_t cols, P params) {
+  constexpr int V = Vec<T>::n;
+  const int r = blockIdx.y;
+  const auto op = params.row(r);
+  const int64_t off = static_cast<int64_t>(r) * cols;
+  const T* xr = x + off;
+  T* ur = up + off;
+  T* er = err + off;
+  // base pointers are 16-byte aligned, so the row's first aligned element
+  // is the one whose flat offset is a multiple of V
+  int64_t head = (V - off % V) % V;
+  if (head > cols) head = cols;
+  const int64_t nvec = (cols - head) / V;
+  const int64_t tail = head + nvec * V;
+
+  int count = 0;
+  const uint4* xv = reinterpret_cast<const uint4*>(xr + head);
+  uint4* uv = reinterpret_cast<uint4*>(ur + head);
+  uint4* ev = reinterpret_cast<uint4*>(er + head);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < nvec; i += stride) {
+    alignas(16) T xin[V];
+    alignas(16) T uo[V];
+    alignas(16) T eo[V];
+    *reinterpret_cast<uint4*>(xin) = __ldcs(xv + i);
+    const uint32_t col = static_cast<uint32_t>(head + i * V);
+#pragma unroll
+    for (int j = 0; j < V; ++j) count += op(xin[j], col + j, uo[j], eo[j]);
+    __stcs(uv + i, *reinterpret_cast<uint4*>(uo));
+    __stcs(ev + i, *reinterpret_cast<uint4*>(eo));
+  }
+  // the < V elements before the first aligned vector and the < V after
+  // the last one, one per thread of block 0
+  if (blockIdx.x == 0) {
+    const int64_t j = threadIdx.x;
+    int64_t c = -1;
+    if (j < head) {
+      c = j;
+    } else if (j - head < cols - tail) {
+      c = tail + (j - head);
+    }
+    if (c >= 0) count += op(xr[c], static_cast<uint32_t>(c), ur[c], er[c]);
+  }
+
+  for (int o = 16; o > 0; o >>= 1) count += __shfl_down_sync(0xffffffffu, count, o);
+  __shared__ int warp_counts[kThreads / 32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) warp_counts[warp] = count;
+  __syncthreads();
+  if (warp == 0) {
+    count = lane < kThreads / 32 ? warp_counts[lane] : 0;
+    for (int o = 16; o > 0; o >>= 1) count += __shfl_down_sync(0xffffffffu, count, o);
+    if (lane == 0 && count != 0) atomicAdd(counts + r, count);
+  }
+}
+
+int blocks_per_row(int64_t rows, int64_t cols, int vec) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 1;
+  }
+  // about eight resident blocks per SM over the whole federation
+  const int64_t want = (8LL * sms + rows - 1) / rows;
+  const int64_t need = (cols / vec + kThreads - 1) / kThreads;
+  int64_t b = want < need ? want : need;
+  return static_cast<int>(b < 1 ? 1 : b);
+}
+
+template <typename P>
+int launch(const void* x, void* up, void* err, int* counts, int64_t rows,
+           int64_t cols, int dtype, P params, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemsetAsync(counts, 0, rows * sizeof(int), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (rows == 0 || cols == 0) return static_cast<int>(cudaGetLastError());
+  if (dtype == 0) {
+    dim3 grid(blocks_per_row(rows, cols, Vec<float>::n),
+              static_cast<unsigned>(rows));
+    row_pass<float, P><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<float*>(up),
+        static_cast<float*>(err), counts, cols, params);
+  } else if (dtype == 1) {
+    dim3 grid(blocks_per_row(rows, cols, Vec<__nv_bfloat16>::n),
+              static_cast<unsigned>(rows));
+    row_pass<__nv_bfloat16, P><<<grid, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(up),
+        static_cast<__nv_bfloat16*>(err), counts, cols, params);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. All pointers are device pointers;
+// x, up and err are (rows, cols) row-major and 16-byte aligned; t, step,
+// levels, seed and counts are (rows,). Returns cudaGetLastError().
+extern "C" int sparsify_ef_launch(const void* x, void* up, void* err,
+                                  int* counts, const float* t, int64_t rows,
+                                  int64_t cols, int dtype, void* stream) {
+  return launch(x, up, err, counts, rows, cols, dtype, SparsifyParams{t},
+                stream);
+}
+
+extern "C" int sparsify_quantize_ef_launch(const void* x, void* up, void* err,
+                                           int* counts, const float* t,
+                                           const float* step,
+                                           const float* levels,
+                                           const int32_t* seed, uint32_t base,
+                                           int64_t rows, int64_t cols,
+                                           int dtype, void* stream) {
+  return launch(x, up, err, counts, rows, cols, dtype,
+                QuantizeParams{t, step, levels, seed, base}, stream);
+}

@@ -1,0 +1,122 @@
+"""Fused sparsify (+ quantise) + error feedback: the CUDA kernels' wrappers.
+
+Replaces the Pallas kernels of ``src/repro/kernels/sparsify_ef.py``
+(``sparsify_ef`` and ``sparsify_quantize_ef``).  Where the reference vmaps
+one kernel call per device and per leaf, these take the whole federation
+at once: x is (N, s), the flat concatenation of each device's leaves in
+flatten order, with one threshold (and one seed, step and levels) per row,
+so each call site launches once per round.  The kernels are in
+``csrc/sparsify_ef.cu`` (its header says what bounds them and how); their
+plain versions are ``ref.py``'s ``sparsify_ef_plain`` /
+``sparsify_quantize_ef_plain``.
+
+Each wrapper takes CUDA tensors only, checks them, launches on the current
+stream and adds one to ``LAUNCHES[name]``; ``ops.py`` sends CPU tensors to
+the plain versions.  Counts come back as f32 of an exact int32 total,
+which equals the reference's sum of per-leaf f32 counts below 2^24 (s =
+6,573,130 for ResNet-9 is below it).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+
+__all__ = [
+    "LAUNCHES", "library", "reset_launches", "sparsify_ef_cuda",
+    "sparsify_quantize_ef_cuda",
+]
+
+LAUNCHES = {"sparsify_ef": 0, "sparsify_quantize_ef": 0}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The kernels' library (built on first use), its C signatures set."""
+    lib = build.load("sparsify_ef")
+    lib.sparsify_ef_launch.argtypes = [_P, _P, _P, _P, _P, _I64, _I64,
+                                       ctypes.c_int, _P]
+    lib.sparsify_ef_launch.restype = ctypes.c_int
+    lib.sparsify_quantize_ef_launch.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_uint32, _I64, _I64,
+        ctypes.c_int, _P]
+    lib.sparsify_quantize_ef_launch.restype = ctypes.c_int
+    return lib
+
+
+def _check(x: torch.Tensor, **rows) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"kernel takes CUDA tensors, got x on {x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"x dtype {x.dtype} not in (float32, bfloat16)")
+    if x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous (N, s) tensor, got "
+                         f"{tuple(x.shape)} strides {x.stride()}")
+    if x.data_ptr() % 16:
+        raise ValueError("x must start on a 16-byte boundary")
+    if not 0 < x.shape[0] <= 65535:
+        raise ValueError(f"N = {x.shape[0]} rows not in [1, 65535]")
+    want = {"seeds": torch.int32}
+    for name, t in rows.items():
+        dt = want.get(name, torch.float32)
+        if (t.device != x.device or t.dtype != dt
+                or tuple(t.shape) != (x.shape[0],) or not t.is_contiguous()):
+            raise ValueError(
+                f"{name} must be a contiguous ({x.shape[0]},) {dt} tensor on "
+                f"{x.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _outputs(x):
+    return (torch.empty_like(x), torch.empty_like(x),
+            torch.empty(x.shape[0], dtype=torch.int32, device=x.device))
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def sparsify_ef_cuda(x: torch.Tensor, thresholds: torch.Tensor):
+    """x (N, s) f32/bf16, thresholds (N,) f32 -> (upload, error, count f32)."""
+    _check(x, thresholds=thresholds)
+    lib = library()
+    up, err, cnt = _outputs(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.sparsify_ef_launch(
+            x.data_ptr(), up.data_ptr(), err.data_ptr(), cnt.data_ptr(),
+            thresholds.data_ptr(), x.shape[0], x.shape[1], _DTYPES[x.dtype],
+            stream)
+    _raise_on(rc, "sparsify_ef")
+    LAUNCHES["sparsify_ef"] += 1
+    return up, err, cnt.to(torch.float32)
+
+
+def sparsify_quantize_ef_cuda(x: torch.Tensor, thresholds, steps, levels,
+                              seeds, base: int = 0):
+    """x (N, s); thresholds, steps, levels (N,) f32; seeds (N,) int32;
+    base: dither counter of column 0 -> (upload, error, count f32)."""
+    _check(x, thresholds=thresholds, steps=steps, levels=levels, seeds=seeds)
+    lib = library()
+    up, err, cnt = _outputs(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.sparsify_quantize_ef_launch(
+            x.data_ptr(), up.data_ptr(), err.data_ptr(), cnt.data_ptr(),
+            thresholds.data_ptr(), steps.data_ptr(), levels.data_ptr(),
+            seeds.data_ptr(), int(base) & 0xFFFFFFFF, x.shape[0], x.shape[1],
+            _DTYPES[x.dtype], stream)
+    _raise_on(rc, "sparsify_quantize_ef")
+    LAUNCHES["sparsify_quantize_ef"] += 1
+    return up, err, cnt.to(torch.float32)
