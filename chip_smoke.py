@@ -5,24 +5,51 @@
 
 Phases, each of which raises on failure (a failed phase exits non-zero):
 
-1. device: the card's name and power limit;
-2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shape (N = 20 devices x s = 6,573,130 ResNet-9
-   parameters) in f32 and bf16 and at ragged shapes; uploads and counts
-   bit-equal, errors within 1e-6; median times over 25 runs (CUDA events)
-   beside the plain version's and the HBM bound;
-4. main path: ``repro_torch.launch.train`` in-process at full-width
+1. device: the card's name, power limit and multiprocessor count (which
+   sets ``decode_attn``'s split);
+2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``,
+   one nvcc per source, all started together; each library's build
+   seconds and ptxas registers and spills;
+3. kernels: each kernel against its plain PyTorch version on the card,
+   with median times over 25 runs (CUDA events) beside the plain
+   version's, the bound and, where one PyTorch call computes the same
+   function, that call's time:
+   - ``sparsify_ef`` / ``sparsify_quantize_ef`` at the training path's
+     shape (N = 20 devices x s = 6,573,130 ResNet-9 parameters) in f32 and
+     bf16 and at ragged shapes: uploads and counts bit-equal, errors within
+     1e-6;
+   - ``decode_attn`` at the reference test's shapes in f32 (2e-5) and bf16
+     (3e-2), at the serve path's shape (B 8, S 2080, KV 8, D 128, G 3) and
+     at a deep cache (S 32768), plus a masked-tail check; timed against
+     ``scaled_dot_product_attention`` (the yardstick; the port never calls
+     it);
+   - ``ssd_scan`` at the reference test's shapes and the serve path's
+     (B 4, S 4096, H 80, P 64, N 128, chunk 256), at 2e-4 against its plain
+     version evaluated in f64 on the same inputs (the f32 chunked formula
+     is itself ~5e-4 off at chunk 256, so f32 against f32 would test the
+     two roundings, not the kernel); the f32 plain version is timed;
+4. training path: ``repro_torch.launch.train`` in-process at full-width
    ResNet-9, N = 20, batch 32, for policies ``mads`` (through
    ``sparsify_ef``) and ``mads-joint`` (through ``sparsify_quantize_ef``),
    with each kernel's launch count read around its run; uploads > 0 and a
    finite eval;
-5. reference: the same training on CUDA and on the CPU (plain versions) at
-   width 4 from one seed agree.
+5. training reference: the same training on CUDA and on the CPU (plain
+   versions) at width 4 from one seed agree;
+6. serve, dense: ``repro_torch.launch.serve`` in-process at full-width
+   Llama-3.2-3B (bf16, random weights from a CUDA generator), batch 8,
+   prompt 2048, gen 32: ``decode_attn`` launched 28 x 32 times, tokens in
+   [0, vocab), finite logits; prefill and decode seconds and tok/s;
+7. serve, ssm: the same at full-width Mamba2-2.7B, batch 4, prompt 4096:
+   ``ssd_scan`` launched 64 times (once per layer of the prefill);
+8. serve reference: reduced Llama and Mamba2 in float32 on the card and on
+   the CPU from one seed, prompt 64 (a multiple of the reduced SSD chunk,
+   32): the same greedy tokens, prefill logits within 1e-3.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Exits non-zero without a
-CUDA card and outside a checkout of the repository.
+The last three lines are the card's name and power limit (as
+``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
+them), a JSON object with one entry per kernel, and
+``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card and
+outside a checkout of the repository.
 """
 from __future__ import annotations
 
@@ -32,8 +59,10 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -41,7 +70,17 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+PEAK_OPS_PER_S = {torch.float32: FP32_OPS_PER_S, torch.bfloat16: 989e12}
 N_DEV, S_RESNET9 = 20, 6_573_130
+GEN = 32
+LLAMA_BATCH, LLAMA_PROMPT = 8, 2048
+MAMBA_BATCH, MAMBA_PROMPT = 4, 4096
+# decode_attn at the serve path's shape (Llama-3.2-3B: KV 8, G 3, D 128;
+# cache of prompt + gen slots) and at a deep cache; (B, H, KV, S, D)
+DECODE_MAIN = (LLAMA_BATCH, 24, 8, LLAMA_PROMPT + GEN, 128)
+DECODE_DEEP = (8, 24, 8, 32768, 128)
+# ssd_scan at the serve path's shape (Mamba2-2.7B); (B, S, H, P, N, chunk)
+SSD_MAIN = (MAMBA_BATCH, MAMBA_PROMPT, 80, 64, 128, 256)
 T_ROW = [0.0, 0.7, 1.5, math.inf, math.nextafter(-math.inf, math.inf)]
 TIMED_RUNS = 25
 
@@ -188,12 +227,227 @@ def check_against_cpu():
           f"{b['eval']}", flush=True)
 
 
+def bound(nbytes: float, ops: float, dtype) -> dict:
+    """The least time for the work: bytes over the HBM rate or operations
+    over the peak rate of their type, whichever is larger."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def build_kernels(mods: dict) -> None:
+    """Phase 2: one nvcc per source, all started together."""
+    from repro_torch.kernels import build
+
+    def timed(lib):
+        t0 = time.perf_counter()
+        lib()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(mods)) as ex:
+        secs = {name: ex.submit(timed, mod.library) for name, mod in mods.items()}
+        secs = {name: f.result() for name, f in secs.items()}
+    for name, t in secs.items():
+        print(f"build: {build.library_path(name).name} in {t:.2f} s", flush=True)
+        log = build.log_path(name)
+        for line in log.read_text().splitlines() if log.exists() else ():
+            if "registers" in line or "spill" in line:
+                print("  ptxas:", line.strip())
+
+
+def _randn(shape, gen, dtype=torch.float32):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def _max_excess(got, want, tol: float) -> tuple:
+    """(max |got - want|, max of |got - want| - tol * (1 + |want|))."""
+    g, w = got.double(), want.double()
+    d = (g - w).abs()
+    return d.max().item(), (d - tol * (1 + w.abs())).max().item()
+
+
+def check_decode_attn(DA, R, card: str) -> dict:
+    """Phase 3 for decode_attn: against its plain version, then timed."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    err = 0.0
+    shapes = [(2, 8, 2, 1024, 64), (1, 4, 4, 512, 128), (2, 6, 2, 777, 64),
+              (1, 16, 2, 2048, 128), DECODE_MAIN, DECODE_DEEP]
+    for b, h, kv, s, d in shapes:
+        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
+            q = _randn((b, h, d), gen, dtype)
+            k = _randn((b, s, kv, d), gen, dtype)
+            v = _randn((b, s, kv, d), gen, dtype)
+            case_err = 0.0
+            for length in sorted({int(0.7 * s), s}):
+                got = DA.decode_attn_cuda(q, k, v, length)
+                want = R.decode_attn_plain(q, k, v, length)
+                torch.cuda.synchronize()
+                e, excess = _max_excess(got, want, tol)
+                if excess > 0:
+                    fail(f"decode_attn differs by {e} at {(b, h, kv, s, d)} "
+                         f"{dtype} length {length}")
+                case_err = max(case_err, e)
+            err = max(err, case_err)
+            print(f"decode_attn matches plain at (B, H, KV, S, D) = "
+                  f"{(b, h, kv, s, d)} {dtype}: max abs err {case_err:.3g}",
+                  flush=True)
+            del q, k, v, got, want
+    # positions at and beyond length never count
+    q = _randn((1, 4, 64), gen)
+    k, v = _randn((1, 512, 2, 64), gen), _randn((1, 512, 2, 64), gen)
+    out1 = DA.decode_attn_cuda(q, k, v, 100)
+    k[:, 100:], v[:, 100:] = 1e4, -1e4
+    if not torch.equal(out1, DA.decode_attn_cuda(q, k, v, 100)):
+        fail("decode_attn reads the masked tail")
+    print("decode_attn ignores the masked tail", flush=True)
+
+    out = {}
+    for label, (b, h, kv, s, d) in (("main", DECODE_MAIN), ("deep", DECODE_DEEP)):
+        dt = torch.bfloat16
+        q = _randn((b, h, d), gen, dt)
+        k, v = _randn((b, s, kv, d), gen, dt), _randn((b, s, kv, d), gen, dt)
+        mask = torch.ones((1, 1, 1, s), dtype=torch.bool, device="cuda")
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+        lib_err = (sdpa()[:, :, 0].float()
+                   - R.decode_attn_plain(q, k, v, s).float()).abs().max().item()
+        res = dict(
+            ms=median_ms(lambda: DA.decode_attn_cuda(q, k, v, s)),
+            plain_ms=median_ms(lambda: R.decode_attn_plain(q, k, v, s)),
+            library_ms=median_ms(sdpa), max_abs_err=err,
+            # K and V rows read once, q read and the output written once
+            **bound(2 * b * s * kv * d * 2 + 2 * b * h * d * 2,
+                    4 * b * h * s * d, dt))
+        print(f"decode_attn ({label}, (B, H, KV, S, D) = {(b, h, kv, s, d)}, "
+              f"bf16, length {s}): {res['ms']:.4f} ms (plain "
+              f"{res['plain_ms']:.4f} ms, SDPA {res['library_ms']:.4f} ms "
+              f"[max abs diff to plain {lib_err:.3g}], bound "
+              f"{res['bound_ms']:.4f} ms by {res['bound_by']}) on {card}; "
+              f"unrounded {json.dumps(res)}", flush=True)
+        out[label] = res
+        del q, k, v
+    return out
+
+
+def ssd_causal_flops(b, s, h, p, n, q) -> float:
+    """Operations the chunked SSD needs: per (batch, chunk) the lower
+    triangle of C B^T (N each; b and c have no head axis, so every head
+    shares it), and per (batch, head, chunk) the lower triangle of
+    (C B^T * L) X (P each), the carried state's contribution to y and the
+    chunk's new state (2QNP each)."""
+    tri = q * (q + 1) // 2
+    chunks = b * (s // q)
+    return chunks * (2 * tri * n + h * (2 * tri * p + 4 * q * n * p))
+
+
+def check_ssd_scan(SSD, R, card: str) -> dict:
+    """Phase 3 for ssd_scan: against its plain version, then timed."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    err = 0.0
+    for b, s, h, p, n, q in [(2, 256, 4, 64, 32, 64), (1, 128, 2, 32, 16, 32),
+                             (1, 512, 8, 64, 64, 128), SSD_MAIN]:
+        x = _randn((b, s, h, p), gen)
+        a = -_randn((b, s, h), gen).abs() * 0.5
+        bb, cc = _randn((b, s, n), gen), _randn((b, s, n), gen)
+        y, st = SSD.ssd_scan_cuda(x, a, bb, cc, q)
+        # the plain version in f64 on the same (exactly upcast) inputs: the
+        # f32 chunked formula carries ~5e-4 of its own rounding at chunk 256
+        yr, sr = R.ssd_scan_plain(*(t.double() for t in (x, a, bb, cc)), q)
+        torch.cuda.synchronize()
+        case_err = 0.0
+        for name, got, want in (("y", y, yr), ("state", st, sr)):
+            e, excess = _max_excess(got.double(), want, 2e-4)
+            if excess > 0:
+                fail(f"ssd_scan {name} differs by {e} at {(b, s, h, p, n, q)}")
+            case_err = max(case_err, e)
+        err = max(err, case_err)
+        y32 = R.ssd_scan_plain(x, a, bb, cc, q)[0]
+        print(f"ssd_scan matches plain (f64) at (B, S, H, P, N, chunk) = "
+              f"{(b, s, h, p, n, q)}: max abs err {case_err:.3g}; the f32 "
+              f"plain version is {(y32.double() - yr).abs().max().item():.3g} "
+              f"from it, the kernel {(y.double() - y32.double()).abs().max().item():.3g} "
+              f"from the f32 plain", flush=True)
+        del yr, sr, y32
+    res = dict(
+        ms=median_ms(lambda: SSD.ssd_scan_cuda(x, a, bb, cc, q)),
+        plain_ms=median_ms(lambda: R.ssd_scan_plain(x, a, bb, cc, q)),
+        library_ms=None, max_abs_err=err,
+        # x, a, b, c read once; y and the final state written once
+        **bound(4 * (2 * x.numel() + a.numel() + 2 * bb.numel() + st.numel()),
+                ssd_causal_flops(b, s, h, p, n, q), torch.float32))
+    print(f"ssd_scan (main, {SSD_MAIN}, f32): {res['ms']:.4f} ms (plain "
+          f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms by "
+          f"{res['bound_by']}) on {card}; unrounded {json.dumps(res)}",
+          flush=True)
+    return res
+
+
+def serve_full(mods, arch: str, batch: int, prompt: int):
+    """Phases 6-7: the full-width serve path, counts read around it."""
+    from repro_torch.launch import serve as S
+
+    for mod in mods.values():
+        mod.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, toks, stats = S.main(["--arch", arch, "--batch", str(batch),
+                               "--prompt-len", str(prompt), "--gen", str(GEN),
+                               "--device", "cuda", "--seed", "0"])
+    launches = {k: v for mod in mods.values() for k, v in mod.LAUNCHES.items()}
+    if tuple(toks.shape) != (batch, GEN):
+        fail(f"{arch}: tokens {tuple(toks.shape)}")
+    if not (int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size):
+        fail(f"{arch}: tokens outside [0, {cfg.vocab_size})")
+    if not torch.isfinite(stats["prefill_logits"].float()).all():
+        fail(f"{arch}: prefill logits not finite")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"serve {arch} (full width, batch {batch}, prompt {prompt}, gen "
+          f"{GEN}): prefill_s {stats['prefill_s']}, decode_s "
+          f"{stats['decode_s']}, tok/s {stats['tok_per_s']}, peak "
+          f"{peak:.2f} GiB, launches {launches}", flush=True)
+    del toks, stats
+    torch.cuda.empty_cache()
+    return cfg, launches
+
+
+def serve_against_cpu():
+    """Phase 8: reduced float32 serves on the card and on the CPU agree."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.registry import build_model
+
+    for arch in ("llama3.2-3b", "mamba2-2.7b"):
+        cfg = get_config(arch).reduced().replace(dtype="float32",
+                                                 param_dtype="float32")
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0))
+        prompts = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (2, 64)).astype(np.int32))
+        out = {}
+        for dev in ("cuda", "cpu"):
+            p = model.layout.unflatten(model.layout.flatten(params).to(dev))
+            out[dev] = serve(cfg, model, p, prompts.to(dev), gen=8)
+        (tg, sg), (tc, sc) = out["cuda"], out["cpu"]
+        e = (sg["prefill_logits"].cpu() - sc["prefill_logits"]).abs().max().item()
+        if not torch.equal(tg.cpu(), tc) or e > 1e-3:
+            fail(f"{arch}: card and CPU serves differ: tokens {tg.tolist()} vs "
+                 f"{tc.tolist()}, prefill logits by {e}")
+        print(f"serve {arch} (reduced, f32) on the card matches the CPU: "
+              f"tokens {tc[0].tolist()}, prefill logits within {e:.3g}",
+              flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
-    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attn as DA
     from repro_torch.kernels import ref as R
     from repro_torch.kernels import sparsify_ef as K
+    from repro_torch.kernels import ssd_scan as SSD
+
+    mods = {"sparsify_ef": K, "decode_attn": DA, "ssd_scan": SSD}
+    t_start = time.perf_counter()
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -201,26 +455,22 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    print(f"device: {kind} ({smi}); torch {torch.__version__}, CUDA "
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"device: {kind} ({smi}), {sms} SMs; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
 
     # 2. build
-    t0 = time.perf_counter()
-    K.library()
-    print(f"build: {build.library_path('sparsify_ef').name} in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    log = build.log_path("sparsify_ef")
-    for line in log.read_text().splitlines() if log.exists() else ():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    build_kernels(mods)
 
     # 3. kernels against their plain versions
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     timing = check_kernels(K, R, smi)
+    decode = check_decode_attn(DA, R, smi)
+    ssd = check_ssd_scan(SSD, R, smi)
     torch.cuda.empty_cache()
 
-    # 4. main path, counts read around each policy's run
+    # 4. training path, counts read around each policy's run
     launches_mads, rps_mads = main_path(K, "mads")
     if launches_mads["sparsify_ef"] < 1:
         fail(f"mads never launched sparsify_ef: {launches_mads}")
@@ -232,20 +482,43 @@ def main() -> None:
 
     # 5. against the CPU path at a small size
     check_against_cpu()
+    torch.cuda.empty_cache()
 
-    src = "src/repro_torch/kernels/csrc/sparsify_ef.cu"
+    # 6-7. serve path at full width, counts read around each model's run
+    cfg, launches_dense = serve_full(mods, "llama3.2-3b", LLAMA_BATCH, LLAMA_PROMPT)
+    if launches_dense["decode_attn"] != cfg.num_layers * GEN:
+        fail(f"dense serve launched decode_attn {launches_dense['decode_attn']} "
+             f"times, not {cfg.num_layers} x {GEN}")
+    cfg, launches_ssm = serve_full(mods, "mamba2-2.7b", MAMBA_BATCH, MAMBA_PROMPT)
+    if launches_ssm["ssd_scan"] != cfg.num_layers:
+        fail(f"ssm serve launched ssd_scan {launches_ssm['ssd_scan']} times, "
+             f"not {cfg.num_layers}")
+
+    # 8. serve against the CPU path at reduced size
+    serve_against_cpu()
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    src = "src/repro_torch/kernels/csrc/"
     kernels = [
-        dict(name="sparsify_ef", route="cuda", source=src,
+        dict(name="sparsify_ef", route="cuda", source=src + "sparsify_ef.cu",
              replaces="src/repro/kernels/sparsify_ef.py:60",
              launches=launches_mads["sparsify_ef"], library_ms=None,
              **timing["sparsify_ef"]),
-        dict(name="sparsify_quantize_ef", route="cuda", source=src,
+        dict(name="sparsify_quantize_ef", route="cuda",
+             source=src + "sparsify_ef.cu",
              replaces="src/repro/kernels/sparsify_ef.py:124",
              launches=launches_joint["sparsify_quantize_ef"], library_ms=None,
              **timing["sparsify_quantize_ef"]),
+        dict(name="decode_attn", route="cuda", source=src + "decode_attn.cu",
+             replaces="src/repro/kernels/decode_attn.py:64",
+             launches=launches_dense["decode_attn"], **decode["main"]),
+        dict(name="ssd_scan", route="cuda", source=src + "ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan.py:60",
+             launches=launches_ssm["ssd_scan"], **ssd),
     ]
-    print(json.dumps({"kernels": kernels}))
     print(smi)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

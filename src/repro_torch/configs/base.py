@@ -3,9 +3,10 @@
 ``FLConfig`` copies ``repro.configs.base.FLConfig`` with the same fields
 and defaults, so a configuration means the same thing in both packages;
 the knobs of layers not ported yet are refused where they would be read.
-``ModelConfig`` keeps only the fields of the ported model family
-(vision); the other families add theirs when they are ported.  The
-registry lists only the architectures this package ports (``load_all``).
+``ModelConfig`` keeps only the fields of the ported model families
+(vision, dense, ssm), with the reference's defaults; the MoE, VLM, hybrid
+and audio fields come with those families.  The registry lists only the
+architectures this package ports (``load_all``).
 """
 from __future__ import annotations
 
@@ -13,20 +14,70 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
 
+import torch
+
+from repro_torch.sharding.rules import torch_dtype
+
+
 @dataclass(frozen=True)
 class ModelConfig:
-    """One architecture of a ported family (vision: ResNet-9)."""
+    """One architecture of a ported family (vision, dense, ssm)."""
 
     name: str
-    family: str  # vision
+    family: str  # vision | dense | ssm
     num_layers: int
     d_model: int  # vision: base channel width
     vocab_size: int  # vision: number of classes
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    d_ff: int = 0
+    head_dim: int = 0  # 0 -> d_model // num_heads
+    # --- attention options -------------------------------------------------
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 1e6
+    sliding_window: int = 0  # 0 = full attention; >0 = ring-buffer cache
+    # --- SSM -----------------------------------------------------------------
+    ssm_state: int = 0
+    ssm_heads: int = 0  # mamba2 value heads; 0 -> derived
+    ssm_expand: int = 2
+    ssm_chunk: int = 128
+    conv_kernel: int = 4
+    # --- misc -----------------------------------------------------------------
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
+    kv_cache_dtype: str = ""  # "" = activation dtype; "int8" is not ported
     source: str = ""  # citation
 
     # ------------------------------------------------------------------
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def activation_dtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
+
+    def reduced(self) -> "ModelConfig":
+        """Reduced variant for CPU tests: the reference's ``reduced()`` for
+        the fields this package keeps (2 layers, d_model <= 256)."""
+        return dataclasses.replace(
+            self,
+            num_layers=2,
+            d_model=min(self.d_model, 256),
+            num_heads=min(self.num_heads, 4),
+            num_kv_heads=min(self.num_kv_heads, 2),
+            head_dim=64,
+            d_ff=min(self.d_ff, 512) if self.d_ff else 0,
+            vocab_size=min(self.vocab_size, 1024),
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_chunk=32,
+            ssm_heads=0,
+            sliding_window=min(self.sliding_window, 64) if self.sliding_window else 0,
+        )
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -140,5 +191,5 @@ def load_all() -> None:
     """Import every ported config module (they self-register)."""
     import importlib
 
-    for mod in ("resnet9_cifar10",):
+    for mod in ("resnet9_cifar10", "llama3_2_3b", "mamba2_2_7b"):
         importlib.import_module(f"repro_torch.configs.{mod}")

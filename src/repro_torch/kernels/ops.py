@@ -1,18 +1,23 @@
-"""Dispatch for the sparsify kernels, by the device of the tensor.
+"""Dispatch for the kernels, by the device of the tensor.
 
-A CUDA tensor goes to the hand-written kernel (``sparsify_ef.py``), which
-launches or raises; a CPU tensor goes to the kernel's plain version
-(``ref.py``).  There is no fallback between the two.
+A CUDA tensor goes to the hand-written kernel (``sparsify_ef.py``,
+``decode_attn.py``, ``ssd_scan.py``), which launches or raises; a CPU
+tensor goes to the kernel's plain version (``ref.py``).  There is no
+fallback between the two.
 """
 from __future__ import annotations
 
+import torch
+
+from repro_torch.kernels import decode_attn as DA
 from repro_torch.kernels import ref
 from repro_torch.kernels import sparsify_ef as K
+from repro_torch.kernels import ssd_scan as SSD
 
 
 def _device(x) -> str:
     if x.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"no sparsify path for device {x.device}")
+        raise ValueError(f"no kernel path for device {x.device}")
     return x.device.type
 
 
@@ -30,3 +35,22 @@ def sparsify_quantize_ef(x, thresholds, steps, levels, seeds, base: int = 0):
                                            base)
     return ref.sparsify_quantize_ef_plain(x, thresholds, steps, levels, seeds,
                                           base)
+
+
+def decode_attn(q, k, v, length: int):
+    """One query token per sequence against a KV cache: q (B, H, D), k, v
+    (B, S, KV, D), ``length`` valid positions -> (B, H, D) in q's dtype."""
+    if _device(q) == "cuda":
+        return DA.decode_attn_cuda(q, k, v, length)
+    return ref.decode_attn_plain(q, k, v, length)
+
+
+def ssd_scan(x, a, b, c, chunk: int):
+    """Chunked SSD scan -> (y (B,S,H,P), final state (B,H,P,N)), f32.
+
+    The inputs are taken as f32, as the reference kernel reads them (b and
+    c come in the activation dtype)."""
+    x, a, b, c = (t.to(torch.float32) for t in (x, a, b, c))
+    if _device(x) == "cuda":
+        return SSD.ssd_scan_cuda(x, a, b, c, chunk)
+    return ref.ssd_scan_plain(x, a, b, c, chunk)

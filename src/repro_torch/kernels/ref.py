@@ -1,13 +1,16 @@
-"""Plain PyTorch oracles of the sparsify kernels, batched over rows.
+"""Plain PyTorch versions of the CUDA kernels.
 
-Twins of ``kernels/ref.py::sparsify_ef_ref`` and
+The sparsify pair are twins of ``kernels/ref.py::sparsify_ef_ref`` and
 ``::sparsify_quantize_ef_ref`` of the reference, for x (rows, n) with one
 parameter per row, so one call covers the whole federation as the CUDA
-kernels do.  They are the plain versions of the kernels wrapped in
-``sparsify_ef.py``: the CPU path runs them (``ops.py``), and
-``chip_smoke.py`` holds the kernels to them on the card.
+kernels do.  ``decode_attn_plain`` is the twin of ``decode_attn_ref``, and
+``ssd_scan_plain`` is the port's ``models/mamba2.py::ssd_chunked`` (the
+reference's "ref" route for ``ssd_scan``).  The CPU path runs them
+(``ops.py``), and ``chip_smoke.py`` holds the kernels to them on the card.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -46,3 +49,28 @@ def sparsify_quantize_ef_plain(x: torch.Tensor, thresholds, steps, levels,
     error = (xf - upload.to(torch.float32)).to(x.dtype)
     count = mask.sum(dim=1, dtype=torch.int32).to(torch.float32)
     return upload, error, count
+
+
+def decode_attn_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      length: int) -> torch.Tensor:
+    """Single-token GQA decode attention.
+
+    q: (B, H, D); k, v: (B, S, KV, D); length: number of valid entries.
+    Returns (B, H, D) in q's dtype; scores and softmax in f32.
+    """
+    b, s, kv, d = k.shape
+    h = q.shape[1]
+    qf = q.to(torch.float32).reshape(b, kv, h // kv, d)
+    scores = torch.einsum("bkgd,bskd->bkgs", qf, k.to(torch.float32)) / math.sqrt(d)
+    valid = torch.arange(s, device=q.device) < length
+    scores = torch.where(valid, scores, -torch.inf)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v.to(torch.float32))
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def ssd_scan_plain(x, a, b, c, chunk: int):
+    """Chunked Mamba2 SSD scan: (y (B,S,H,P), final state (B,H,P,N)), f32."""
+    from repro_torch.models.mamba2 import ssd_chunked  # mamba2 imports ops
+
+    return ssd_chunked(x, a, b, c, chunk)

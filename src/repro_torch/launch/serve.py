@@ -1,0 +1,122 @@
+"""Batched serving CLI: prefill a batch of prompts, decode new tokens.
+
+Examples:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
+      --reduced --batch 4 --prompt-len 64 --gen 16 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+      --batch 4 --prompt-len 4096 --gen 32
+
+Runs on the card by default (``--device cuda``, which raises when CUDA is
+absent): the dense family decodes through the ``decode_attn`` kernel and
+the ssm family's prefill goes through the ``ssd_scan`` kernel when the
+prompt is a multiple of the SSD chunk.  ``--device cpu`` runs the same
+path on the kernels' plain versions.  Weights are random, drawn from
+``--seed`` by a ``torch.Generator`` on the run's device; prompts are the
+reference's numpy draws.  Sampling is greedy.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.models.registry import build_model
+from repro_torch.utils.device import resolve_device
+from repro_torch.utils.logging import get_logger
+
+log = get_logger("repro_torch.serve")
+
+UNPORTED = ("moe", "vlm", "hybrid", "audio")
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve(cfg, model, params, prompts, gen: int, window: int = 0):
+    """Greedy generation: returns (tokens (B, gen) int32, stats dict).
+
+    stats: ``prefill_s`` and ``decode_s`` (host clock around work that ends
+    in a synchronise on the card), ``tok_per_s`` (B * gen / decode_s) and
+    ``prefill_logits`` (B, vocab), the logits of each prompt's last token.
+    """
+    if cfg.family in UNPORTED:
+        raise NotImplementedError(
+            f"serving family {cfg.family!r} is not ported (ROADMAP.md, queue "
+            "1: the other LLM families)")
+    if window and cfg.family == "dense":
+        cfg = cfg.replace(sliding_window=window)
+    b, plen = prompts.shape
+    max_seq = window or (plen + gen)
+    device = prompts.device
+    _sync(device)
+    t0 = time.perf_counter()
+    if cfg.family == "ssm":
+        last, cache = model.prefill(params, cfg, prompts)
+    else:
+        last, cache = model.prefill(params, cfg, prompts, max_seq=max_seq)
+    _sync(device)
+    t_prefill = time.perf_counter() - t0
+
+    out = []
+    tok = torch.argmax(last, dim=-1).to(torch.int32)
+    _sync(device)
+    t0 = time.perf_counter()
+    for i in range(gen):
+        out.append(tok)
+        logits, cache = model.decode_step(params, cfg, cache, tok, plen + i)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    _sync(device)
+    t_decode = time.perf_counter() - t0
+    return torch.stack(out, 1), {
+        "prefill_s": t_prefill,
+        "decode_s": t_decode,
+        "tok_per_s": b * gen / max(t_decode, 1e-9),
+        "prefill_logits": last,
+    }
+
+
+def main(argv=None):
+    """Returns (cfg, tokens, stats) of the run."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-3b")
+    ap.add_argument("--reduced", action="store_true", default=False)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--window", type=int, default=0, help="sliding window (ring cache)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without CUDA) or cpu")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if cfg.family == "vision":
+        raise SystemExit("serve is for autoregressive archs")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(args.seed),
+                        device)
+    rng = np.random.default_rng(args.seed)
+    prompts = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
+    ).to(device)
+    log.info("arch=%s params=%d batch=%d prompt=%d gen=%d device=%s",
+             cfg.name, model.num_params(), args.batch, args.prompt_len,
+             args.gen, device)
+    toks, stats = serve(cfg, model, params, prompts, args.gen, args.window)
+    log.info("generated %s tokens; prefill=%.2fs decode=%.2fs (%.1f tok/s)",
+             tuple(toks.shape), stats["prefill_s"], stats["decode_s"],
+             stats["tok_per_s"])
+    print(toks[:2].cpu().numpy())
+    return cfg, toks, stats
+
+
+if __name__ == "__main__":
+    main()

@@ -2,13 +2,17 @@
 ``repro/sharding/rules.py:111-146``).
 
 Only the spec dataclass and ``init_params`` are ported, with the init
-kinds and dtypes ResNet-9 uses; the logical-axis sharding rules wait for
-the distributed step, and the other kinds for the families that use them.
-Leaves are drawn from one ``torch.Generator`` in flatten order (sorted
-keys) with the reference's distributions: N(0, 1/fan_in) * scale for
-``normal``, N(0, 0.02^2) for ``small``, and constants for ``zeros`` /
-``ones``.  The draws differ from ``jax.random``'s; tests that need the
-reference's weights carry them over with ``models.registry.load_params``.
+kinds and dtypes ResNet-9 and the dense and ssm LLMs use; the
+logical-axis sharding rules wait for the distributed step, and the other
+kinds for the families that use them.  Leaves are drawn from one
+``torch.Generator`` in flatten order (sorted keys) with the reference's
+distributions: N(0, 1/fan_in) * scale for ``normal`` (fan_in is
+``shape[0]``, which for a stacked leaf is the layer count, as in the
+reference), N(0, 0.02^2) for ``small``, and constants for ``zeros`` /
+``ones``.  Draws are made on the generator's device (a CUDA generator
+keeps a 3B-parameter init off the host) and then moved to ``device``.
+The draws differ from ``jax.random``'s; tests that need the reference's
+weights carry them over with ``models.registry.load_params``.
 """
 from __future__ import annotations
 
@@ -49,7 +53,8 @@ def _init_leaf(gen: torch.Generator, spec: ParamSpec, dtype: torch.dtype,
         std = (1.0 / max(fan_in, 1)) ** 0.5
     else:
         raise NotImplementedError(f"init {spec.init!r} is not ported")
-    vals = torch.randn(spec.shape, generator=gen, dtype=torch.float32)
+    vals = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
+                       device=gen.device)
     return (vals * std * spec.scale).to(device=device, dtype=dt)
 
 

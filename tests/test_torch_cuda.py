@@ -10,8 +10,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import decode_attn as DA  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import sparsify_ef as K  # noqa: E402
+from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 
 
 @pytest.fixture
@@ -91,3 +93,105 @@ def test_cuda_round_matches_cpu_round(cuda, policy, kernel):
     assert torch.equal(cn.kappa, gn.kappa.cpu())
     assert (cm["k"] - gm["k"].cpu()).abs().max().item() <= 2
     assert torch.allclose(cn.w_n, gn.w_n.cpu(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,h,kv,s,d", [(2, 8, 2, 1024, 64), (1, 4, 4, 512, 128), (2, 6, 2, 777, 64),
+                   (1, 16, 2, 2048, 128), (8, 24, 8, 2080, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_kernel_matches_plain(cuda, b, h, kv, s, d, dtype):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for shape in ((b, h, d), (b, s, kv, d), (b, s, kv, d)))
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    DA.reset_launches()
+    for length in (int(0.7 * s), s, 1):
+        got = DA.decode_attn_cuda(q, k, v, length)
+        want = ref.decode_attn_plain(q, k, v, length)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert DA.LAUNCHES["decode_attn"] == 3
+    # length is clamped to S; positions at and beyond it never count
+    torch.testing.assert_close(DA.decode_attn_cuda(q, k, v, s + 5).float(),
+                               ref.decode_attn_plain(q, k, v, s).float(),
+                               rtol=tol, atol=tol)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 100:], v2[:, 100:] = 1e4, -1e4
+    assert torch.equal(DA.decode_attn_cuda(q, k, v, 100),
+                       DA.decode_attn_cuda(q, k2, v2, 100))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,s,h,p,n,q", [(2, 256, 4, 64, 32, 64), (1, 128, 2, 32, 16, 32),
+                    (1, 512, 8, 64, 64, 128), (1, 512, 2, 64, 128, 256)])
+def test_ssd_scan_kernel_matches_plain(cuda, b, s, h, p, n, q):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(b, s, h, p, generator=g, device=cuda)
+    a = -torch.randn(b, s, h, generator=g, device=cuda).abs() * 0.5
+    bb = torch.randn(b, s, n, generator=g, device=cuda)
+    cc = torch.randn(b, s, n, generator=g, device=cuda)
+    SSD.reset_launches()
+    y, st = SSD.ssd_scan_cuda(x, a, bb, cc, q)
+    # the plain version in f64: at chunk 256 the f32 formula carries
+    # ~5e-4 of its own rounding (in-chunk cumsums reach |100|)
+    yr, sr = ref.ssd_scan_plain(*(t.double() for t in (x, a, bb, cc)), q)
+    torch.cuda.synchronize()
+    assert SSD.LAUNCHES["ssd_scan"] == 1
+    torch.testing.assert_close(y.double(), yr, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(st.double(), sr, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_ops_dispatch_llm_kernels(cuda):
+    q = torch.randn(2, 4, 64, device=cuda)
+    k = torch.randn(2, 64, 2, 64, device=cuda)
+    DA.reset_launches()
+    SSD.reset_launches()
+    ops.decode_attn(q, k, k, 10)
+    ops.decode_attn(q.cpu(), k.cpu(), k.cpu(), 10)
+    assert DA.LAUNCHES["decode_attn"] == 1
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.decode_attn(q, k[:, ::2], k[:, ::2], 10)
+    x = torch.randn(1, 64, 2, 64, device=cuda)
+    a = -torch.rand(1, 64, 2, device=cuda)
+    bc = torch.randn(1, 64, 16, device=cuda, dtype=torch.bfloat16)
+    ops.ssd_scan(x, a, bc, bc, 32)
+    ops.ssd_scan(x.cpu(), a.cpu(), bc.cpu(), bc.cpu(), 32)
+    assert SSD.LAUNCHES["ssd_scan"] == 1
+    with pytest.raises(ValueError, match="chunk"):
+        ops.ssd_scan(x, a, bc, bc, 48)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-2.7b"])
+def test_reduced_serve_cuda_matches_cpu(cuda, arch):
+    """A reduced float32 serve on the card (through the kernels) and on
+    the CPU (plain versions) from the same weights: same greedy tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils.device import resolve_device
+
+    resolve_device("cuda")
+    cfg = get_config(arch).reduced().replace(dtype="float32", param_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    prompts = torch.randint(0, cfg.vocab_size, (2, 64),
+                            generator=torch.Generator().manual_seed(1),
+                            dtype=torch.int32)
+    DA.reset_launches()
+    SSD.reset_launches()
+    out = {}
+    for dev in ("cpu", cuda):
+        p = model.layout.unflatten(model.layout.flatten(params).to(dev))
+        out[str(dev)] = serve(cfg, model, p, prompts.to(dev), gen=8)
+    (tc, sc), (tg, sg) = out["cpu"], out[str(cuda)]
+    assert torch.equal(tc, tg.cpu())
+    torch.testing.assert_close(sg["prefill_logits"].cpu(), sc["prefill_logits"],
+                               rtol=1e-3, atol=1e-3)
+    kernel = DA if cfg.family == "dense" else SSD
+    want = 8 * cfg.num_layers if cfg.family == "dense" else cfg.num_layers
+    assert sum(kernel.LAUNCHES.values()) == want

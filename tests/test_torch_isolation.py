@@ -1,8 +1,9 @@
 """The port stands alone: no JAX and nothing of the reference package.
 
 An AST scan of every module of ``src/repro_torch`` and of ``chip_smoke.py``
-finds no import of ``jax`` or ``repro``, and importing the training CLI in
-a fresh interpreter leaves ``jax`` out of ``sys.modules``.
+finds no import of ``jax`` or ``repro``, and importing the training and
+serving CLIs in a fresh interpreter leaves ``jax`` and ``repro`` out of
+``sys.modules``.
 """
 import ast
 import os
@@ -33,12 +34,22 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-def test_train_cli_import_leaves_jax_out():
+def _import_leaves_jax_out(modules: str) -> None:
     pytest.importorskip("torch")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    code = ("import sys, repro_torch.launch.train, repro_torch.core.runner; "
+    code = (f"import sys, {modules}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_train_cli_import_leaves_jax_out():
+    _import_leaves_jax_out("repro_torch.launch.train, repro_torch.core.runner")
+
+
+def test_serve_cli_import_leaves_jax_out():
+    _import_leaves_jax_out("repro_torch.launch.serve, "
+                           "repro_torch.models.transformer, "
+                           "repro_torch.models.mamba2")

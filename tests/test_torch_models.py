@@ -112,6 +112,35 @@ def test_loss_grads_and_accuracy_match(models):
 def test_demo_batch_matches_reference_draws():
     cfg = get_config("resnet9-cifar10")
     a = demo_batch(cfg, 5, 0, np.random.default_rng(4))
-    b = t_demo_batch(t_get_config("resnet9-cifar10"), 5, np.random.default_rng(4))
+    b = t_demo_batch(t_get_config("resnet9-cifar10"), 5, 0, np.random.default_rng(4))
     for k in a:
         np.testing.assert_array_equal(a[k], b[k])
+
+
+# First two values and the f64 sum of each weight leaf of full-width
+# ResNet-9 drawn from torch.Generator().manual_seed(0): the draws a CPU
+# generator gives must not change when init learns to draw on a CUDA
+# generator's device.
+RESNET9_SEED0_DRAWS = {
+    ("c1", "w"): ([-0.6500039100646973, -0.6653154492378235], 27.664724274916807),
+    ("c2", "w"): ([-0.5740811228752136, -0.06697548180818558], -115.40842419685487),
+    ("c3", "w"): ([0.40169286727905273, 1.3539648056030273], -566.0897725519167),
+    ("c4", "w"): ([-0.19085532426834106, 1.2748816013336182], 73.83873723096463),
+    ("fc", "w"): ([0.011847879737615585, -0.016066700220108032], 1.4989049403325225),
+    ("r1a", "w"): ([0.0076207853853702545, -0.11795081198215485], -4.96070326072595),
+    ("r1b", "w"): ([0.2920352518558502, 0.623094379901886], -152.40946038987818),
+    ("r2a", "w"): ([0.17586830258369446, 0.42366188764572144], 219.6806604692771),
+    ("r2b", "w"): ([0.13767561316490173, 0.7987514138221741], 923.5058836813747),
+}
+
+
+def test_init_from_cpu_generator_keeps_resnet9_draws():
+    model = t_build_model(t_get_config("resnet9-cifar10"))
+    params = model.init(torch.Generator().manual_seed(0))
+    weights = {p: l for p, l in zip(*tree_flatten(params)) if l.dim() >= 2}
+    assert sorted(weights) == sorted(RESNET9_SEED0_DRAWS)
+    for path, (head, total) in RESNET9_SEED0_DRAWS.items():
+        leaf = weights[path]
+        assert leaf.device.type == "cpu" and leaf.dtype == torch.float32
+        assert leaf.reshape(-1)[:2].tolist() == head
+        np.testing.assert_allclose(float(leaf.double().sum()), total, rtol=1e-9)
