@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA H100.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --time-tree DIR   # time another checkout's kernels
 
 Phases, each of which raises on failure (a failed phase exits non-zero):
 
@@ -11,23 +12,30 @@ Phases, each of which raises on failure (a failed phase exits non-zero):
    one nvcc per source, all started together; each library's build
    seconds and ptxas registers and spills;
 3. kernels: each kernel against its plain PyTorch version on the card,
-   with median times over 25 runs (CUDA events) beside the plain
-   version's, the bound and, where one PyTorch call computes the same
-   function, that call's time:
+   with device times (``median_ms``: CUDA events around batches of calls
+   run back to back) beside the plain version's, the bound and, where one
+   PyTorch call computes the same function, that call's time; beside them
+   the kernel's ``ms_per_call`` (``per_call_ms``: CUDA events around each
+   single call, the ``ms`` of the kernels line before batching):
    - ``sparsify_ef`` / ``sparsify_quantize_ef`` at the training path's
      shape (N = 20 devices x s = 6,573,130 ResNet-9 parameters) in f32 and
      bf16 and at ragged shapes: uploads and counts bit-equal, errors within
      1e-6;
-   - ``decode_attn`` at the reference test's shapes in f32 (2e-5) and bf16
-     (3e-2), at the serve path's shape (B 8, S 2080, KV 8, D 128, G 3) and
-     at a deep cache (S 32768), plus a masked-tail check; timed against
-     ``scaled_dot_product_attention`` (the yardstick; the port never calls
-     it);
-   - ``ssd_scan`` at the reference test's shapes and the serve path's
-     (B 4, S 4096, H 80, P 64, N 128, chunk 256), at 2e-4 against its plain
-     version evaluated in f64 on the same inputs (the f32 chunked formula
-     is itself ~5e-4 off at chunk 256, so f32 against f32 would test the
-     two roundings, not the kernel); the f32 plain version is timed;
+   - ``decode_attn`` at the reference test's shapes and G = 8 at D = 64 in
+     f32 (2e-5) and bf16 (3e-2), at the serve path's shape (B 8, S 2080,
+     KV 8, D 128, G 3) and at a deep cache (S 32768), plus a masked-tail
+     check; timed against ``scaled_dot_product_attention`` (the yardstick;
+     the port never calls it): at the serve shape over a rotation of 4
+     distinct caches (273 MB, cold in the 50 MB L2, as 28 layers' caches
+     are in a decode step) and on one cache;
+   - ``ssd_scan`` at the reference test's shapes, the serve path's (B 4,
+     S 4096, H 80, P 64, N 128, chunk 256) and a ~ -0.4 a step at chunk
+     256, at 2e-4 against its plain version evaluated in f64 on the same
+     inputs (the f32 chunked formula is itself ~5e-4 off at chunk 256, so
+     f32 against f32 would test the two roundings, not the kernel); the f32
+     plain version is timed; its bound counts the 3xTF32 route's operations
+     (3 per flop) at the TF32 rate, the f32 rate without tensor cores
+     printed beside it;
 4. training path: ``repro_torch.launch.train`` in-process at full-width
    ResNet-9, N = 20, batch 32, for policies ``mads`` (through
    ``sparsify_ef``) and ``mads-joint`` (through ``sparsify_quantize_ef``),
@@ -43,16 +51,22 @@ Phases, each of which raises on failure (a failed phase exits non-zero):
    ``ssd_scan`` launched 64 times (once per layer of the prefill);
 8. serve reference: reduced Llama and Mamba2 in float32 on the card and on
    the CPU from one seed, prompt 64 (a multiple of the reduced SSD chunk,
-   32): the same greedy tokens, prefill logits within 1e-3.
+   32): the same greedy tokens, prefill logits within 1e-3;
+9. profile: a ``torch.profiler`` pass over ``decode_attn`` and
+   ``ssd_scan`` at their timed shapes, device time by kernel (the five
+   launches of ``ssd_scan``); last, so that the profiler's tracing cannot
+   weigh on the host-bound decodes.
 
 The last three lines are the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
-them), a JSON object with one entry per kernel, and
+them), a JSON object with one entry per kernel (``bound_share`` is
+bound_ms / ms; ``timing`` names the method of ``ms``), and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card and
 outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import subprocess
@@ -70,7 +84,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
-PEAK_OPS_PER_S = {torch.float32: FP32_OPS_PER_S, torch.bfloat16: 989e12}
+# H100 SXM dense peaks by operand type ("tf32": the tensor cores' TF32 rate)
+PEAK_OPS_PER_S = {torch.float32: FP32_OPS_PER_S, torch.bfloat16: 989e12,
+                  "tf32": 495e12}
 N_DEV, S_RESNET9 = 20, 6_573_130
 GEN = 32
 LLAMA_BATCH, LLAMA_PROMPT = 8, 2048
@@ -79,18 +95,50 @@ MAMBA_BATCH, MAMBA_PROMPT = 4, 4096
 # cache of prompt + gen slots) and at a deep cache; (B, H, KV, S, D)
 DECODE_MAIN = (LLAMA_BATCH, 24, 8, LLAMA_PROMPT + GEN, 128)
 DECODE_DEEP = (8, 24, 8, 32768, 128)
+CACHES = 4  # distinct serve-shape caches timed in rotation (> 2x the L2)
 # ssd_scan at the serve path's shape (Mamba2-2.7B); (B, S, H, P, N, chunk)
 SSD_MAIN = (MAMBA_BATCH, MAMBA_PROMPT, 80, 64, 128, 256)
 T_ROW = [0.0, 0.7, 1.5, math.inf, math.nextafter(-math.inf, math.inf)]
 TIMED_RUNS = 25
+TIMING = ("ms: median of 25 batches of 10 back-to-back calls; ms_per_call: "
+          "median of 25 single calls, each between two CUDA events")
 
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def median_ms(fn, runs: int = TIMED_RUNS) -> float:
-    """Median over ``runs`` launches of fn, each timed by CUDA events."""
+def median_ms(fn, runs: int = TIMED_RUNS, batch: int = 10) -> float:
+    """Device milliseconds of one call of fn: the median over ``runs``
+    batches of ``batch`` calls, each batch enqueued behind a sleeping
+    kernel (so that the host's dispatch of the calls is hidden and the
+    calls run back to back) and timed by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()  # host time to enqueue one call
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    sleep_cycles = int((2 * batch * enqueue_s + 1e-4) * 2e9)  # at <= 2 GHz
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
+        a.record()
+        for _ in range(batch):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / batch)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def per_call_ms(fn, runs: int = TIMED_RUNS) -> float:
+    """Milliseconds of one call of fn between two CUDA events, the median
+    over ``runs`` calls: the host's dispatch of the call counts where it
+    outlasts the device's work."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -104,6 +152,31 @@ def median_ms(fn, runs: int = TIMED_RUNS) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def rotation(fn, items):
+    """A call of fn on the next of ``items`` in turn."""
+    it = itertools.cycle(items)
+    return lambda: fn(next(it))
+
+
+def device_times(fn, runs: int = 5) -> dict:
+    """Device milliseconds per call of fn by kernel name, from a
+    torch.profiler trace of ``runs`` calls ({} if it shows none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us > 0:
+            out[e.key[:60]] = us / runs / 1e3
+    return out
 
 
 def kernel_inputs(shape, dtype, seed: int):
@@ -149,17 +222,24 @@ def check_kernels(K, R, card: str):
     # times at the main path's shape and type (f32, as ResNet-9 trains)
     x, t, steps, levels, seeds = kernel_inputs((N_DEV, S_RESNET9), torch.float32, 1)
     n_el = x.numel()
+    def kernel_ef():
+        return K.sparsify_ef_cuda(x, t)
+
+    def kernel_qef():
+        return K.sparsify_quantize_ef_cuda(x, t, steps, levels, seeds, base)
+
     times = {
         "sparsify_ef": (
-            median_ms(lambda: K.sparsify_ef_cuda(x, t)),
+            kernel_ef,
+            median_ms(kernel_ef),
             median_ms(lambda: R.sparsify_ef_plain(x, t)),
             # x read, upload + error written; thresholds read, counts written
             3 * 4 * n_el + 2 * 4 * N_DEV,
             4 * n_el,  # |x|, compare, two selects per element
         ),
         "sparsify_quantize_ef": (
-            median_ms(lambda: K.sparsify_quantize_ef_cuda(x, t, steps, levels,
-                                                          seeds, base)),
+            kernel_qef,
+            median_ms(kernel_qef),
             median_ms(lambda: R.sparsify_quantize_ef_plain(x, t, steps, levels,
                                                            seeds, base)),
             3 * 4 * n_el + 5 * 4 * N_DEV,
@@ -167,12 +247,14 @@ def check_kernels(K, R, card: str):
         ),
     }
     out = {}
-    for name, (ms, plain_ms, nbytes, ops) in times.items():
+    for name, (fn, ms, plain_ms, nbytes, ops) in times.items():
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / FP32_OPS_PER_S * 1e3
-        out[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err[name],
+        out[name] = dict(ms=ms, ms_per_call=per_call_ms(fn), plain_ms=plain_ms,
+                         max_abs_err=err[name],
                          bound_ms=max(bytes_ms, ops_ms),
                          bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        out[name]["bound_share"] = out[name]["bound_ms"] / ms
         print(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
               f"{out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']}) "
               f"at ({N_DEV}, {S_RESNET9}) f32 on {card}", flush=True)
@@ -229,7 +311,8 @@ def check_against_cpu():
 
 def bound(nbytes: float, ops: float, dtype) -> dict:
     """The least time for the work: bytes over the HBM rate or operations
-    over the peak rate of their type, whichever is larger."""
+    over the peak rate of their type (a key of PEAK_OPS_PER_S), whichever
+    is larger."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
     return dict(bound_ms=max(bytes_ms, ops_ms),
@@ -272,14 +355,15 @@ def check_decode_attn(DA, R, card: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(3)
     err = 0.0
     shapes = [(2, 8, 2, 1024, 64), (1, 4, 4, 512, 128), (2, 6, 2, 777, 64),
-              (1, 16, 2, 2048, 128), DECODE_MAIN, DECODE_DEEP]
+              (1, 16, 2, 2048, 128), (2, 16, 2, 1024, 64), DECODE_MAIN,
+              DECODE_DEEP]
     for b, h, kv, s, d in shapes:
         for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
             q = _randn((b, h, d), gen, dtype)
             k = _randn((b, s, kv, d), gen, dtype)
             v = _randn((b, s, kv, d), gen, dtype)
             case_err = 0.0
-            for length in sorted({int(0.7 * s), s}):
+            for length in sorted({1, 63, int(0.7 * s), s}):
                 got = DA.decode_attn_cuda(q, k, v, length)
                 want = R.decode_attn_plain(q, k, v, length)
                 torch.cuda.synchronize()
@@ -303,31 +387,47 @@ def check_decode_attn(DA, R, card: str) -> dict:
     print("decode_attn ignores the masked tail", flush=True)
 
     out = {}
+    dt = torch.bfloat16
     for label, (b, h, kv, s, d) in (("main", DECODE_MAIN), ("deep", DECODE_DEEP)):
-        dt = torch.bfloat16
         q = _randn((b, h, d), gen, dt)
-        k, v = _randn((b, s, kv, d), gen, dt), _randn((b, s, kv, d), gen, dt)
+        caches = [(_randn((b, s, kv, d), gen, dt), _randn((b, s, kv, d), gen, dt))
+                  for _ in range(CACHES if label == "main" else 1)]
+        k, v = caches[0]
         mask = torch.ones((1, 1, 1, s), dtype=torch.bool, device="cuda")
-        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=mask, enable_gqa=True)
-        lib_err = (sdpa()[:, :, 0].float()
+
+        def sdpa(kv_):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None], kv_[0].transpose(1, 2), kv_[1].transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)
+
+        def kernel(kv_):
+            return DA.decode_attn_cuda(q, kv_[0], kv_[1], s)
+
+        lib_err = (sdpa(caches[0])[:, :, 0].float()
                    - R.decode_attn_plain(q, k, v, s).float()).abs().max().item()
         res = dict(
-            ms=median_ms(lambda: DA.decode_attn_cuda(q, k, v, s)),
+            ms=median_ms(rotation(kernel, caches)),
+            # one call at a time on one cache: the kernels line's earlier ms
+            ms_per_call=per_call_ms(lambda: kernel(caches[0])),
             plain_ms=median_ms(lambda: R.decode_attn_plain(q, k, v, s)),
-            library_ms=median_ms(sdpa), max_abs_err=err,
+            library_ms=median_ms(rotation(sdpa, caches)), max_abs_err=err,
             # K and V rows read once, q read and the output written once
             **bound(2 * b * s * kv * d * 2 + 2 * b * h * d * 2,
                     4 * b * h * s * d, dt))
+        res["bound_share"] = res["bound_ms"] / res["ms"]
+        if label == "main":
+            res.update(
+                ms_one_cache=median_ms(lambda: kernel(caches[0])),
+                library_ms_one_cache=median_ms(lambda: sdpa(caches[0])))
         print(f"decode_attn ({label}, (B, H, KV, S, D) = {(b, h, kv, s, d)}, "
-              f"bf16, length {s}): {res['ms']:.4f} ms (plain "
-              f"{res['plain_ms']:.4f} ms, SDPA {res['library_ms']:.4f} ms "
-              f"[max abs diff to plain {lib_err:.3g}], bound "
-              f"{res['bound_ms']:.4f} ms by {res['bound_by']}) on {card}; "
-              f"unrounded {json.dumps(res)}", flush=True)
+              f"bf16, length {s}, {len(caches)} cache(s) in rotation): "
+              f"{res['ms']:.4f} ms (plain {res['plain_ms']:.4f} ms, SDPA "
+              f"{res['library_ms']:.4f} ms [max abs diff to plain "
+              f"{lib_err:.3g}], bound {res['bound_ms']:.4f} ms by "
+              f"{res['bound_by']}, {100 * res['bound_share']:.1f} % of it) on "
+              f"{card}; unrounded {json.dumps(res)}", flush=True)
         out[label] = res
-        del q, k, v
+        del q, k, v, caches
     return out
 
 
@@ -347,9 +447,13 @@ def check_ssd_scan(SSD, R, card: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(4)
     err = 0.0
     for b, s, h, p, n, q in [(2, 256, 4, 64, 32, 64), (1, 128, 2, 32, 16, 32),
-                             (1, 512, 8, 64, 64, 128), SSD_MAIN]:
+                             (1, 512, 8, 64, 64, 128), (1, 1024, 4, 64, 128, 256),
+                             SSD_MAIN]:
         x = _randn((b, s, h, p), gen)
-        a = -_randn((b, s, h), gen).abs() * 0.5
+        if s == 1024:  # ~ -0.4 a step: in-chunk cumsums reach |100|
+            a = -0.4 + 0.05 * _randn((b, s, h), gen)
+        else:
+            a = -_randn((b, s, h), gen).abs() * 0.5
         bb, cc = _randn((b, s, n), gen), _randn((b, s, n), gen)
         y, st = SSD.ssd_scan_cuda(x, a, bb, cc, q)
         # the plain version in f64 on the same (exactly upcast) inputs: the
@@ -370,18 +474,53 @@ def check_ssd_scan(SSD, R, card: str) -> dict:
               f"from it, the kernel {(y.double() - y32.double()).abs().max().item():.3g} "
               f"from the f32 plain", flush=True)
         del yr, sr, y32
+    # x, a, b, c read once; y and the final state written once
+    nbytes = 4 * (2 * x.numel() + a.numel() + 2 * bb.numel() + st.numel())
+    flops = ssd_causal_flops(b, s, h, p, n, q)
     res = dict(
         ms=median_ms(lambda: SSD.ssd_scan_cuda(x, a, bb, cc, q)),
+        ms_per_call=per_call_ms(lambda: SSD.ssd_scan_cuda(x, a, bb, cc, q)),
         plain_ms=median_ms(lambda: R.ssd_scan_plain(x, a, bb, cc, q)),
         library_ms=None, max_abs_err=err,
-        # x, a, b, c read once; y and the final state written once
-        **bound(4 * (2 * x.numel() + a.numel() + 2 * bb.numel() + st.numel()),
-                ssd_causal_flops(b, s, h, p, n, q), torch.float32))
+        # 3xTF32: three tensor-core products per f32-accurate product
+        **bound(nbytes, 3 * flops, "tf32"))
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    res["bound_ms_f32_simt"] = bound(nbytes, flops, torch.float32)["bound_ms"]
     print(f"ssd_scan (main, {SSD_MAIN}, f32): {res['ms']:.4f} ms (plain "
           f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms by "
-          f"{res['bound_by']}) on {card}; unrounded {json.dumps(res)}",
-          flush=True)
+          f"{res['bound_by']} at the TF32 rate x 3, {100 * res['bound_share']:.1f} "
+          f"% of it; {res['bound_ms_f32_simt']:.4f} ms at the f32 rate without "
+          f"tensor cores) on {card}; unrounded {json.dumps(res)}", flush=True)
     return res
+
+
+def llm_kernel_calls(DA, SSD) -> dict:
+    """Calls of ``decode_attn`` at its timed shapes (the serve shape over
+    CACHES caches in rotation) and of ``ssd_scan`` at the serve shape, on
+    fresh inputs, by label."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    dt = torch.bfloat16
+    calls = {}
+    for label, (b, h, kv, s, d) in (("main", DECODE_MAIN), ("deep", DECODE_DEEP)):
+        q = _randn((b, h, d), gen, dt)
+        caches = [(_randn((b, s, kv, d), gen, dt), _randn((b, s, kv, d), gen, dt))
+                  for _ in range(CACHES if label == "main" else 1)]
+        calls[f"decode_attn_{label}"] = rotation(
+            lambda c, q=q, s=s: DA.decode_attn_cuda(q, c[0], c[1], s), caches)
+    b, s, h, p, n, q = SSD_MAIN
+    x, a = _randn((b, s, h, p), gen), -_randn((b, s, h), gen).abs() * 0.5
+    bb, cc = _randn((b, s, n), gen), _randn((b, s, n), gen)
+    calls["ssd_scan"] = lambda: SSD.ssd_scan_cuda(x, a, bb, cc, q)
+    return calls
+
+
+def profile_kernels(DA, SSD) -> None:
+    """Device time by kernel (``device_times``) of the LLM kernels' calls.
+    Run last, so that the profiler's tracing cannot weigh on the
+    host-bound decodes of phases 6-7."""
+    for label, fn in llm_kernel_calls(DA, SSD).items():
+        print(f"{label} device time by kernel: {json.dumps(device_times(fn))}",
+              flush=True)
 
 
 def serve_full(mods, arch: str, batch: int, prompt: int):
@@ -438,9 +577,27 @@ def serve_against_cpu():
               flush=True)
 
 
+def time_tree(tree: str) -> None:
+    """``--time-tree DIR``: device times of the LLM kernels from the port
+    in DIR/src (another checkout, say a parent commit's), by this script's
+    method, as one JSON line; so that two commits' kernels are timed alike
+    in one call."""
+    sys.path.insert(0, str(Path(tree).resolve() / "src"))
+    from repro_torch.kernels import decode_attn as DA
+    from repro_torch.kernels import ssd_scan as SSD
+
+    calls = llm_kernel_calls(DA, SSD)
+    out = {"tree": tree, "card": torch.cuda.get_device_name(0)}
+    out.update({f"{label}_ms": median_ms(fn) for label, fn in calls.items()})
+    out["ssd_scan_device_ms_by_kernel"] = device_times(calls["ssd_scan"])
+    print(json.dumps(out), flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
+    if sys.argv[1:2] == ["--time-tree"]:
+        return time_tree(sys.argv[2])
     from repro_torch.kernels import decode_attn as DA
     from repro_torch.kernels import ref as R
     from repro_torch.kernels import sparsify_ef as K
@@ -496,6 +653,9 @@ def main() -> None:
 
     # 8. serve against the CPU path at reduced size
     serve_against_cpu()
+
+    # 9. device time by kernel, last (the profiler slows later launches)
+    profile_kernels(DA, SSD)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
@@ -512,11 +672,16 @@ def main() -> None:
              **timing["sparsify_quantize_ef"]),
         dict(name="decode_attn", route="cuda", source=src + "decode_attn.cu",
              replaces="src/repro/kernels/decode_attn.py:64",
-             launches=launches_dense["decode_attn"], **decode["main"]),
+             launches=launches_dense["decode_attn"], **decode["main"],
+             **{f"{key}_32k": decode["deep"][key] for key in
+                ("ms", "ms_per_call", "plain_ms", "library_ms", "bound_ms",
+                 "bound_share")}),
         dict(name="ssd_scan", route="cuda", source=src + "ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:60",
              launches=launches_ssm["ssd_scan"], **ssd),
     ]
+    for entry in kernels:
+        entry["timing"] = TIMING
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

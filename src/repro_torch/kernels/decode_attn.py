@@ -6,10 +6,14 @@ what bounds it and how it splits the cache across blocks); its plain
 version is ``ref.py::decode_attn_plain``.
 
 The wrapper takes CUDA tensors only, checks them, clamps ``length`` to the
-cache, picks the split of the valid positions across blocks, allocates the
-output and the f32 workspace of partial results, launches on the current
-stream and adds one to ``LAUNCHES["decode_attn"]``; ``ops.py`` sends CPU
-tensors to the plain version.
+cache, picks the split of the valid positions across blocks (``splits``),
+allocates the output and the f32 workspace of partial results, launches on
+the current stream and adds one to ``LAUNCHES["decode_attn"]``; ``ops.py``
+sends CPU tensors to the plain version.  The splits of a (batch, KV head)
+are merged by the last of its blocks to finish, which takes a ticket from
+an int32 counter per (batch, KV head); the counters live in one zeroed
+buffer per device that the kernel leaves zeroed, so calls on one stream
+share it (calls on two streams at once would need two).
 """
 from __future__ import annotations
 
@@ -26,8 +30,8 @@ LAUNCHES = {"decode_attn": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-BLOCKS_PER_SM = 8  # split target: enough blocks in flight to fill the card
-MIN_KEYS = 64  # fewest positions worth a block of their own
+BLOCKS_PER_SM = 2  # blocks resident per SM (96 KB of shared memory each)
+TILE = {torch.float32: 32, torch.bfloat16: 64}  # keys per pipeline tile
 
 
 def reset_launches() -> None:
@@ -38,7 +42,7 @@ def reset_launches() -> None:
 def library() -> ctypes.CDLL:
     """The kernel's library (built on first use), its C signature set."""
     lib = build.load("decode_attn")
-    lib.decode_attn_launch.argtypes = [_P] * 5 + [_I] * 9 + [_P]
+    lib.decode_attn_launch.argtypes = [_P] * 6 + [_I] * 9 + [_P]
     lib.decode_attn_launch.restype = ctypes.c_int
     return lib
 
@@ -48,14 +52,27 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def splits(heads: int, length: int, sms: int):
+def splits(heads: int, length: int, sms: int, tile: int = 64):
     """(nsplit, per_split): the valid positions cut into nsplit contiguous
-    shares of per_split, so that heads * nsplit blocks fill a card of
-    ``sms`` multiprocessors."""
-    want = -(-sms * BLOCKS_PER_SM // max(heads, 1))
-    nsplit = max(1, min(want, -(-length // MIN_KEYS)))
-    per_split = max(1, -(-length // nsplit))
+    shares of per_split, a multiple of ``tile``, so that heads * nsplit
+    blocks make at most one wave on a card of ``sms`` multiprocessors
+    (``BLOCKS_PER_SM`` each); one share when heads alone fill it."""
+    want = max(1, sms * BLOCKS_PER_SM // max(heads, 1))
+    nsplit = max(1, min(want, -(-length // tile)))
+    per_split = -(-max(length, 1) // nsplit)
+    per_split = -(-per_split // tile) * tile
     return -(-max(length, 1) // per_split), per_split
+
+
+_TICKETS: dict = {}  # device -> zeroed int32 ticket counters
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """At least n ticket counters on ``device`` (zero between launches)."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = _TICKETS[device] = torch.zeros(n, dtype=torch.int32, device=device)
+    return t
 
 
 def _check(q, k, v) -> None:
@@ -83,6 +100,11 @@ def _check(q, k, v) -> None:
                          "slice cache[l] of an (L, B, S, KV, D) cache is)")
     if s >= 2**31 // max(kv * d, 1):
         raise ValueError(f"cache of {s} positions too deep for int offsets")
+    # k and v rows arrive by 16-byte copies, bf16 q by 4-byte loads
+    if k.data_ptr() % 16 or v.data_ptr() % 16 or q.data_ptr() % 4:
+        raise ValueError("k and v must start on a 16-byte boundary and q on "
+                         "a 4-byte one (a view at an odd storage offset "
+                         "does not)")
 
 
 def decode_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -95,16 +117,18 @@ def decode_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s, kv = k.shape[1], k.shape[2]
     g = h // kv
     length = min(max(int(length), 0), s)
-    nsplit, per_split = splits(b * kv, length, _sms(q.device.index))
+    nsplit, per_split = splits(b * kv, length, _sms(q.device.index),
+                               TILE[q.dtype])
     out = torch.empty_like(q)
-    ws = torch.empty(b * kv * nsplit * g * (d + 2), dtype=torch.float32,
-                     device=q.device)
+    ws = torch.empty(b * kv * nsplit * g * (d + 2) if nsplit > 1 else 1,
+                     dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
+        tk = _tickets(q.device, b * kv)
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.decode_attn_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            ws.data_ptr(), b, s, kv, g, d, length, per_split, nsplit,
-            _DTYPES[q.dtype], stream)
+            ws.data_ptr(), tk.data_ptr(), b, s, kv, g, d, length, per_split,
+            nsplit, _DTYPES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"decode_attn kernel launch failed: CUDA error {rc}")
     LAUNCHES["decode_attn"] += 1

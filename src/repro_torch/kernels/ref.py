@@ -7,6 +7,10 @@ kernels do.  ``decode_attn_plain`` is the twin of ``decode_attn_ref``, and
 ``ssd_scan_plain`` is the port's ``models/mamba2.py::ssd_chunked`` (the
 reference's "ref" route for ``ssd_scan``).  The CPU path runs them
 (``ops.py``), and ``chip_smoke.py`` holds the kernels to them on the card.
+``ssd_chunk_cumsum`` ... ``ssd_chunk_out`` are the plain versions of the
+five phases of the ``ssd_scan`` kernel, with its arithmetic (in-chunk log
+decays summed and differenced in f64, everything else f32);
+``ssd_scan_phases`` composes them.
 """
 from __future__ import annotations
 
@@ -74,3 +78,64 @@ def ssd_scan_plain(x, a, b, c, chunk: int):
     from repro_torch.models.mamba2 import ssd_chunked  # mamba2 imports ops
 
     return ssd_chunked(x, a, b, c, chunk)
+
+
+def ssd_chunk_cumsum(a, chunk: int):
+    """Phase 1: a (B, S, H) -> A (B, nc, Q, H) f64, cumsum within chunks."""
+    bsz, s, h = a.shape
+    return torch.cumsum(a.double().reshape(bsz, s // chunk, chunk, h), dim=2)
+
+
+def ssd_cb(b, c, chunk: int):
+    """Phase 2: b, c (B, S, N) -> C B^T (B, nc, Q, Q) f32, once per chunk
+    (the kernel writes the tiles at or below the diagonal)."""
+    bsz, s, n = b.shape
+    bf, cf = (t.float().reshape(bsz, s // chunk, chunk, n) for t in (b, c))
+    return torch.einsum("bcln,bcsn->bcls", cf, bf)
+
+
+def ssd_chunk_states(x, b, acum):
+    """Phase 3: each chunk's own state sum_s exp(A_last - A_s) x_s b_s^T,
+    (B, H, nc, P, N) f32."""
+    bsz, nc, q, h = acum.shape
+    p, n = x.shape[-1], b.shape[-1]
+    decay = torch.exp((acum[:, :, -1:] - acum).float())  # (B, nc, Q, H)
+    xd = x.float().reshape(bsz, nc, q, h, p) * decay[..., None]
+    return torch.einsum("bcsn,bcshp->bhcpn", b.float().reshape(bsz, nc, q, n), xd)
+
+
+def ssd_state_pass(states, acum):
+    """Phase 4: (the state entering each chunk (B, H, nc, P, N), the final
+    state (B, H, P, N))."""
+    decay = torch.exp(acum[:, :, -1].float()).permute(0, 2, 1)  # (B, H, nc)
+    st = torch.zeros_like(states[:, :, 0])
+    prev = []
+    for i in range(states.shape[2]):
+        prev.append(st)
+        st = st * decay[:, :, i, None, None] + states[:, :, i]
+    return torch.stack(prev, dim=2), st
+
+
+def ssd_chunk_out(x, c, cb, acum, prev):
+    """Phase 5: y (B, S, H, P) = (C B^T * exp(A_l - A_s), s <= l) X +
+    exp(A_l) C state^T, per chunk."""
+    bsz, nc, q, h = acum.shape
+    p, n = x.shape[-1], c.shape[-1]
+    xf = x.float().reshape(bsz, nc, q, h, p)
+    cf = c.float().reshape(bsz, nc, q, n)
+    causal = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
+    diff = (acum[:, :, :, None, :] - acum[:, :, None, :, :]).float()  # l, s
+    w = torch.where(causal[None, None, :, :, None], cb[..., None] * torch.exp(diff),
+                    torch.zeros((), device=x.device))
+    y = torch.einsum("bclsh,bcshp->bclhp", w, xf)
+    y_off = torch.einsum("bcln,bhcpn->bclhp", cf, prev)
+    y = y + y_off * torch.exp(acum.float())[..., None]
+    return y.reshape(bsz, nc * q, h, p)
+
+
+def ssd_scan_phases(x, a, b, c, chunk: int):
+    """The five phases composed: (y (B,S,H,P), final state (B,H,P,N))."""
+    q = min(chunk, x.shape[1])
+    acum = ssd_chunk_cumsum(a, q)
+    prev, final = ssd_state_pass(ssd_chunk_states(x, b, acum), acum)
+    return ssd_chunk_out(x, c, ssd_cb(b, c, q), acum, prev), final

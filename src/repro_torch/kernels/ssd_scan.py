@@ -6,9 +6,12 @@ bounds it and how it tiles a chunk); its plain version is
 ``ref.py::ssd_scan_plain``.  b and c are read as (B, S, N): the
 reference's broadcast over heads is not materialised.
 
-The wrapper takes contiguous f32 CUDA tensors only, checks them, allocates
-y and the final state, launches on the current stream and adds one to
-``LAUNCHES["ssd_scan"]``; ``ops.py`` sends CPU tensors to the plain
+The kernel runs in five phases (cumsum, C Bᵀ, chunk states, state
+passing, chunk output); each has a plain version in ``ref.py``
+(``ssd_chunk_cumsum`` ... ``ssd_chunk_out``).  The wrapper takes contiguous
+f32 CUDA tensors only, checks them, allocates y, the final state and the
+phases' scratch, makes the five launches on the current stream and adds
+one to ``LAUNCHES["ssd_scan"]``; ``ops.py`` sends CPU tensors to the plain
 version.
 """
 from __future__ import annotations
@@ -36,7 +39,7 @@ def reset_launches() -> None:
 def library() -> ctypes.CDLL:
     """The kernel's library (built on first use), its C signature set."""
     lib = build.load("ssd_scan")
-    lib.ssd_scan_launch.argtypes = [_P] * 6 + [_I] * 6 + [_P]
+    lib.ssd_scan_launch.argtypes = [_P] * 9 + [_I] * 6 + [_P]
     lib.ssd_scan_launch.restype = ctypes.c_int
     return lib
 
@@ -65,22 +68,35 @@ def _check(x, a, b, c, q: int) -> None:
 
 
 def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                  c: torch.Tensor, chunk: int):
+                  c: torch.Tensor, chunk: int, scratch: dict | None = None):
     """x (B,S,H,P), a (B,S,H), b/c (B,S,N), all f32; S % min(chunk, S) ==
-    0 -> (y (B,S,H,P), final state (B,H,P,N)), f32."""
+    0 -> (y (B,S,H,P), final state (B,H,P,N)), f32.
+
+    A dict passed as ``scratch`` receives the phases' outputs: ``acum``
+    (B, nc, Q, H) f64, ``cb`` (B, nc, Q, Q) (tiles at or below the
+    diagonal written) and ``states`` (B, H, nc, P, N), the state entering
+    each chunk."""
     q = min(int(chunk), x.shape[1])
     _check(x, a, b, c, q)
     lib = library()
     bsz, s, h, p = x.shape
     n = b.shape[-1]
+    nc = s // q
     y = torch.empty_like(x)
     st = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    acum = torch.empty((bsz, nc, q, h), dtype=torch.float64, device=x.device)
+    cb = torch.empty((bsz, nc, q, q), dtype=torch.float32, device=x.device)
+    states = torch.empty((bsz, h, nc, p, n), dtype=torch.float32,
+                         device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.ssd_scan_launch(
             x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            y.data_ptr(), st.data_ptr(), bsz, s, h, p, n, q, stream)
+            y.data_ptr(), st.data_ptr(), acum.data_ptr(), cb.data_ptr(),
+            states.data_ptr(), bsz, s, h, p, n, q, stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
     LAUNCHES["ssd_scan"] += 1
+    if scratch is not None:
+        scratch.update(acum=acum, cb=cb, states=states)
     return y, st

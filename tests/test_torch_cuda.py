@@ -145,6 +145,114 @@ def test_ssd_scan_kernel_matches_plain(cuda, b, s, h, p, n, q):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,s,d", [(2, 16, 2, 1024, 64), (1, 8, 1, 4096, 128),
+                                        (8, 24, 8, 2080, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_kernel_lengths(cuda, b, h, kv, s, d, dtype):
+    """Lengths 1 and 63, ends mid-tile and on a tile edge, one split and
+    many; G = 8 at D = 64; two calls agree bitwise (the ticket merge
+    does not race); a masked tail of 1e4 is never read."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for shape in ((b, h, d), (b, s, kv, d), (b, s, kv, d)))
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    tile = DA.TILE[dtype]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    lengths = [1, 63, tile, 3 * tile + 17, s // 2 + 5, s]
+    assert DA.splits(b * kv, tile, sms, tile)[0] == 1
+    assert DA.splits(b * kv, s, sms, tile)[0] > 1 or b * kv >= sms
+    for length in lengths:
+        got = DA.decode_attn_cuda(q, k, v, length)
+        want = ref.decode_attn_plain(q, k, v, length)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+        assert torch.equal(got, DA.decode_attn_cuda(q, k, v, length))
+    length = 3 * tile + 17
+    k2, v2 = k.clone(), v.clone()
+    k2[:, length:], v2[:, length:] = 1e4, 1e4
+    assert torch.equal(DA.decode_attn_cuda(q, k, v, length),
+                       DA.decode_attn_cuda(q, k2, v2, length))
+
+
+def _ssd_inputs(cuda, b, s, h, p, n, a_kind, seed=6):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(b, s, h, p, generator=g, device=cuda)
+    if a_kind == "normal":
+        a = -torch.randn(b, s, h, generator=g, device=cuda).abs() * 0.5
+    elif a_kind == "-0.4":  # in-chunk cumsums reach |100| at chunk 256
+        a = -0.4 + 0.05 * torch.randn(b, s, h, generator=g, device=cuda)
+    else:  # -10 a step: exp(A_l) * exp(-A_s) would overflow
+        a = torch.full((b, s, h), -10.0, device=cuda)
+    bb = torch.randn(b, s, n, generator=g, device=cuda)
+    cc = torch.randn(b, s, n, generator=g, device=cuda)
+    return x, a, bb, cc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,a_kind", [
+    ((4, 4096, 80, 64, 128, 256), "normal"),  # the Mamba2-2.7B serve shape
+    ((1, 1024, 4, 64, 128, 256), "-0.4"),
+    ((1, 512, 4, 64, 128, 256), "-10"),
+    ((2, 256, 4, 64, 128, 256), "normal"),  # S = chunk: one chunk
+    ((1, 96, 3, 24, 20, 96), "normal"),  # ragged P, N and chunk
+    ((1, 90, 2, 30, 18, 30), "normal"),  # rows not 16-byte aligned: 4-byte copies
+])
+def test_ssd_scan_kernel_hard_cases(cuda, shape, a_kind):
+    b, s, h, p, n, q = shape
+    x, a, bb, cc = _ssd_inputs(cuda, b, s, h, p, n, a_kind)
+    y, st = SSD.ssd_scan_cuda(x, a, bb, cc, q)
+    yr, sr = ref.ssd_scan_plain(*(t.double() for t in (x, a, bb, cc)), q)
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    torch.testing.assert_close(y.double(), yr, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(st.double(), sr, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 512, 3, 64, 128, 256), (1, 128, 2, 32, 16, 32)])
+def test_ssd_scan_phases_match_plain_phases(cuda, shape):
+    """Each phase's output against its plain version in ``ref.py``."""
+    b, s, h, p, n, q = shape
+    x, a, bb, cc = _ssd_inputs(cuda, b, s, h, p, n, "normal")
+    scratch = {}
+    y, st = SSD.ssd_scan_cuda(x, a, bb, cc, q, scratch=scratch)
+    acum = ref.ssd_chunk_cumsum(a, q)
+    torch.testing.assert_close(scratch["acum"], acum, rtol=1e-12, atol=1e-12)
+    causal = torch.ones(q, q, dtype=torch.bool, device=cuda).tril()
+    cb = ref.ssd_cb(bb, cc, q)
+    torch.testing.assert_close(scratch["cb"].masked_fill(~causal, 0),
+                               cb.masked_fill(~causal, 0), rtol=1e-4, atol=1e-4)
+    prev, final = ref.ssd_state_pass(ref.ssd_chunk_states(x, bb, acum), acum)
+    torch.testing.assert_close(scratch["states"], prev, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(st, final, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(y, ref.ssd_chunk_out(x, cc, cb, acum, prev),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_refuses_misaligned_views(cuda, dtype):
+    """A contiguous view at a storage offset off the 16-byte copies'
+    boundary raises ValueError before any launch, and the card still
+    works after it."""
+    q = torch.randn(1, 4, 64, device=cuda).to(dtype)
+    buf = torch.randn(64 * 2 * 64 + 1, device=cuda).to(dtype)
+    k = buf[1:].view(1, 64, 2, 64)
+    v = buf[:-1].view(1, 64, 2, 64)
+    assert k.is_contiguous() and k.data_ptr() % 16
+    DA.reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        DA.decode_attn_cuda(q, k, v, 10)
+    if dtype == torch.bfloat16:  # one element off is 2 bytes off
+        with pytest.raises(ValueError, match="4-byte"):
+            DA.decode_attn_cuda(buf[1:1 + 4 * 64].view(1, 4, 64), v, v, 10)
+    assert DA.LAUNCHES["decode_attn"] == 0
+    got = DA.decode_attn_cuda(q, k.clone(), v, 10)
+    torch.testing.assert_close(
+        got.float(), ref.decode_attn_plain(q, k, v, 10).float(),
+        rtol=2e-5 if dtype == torch.float32 else 3e-2,
+        atol=2e-5 if dtype == torch.float32 else 3e-2)
+
+
+@pytest.mark.cuda
 def test_ops_dispatch_llm_kernels(cuda):
     q = torch.randn(2, 4, 64, device=cuda)
     k = torch.randn(2, 64, 2, 64, device=cuda)
