@@ -21,6 +21,12 @@ Phases, each of which raises on failure (a failed phase exits non-zero):
      shape (N = 20 devices x s = 6,573,130 ResNet-9 parameters) in f32 and
      bf16 and at ragged shapes: uploads and counts bit-equal, errors within
      1e-6;
+   - the segmented ``sparsify_quantize_ef`` (one threshold, step and
+     levels per (device, leaf): the per-layer codec's call) at (20,
+     6,573,130) with ResNet-9's 26 leaves and at (20, 247,100) with
+     LaneGCN's 20, in f32 and bf16: uploads, errors and counts bit-equal
+     to its plain version, and to the unsegmented kernel called leaf by
+     leaf with base = the leaf's offset (a cross-check only);
    - ``decode_attn`` at the reference test's shapes and G = 8 at D = 64 in
      f32 (2e-5) and bf16 (3e-2), at the serve path's shape (B 8, S 2080,
      KV 8, D 128, G 3) and at a deep cache (S 32768), plus a masked-tail
@@ -36,26 +42,36 @@ Phases, each of which raises on failure (a failed phase exits non-zero):
      plain version is timed; its bound counts the 3xTF32 route's operations
      (3 per flop) at the TF32 rate, the f32 rate without tensor cores
      printed beside it;
-4. training path: ``repro_torch.launch.train`` in-process at full-width
-   ResNet-9, N = 20, batch 32, for policies ``mads`` (through
+4. training path, ResNet-9: ``repro_torch.launch.train`` in-process at
+   full width, N = 20, batch 32, for policies ``mads`` (through
    ``sparsify_ef``) and ``mads-joint`` (through ``sparsify_quantize_ef``),
-   with each kernel's launch count read around its run; uploads > 0 and a
+   and ``run_afl`` for ``mads-joint`` with ``FLConfig(per_layer_budget=
+   True)`` (through the segmented kernel), each kernel's launch count read
+   around each run (one sparsify launch per round); uploads > 0 and a
    finite eval;
-5. training reference: the same training on CUDA and on the CPU (plain
-   versions) at width 4 from one seed agree;
-6. serve, dense: ``repro_torch.launch.serve`` in-process at full-width
+5. training path, LaneGCN (the paper's Argoverse experiment): the same at
+   full width (d_model 128, s = 247,100) for ``mads``, ``qsgd`` (through
+   the unsegmented ``sparsify_quantize_ef``) and per-layer ``mads-joint``;
+   eval ADE, uploads, launches per round, steady rounds/s;
+6. training reference: the same training on CUDA and on the CPU (plain
+   versions) from one seed agree: ResNet-9 at width 4 (``mads``) and
+   LaneGCN at d_model 32 (``mads`` and ``qsgd``);
+7. serve, dense: ``repro_torch.launch.serve`` in-process at full-width
    Llama-3.2-3B (bf16, random weights from a CUDA generator), batch 8,
    prompt 2048, gen 32: ``decode_attn`` launched 28 x 32 times, tokens in
    [0, vocab), finite logits; prefill and decode seconds and tok/s;
-7. serve, ssm: the same at full-width Mamba2-2.7B, batch 4, prompt 4096:
+8. serve, ssm: the same at full-width Mamba2-2.7B, batch 4, prompt 4096:
    ``ssd_scan`` launched 64 times (once per layer of the prefill);
-8. serve reference: reduced Llama and Mamba2 in float32 on the card and on
+9. serve reference: reduced Llama and Mamba2 in float32 on the card and on
    the CPU from one seed, prompt 64 (a multiple of the reduced SSD chunk,
    32): the same greedy tokens, prefill logits within 1e-3;
-9. profile: a ``torch.profiler`` pass over ``decode_attn`` and
+10. profile: a ``torch.profiler`` pass over ``decode_attn`` and
    ``ssd_scan`` at their timed shapes, device time by kernel (the five
-   launches of ``ssd_scan``); last, so that the profiler's tracing cannot
-   weigh on the host-bound decodes.
+   launches of ``ssd_scan``), and over a few full-width training rounds
+   of LaneGCN and ResNet-9 (``mads``): device-busy seconds per round
+   against the host's wall clock, and the kernels that take the most;
+   last, so that the profiler's tracing cannot weigh on the host-bound
+   decodes and rounds timed before it.
 
 The last three lines are the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -87,7 +103,9 @@ FP32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 # H100 SXM dense peaks by operand type ("tf32": the tensor cores' TF32 rate)
 PEAK_OPS_PER_S = {torch.float32: FP32_OPS_PER_S, torch.bfloat16: 989e12,
                   "tf32": 495e12}
-N_DEV, S_RESNET9 = 20, 6_573_130
+N_DEV, S_RESNET9, S_LANEGCN = 20, 6_573_130, 247_100
+RESNET9, LANEGCN = "resnet9-cifar10", "lanegcn-argoverse"
+ROUNDS = 4
 GEN = 32
 LLAMA_BATCH, LLAMA_PROMPT = 8, 2048
 MAMBA_BATCH, MAMBA_PROMPT = 4, 4096
@@ -261,6 +279,92 @@ def check_kernels(K, R, card: str):
     return out
 
 
+def leaf_offsets(arch: str) -> tuple:
+    """The L + 1 leaf boundaries of a full-width model's flat vector."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    layout = build_model(get_config(arch)).layout
+    return layout.offsets + (layout.size,)
+
+
+def segmented_inputs(offsets, dtype, seed: int):
+    n, nl = N_DEV, len(offsets) - 1
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((n, offsets[-1]), generator=g, device="cuda").to(dtype)
+    # per (device, leaf): thresholds that keep some, all or none
+    t = torch.rand((n, nl), generator=g, device="cuda") * 2.0
+    t[0, :] = 0.0
+    t[1, :] = math.inf
+    steps = torch.rand((n, nl), generator=g, device="cuda") * 0.05 + 0.004
+    levels = torch.tensor([1.0, 7.0, 127.0, 32767.0], device="cuda")[
+        torch.randint(0, 4, (n, nl), generator=g, device="cuda")]
+    seeds = torch.arange(n, device="cuda", dtype=torch.int32) * 7919 + 11
+    return x, t, steps, levels, seeds
+
+
+def check_segmented(K, R, card: str) -> dict:
+    """Phase 3 for the segmented sparsify_quantize_ef: bit-equal to its
+    plain version and to the unsegmented kernel leaf by leaf, at both
+    models' full-width layouts; timed at both in f32."""
+    out = {}
+    for arch in (RESNET9, LANEGCN):
+        offsets = leaf_offsets(arch)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, t, steps, levels, seeds = segmented_inputs(offsets, dtype, 2)
+            got = K.sparsify_quantize_ef_segmented_cuda(x, t, steps, levels,
+                                                        seeds, offsets)
+            want = R.sparsify_quantize_ef_segmented_plain(x, t, steps, levels,
+                                                          seeds, offsets)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("upload", "error", "count"), got, want):
+                if not torch.equal(a, b):
+                    fail(f"segmented sparsify_quantize_ef {name} differs from "
+                         f"plain at {tuple(x.shape)} {dtype} ({arch} leaves)")
+            for i, (a, b) in enumerate(zip(offsets, offsets[1:])):
+                u, e, c = K.sparsify_quantize_ef_cuda(
+                    x[:, a:b].contiguous(), t[:, i].contiguous(),
+                    steps[:, i].contiguous(), levels[:, i].contiguous(),
+                    seeds, a)
+                if not (torch.equal(got[0][:, a:b], u)
+                        and torch.equal(got[1][:, a:b], e)
+                        and torch.equal(got[2][:, i], c)):
+                    fail(f"segmented kernel differs from the per-leaf kernel "
+                         f"at leaf {i} of {arch} ({dtype})")
+            print(f"segmented sparsify_quantize_ef matches plain and the "
+                  f"per-leaf kernel at {tuple(x.shape)} {dtype} with {arch}'s "
+                  f"{len(offsets) - 1} leaves: counts {got[2][2, :4].tolist()}",
+                  flush=True)
+            del x, got, want
+
+        x, t, steps, levels, seeds = segmented_inputs(offsets, torch.float32, 3)
+        n_el, nl = x.numel(), len(offsets) - 1
+        ntiles = K.tiles(offsets, x.dtype, x.device).shape[0]
+
+        def kernel():
+            return K.sparsify_quantize_ef_segmented_cuda(x, t, steps, levels,
+                                                         seeds, offsets)
+
+        res = dict(
+            ms=median_ms(kernel), ms_per_call=per_call_ms(kernel),
+            plain_ms=median_ms(lambda: R.sparsify_quantize_ef_segmented_plain(
+                x, t, steps, levels, seeds, offsets)),
+            max_abs_err=0.0, library_ms=None, tiles=ntiles,
+            # x read, upload + error written; the three (N, L) tables, the
+            # seeds and the tile table read; the (N, L) counts written
+            **bound(3 * 4 * n_el + 4 * 4 * N_DEV * nl + 4 * N_DEV + 24 * ntiles,
+                    22 * n_el, torch.float32))
+        res["bound_share"] = res["bound_ms"] / res["ms"]
+        print(f"sparsify_quantize_ef_segmented ({arch}, {tuple(x.shape)}, {nl} "
+              f"leaves, {ntiles} tiles, f32): {res['ms']:.4f} ms (plain "
+              f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms by "
+              f"{res['bound_by']}, {100 * res['bound_share']:.1f} % of it) on "
+              f"{card}; unrounded {json.dumps(res)}", flush=True)
+        out[arch] = res
+        del x
+    return out
+
+
 def train(argv):
     from repro_torch.launch import train as T
 
@@ -268,45 +372,84 @@ def train(argv):
         return T.main(argv + ["--workdir", wd])
 
 
-def main_path(K, policy: str, rounds: int = 4):
-    """Phase 4 for one policy: returns (launches, steady rounds/s)."""
-    argv = ["--arch", "resnet9-cifar10", "--policy", policy, "--rounds",
-            str(rounds), "--devices", str(N_DEV), "--batch-size", "32",
-            "--train-n", "2000", "--intercontact", "20", "--eval-every",
-            str(rounds), "--device", "cuda", "--seed", "0"]
+def train_per_layer(arch: str, rounds: int):
+    """``mads-joint`` with ``FLConfig(per_layer_budget=True)`` through
+    ``run_afl``, configured as the training CLI configures a run (the CLI
+    has no per-layer switch, as the reference's has none)."""
+    from repro_torch.configs import FLConfig, get_config
+    from repro_torch.core.runner import run_afl
+    from repro_torch.data import DeviceLoader
+    from repro_torch.launch.train import build_device_data
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    fl = FLConfig(num_devices=N_DEV, rounds=rounds, batch_size=32,
+                  mean_intercontact=20.0, seed=0, per_layer_budget=True,
+                  sparsifier="exact" if model.num_params() < 2_000_000
+                  else "sampled")
+    dev, ev = build_device_data(cfg, fl, train_n=2000, seed=0)
+    return run_afl(model, cfg, fl, "mads-joint", DeviceLoader(dev, 32, 0), ev,
+                   rounds=rounds, eval_every=rounds, device="cuda")
+
+
+def main_path(K, policy: str, arch: str = RESNET9, per_layer: bool = False,
+              rounds: int = ROUNDS):
+    """Phases 4-5 for one (model, policy): the counts are set to 0 just
+    before the run and read just after it.  Returns (launches, steady
+    rounds/s, result)."""
     K.reset_launches()
-    res = train(argv)
+    if per_layer:
+        res = train_per_layer(arch, rounds)
+    else:
+        res = train(["--arch", arch, "--policy", policy, "--rounds",
+                     str(rounds), "--devices", str(N_DEV), "--batch-size",
+                     "32", "--train-n", "2000", "--intercontact", "20",
+                     "--eval-every", str(rounds), "--device", "cuda",
+                     "--seed", "0"])
     launches = dict(K.LAUNCHES)
     hist = res.history
+    name = f"{arch} {policy}{' per-layer' if per_layer else ''}"
     if not hist["uploads"][-1] > 0:
-        fail(f"{policy}: no uploads in {rounds} rounds")
+        fail(f"{name}: no uploads in {rounds} rounds")
     if not all(math.isfinite(v) for v in hist["eval"]):
-        fail(f"{policy}: eval not finite: {hist['eval']}")
+        fail(f"{name}: eval not finite: {hist['eval']}")
     if not torch.isfinite(res.state.w).all():
-        fail(f"{policy}: global model not finite")
+        fail(f"{name}: global model not finite")
+    if sum(launches.values()) != rounds:
+        fail(f"{name}: {sum(launches.values())} sparsify launches in {rounds} "
+             f"rounds, not one per round: {launches}")
     steady = res.round_seconds[1:]
     rps = len(steady) / sum(steady)
-    print(f"main path {policy}: eval {hist['eval'][-1]:.4f}, uploads "
-          f"{hist['uploads'][-1]:.0f}, launches {launches}, round seconds "
+    print(f"main path {name}: eval {hist['eval'][-1]:.4f}, uploads "
+          f"{hist['uploads'][-1]:.0f}, k_mean {hist['k_mean'][-1]:.1f}, bits_mean "
+          f"{hist['bits_mean'][-1]:.1f}, launches {launches} "
+          f"({sum(launches.values()) / rounds:g} per round), round seconds "
           f"{res.round_seconds}, steady {rps} rounds/s", flush=True)
-    return launches, rps
+    return launches, rps, res
 
 
 def check_against_cpu():
-    """Phase 5: CUDA and CPU (plain versions) runs from one seed agree."""
-    hists = {}
-    for dev in ("cuda", "cpu"):
-        argv = ["--policy", "mads", "--width", "4", "--devices", "4",
-                "--rounds", "3", "--eval-every", "1", "--batch-size", "8",
-                "--train-n", "200", "--intercontact", "20", "--device", dev]
-        hists[dev] = train(argv).history
-    a, b = hists["cuda"], hists["cpu"]
-    if a["uploads"] != b["uploads"] or a["round"] != b["round"]:
-        fail(f"cuda and cpu runs differ: {a} vs {b}")
-    if max(abs(x - y) for x, y in zip(a["eval"], b["eval"])) > 0.02:
-        fail(f"cuda and cpu eval differ: {a['eval']} vs {b['eval']}")
-    print(f"cuda run matches cpu run at width 4: eval {a['eval']} vs "
-          f"{b['eval']}", flush=True)
+    """Phase 6: CUDA and CPU (plain versions) runs from one seed agree."""
+    cases = [("resnet9 width 4", ["--policy", "mads", "--width", "4"], 0.02, 0.0)]
+    cases += [(f"lanegcn d_model 32 {p}", ["--arch", LANEGCN, "--policy", p,
+                                           "--width", "32"], 0.0, 1e-3)
+              for p in ("mads", "qsgd")]
+    for label, args, atol, rtol in cases:
+        hists = {}
+        for dev in ("cuda", "cpu"):
+            argv = args + ["--devices", "4", "--rounds", "3", "--eval-every",
+                           "1", "--batch-size", "8", "--train-n", "200",
+                           "--intercontact", "20", "--device", dev]
+            hists[dev] = train(argv).history
+        a, b = hists["cuda"], hists["cpu"]
+        if a["uploads"] != b["uploads"] or a["round"] != b["round"]:
+            fail(f"{label}: cuda and cpu runs differ: {a} vs {b}")
+        if any(abs(x - y) > atol + rtol * abs(y)
+               for x, y in zip(a["eval"], b["eval"])):
+            fail(f"{label}: cuda and cpu eval differ: {a['eval']} vs {b['eval']}")
+        print(f"cuda run matches cpu run ({label}): eval {a['eval']} vs "
+              f"{b['eval']}, uploads {a['uploads']}", flush=True)
 
 
 def bound(nbytes: float, ops: float, dtype) -> dict:
@@ -517,14 +660,47 @@ def llm_kernel_calls(DA, SSD) -> dict:
 def profile_kernels(DA, SSD) -> None:
     """Device time by kernel (``device_times``) of the LLM kernels' calls.
     Run last, so that the profiler's tracing cannot weigh on the
-    host-bound decodes of phases 6-7."""
+    host-bound decodes of phases 7-8."""
     for label, fn in llm_kernel_calls(DA, SSD).items():
         print(f"{label} device time by kernel: {json.dumps(device_times(fn))}",
               flush=True)
 
 
+def profile_rounds(arch: str, policy: str = "mads", rounds: int = 6) -> dict:
+    """Phase 10 for training: a full-width run of ``rounds`` rounds (one
+    eval, at the end) under ``torch.profiler``; the device-busy time per
+    round (every kernel of the run, model set-up and the eval included,
+    divided by the rounds) against the steady rounds' wall clock, and the
+    kernels that take the most device time per round."""
+    from torch.profiler import ProfilerActivity, profile
+
+    argv = ["--arch", arch, "--policy", policy, "--rounds", str(rounds),
+            "--devices", str(N_DEV), "--batch-size", "32", "--train-n", "2000",
+            "--intercontact", "20", "--eval-every", str(rounds), "--device",
+            "cuda", "--seed", "0"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res = train(argv)
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us > 0:
+            by_kernel[e.key[:60]] = us / rounds / 1e3
+    busy_ms = sum(by_kernel.values())
+    steady = res.round_seconds[1:]
+    wall_ms = 1e3 * sum(steady) / len(steady)
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])
+    out = dict(arch=arch, policy=policy, rounds=rounds,
+               device_busy_ms_per_round=busy_ms, wall_ms_per_round=wall_ms,
+               busy_share=busy_ms / wall_ms, kernels=len(by_kernel),
+               top_device_ms_per_round=top)
+    print(f"profile {arch} {policy} (profiled, full width): {json.dumps(out)}",
+          flush=True)
+    return out
+
+
 def serve_full(mods, arch: str, batch: int, prompt: int):
-    """Phases 6-7: the full-width serve path, counts read around it."""
+    """Phases 7-8: the full-width serve path, counts read around it."""
     from repro_torch.launch import serve as S
 
     for mod in mods.values():
@@ -551,7 +727,7 @@ def serve_full(mods, arch: str, batch: int, prompt: int):
 
 
 def serve_against_cpu():
-    """Phase 8: reduced float32 serves on the card and on the CPU agree."""
+    """Phase 9: reduced float32 serves on the card and on the CPU agree."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
     from repro_torch.models.registry import build_model
@@ -623,25 +799,51 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     timing = check_kernels(K, R, smi)
+    segmented = check_segmented(K, R, smi)
     decode = check_decode_attn(DA, R, smi)
     ssd = check_ssd_scan(SSD, R, smi)
     torch.cuda.empty_cache()
 
-    # 4. training path, counts read around each policy's run
-    launches_mads, rps_mads = main_path(K, "mads")
-    if launches_mads["sparsify_ef"] < 1:
-        fail(f"mads never launched sparsify_ef: {launches_mads}")
-    launches_joint, rps_joint = main_path(K, "mads-joint")
-    if launches_joint["sparsify_quantize_ef"] < 1:
-        fail(f"mads-joint never launched sparsify_quantize_ef: {launches_joint}")
+    # 4. training path, ResNet-9; counts read around each run
+    # (results dropped at once: ResNet-9's (N, s) state holds ~1.6 GB,
+    # which would count in the serve phases' peak memory)
+    launches_mads, rps_mads = main_path(K, "mads")[:2]
+    if launches_mads["sparsify_ef"] != ROUNDS:
+        fail(f"mads did not launch sparsify_ef once a round: {launches_mads}")
+    launches_joint, rps_joint = main_path(K, "mads-joint")[:2]
+    if launches_joint["sparsify_quantize_ef"] != ROUNDS:
+        fail(f"mads-joint did not launch sparsify_quantize_ef once a round: "
+             f"{launches_joint}")
+    launches_pl, rps_pl = main_path(K, "mads-joint", per_layer=True)[:2]
+    if launches_pl["sparsify_quantize_ef_segmented"] != ROUNDS:
+        fail(f"per-layer mads-joint did not launch the segmented kernel once "
+             f"a round: {launches_pl}")
     print(f"rounds/s (steady, full-width ResNet-9, N={N_DEV}, batch 32) on "
-          f"{smi}: mads {rps_mads}, mads-joint {rps_joint}", flush=True)
+          f"{smi}: mads {rps_mads}, mads-joint {rps_joint}, mads-joint "
+          f"per-layer {rps_pl}", flush=True)
 
-    # 5. against the CPU path at a small size
+    # 5. training path, LaneGCN (the paper's Argoverse experiment)
+    lanegcn = {}
+    for policy, per_layer, kernel in (
+            ("mads", False, "sparsify_ef"),
+            ("qsgd", False, "sparsify_quantize_ef"),
+            ("mads-joint", True, "sparsify_quantize_ef_segmented")):
+        launches, rps, res = main_path(K, policy, LANEGCN, per_layer)
+        if launches[kernel] != ROUNDS:
+            fail(f"lanegcn {policy}: {kernel} not launched once a round: "
+                 f"{launches}")
+        lanegcn[policy] = dict(launches=launches, rps=rps,
+                               ade=res.history["eval"][-1])
+        del res
+    print(f"rounds/s (steady, full-width LaneGCN, N={N_DEV}, batch 32) on "
+          f"{smi}: " + ", ".join(f"{p} {v['rps']} (eval ADE {v['ade']})"
+                                 for p, v in lanegcn.items()), flush=True)
+
+    # 6. against the CPU path at a small size
     check_against_cpu()
     torch.cuda.empty_cache()
 
-    # 6-7. serve path at full width, counts read around each model's run
+    # 7-8. serve path at full width, counts read around each model's run
     cfg, launches_dense = serve_full(mods, "llama3.2-3b", LLAMA_BATCH, LLAMA_PROMPT)
     if launches_dense["decode_attn"] != cfg.num_layers * GEN:
         fail(f"dense serve launched decode_attn {launches_dense['decode_attn']} "
@@ -651,11 +853,13 @@ def main() -> None:
         fail(f"ssm serve launched ssd_scan {launches_ssm['ssd_scan']} times, "
              f"not {cfg.num_layers}")
 
-    # 8. serve against the CPU path at reduced size
+    # 9. serve against the CPU path at reduced size
     serve_against_cpu()
 
-    # 9. device time by kernel, last (the profiler slows later launches)
+    # 10. device time by kernel, last (the profiler slows later launches)
     profile_kernels(DA, SSD)
+    for arch in (LANEGCN, RESNET9):
+        profile_rounds(arch)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
@@ -664,12 +868,27 @@ def main() -> None:
         dict(name="sparsify_ef", route="cuda", source=src + "sparsify_ef.cu",
              replaces="src/repro/kernels/sparsify_ef.py:60",
              launches=launches_mads["sparsify_ef"], library_ms=None,
+             launches_lanegcn_mads=lanegcn["mads"]["launches"]["sparsify_ef"],
              **timing["sparsify_ef"]),
         dict(name="sparsify_quantize_ef", route="cuda",
              source=src + "sparsify_ef.cu",
              replaces="src/repro/kernels/sparsify_ef.py:124",
              launches=launches_joint["sparsify_quantize_ef"], library_ms=None,
+             launches_lanegcn_qsgd=lanegcn["qsgd"]["launches"][
+                 "sparsify_quantize_ef"],
              **timing["sparsify_quantize_ef"]),
+        # the per-layer codec's route to the same TPU kernel: launches and
+        # times at ResNet-9's (20, 6,573,130), *_lanegcn at (20, 247,100)
+        dict(name="sparsify_quantize_ef_segmented", route="cuda",
+             source=src + "sparsify_ef.cu",
+             replaces="src/repro/kernels/sparsify_ef.py:124",
+             launches=launches_pl["sparsify_quantize_ef_segmented"],
+             launches_lanegcn=lanegcn["mads-joint"]["launches"][
+                 "sparsify_quantize_ef_segmented"],
+             **segmented[RESNET9],
+             **{f"{key}_lanegcn": segmented[LANEGCN][key] for key in
+                ("ms", "ms_per_call", "plain_ms", "bound_ms", "bound_share",
+                 "tiles")}),
         dict(name="decode_attn", route="cuda", source=src + "decode_attn.cu",
              replaces="src/repro/kernels/decode_attn.py:64",
              launches=launches_dense["decode_attn"], **decode["main"],

@@ -10,6 +10,8 @@ leaves a noise fraction ``eps(b) = 4^{-(b-1)} / 3`` of it, so the width is
 
 over a static integer grid, and ``k* = floor((B - 32) / (b* + lambda))``.
 The derivation is in the reference's ``compression/joint.py``.
+``per_layer=True`` solves one (k_l, b_l) pair per leaf instead
+(``perlayer.py``).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 
 from repro_torch.compression import quant as Q
 from repro_torch.compression.base import Compressor
+from repro_torch.compression.perlayer import compress_per_layer
 from repro_torch.utils.fmath import div
 
 
@@ -36,18 +39,17 @@ def solve_kb(budget_bits, s: int, index_bits: int, b_grid):
 
 @dataclasses.dataclass(frozen=True)
 class JointCompressor(Compressor):
-    """MADS-joint: per-round (k*, b*) from the contact budget."""
+    """MADS-joint: per-round (k*, b*) from the contact budget; with
+    ``per_layer=True``, per-leaf (k_l, b_l) pairs by greedy water-filling
+    against the same budget (``perlayer.solve_kb_per_leaf``)."""
 
     b_grid: tuple = tuple(range(2, 17))
     per_layer: bool = False
 
     def compress(self, x, budget_bits, error, seeds, layout):
-        if self.per_layer:
-            raise NotImplementedError(
-                "per-layer (k_l, b_l) budgets wait for the port of "
-                "compression/perlayer.py (ROADMAP.md, queue 1: qsgd and "
-                "perlayer)")
         xt = x + error
+        if self.per_layer:
+            return compress_per_layer(self, xt, layout, budget_bits, seeds)
         k_target, b = solve_kb(budget_bits, self.s, self.index_bits,
                                self.b_grid)
         return self.spend(xt, layout, k_target, b, budget_bits, seeds,

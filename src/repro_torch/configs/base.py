@@ -4,8 +4,8 @@
 and defaults, so a configuration means the same thing in both packages;
 the knobs of layers not ported yet are refused where they would be read.
 ``ModelConfig`` keeps only the fields of the ported model families
-(vision, dense, ssm), with the reference's defaults; the MoE, VLM, hybrid
-and audio fields come with those families.  The registry lists only the
+(vision, trajectory, dense, ssm), with the reference's defaults; the MoE,
+VLM, hybrid and audio fields come with those families.  The registry lists only the
 architectures this package ports (``load_all``).
 """
 from __future__ import annotations
@@ -21,10 +21,10 @@ from repro_torch.sharding.rules import torch_dtype
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """One architecture of a ported family (vision, dense, ssm)."""
+    """One architecture of a ported family (vision, trajectory, dense, ssm)."""
 
     name: str
-    family: str  # vision | dense | ssm
+    family: str  # vision | trajectory | dense | ssm
     num_layers: int
     d_model: int  # vision: base channel width
     vocab_size: int  # vision: number of classes
@@ -191,5 +191,6 @@ def load_all() -> None:
     """Import every ported config module (they self-register)."""
     import importlib
 
-    for mod in ("resnet9_cifar10", "llama3_2_3b", "mamba2_2_7b"):
+    for mod in ("resnet9_cifar10", "lanegcn_argoverse", "llama3_2_3b",
+                "mamba2_2_7b"):
         importlib.import_module(f"repro_torch.configs.{mod}")

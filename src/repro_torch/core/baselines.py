@@ -25,14 +25,15 @@ comparison of how the same tau*A(p) bit budget is spent:
 9. MADS-topk  — the Proposition-1 spend routed through the codec API
                 (`compression.topk.TopKCompressor` at u=value_bits): the
                 codec twin of plain MADS.
-
-``qsgd`` waits for the port of ``compression/qsgd.py`` (ROADMAP.md, queue 1).
+10. QSGD      — dense stochastic quantisation, bit-width from the budget
+                (`compression.qsgd.QSGDCompressor`).
 """
 from __future__ import annotations
 
 import numpy as np
 
 from repro_torch.compression.joint import JointCompressor
+from repro_torch.compression.qsgd import QSGDCompressor
 from repro_torch.compression.topk import FixedKbCompressor, TopKCompressor
 from repro_torch.core.afl import Policy, StalenessWeight
 from repro_torch.core.mads import MadsController
@@ -146,10 +147,8 @@ def apply_relays(zeta: np.ndarray, tau: np.ndarray, p_relay: float = 0.3,
 
 
 def mads_joint(s: int, fl) -> Policy:
-    """MADS power + the closed-form joint (k, b) codec.
-
-    ``fl.per_layer_budget`` (per-leaf (k_l, b_l) pairs) raises until
-    ``compression/perlayer.py`` is ported."""
+    """MADS power + the closed-form joint (k, b) codec; per-leaf (k_l, b_l)
+    pairs when ``fl.per_layer_budget`` is set."""
     return Policy(
         name="mads-joint",
         staleness=_staleness(fl),
@@ -191,6 +190,18 @@ def fixed_kb(s: int, fl) -> Policy:
     )
 
 
+def qsgd(s: int, fl) -> Policy:
+    """MADS power + dense stochastic quantisation (no sparsification)."""
+    return Policy(
+        name="qsgd",
+        staleness=_staleness(fl),
+        controller=_controller(s, fl),
+        compressor=QSGDCompressor(
+            s=s, b_min=fl.compress_b_min, b_max=fl.compress_b_max,
+        ),
+    )
+
+
 def mads_no_ef(s: int, fl) -> Policy:
     """Ablation: MADS without the error-feedback memory (dropped residuals).
 
@@ -214,4 +225,5 @@ ALL = {
     "mads-joint": mads_joint,
     "mads-topk": mads_topk,
     "fixed-kb": fixed_kb,
+    "qsgd": qsgd,
 }

@@ -43,11 +43,20 @@ class RunResult:
 
 
 def make_eval_fn(model, cfg):
-    """Family-appropriate eval metric over a params tree."""
+    """Family-appropriate eval metric over a params tree: accuracy for
+    vision (higher is better), ADE for trajectory (lower is better)."""
     if cfg.family == "vision":
         from repro_torch.models.resnet import accuracy
 
         return lambda p, b: accuracy(p, cfg, b)
+    if cfg.family == "trajectory":
+        from repro_torch.models.lanegcn import ade, forward
+
+        def f(p, b):
+            pred, _ = forward(p, cfg, b["past"], b["lanes"])
+            return ade(pred, b["future"])
+
+        return f
     raise NotImplementedError(f"eval for family {cfg.family!r} is not ported")
 
 

@@ -1,10 +1,11 @@
 from repro_torch.data.loader import DeviceLoader, batch_iterator
 from repro_torch.data.partition import dirichlet_partition, gamma_class_proportions
-from repro_torch.data.synthetic import SyntheticCifar
+from repro_torch.data.synthetic import SyntheticCifar, SyntheticTrajectories
 
 __all__ = [
     "DeviceLoader",
     "SyntheticCifar",
+    "SyntheticTrajectories",
     "batch_iterator",
     "dirichlet_partition",
     "gamma_class_proportions",

@@ -1,9 +1,15 @@
-"""Synthetic CIFAR-10 stand-in (numpy; the reference's generator, exactly).
+"""Synthetic stand-ins for CIFAR-10 and Argoverse (numpy; the reference's
+generators, exactly).
 
-Class-conditional images: each class has a fixed random template; samples
-are template + Gaussian noise.  A model that learns the 10 templates
-reaches high accuracy, so FL convergence dynamics are preserved.  The
-trajectory and token generators wait for their model families.
+* ``SyntheticCifar`` — class-conditional images: each class has a fixed
+  random template; samples are template + Gaussian noise.  A model that
+  learns the 10 templates reaches high accuracy, so FL convergence
+  dynamics are preserved.
+* ``SyntheticTrajectories`` — kinematic vehicle tracks (constant turn rate
+  + noise) with lane-centreline context; target = next 30 positions at
+  10 Hz, metric = ADE (paper §VI-C).
+
+The token generator waits for the LLM training examples.
 """
 from __future__ import annotations
 
@@ -38,3 +44,38 @@ class SyntheticCifar:
         p = class_probs if class_probs is not None else np.full(self.num_classes, 1 / self.num_classes)
         labels = rng.choice(self.num_classes, size=n, p=p / p.sum())
         return self.sample(rng, labels), labels.astype(np.int32)
+
+
+@dataclasses.dataclass
+class SyntheticTrajectories:
+    """Argoverse-like motion forecasting: 20 past -> 30 future steps @10Hz."""
+
+    past: int = 20
+    future: int = 30
+    map_nodes: int = 32
+    dt: float = 0.1
+    seed: int = 0
+
+    def make_split(self, n: int, seed: int = 1):
+        rng = np.random.default_rng(seed)
+        speed = rng.uniform(3.0, 20.0, (n, 1))
+        heading0 = rng.uniform(-np.pi, np.pi, (n, 1))
+        turn = rng.normal(0.0, 0.08, (n, 1))  # rad/s
+        t = np.arange(self.past + self.future) * self.dt
+        heading = heading0 + turn * t[None, :]
+        vx = speed * np.cos(heading)
+        vy = speed * np.sin(heading)
+        x = np.cumsum(vx * self.dt, axis=1)
+        y = np.cumsum(vy * self.dt, axis=1)
+        traj = np.stack([x, y], axis=-1).astype(np.float32)
+        traj += rng.normal(0, 0.05, traj.shape).astype(np.float32)
+        # centre on the last observed position (Argoverse convention)
+        traj = traj - traj[:, self.past - 1 : self.past, :]
+        past, future = traj[:, : self.past], traj[:, self.past :]
+        # lane centreline context: noisy extrapolation of the heading
+        s = np.linspace(0, 3.0, self.map_nodes)[None, :, None]
+        lane_dir = np.stack([np.cos(heading[:, self.past - 1]),
+                             np.sin(heading[:, self.past - 1])], -1)
+        lanes = (s * lane_dir[:, None, :] * speed[:, :, None]).astype(np.float32)
+        lanes += rng.normal(0, 0.2, lanes.shape).astype(np.float32)
+        return {"past": past, "lanes": lanes, "future": future.astype(np.float32)}

@@ -5,7 +5,8 @@
 //   sparsify_quantize_ef  (:124, body _kernel_q :102)
 //
 // Per row (one federated device) of x (rows, cols) with the row's
-// threshold t:
+// threshold t (the segmented entry: per (row, leaf) threshold, step and
+// levels, leaf l being the columns [offsets[l], offsets[l+1])):
 //   sparsify_ef:           upload = x*[|x| >= t], error = x*[|x| < t]
 //   sparsify_quantize_ef:  upload = [|x| >= t] * clip(floor(x/step + u),
 //                          -levels, levels) * step, error = x - upload,
@@ -25,6 +26,16 @@
 // done one by one. Nothing is padded, so the count needs no correction.
 // The count is reduced in registers, by warp shuffles and shared memory,
 // with one atomicAdd per block into the row's int32 total.
+//
+// The segmented entry replaces the per-leaf calls of the reference's
+// per-layer codec (src/repro/compression/perlayer.py:208, one Pallas call
+// per leaf and per device with base = the leaf's offset). The dither
+// counter base + index-within-leaf is the flat column, so all leaves of
+// all devices go in ONE launch with the dither unchanged. Its grid is
+// (tiles, rows): a host-built table cuts each leaf into column tiles that
+// never straddle a leaf boundary, and a block streams its tile of its row
+// with the same 16-byte body and scalar edges (leaf starts are not 16-byte
+// aligned), then adds its count once into (row, leaf).
 //
 // Bit-exactness with the reference: x/step is an IEEE round-to-nearest
 // divide (__fdiv_rn), and every add/multiply/subtract after it is an
@@ -126,54 +137,69 @@ struct QuantizeParams {
   }
 };
 
-template <typename T, typename P>
-__global__ void __launch_bounds__(kThreads)
-    row_pass(const T* __restrict__ x, T* __restrict__ up, T* __restrict__ err,
-             int* __restrict__ counts, int64_t cols, P params) {
+struct SegQuantizeParams {
+  const float* t;  // (rows, leaves), like step and levels
+  const float* step;
+  const float* levels;
+  const int32_t* seed;  // (rows,)
+  int64_t leaves;
+  __device__ __forceinline__ QuantizeOp at(int r, int64_t leaf) const {
+    const int64_t i = static_cast<int64_t>(r) * leaves + leaf;
+    return {t[i], step[i], levels[i], static_cast<uint32_t>(seed[r]), 0u};
+  }
+};
+
+// Columns [c0, c1) of one row (xr, ur, er point at the row's column 0,
+// whose flat offset is off): vector i = first, first + stride, ... of the
+// 16-byte vectors inside the span, and, when `edges`, the < V elements
+// before the first aligned vector and the < V after the last one, one per
+// thread. Returns this thread's count.
+template <typename T, typename Op>
+__device__ __forceinline__ int stream_span(const T* xr, T* ur, T* er,
+                                           int64_t off, int64_t c0,
+                                           int64_t c1, int64_t first,
+                                           int64_t stride, bool edges,
+                                           const Op& op) {
   constexpr int V = Vec<T>::n;
-  const int r = blockIdx.y;
-  const auto op = params.row(r);
-  const int64_t off = static_cast<int64_t>(r) * cols;
-  const T* xr = x + off;
-  T* ur = up + off;
-  T* er = err + off;
-  // base pointers are 16-byte aligned, so the row's first aligned element
+  // base pointers are 16-byte aligned, so the span's first aligned element
   // is the one whose flat offset is a multiple of V
-  int64_t head = (V - off % V) % V;
-  if (head > cols) head = cols;
-  const int64_t nvec = (cols - head) / V;
-  const int64_t tail = head + nvec * V;
+  int64_t head = (V - (off + c0) % V) % V;
+  if (head > c1 - c0) head = c1 - c0;
+  const int64_t start = c0 + head;
+  const int64_t nvec = (c1 - start) / V;
+  const int64_t tail = start + nvec * V;
 
   int count = 0;
-  const uint4* xv = reinterpret_cast<const uint4*>(xr + head);
-  uint4* uv = reinterpret_cast<uint4*>(ur + head);
-  uint4* ev = reinterpret_cast<uint4*>(er + head);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < nvec; i += stride) {
+  const uint4* xv = reinterpret_cast<const uint4*>(xr + start);
+  uint4* uv = reinterpret_cast<uint4*>(ur + start);
+  uint4* ev = reinterpret_cast<uint4*>(er + start);
+  for (int64_t i = first; i < nvec; i += stride) {
     alignas(16) T xin[V];
     alignas(16) T uo[V];
     alignas(16) T eo[V];
     *reinterpret_cast<uint4*>(xin) = __ldcs(xv + i);
-    const uint32_t col = static_cast<uint32_t>(head + i * V);
+    const uint32_t col = static_cast<uint32_t>(start + i * V);
 #pragma unroll
     for (int j = 0; j < V; ++j) count += op(xin[j], col + j, uo[j], eo[j]);
     __stcs(uv + i, *reinterpret_cast<uint4*>(uo));
     __stcs(ev + i, *reinterpret_cast<uint4*>(eo));
   }
-  // the < V elements before the first aligned vector and the < V after
-  // the last one, one per thread of block 0
-  if (blockIdx.x == 0) {
+  if (edges) {
     const int64_t j = threadIdx.x;
     int64_t c = -1;
     if (j < head) {
-      c = j;
-    } else if (j - head < cols - tail) {
+      c = c0 + j;
+    } else if (j - head < c1 - tail) {
       c = tail + (j - head);
     }
     if (c >= 0) count += op(xr[c], static_cast<uint32_t>(c), ur[c], er[c]);
   }
+  return count;
+}
 
+// The block's total of `count` added once into *dst (by warp shuffles and
+// shared memory).
+__device__ __forceinline__ void block_count_add(int count, int* dst) {
   for (int o = 16; o > 0; o >>= 1) count += __shfl_down_sync(0xffffffffu, count, o);
   __shared__ int warp_counts[kThreads / 32];
   const int lane = threadIdx.x & 31;
@@ -183,8 +209,39 @@ __global__ void __launch_bounds__(kThreads)
   if (warp == 0) {
     count = lane < kThreads / 32 ? warp_counts[lane] : 0;
     for (int o = 16; o > 0; o >>= 1) count += __shfl_down_sync(0xffffffffu, count, o);
-    if (lane == 0 && count != 0) atomicAdd(counts + r, count);
+    if (lane == 0 && count != 0) atomicAdd(dst, count);
   }
+}
+
+template <typename T, typename P>
+__global__ void __launch_bounds__(kThreads)
+    row_pass(const T* __restrict__ x, T* __restrict__ up, T* __restrict__ err,
+             int* __restrict__ counts, int64_t cols, P params) {
+  const int r = blockIdx.y;
+  const int64_t off = static_cast<int64_t>(r) * cols;
+  const int count = stream_span<T>(
+      x + off, up + off, err + off, off, 0, cols,
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x,
+      static_cast<int64_t>(gridDim.x) * blockDim.x, blockIdx.x == 0,
+      params.row(r));
+  block_count_add(count, counts + r);
+}
+
+// tiles: (gridDim.x, 3) int64 rows of (leaf, first column, end column).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    segmented_pass(const T* __restrict__ x, T* __restrict__ up,
+                   T* __restrict__ err, int* __restrict__ counts,
+                   const int64_t* __restrict__ tiles, int64_t cols,
+                   SegQuantizeParams params) {
+  const int r = blockIdx.y;
+  const int64_t* tile = tiles + 3 * static_cast<int64_t>(blockIdx.x);
+  const int64_t leaf = tile[0];
+  const int64_t off = static_cast<int64_t>(r) * cols;
+  const int count =
+      stream_span<T>(x + off, up + off, err + off, off, tile[1], tile[2],
+                     threadIdx.x, blockDim.x, true, params.at(r, leaf));
+  block_count_add(count, counts + static_cast<int64_t>(r) * params.leaves + leaf);
 }
 
 int blocks_per_row(int64_t rows, int64_t cols, int vec) {
@@ -227,6 +284,30 @@ int launch(const void* x, void* up, void* err, int* counts, int64_t rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_segmented(const void* x, void* up, void* err, int* counts,
+                     const int64_t* tiles, int64_t ntiles, int64_t rows,
+                     int64_t cols, int dtype, SegQuantizeParams params,
+                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e =
+      cudaMemsetAsync(counts, 0, rows * params.leaves * sizeof(int), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (rows == 0 || ntiles == 0) return static_cast<int>(cudaGetLastError());
+  const dim3 grid(static_cast<unsigned>(ntiles), static_cast<unsigned>(rows));
+  if (dtype == 0) {
+    segmented_pass<float><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<float*>(up),
+        static_cast<float*>(err), counts, tiles, cols, params);
+  } else if (dtype == 1) {
+    segmented_pass<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(up),
+        static_cast<__nv_bfloat16*>(err), counts, tiles, cols, params);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. All pointers are device pointers;
@@ -248,4 +329,18 @@ extern "C" int sparsify_quantize_ef_launch(const void* x, void* up, void* err,
                                            int dtype, void* stream) {
   return launch(x, up, err, counts, rows, cols, dtype,
                 QuantizeParams{t, step, levels, seed, base}, stream);
+}
+
+// The segmented entry: t, step and levels are (rows, leaves); tiles is an
+// (ntiles, 3) int64 device array of (leaf, first column, end column) that
+// covers every column once, no tile crossing a leaf boundary; counts is
+// (rows, leaves).
+extern "C" int sparsify_quantize_ef_segmented_launch(
+    const void* x, void* up, void* err, int* counts, const float* t,
+    const float* step, const float* levels, const int32_t* seed,
+    const int64_t* tiles, int64_t ntiles, int64_t leaves, int64_t rows,
+    int64_t cols, int dtype, void* stream) {
+  return launch_segmented(x, up, err, counts, tiles, ntiles, rows, cols, dtype,
+                          SegQuantizeParams{t, step, levels, seed, leaves},
+                          stream);
 }

@@ -37,6 +37,18 @@ def sparsify_quantize_ef(x, thresholds, steps, levels, seeds, base: int = 0):
                                           base)
 
 
+def sparsify_quantize_ef_segmented(x, thresholds, steps, levels, seeds,
+                                   offsets):
+    """The same with one threshold, step and levels per (row, leaf): x
+    (N, s); thresholds, steps, levels (N, L); offsets the L + 1 leaf
+    boundaries -> (upload, error, count (N, L) f32)."""
+    if _device(x) == "cuda":
+        return K.sparsify_quantize_ef_segmented_cuda(
+            x, thresholds, steps, levels, seeds, offsets)
+    return ref.sparsify_quantize_ef_segmented_plain(
+        x, thresholds, steps, levels, seeds, offsets)
+
+
 def decode_attn(q, k, v, length: int):
     """One query token per sequence against a KV cache: q (B, H, D), k, v
     (B, S, KV, D), ``length`` valid positions -> (B, H, D) in q's dtype."""

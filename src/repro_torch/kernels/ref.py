@@ -3,7 +3,8 @@
 The sparsify pair are twins of ``kernels/ref.py::sparsify_ef_ref`` and
 ``::sparsify_quantize_ef_ref`` of the reference, for x (rows, n) with one
 parameter per row, so one call covers the whole federation as the CUDA
-kernels do.  ``decode_attn_plain`` is the twin of ``decode_attn_ref``, and
+kernels do; ``sparsify_quantize_ef_segmented_plain`` takes one parameter
+per (row, leaf), the per-layer codec's call.  ``decode_attn_plain`` is the twin of ``decode_attn_ref``, and
 ``ssd_scan_plain`` is the port's ``models/mamba2.py::ssd_chunked`` (the
 reference's "ref" route for ``ssd_scan``).  The CPU path runs them
 (``ops.py``), and ``chip_smoke.py`` holds the kernels to them on the card.
@@ -53,6 +54,35 @@ def sparsify_quantize_ef_plain(x: torch.Tensor, thresholds, steps, levels,
     error = (xf - upload.to(torch.float32)).to(x.dtype)
     count = mask.sum(dim=1, dtype=torch.int32).to(torch.float32)
     return upload, error, count
+
+
+def sparsify_quantize_ef_segmented_plain(x: torch.Tensor, thresholds, steps,
+                                         levels, seeds, offsets):
+    """``sparsify_quantize_ef_plain`` with one threshold, step and levels
+    per (row, leaf): x (rows, n); thresholds, steps, levels (rows, L) f32;
+    seeds (rows,) int32; offsets: the L + 1 leaf boundaries (0, ..., n).
+    The dither counter is the column, so leaf l's elements draw what a
+    per-leaf call with base = offsets[l] draws.  Returns (upload, error,
+    count (rows, L) f32).
+    """
+    offsets = [int(o) for o in offsets]
+    sizes = torch.tensor([b - a for a, b in zip(offsets, offsets[1:])],
+                         device=x.device)
+
+    def per_column(p):
+        return torch.repeat_interleave(p, sizes, dim=1)
+
+    xf = x.to(torch.float32)
+    mask = xf.abs() >= per_column(thresholds)
+    idx = torch.arange(x.shape[1], device=x.device, dtype=torch.int64)
+    u = dither_u01(seeds[:, None], idx[None, :])
+    step, lv = per_column(steps), per_column(levels)
+    q = torch.minimum(torch.maximum(torch.floor(xf / step + u), -lv), lv) * step
+    upload = torch.where(mask, q, q.new_zeros(())).to(x.dtype)
+    error = (xf - upload.to(torch.float32)).to(x.dtype)
+    count = torch.stack([mask[:, a:b].sum(dim=1, dtype=torch.int32)
+                         for a, b in zip(offsets, offsets[1:])], dim=1)
+    return upload, error, count.to(torch.float32)
 
 
 def decode_attn_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -10,6 +10,11 @@ so each call site launches once per round.  The kernels are in
 plain versions are ``ref.py``'s ``sparsify_ef_plain`` /
 ``sparsify_quantize_ef_plain``.
 
+``sparsify_quantize_ef_segmented_cuda`` takes one threshold, step and
+levels per (row, leaf) and does every leaf of every row in one launch,
+where the reference's per-layer codec calls its kernel once per leaf and
+per device; its plain version is ``sparsify_quantize_ef_segmented_plain``.
+
 Each wrapper takes CUDA tensors only, checks them, launches on the current
 stream and adds one to ``LAUNCHES[name]``; ``ops.py`` sends CPU tensors to
 the plain versions.  Counts come back as f32 of an exact int32 total,
@@ -27,13 +32,17 @@ from repro_torch.kernels import build
 
 __all__ = [
     "LAUNCHES", "library", "reset_launches", "sparsify_ef_cuda",
-    "sparsify_quantize_ef_cuda",
+    "sparsify_quantize_ef_cuda", "sparsify_quantize_ef_segmented_cuda",
+    "tiles",
 ]
 
-LAUNCHES = {"sparsify_ef": 0, "sparsify_quantize_ef": 0}
+LAUNCHES = {"sparsify_ef": 0, "sparsify_quantize_ef": 0,
+            "sparsify_quantize_ef_segmented": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
+_THREADS = 256  # kThreads of the .cu
+TILE_VECS = 8  # 16-byte vectors per thread in a segmented tile
 
 
 def reset_launches() -> None:
@@ -52,7 +61,29 @@ def library() -> ctypes.CDLL:
         _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_uint32, _I64, _I64,
         ctypes.c_int, _P]
     lib.sparsify_quantize_ef_launch.restype = ctypes.c_int
+    lib.sparsify_quantize_ef_segmented_launch.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+        ctypes.c_int, _P]
+    lib.sparsify_quantize_ef_segmented_launch.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=32)
+def _tile_table(offsets: tuple, tile: int, device: torch.device):
+    rows = [(leaf, c, min(c + tile, end))
+            for leaf, (start, end) in enumerate(zip(offsets, offsets[1:]))
+            for c in range(start, end, tile)]
+    return torch.tensor(rows, dtype=torch.int64).reshape(-1, 3).to(device)
+
+
+def tiles(offsets, dtype: torch.dtype, device) -> torch.Tensor:
+    """The segmented kernel's (tiles, 3) int64 table of (leaf, first
+    column, end column) for leaf boundaries ``offsets``: each leaf cut
+    into tiles of TILE_VECS 16-byte vectors per thread, none crossing a
+    leaf boundary.  Cached per layout, dtype and device."""
+    per_vec = 16 // dtype.itemsize
+    return _tile_table(tuple(int(o) for o in offsets),
+                       _THREADS * TILE_VECS * per_vec, torch.device(device))
 
 
 def _check(x: torch.Tensor, **rows) -> None:
@@ -75,6 +106,16 @@ def _check(x: torch.Tensor, **rows) -> None:
             raise ValueError(
                 f"{name} must be a contiguous ({x.shape[0]},) {dt} tensor on "
                 f"{x.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _check_table(name: str, t: torch.Tensor, x: torch.Tensor,
+                 leaves: int) -> None:
+    want = (x.shape[0], leaves)
+    if (t.device != x.device or t.dtype != torch.float32
+            or tuple(t.shape) != want or not t.is_contiguous()):
+        raise ValueError(
+            f"{name} must be a contiguous {want} float32 tensor on "
+            f"{x.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
 
 
 def _outputs(x):
@@ -119,4 +160,37 @@ def sparsify_quantize_ef_cuda(x: torch.Tensor, thresholds, steps, levels,
             _DTYPES[x.dtype], stream)
     _raise_on(rc, "sparsify_quantize_ef")
     LAUNCHES["sparsify_quantize_ef"] += 1
+    return up, err, cnt.to(torch.float32)
+
+
+def sparsify_quantize_ef_segmented_cuda(x: torch.Tensor, thresholds, steps,
+                                        levels, seeds, offsets):
+    """x (N, s); thresholds, steps, levels (N, L) f32; seeds (N,) int32;
+    offsets: the L + 1 leaf boundaries 0 = o_0 <= ... <= o_L = s (a
+    sequence of ints) -> (upload, error, count (N, L) f32).  The dither
+    counter is the column."""
+    offsets = tuple(int(o) for o in offsets)
+    _check(x, seeds=seeds)
+    leaves = len(offsets) - 1
+    if (leaves < 1 or offsets[0] != 0 or offsets[-1] != x.shape[1]
+            or any(b < a for a, b in zip(offsets, offsets[1:]))):
+        raise ValueError(f"offsets must rise from 0 to {x.shape[1]}, got "
+                         f"{offsets[:4]}...{offsets[-2:]}")
+    for name, t in (("thresholds", thresholds), ("steps", steps),
+                    ("levels", levels)):
+        _check_table(name, t, x, leaves)
+    table = tiles(offsets, x.dtype, x.device)
+    lib = library()
+    up, err = torch.empty_like(x), torch.empty_like(x)
+    cnt = torch.empty((x.shape[0], leaves), dtype=torch.int32,
+                      device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.sparsify_quantize_ef_segmented_launch(
+            x.data_ptr(), up.data_ptr(), err.data_ptr(), cnt.data_ptr(),
+            thresholds.data_ptr(), steps.data_ptr(), levels.data_ptr(),
+            seeds.data_ptr(), table.data_ptr(), table.shape[0], leaves,
+            x.shape[0], x.shape[1], _DTYPES[x.dtype], stream)
+    _raise_on(rc, "sparsify_quantize_ef_segmented")
+    LAUNCHES["sparsify_quantize_ef_segmented"] += 1
     return up, err, cnt.to(torch.float32)

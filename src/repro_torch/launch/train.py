@@ -6,7 +6,9 @@ Example:
 
 Runs on the card by default (``--device cuda``, which raises when CUDA is
 absent); ``--device cpu`` runs the same path with the kernels' plain
-versions.  A synthetic CIFAR-10 stand-in is generated from the seed.  A
+versions.  The data are synthetic stand-ins generated from the seed:
+CIFAR-10 for ResNet-9 (``--arch resnet9-cifar10``), Argoverse tracks for
+LaneGCN (``--arch lanegcn-argoverse``, the paper's §VI-C experiment).  A
 checkpoint of the global model and a JSON metrics history land in
 ``--workdir``, in the reference's formats.
 """
@@ -16,11 +18,14 @@ import argparse
 import json
 import os
 
+import numpy as np
+
 from repro_torch.checkpoint import save
 from repro_torch.configs import FLConfig, get_config
 from repro_torch.core import baselines as BL
 from repro_torch.core.runner import run_afl
-from repro_torch.data import DeviceLoader, SyntheticCifar, dirichlet_partition
+from repro_torch.data import (DeviceLoader, SyntheticCifar,
+                              SyntheticTrajectories, dirichlet_partition)
 from repro_torch.models.registry import build_model
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.logging import get_logger
@@ -29,14 +34,28 @@ log = get_logger("repro_torch.train")
 
 
 def build_device_data(cfg, fl, *, train_n=2000, eval_n=512, seed=0):
-    """Synthetic per-device datasets (numpy) and the eval batch."""
-    if cfg.family != "vision":
-        raise NotImplementedError(f"data for family {cfg.family!r} is not ported")
-    ds = SyntheticCifar(seed=seed)
-    imgs, labels = ds.make_split(train_n, seed=seed + 1)
-    parts = dirichlet_partition(labels, fl.num_devices, fl.dirichlet_rho, seed)
-    dev = [{"images": imgs[p], "labels": labels[p]} for p in parts]
-    ev = dict(zip(("images", "labels"), ds.make_split(eval_n, seed=seed + 2)))
+    """Synthetic per-device datasets (numpy) and the eval batch.
+
+    Images are split by Dirichlet class mixtures; trajectories have no
+    classes and are dealt out by a seeded permutation in equal chunks."""
+    if cfg.family == "vision":
+        ds = SyntheticCifar(seed=seed)
+        imgs, labels = ds.make_split(train_n, seed=seed + 1)
+        parts = dirichlet_partition(labels, fl.num_devices, fl.dirichlet_rho,
+                                    seed)
+        dev = [{"images": imgs[p], "labels": labels[p]} for p in parts]
+        ev = dict(zip(("images", "labels"),
+                      ds.make_split(eval_n, seed=seed + 2)))
+    elif cfg.family == "trajectory":
+        ds = SyntheticTrajectories(seed=seed)
+        data = ds.make_split(train_n, seed=seed + 1)
+        order = np.random.default_rng(seed).permutation(train_n)
+        chunks = np.array_split(order, fl.num_devices)
+        dev = [{k: v[c] for k, v in data.items()} for c in chunks]
+        ev = ds.make_split(eval_n, seed=seed + 2)
+    else:
+        raise NotImplementedError(
+            f"data for family {cfg.family!r} is not ported")
     return dev, ev
 
 

@@ -2,9 +2,10 @@
 
 ``build_model(cfg)`` returns a ``Model`` whose functions close over
 nothing — params and caches are explicit dicts of tensors — so the AFL
-core can vmap them over devices.  The vision family (ResNet-9) and the
-dense (Llama) and ssm (Mamba2) LLM families are ported; ``load_params``
-carries a reference parameter tree (numpy arrays) over.
+core can vmap them over devices.  The paper's two models (vision: ResNet-9;
+trajectory: LaneGCN) and the dense (Llama) and ssm (Mamba2) LLM families
+are ported; ``load_params`` carries a reference parameter tree (numpy
+arrays) over.
 """
 from __future__ import annotations
 
@@ -49,6 +50,10 @@ def build_model(cfg: ModelConfig) -> Model:
         from repro_torch.models import resnet as R
 
         return Model(cfg, R.param_specs(cfg), R.loss_fn, R.forward)
+    if cfg.family == "trajectory":
+        from repro_torch.models import lanegcn as G
+
+        return Model(cfg, G.param_specs(cfg), G.loss_fn, G.forward)
     if cfg.family == "dense":
         from repro_torch.models import transformer as T
 
@@ -102,6 +107,12 @@ def demo_batch(cfg: ModelConfig, batch: int, seq: int,
         return {
             "images": rng.normal(0, 1, (batch, 32, 32, 3)).astype(np.float32),
             "labels": rng.integers(0, cfg.vocab_size, batch).astype(np.int32),
+        }
+    if cfg.family == "trajectory":
+        return {
+            "past": rng.normal(0, 1, (batch, 20, 2)).astype(np.float32),
+            "lanes": rng.normal(0, 1, (batch, 32, 2)).astype(np.float32),
+            "future": rng.normal(0, 1, (batch, 30, 2)).astype(np.float32),
         }
     if cfg.family in ("dense", "ssm"):
         return {

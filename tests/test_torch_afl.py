@@ -111,7 +111,8 @@ def test_one_round_matches_reference(setup, policy):
         torch.as_tensor(zeta), torch.as_tensor(tau), torch.as_tensor(h2),
         torch.as_tensor(budgets), model=tmodel, fl=tfl,
         policy=TBL.ALL[policy](tmodel.num_params(), tfl))
-    assert K.LAUNCHES == {"sparsify_ef": 0, "sparsify_quantize_ef": 0}
+    assert K.LAUNCHES == {"sparsify_ef": 0, "sparsify_quantize_ef": 0,
+                          "sparsify_quantize_ef_segmented": 0}
 
     np.testing.assert_array_equal(tm["success"].numpy(), np.asarray(m["success"]))
     np.testing.assert_array_equal(tnew.kappa.numpy(), np.asarray(new.kappa))

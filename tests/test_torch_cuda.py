@@ -43,7 +43,8 @@ def test_cuda_kernels_match_plain(cuda, shape, dtype):
     torch.cuda.synchronize()
     assert torch.equal(a[0], b[0]) and torch.equal(a[2], b[2])
     assert (a[1].float() - b[1].float()).abs().max().item() <= 1e-6
-    assert K.LAUNCHES == {"sparsify_ef": 1, "sparsify_quantize_ef": 1}
+    assert K.LAUNCHES == {"sparsify_ef": 1, "sparsify_quantize_ef": 1,
+                          "sparsify_quantize_ef_segmented": 0}
 
 
 @pytest.mark.cuda
@@ -91,6 +92,117 @@ def test_cuda_round_matches_cpu_round(cuda, policy, kernel):
     assert cl[kernel] == 0 and gl[kernel] == 1
     assert torch.equal(cm["success"], gm["success"].cpu())
     assert torch.equal(cn.kappa, gn.kappa.cpu())
+    assert (cm["k"] - gm["k"].cpu()).abs().max().item() <= 2
+    assert torch.allclose(cn.w_n, gn.w_n.cpu(), rtol=1e-4, atol=1e-4)
+
+
+def _leaf_offsets(arch_or_sizes):
+    if isinstance(arch_or_sizes, str):
+        from repro_torch.configs import get_config
+        from repro_torch.models.registry import build_model
+
+        layout = build_model(get_config(arch_or_sizes)).layout
+        return layout.offsets + (layout.size,)
+    return tuple([0] + [int(v) for v in
+                        torch.tensor(arch_or_sizes).cumsum(0).tolist()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaves", [(7, 1, 0, 33, 130, 5, 64),
+                                    (4099, 3, 70001, 1, 12, 8191),
+                                    "lanegcn-argoverse"],
+                         ids=["tiny", "ragged", "lanegcn"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segmented_kernel_matches_plain(cuda, leaves, dtype):
+    """The segmented sparsify_quantize_ef against its plain version, bit
+    for bit: leaf starts off the 16-byte boundary, leaves shorter than a
+    vector, an empty leaf, rows whose start is unaligned, thresholds that
+    keep all or nothing; and against the unsegmented kernel called leaf by
+    leaf with base = the leaf's offset."""
+    offsets = _leaf_offsets(leaves)
+    rows, n, nl = 5, offsets[-1], len(offsets) - 1
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(rows, n, generator=g, device=cuda).to(dtype)
+    t = torch.rand(rows, nl, generator=g, device=cuda) * 1.5
+    t[0, 0], t[1, -1] = 0.0, math.inf
+    steps = torch.rand(rows, nl, generator=g, device=cuda) * 0.05 + 0.005
+    levels = torch.tensor([1.0, 7.0, 127.0, 32767.0], device=cuda)[
+        torch.randint(0, 4, (rows, nl), generator=g, device=cuda)]
+    seeds = torch.arange(rows, dtype=torch.int32, device=cuda) * 7919 + 11
+    K.reset_launches()
+    got = K.sparsify_quantize_ef_segmented_cuda(x, t, steps, levels, seeds,
+                                                offsets)
+    want = ref.sparsify_quantize_ef_segmented_plain(x, t, steps, levels,
+                                                    seeds, offsets)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["sparsify_quantize_ef_segmented"] == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert got[2].shape == (rows, nl)
+    for i, (a, b) in enumerate(zip(offsets, offsets[1:])):
+        if b == a:
+            continue
+        u, e, c = K.sparsify_quantize_ef_cuda(
+            x[:, a:b].contiguous(), t[:, i].contiguous(),
+            steps[:, i].contiguous(), levels[:, i].contiguous(), seeds, a)
+        assert torch.equal(got[0][:, a:b], u) and torch.equal(got[1][:, a:b], e)
+        assert torch.equal(got[2][:, i], c)
+
+
+@pytest.mark.cuda
+def test_segmented_kernel_refuses_bad_tables(cuda):
+    x = torch.randn(2, 100, device=cuda)
+    tab = torch.zeros(2, 2, device=cuda)
+    seeds = torch.zeros(2, dtype=torch.int32, device=cuda)
+    K.reset_launches()
+    with pytest.raises(ValueError, match="offsets"):
+        K.sparsify_quantize_ef_segmented_cuda(x, tab, tab, tab, seeds, (0, 60, 99))
+    with pytest.raises(ValueError, match="offsets"):
+        K.sparsify_quantize_ef_segmented_cuda(x, tab, tab, tab, seeds, (0, 70, 60, 100))
+    with pytest.raises(ValueError, match="levels"):
+        K.sparsify_quantize_ef_segmented_cuda(x, tab, tab, tab[:, :1], seeds,
+                                              (0, 60, 100))
+    assert K.LAUNCHES["sparsify_quantize_ef_segmented"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,per_layer,kernel", [
+    ("mads", False, "sparsify_ef"),
+    ("qsgd", False, "sparsify_quantize_ef"),
+    ("mads-joint", True, "sparsify_quantize_ef_segmented")])
+def test_cuda_lanegcn_round_matches_cpu_round(cuda, policy, per_layer, kernel):
+    """One AFL round of LaneGCN at d_model 32 on the card (one launch of
+    the policy's kernel) and on the CPU (plain versions) from the same
+    weights, batch and schedule: equal successes; k within 2."""
+    from repro_torch.configs import FLConfig, get_config
+    from repro_torch.core import baselines as BL
+    from repro_torch.core.afl import afl_init, afl_round
+    from repro_torch.models.registry import build_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_model(get_config("lanegcn-argoverse").replace(d_model=32,
+                                                                d_ff=64))
+    fl = FLConfig(num_devices=4, rounds=5, batch_size=8,
+                  per_layer_budget=per_layer)
+    g = torch.Generator().manual_seed(3)
+    batch = {"past": torch.randn(4, 8, 20, 2, generator=g),
+             "lanes": torch.randn(4, 8, 32, 2, generator=g),
+             "future": torch.randn(4, 8, 30, 2, generator=g)}
+    # a weak channel, so that the short contacts ship partial uploads
+    sched = (torch.tensor([1, 1, 0, 1]), torch.tensor([8.0, 0.2, 0.0, 0.05]),
+             torch.full((4,), 1e-13), torch.full((4,), 100.0))
+    out = {}
+    for dev in ("cpu", cuda):
+        state = afl_init(model, fl, 0, dev)
+        K.reset_launches()
+        new, m = afl_round(state, {k: v.to(dev) for k, v in batch.items()},
+                           *(t.to(dev) for t in sched), model=model, fl=fl,
+                           policy=BL.ALL[policy](model.num_params(), fl))
+        out[str(dev)] = (new, m, dict(K.LAUNCHES))
+    (cn, cm, cl), (gn, gm, gl) = out["cpu"], out[str(cuda)]
+    assert float(cm["b"][3]) < 16 or float(cm["k"][3]) < model.num_params()
+    assert sum(cl.values()) == 0 and gl[kernel] == 1 and sum(gl.values()) == 1
+    assert torch.equal(cm["success"], gm["success"].cpu())
     assert (cm["k"] - gm["k"].cpu()).abs().max().item() <= 2
     assert torch.allclose(cn.w_n, gn.w_n.cpu(), rtol=1e-4, atol=1e-4)
 

@@ -165,6 +165,14 @@ def test_cpu_tensor_takes_plain_path_and_counts_nothing():
     ops.sparsify_ef(x, torch.zeros(2))
     ops.sparsify_quantize_ef(x, torch.zeros(2), torch.ones(2), torch.ones(2),
                              torch.zeros(2, dtype=torch.int32))
-    assert K.LAUNCHES == {"sparsify_ef": 0, "sparsify_quantize_ef": 0}
+    ops.sparsify_quantize_ef_segmented(
+        x, torch.zeros(2, 3), torch.ones(2, 3), torch.ones(2, 3),
+        torch.zeros(2, dtype=torch.int32), (0, 10, 11, 64))
+    assert K.LAUNCHES == {"sparsify_ef": 0, "sparsify_quantize_ef": 0,
+                          "sparsify_quantize_ef_segmented": 0}
     with pytest.raises(ValueError, match="CUDA"):
         K.sparsify_ef_cuda(x, torch.zeros(2))
+    with pytest.raises(ValueError, match="CUDA"):
+        K.sparsify_quantize_ef_segmented_cuda(
+            x, torch.zeros(2, 1), torch.ones(2, 1), torch.ones(2, 1),
+            torch.zeros(2, dtype=torch.int32), (0, 64))

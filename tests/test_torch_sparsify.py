@@ -187,8 +187,18 @@ def test_quantised_uploads_within_one_ulp_of_jitted_reference(x):
     np.testing.assert_allclose(pay.numpy(), _flat_n(rp), rtol=2.0**-22, atol=0)
 
 
-def test_joint_per_layer_is_not_ported():
+def test_joint_per_layer_is_not_ported(x):
+    """It is now: ``per_layer=True`` no longer raises but spends the budget
+    through ``perlayer.compress_per_layer`` on x + error (held to the
+    reference in test_torch_codecs.py)."""
+    from repro_torch.compression.perlayer import compress_per_layer
+
     comp = TJ.JointCompressor(s=S, per_layer=True)
-    with pytest.raises(NotImplementedError, match="perlayer"):
-        comp.compress(torch.zeros(1, S), torch.ones(1), torch.zeros(1, S),
-                      torch.zeros(1, dtype=torch.int32), LAYOUT)
+    g, e = torch.tensor(0.1 * x), torch.full((N, S), 0.01)
+    budget, seeds = torch.tensor([30.0, 4e4, 3e6]), torch.arange(N, dtype=torch.int32)
+    got = comp.compress(g, budget, e, seeds, LAYOUT)
+    want = compress_per_layer(comp, g + e, LAYOUT, budget, seeds)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for key in ("k", "bits", "b", "step"):
+        assert torch.equal(got[2][key], want[2][key])
+    assert float(got[2]["k"][0]) == 0.0 and float(got[2]["k"][2]) > 0.0
