@@ -65,13 +65,34 @@ Phases, each of which raises on failure (a failed phase exits non-zero):
 9. serve reference: reduced Llama and Mamba2 in float32 on the card and on
    the CPU from one seed, prompt 64 (a multiple of the reduced SSD chunk,
    32): the same greedy tokens, prefill logits within 1e-3;
-10. profile: a ``torch.profiler`` pass over ``decode_attn`` and
+10. scenarios, numpy: ``ScenarioProvider.from_config`` on the host for
+   every trace model (rwp, gauss_markov, manhattan, hotspot, static) at
+   N = 20, 60 rounds, area 500: contact rate, mean tau, host ms;
+11. training under trace mobility: ``repro_torch.launch.train`` at full
+   width, N = 20, batch 32, 8 rounds each, for ResNet-9 ``mads``
+   (manhattan, 15 m/s, area 500), ResNet-9 ``mads-joint`` (rwp, area 500)
+   and LaneGCN ``mads`` (gauss_markov on the device-resident backend with
+   dropout 0.2, availability 0.8, compute mean 1 s, area 500): one sparsify
+   launch a round, uploads > 0, a finite eval, steady rounds/s; ResNet-9
+   ``mads`` under the Manhattan schedule at width 4 on CUDA and on the CPU
+   (equal schedules and uploads, eval within 0.02); MADS's realised k on
+   LaneGCN at 2 and 30 m/s (manhattan; printed, not asserted);
+12. device-resident scenario engine: ``torch_schedule_from_model`` for the
+   four models at N = 1e5, 20 rounds x 10 s (CUDA events around the whole
+   build, median of 5; peak memory) beside the numpy backend's host time;
+   Gauss-Markov at N = 1e6, 4 rounds x 5 s; the card's extraction equal to
+   the numpy oracle on one card-built mask at N = 1e5; the card backend's
+   contact rate and mean tau within 20 % of the numpy backend's at N = 512;
+   ``gate_windows`` on the card equal to the reference on shared draws and
+   ``torch_apply``'s P(available) within 0.02 of its stationary value;
+13. profile: a ``torch.profiler`` pass over ``decode_attn`` and
    ``ssd_scan`` at their timed shapes, device time by kernel (the five
    launches of ``ssd_scan``), and over a few full-width training rounds
    of LaneGCN and ResNet-9 (``mads``): device-busy seconds per round
-   against the host's wall clock, and the kernels that take the most;
-   last, so that the profiler's tracing cannot weigh on the host-bound
-   decodes and rounds timed before it.
+   against the host's wall clock, and the kernels that take the most; and
+   over one N = 1e5 schedule build per model (device-busy ms against
+   phase 12's time); last, so that the profiler's tracing cannot weigh on
+   the host-bound decodes, rounds and builds timed before it.
 
 The last three lines are the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -394,22 +415,23 @@ def train_per_layer(arch: str, rounds: int):
 
 
 def main_path(K, policy: str, arch: str = RESNET9, per_layer: bool = False,
-              rounds: int = ROUNDS):
-    """Phases 4-5 for one (model, policy): the counts are set to 0 just
-    before the run and read just after it.  Returns (launches, steady
-    rounds/s, result)."""
+              rounds: int = ROUNDS, scenario=("--intercontact", "20")):
+    """Phases 4-5 and 11 for one (model, policy, scenario): the counts are
+    set to 0 just before the run and read just after it.  ``scenario``:
+    the training CLI's scenario flags (by default the exponential model
+    with 20 s mean inter-contact).  Returns (launches, steady rounds/s,
+    result)."""
     K.reset_launches()
     if per_layer:
         res = train_per_layer(arch, rounds)
     else:
         res = train(["--arch", arch, "--policy", policy, "--rounds",
                      str(rounds), "--devices", str(N_DEV), "--batch-size",
-                     "32", "--train-n", "2000", "--intercontact", "20",
-                     "--eval-every", str(rounds), "--device", "cuda",
-                     "--seed", "0"])
+                     "32", "--train-n", "2000", "--eval-every", str(rounds),
+                     "--device", "cuda", "--seed", "0", *scenario])
     launches = dict(K.LAUNCHES)
     hist = res.history
-    name = f"{arch} {policy}{' per-layer' if per_layer else ''}"
+    name = f"{arch} {policy}{' per-layer' if per_layer else ''} {' '.join(scenario)}"
     if not hist["uploads"][-1] > 0:
         fail(f"{name}: no uploads in {rounds} rounds")
     if not all(math.isfinite(v) for v in hist["eval"]):
@@ -450,6 +472,265 @@ def check_against_cpu():
             fail(f"{label}: cuda and cpu eval differ: {a['eval']} vs {b['eval']}")
         print(f"cuda run matches cpu run ({label}): eval {a['eval']} vs "
               f"{b['eval']}, uploads {a['uploads']}", flush=True)
+
+
+TRACE_MODELS = ("rwp", "gauss_markov", "manhattan", "hotspot", "static")
+DEVICE_MODELS = ("rwp", "gauss_markov", "manhattan", "hotspot")
+# phase 11: full-width training under trace mobility (MES at the centre of
+# the area, 100 m range: ~13 % of devices in range at any moment)
+TRACE_RUNS = (
+    (RESNET9, "mads", ("--mobility", "manhattan", "--speed", "15", "--area",
+                       "500")),
+    (RESNET9, "mads-joint", ("--mobility", "rwp", "--area", "500")),
+    (LANEGCN, "mads", ("--mobility", "gauss_markov", "--scenario-backend",
+                       "jax", "--dropout", "0.2", "--availability", "0.8",
+                       "--compute-mean", "1", "--area", "500")),
+)
+TRACE_ROUNDS = 8
+N_TIMED = 100_000  # phase 12's timed federation
+N_MILLION = 1_000_000
+
+
+def _schedule_stats(zeta, tau) -> tuple:
+    """(contact rate, mean tau over contacts) of a numpy or card schedule."""
+    z = torch.as_tensor(zeta).double()
+    t = torch.as_tensor(tau).double()
+    return z.mean().item(), (t.sum() / z.sum().clamp(min=1)).item()
+
+
+def _check_schedule(label: str, zeta, tau, h2, shape) -> None:
+    zeta, tau, h2 = (torch.as_tensor(x) for x in (zeta, tau, h2))
+    if tuple(zeta.shape) != shape or tuple(h2.shape) != shape:
+        fail(f"{label}: schedule shapes {tuple(zeta.shape)}, {tuple(h2.shape)}")
+    if not torch.equal(tau > 0, zeta == 1):
+        fail(f"{label}: tau > 0 where zeta != 1 or the other way round")
+    if not (torch.isfinite(h2).all() and (h2 > 0).all()):
+        fail(f"{label}: channel gains not finite and positive")
+
+
+def scenarios_numpy(smi: str) -> dict:
+    """Phase 10: the numpy scenario engine (host) for every trace model at
+    N = 20, 60 rounds, area 500: contact rate and mean tau per model."""
+    from repro_torch.configs import FLConfig
+    from repro_torch.scenarios import ScenarioProvider
+
+    out = {}
+    for name in TRACE_MODELS:
+        fl = FLConfig(num_devices=N_DEV, rounds=60, mobility_model=name,
+                      area=500.0, seed=0)
+        t0 = time.perf_counter()
+        zeta, tau, h2 = ScenarioProvider.from_config(fl, device="cuda").schedule()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        if not isinstance(zeta, np.ndarray):
+            fail(f"numpy backend {name}: schedule is not a host array")
+        _check_schedule(f"numpy {name}", zeta, tau, h2, (60, N_DEV))
+        rate, mean_tau = _schedule_stats(zeta, tau)
+        if name != "static" and rate == 0:
+            fail(f"numpy {name}: no contacts in 60 rounds")
+        out[name] = dict(contact_rate=rate, mean_tau_s=mean_tau,
+                         host_ms=host_ms)
+    print(f"scenarios (numpy backend, host, N={N_DEV}, 60 rounds, area 500): "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
+def trace_training(K, smi: str) -> dict:
+    """Phase 11: full-width training under trace mobility, through the
+    training CLI (``main_path``: counts reset just before each run and read
+    just after; one sparsify launch a round, uploads > 0, a finite eval),
+    the numpy-backend run held against the CPU at width 4, and MADS's
+    realised k at low and high speed."""
+    out = {}
+    for arch, policy, scenario in TRACE_RUNS:
+        launches, rps, res = main_path(K, policy, arch, rounds=TRACE_ROUNDS,
+                                       scenario=scenario)
+        kernel = {"mads": "sparsify_ef", "mads-joint": "sparsify_quantize_ef"}[
+            policy]
+        if launches[kernel] != TRACE_ROUNDS:
+            fail(f"{arch} {policy} {scenario}: {kernel} not launched once a "
+                 f"round: {launches}")
+        out[f"{arch} {policy} {scenario[1]}"] = dict(
+            launches=launches, rps=rps, eval=res.history["eval"][-1],
+            uploads=res.history["uploads"][-1], k_mean=res.history["k_mean"][-1])
+        del res
+        torch.cuda.empty_cache()
+    print(f"rounds/s under trace mobility (steady, full width, N={N_DEV}, batch "
+          f"32, {TRACE_ROUNDS} rounds) on {smi}: " + "; ".join(
+              f"{k} {v['rps']} (eval {v['eval']}, uploads {v['uploads']:.0f})"
+              for k, v in out.items()), flush=True)
+    trace_against_cpu()
+    speed_k = {}
+    for speed in ("2", "30"):
+        res = train(["--arch", LANEGCN, "--policy", "mads", "--rounds",
+                     str(TRACE_ROUNDS), "--devices", str(N_DEV), "--batch-size",
+                     "32", "--train-n", "2000", "--eval-every",
+                     str(TRACE_ROUNDS), "--device", "cuda", "--seed", "0",
+                     "--mobility", "manhattan", "--speed", speed, "--area",
+                     "500"])
+        speed_k[speed] = dict(k_mean=res.history["k_mean"][-1],
+                              uploads=res.history["uploads"][-1],
+                              ade=res.history["eval"][-1])
+    print(f"MADS realised k (LaneGCN full width, manhattan, area 500, "
+          f"{TRACE_ROUNDS} rounds; not asserted): speed 2 m/s {speed_k['2']}, "
+          f"speed 30 m/s {speed_k['30']}", flush=True)
+    return out
+
+
+def trace_against_cpu() -> None:
+    """Phase 11's CPU check: ResNet-9 ``mads`` at width 4 under the
+    Manhattan schedule (numpy backend) on CUDA and on the CPU from one
+    seed: equal schedules, equal uploads, eval within 0.02."""
+    from repro_torch.configs import FLConfig
+    from repro_torch.core.runner import build_provider
+
+    args = ["--policy", "mads", "--width", "4", "--devices", "12", "--rounds",
+            "6", "--eval-every", "3", "--batch-size", "8", "--train-n", "160",
+            "--mobility", "manhattan", "--speed", "15", "--area", "400"]
+    fl = FLConfig(num_devices=12, rounds=6, mobility_model="manhattan",
+                  speed=15.0, area=400.0)
+    sched = {d: build_provider(fl, "mads", None, 6, 0, d).schedule()
+             for d in ("cuda", "cpu")}
+    for name, a, b in zip(("zeta", "tau", "h2"), sched["cuda"], sched["cpu"]):
+        if not np.array_equal(a, b):
+            fail(f"manhattan schedule {name} differs between the cuda and "
+                 "cpu runs")
+    hists = {d: train(args + ["--device", d]).history for d in ("cuda", "cpu")}
+    a, b = hists["cuda"], hists["cpu"]
+    if a["uploads"] != b["uploads"] or not a["uploads"][-1] > 0:
+        fail(f"manhattan width 4: uploads differ or none: {a} vs {b}")
+    if any(abs(x - y) > 0.02 for x, y in zip(a["eval"], b["eval"])):
+        fail(f"manhattan width 4: cuda and cpu eval differ: {a['eval']} vs "
+             f"{b['eval']}")
+    print(f"cuda run matches cpu run (resnet9 width 4, manhattan, numpy "
+          f"backend): equal schedules, eval {a['eval']} vs {b['eval']}, "
+          f"uploads {a['uploads']}", flush=True)
+
+
+def device_engine(smi: str) -> dict:
+    """Phase 12: the device-resident scenario engine on the card."""
+    from repro_torch.configs import FLConfig
+    from repro_torch.mobility import intervals_to_rounds
+    from repro_torch.scenarios import (TORCH_MODELS, ScenarioProvider,
+                                       contact_intervals, gate_windows,
+                                       rounds_from_in_range,
+                                       torch_schedule_from_model)
+    from repro_torch.scenarios.heterogeneity import (HeterogeneityModel,
+                                                     reference_apply,
+                                                     torch_apply, torch_draws)
+
+    out = {}
+    # timing at N = 1e5: 20 rounds x 10 s at dt 1 (200 steps), the whole
+    # build between two CUDA events; peak memory of one build
+    for name in DEVICE_MODELS:
+        model = TORCH_MODELS[name](num_devices=N_TIMED, area=2000.0, seed=0,
+                                   device="cuda")
+        build = lambda: torch_schedule_from_model(model, 20, 10.0)  # noqa: E731
+        ms = per_call_ms(build, runs=5)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        zeta, tau, h2 = build()
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        _check_schedule(f"device {name}", zeta, tau, h2, (20, N_TIMED))
+        rate, mean_tau = _schedule_stats(zeta, tau)
+        out[name] = dict(ms=ms, host_ms=host_ms, peak_mib=peak,
+                         contact_rate=rate, mean_tau_s=mean_tau)
+        fl = FLConfig(num_devices=N_TIMED, rounds=20, mobility_model=name,
+                      area=2000.0, seed=0)
+        t0 = time.perf_counter()
+        ScenarioProvider.from_config(fl).schedule()
+        out[name]["numpy_host_ms"] = 1e3 * (time.perf_counter() - t0)
+        print(f"device engine {name} (N={N_TIMED}, 20 rounds x 10 s, dt 1, "
+              f"area 2000): {ms:.3f} ms between CUDA events (median of 5; host "
+              f"{host_ms:.3f} ms), peak {peak:.1f} MiB; the numpy backend "
+              f"{out[name]['numpy_host_ms']:.1f} ms on the host; on {smi}",
+              flush=True)
+
+    # the million-device point, short horizon
+    torch.cuda.reset_peak_memory_stats()
+    model = TORCH_MODELS["gauss_markov"](num_devices=N_MILLION, area=5000.0,
+                                         seed=1, device="cuda")
+    ms = per_call_ms(lambda: torch_schedule_from_model(model, 4, 5.0), runs=3)
+    zeta, tau, h2 = torch_schedule_from_model(model, 4, 5.0)
+    _check_schedule("device 1e6", zeta, tau, h2, (4, N_MILLION))
+    rate = zeta.double().mean().item()
+    if not 0 < rate < 1:
+        fail(f"million-device schedule: contact rate {rate}")
+    out["million"] = dict(ms=ms, contact_rate=rate,
+                          peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+    print(f"device engine gauss_markov N={N_MILLION} (4 rounds x 5 s): "
+          f"{json.dumps(out['million'])} on {smi}", flush=True)
+    del zeta, tau, h2
+
+    # exact extraction on one card-built mask at N = 1e5, Gauss-Markov
+    model = TORCH_MODELS["gauss_markov"](num_devices=N_TIMED, area=2000.0,
+                                         seed=0, device="cuda")
+    mask = model.trace(200.0, 1.0).in_range(100.0)
+    host = mask.cpu().numpy()
+    z_o, t_o = intervals_to_rounds(*contact_intervals(host, 1.0), N_TIMED, 20,
+                                   10.0)
+    z, t = rounds_from_in_range(mask, 1.0, 20, 10.0)
+    zs, ts, _ = torch_schedule_from_model(model, 20, 10.0)
+    for label, a, b in (("rounds_from_in_range zeta", z, z_o),
+                        ("rounds_from_in_range tau", t, t_o),
+                        ("schedule zeta", zs, z_o), ("schedule tau", ts, t_o)):
+        if not np.array_equal(a.cpu().numpy(), b):
+            fail(f"card extraction differs from the numpy oracle: {label}")
+    print(f"device extraction at N={N_TIMED} equals the numpy oracle on the "
+          f"shared mask ({int(z_o.sum())} contact cells)", flush=True)
+
+    # statistical agreement with the numpy backend at N = 512, 60 rounds
+    base = dict(num_devices=512, rounds=60, mobility_model="gauss_markov",
+                speed=10.0, area=800.0, seed=4)
+    np_stats = _schedule_stats(*ScenarioProvider.from_config(
+        FLConfig(**base)).schedule()[:2])
+    dev_stats = _schedule_stats(*ScenarioProvider.from_config(
+        FLConfig(scenario_backend="jax", **base), device="cuda").schedule()[:2])
+    for label, a, b in zip(("contact rate", "mean tau"), dev_stats, np_stats):
+        if abs(a - b) > 0.2 * b:
+            fail(f"N=512 {label}: card {a} vs numpy {b} (beyond 20 %)")
+    out["n512"] = dict(card=dev_stats, numpy=np_stats)
+    print(f"N=512 differential (gauss_markov, 60 rounds): card (rate, tau) "
+          f"{dev_stats}, numpy {np_stats}", flush=True)
+
+    # heterogeneity: gate_windows on the card on shared numpy draws, and
+    # torch_apply's stationary availability at N = 1e5
+    het = HeterogeneityModel(num_devices=N_TIMED, availability=0.8,
+                             avail_persist=0.3, compute_mean=2.0, dropout=0.2,
+                             seed=2)
+    draws = het.draws(20)
+    zeta, tau = zs, ts
+    got = gate_windows(zeta, tau, *(torch.as_tensor(d, device="cuda")
+                                    for d in draws))
+    sl = slice(0, 10_000)  # the Python loop reference on a slice
+    want = reference_apply(z_o[:, sl], t_o[:, sl], *(d[:, sl] for d in draws))
+    full = gate_windows(z_o, t_o, *draws)
+    for (label, a), b, c in zip((("zeta", got[0]), ("tau", got[1]),
+                                 ("unavail", got[2]["unavail"]),
+                                 ("dropout", got[2]["dropout"])),
+                                (want[0], want[1], want[2]["unavail"],
+                                 want[2]["dropout"]),
+                                (full[0], full[1], full[2]["unavail"],
+                                 full[2]["dropout"])):
+        a = a.cpu().numpy()
+        if not (np.array_equal(a[:, sl], b) and np.array_equal(a, c)):
+            fail(f"gate_windows on the card differs from the reference on "
+                 f"shared draws: {label}")
+    ms = per_call_ms(lambda: torch_apply(het, zeta, tau), runs=5)
+    z_h, _, aux = torch_apply(het, zeta, tau)
+    p_avail = torch_draws(het, 20, "cuda")[0].double().mean().item()
+    if abs(p_avail - het.availability) > 0.02:
+        fail(f"torch_apply: P(available) {p_avail}, not within 0.02 of "
+             f"{het.availability}")
+    out["het"] = dict(ms=ms, p_available=p_avail,
+                      kept=z_h.sum().item() / max(zeta.sum().item(), 1),
+                      unavail=aux["unavail"].sum().item(),
+                      dropout=aux["dropout"].sum().item())
+    print(f"heterogeneity on the card: gate_windows equals the reference on "
+          f"shared draws; torch_apply at N={N_TIMED}, 20 rounds "
+          f"{json.dumps(out['het'])} on {smi}", flush=True)
+    return out
 
 
 def bound(nbytes: float, ops: float, dtype) -> dict:
@@ -667,7 +948,7 @@ def profile_kernels(DA, SSD) -> None:
 
 
 def profile_rounds(arch: str, policy: str = "mads", rounds: int = 6) -> dict:
-    """Phase 10 for training: a full-width run of ``rounds`` rounds (one
+    """Phase 13 for training: a full-width run of ``rounds`` rounds (one
     eval, at the end) under ``torch.profiler``; the device-busy time per
     round (every kernel of the run, model set-up and the eval included,
     divided by the rounds) against the steady rounds' wall clock, and the
@@ -697,6 +978,28 @@ def profile_rounds(arch: str, policy: str = "mads", rounds: int = 6) -> dict:
     print(f"profile {arch} {policy} (profiled, full width): {json.dumps(out)}",
           flush=True)
     return out
+
+
+def profile_schedules(engine: dict) -> None:
+    """Phase 13 for the device-resident scenario engine: device-busy ms of
+    one N = 1e5 schedule build per model (every kernel of the build, by
+    ``device_times``) against phase 12's ms between CUDA events, and the
+    kernels that take the most."""
+    from repro_torch.scenarios import TORCH_MODELS, torch_schedule_from_model
+
+    for name in DEVICE_MODELS:
+        model = TORCH_MODELS[name](num_devices=N_TIMED, area=2000.0, seed=0,
+                                   device="cuda")
+        by_kernel = device_times(
+            lambda: torch_schedule_from_model(model, 20, 10.0), runs=3)
+        busy = sum(by_kernel.values())
+        top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:4])
+        out = dict(model=name, device_busy_ms=busy,
+                   event_ms=engine[name]["ms"],
+                   busy_share=busy / engine[name]["ms"], kernels=len(by_kernel),
+                   top_device_ms=top)
+        print(f"profile device engine (N={N_TIMED}, 20 rounds x 10 s): "
+              f"{json.dumps(out)}", flush=True)
 
 
 def serve_full(mods, arch: str, batch: int, prompt: int):
@@ -855,11 +1158,20 @@ def main() -> None:
 
     # 9. serve against the CPU path at reduced size
     serve_against_cpu()
+    torch.cuda.empty_cache()
 
-    # 10. device time by kernel, last (the profiler slows later launches)
+    # 10-12. the scenario engine: numpy on the host, full-width training
+    # under trace mobility, the device-resident engine on the card
+    scenarios_numpy(smi)
+    trace = trace_training(K, smi)
+    engine = device_engine(smi)
+    torch.cuda.empty_cache()
+
+    # 13. device time by kernel, last (the profiler slows later launches)
     profile_kernels(DA, SSD)
     for arch in (LANEGCN, RESNET9):
         profile_rounds(arch)
+    profile_schedules(engine)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
@@ -869,6 +1181,10 @@ def main() -> None:
              replaces="src/repro/kernels/sparsify_ef.py:60",
              launches=launches_mads["sparsify_ef"], library_ms=None,
              launches_lanegcn_mads=lanegcn["mads"]["launches"]["sparsify_ef"],
+             launches_resnet9_mads_manhattan=trace[f"{RESNET9} mads manhattan"][
+                 "launches"]["sparsify_ef"],
+             launches_lanegcn_mads_gauss_markov_device_het=trace[
+                 f"{LANEGCN} mads gauss_markov"]["launches"]["sparsify_ef"],
              **timing["sparsify_ef"]),
         dict(name="sparsify_quantize_ef", route="cuda",
              source=src + "sparsify_ef.cu",
@@ -876,6 +1192,8 @@ def main() -> None:
              launches=launches_joint["sparsify_quantize_ef"], library_ms=None,
              launches_lanegcn_qsgd=lanegcn["qsgd"]["launches"][
                  "sparsify_quantize_ef"],
+             launches_resnet9_mads_joint_rwp=trace[f"{RESNET9} mads-joint rwp"][
+                 "launches"]["sparsify_quantize_ef"],
              **timing["sparsify_quantize_ef"]),
         # the per-layer codec's route to the same TPU kernel: launches and
         # times at ResNet-9's (20, 6,573,130), *_lanegcn at (20, 247,100)

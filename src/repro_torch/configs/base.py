@@ -97,7 +97,7 @@ class FLConfig:
     speed: float = 0.0  # if >0: c=C/v, lambda=Lambda/v
     contact_const: float = 40.0  # C
     intercontact_const: float = 4000.0  # Lambda
-    # scenario engine (repro/scenarios): trace-based mobility + channels
+    # scenario engine (scenarios/): trace-based mobility + channels
     mobility_model: str = "exponential"  # exponential|rwp|gauss_markov|manhattan|hotspot|static
     area: float = 1000.0  # m, square side
     comm_range: float = 100.0  # m, device-MES contact range
@@ -108,11 +108,13 @@ class FLConfig:
     num_hotspots: int = 4
     hotspot_radius: float = 150.0  # m, RMS excursion around a hotspot
     shadow_corr_dist: float = 25.0  # m, Gudmundson shadowing decorrelation
-    # scenario backend: "numpy" keeps the oracle kinematics; "jax" builds
-    # the whole schedule device-resident (repro/scenarios/jax_kinematics).
-    # Host-side knob — the compiled round consumes the same arrays either way
+    # scenario backend: "numpy" keeps the oracle kinematics on the host;
+    # "jax" (the reference's name, kept so that a configuration means the
+    # same in both packages) builds the whole schedule device-resident,
+    # here with the torch engine (scenarios/torch_kinematics.py) on the
+    # run's device.  The round consumes the same (zeta, tau, h2) either way
     scenario_backend: str = "numpy"
-    # per-client system heterogeneity (repro/scenarios/heterogeneity):
+    # per-client system heterogeneity (scenarios/heterogeneity.py):
     # contact windows are gated by a Markov availability chain, an Exp
     # compute-latency draw, and an i.i.d. dropout coin.  Defaults disable
     # the layer entirely (no schedule rewrite, no aux masks)

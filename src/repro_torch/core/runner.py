@@ -67,12 +67,19 @@ def evaluate(model, cfg, w_flat, eval_batch) -> float:
                                               eval_batch))
 
 
+def _host(x):
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+
 def build_provider(fl, policy_name: str, schedule, rounds: int,
-                   seed: int) -> ScenarioProvider:
+                   seed: int, device="cuda") -> ScenarioProvider:
     """Resolve ``schedule`` (None, a ScenarioProvider, or (zeta, tau)[+h2]
-    arrays) into a ScenarioProvider; applies FedMobile's relay rewrite."""
+    arrays) into a ScenarioProvider; applies FedMobile's relay rewrite.
+
+    ``device`` is where a device-resident scenario build runs
+    (``fl.scenario_backend="jax"``)."""
     if schedule is None:
-        provider = ScenarioProvider.from_config(fl, rounds, seed)
+        provider = ScenarioProvider.from_config(fl, rounds, seed, device)
     elif isinstance(schedule, ScenarioProvider):
         provider = schedule
     else:  # (zeta, tau) [+ h2] arrays; without h2: i.i.d. gains
@@ -82,7 +89,9 @@ def build_provider(fl, policy_name: str, schedule, rounds: int,
         )
         provider = ScenarioProvider.from_arrays(*schedule, channel=chan)
     if policy_name == "fedmobile":
-        zeta, tau, h2 = provider.schedule()
+        # the relay rewrite is host code: a device-resident schedule is
+        # brought to the host first
+        zeta, tau, h2 = map(_host, provider.schedule())
         zeta, tau = BL.apply_relays(zeta, tau, seed=seed)
         provider = ScenarioProvider.from_arrays(zeta, tau, h2=h2)
     return provider
@@ -133,7 +142,7 @@ def run_afl(
 
     s = model.num_params()
     policy = BL.ALL[policy_name](s, fl)
-    provider = build_provider(fl, policy_name, schedule, rounds, seed)
+    provider = build_provider(fl, policy_name, schedule, rounds, seed, device)
     budgets = torch.as_tensor(sample_budgets(fl, seed), device=device)
 
     state = afl_init(model, fl, seed, device, params=params)

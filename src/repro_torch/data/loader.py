@@ -19,6 +19,11 @@ class DeviceLoader:
     """Per-device mini-batch sampler (device n draws B_n^(r) from D_n)."""
 
     def __init__(self, device_arrays: list[dict], batch_size: int, seed: int = 0):
+        for i, arrs in enumerate(device_arrays):
+            n = len(next(iter(arrs.values())))
+            if n < batch_size:  # batch_iterator would never yield
+                raise ValueError(f"device {i} holds {n} samples, fewer than "
+                                 f"the batch size {batch_size}")
         self._iters = [
             batch_iterator(arrs, batch_size, seed + 7 * i)
             for i, arrs in enumerate(device_arrays)

@@ -3,14 +3,23 @@
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch resnet9-cifar10 \
       --policy mads --rounds 200 --devices 20 --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.train --arch resnet9-cifar10 \
+      --policy mads --mobility manhattan --speed 15 --area 500
 
 Runs on the card by default (``--device cuda``, which raises when CUDA is
 absent); ``--device cpu`` runs the same path with the kernels' plain
-versions.  The data are synthetic stand-ins generated from the seed:
-CIFAR-10 for ResNet-9 (``--arch resnet9-cifar10``), Argoverse tracks for
-LaneGCN (``--arch lanegcn-argoverse``, the paper's §VI-C experiment).  A
-checkpoint of the global model and a JSON metrics history land in
-``--workdir``, in the reference's formats.
+versions.  The contact schedule comes from the scenario engine
+(``--mobility``: the paper's exponential renewal model or one of the trace
+models, rwp, gauss_markov, manhattan, hotspot and static, over an
+``--area`` square with an MES of ``--comm-range`` at its centre); the trace
+models build on the host (``--scenario-backend numpy``) or on the run's
+device (``jax``, the reference's name for its device-resident engine, here
+the torch one).  ``--dropout``, ``--availability`` and ``--compute-mean``
+arm the heterogeneity layer.  The data are synthetic stand-ins generated
+from the seed: CIFAR-10 for ResNet-9 (``--arch resnet9-cifar10``),
+Argoverse tracks for LaneGCN (``--arch lanegcn-argoverse``, the paper's
+§VI-C experiment).  A checkpoint of the global model and a JSON metrics
+history land in ``--workdir``, in the reference's formats.
 """
 from __future__ import annotations
 
@@ -69,8 +78,25 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=0.01)
     ap.add_argument("--rho", type=float, default=0.5, help="non-iid Dirichlet level")
     ap.add_argument("--speed", type=float, default=0.0, help="m/s; 0 = direct c/lambda")
-    ap.add_argument("--mobility", default="exponential", choices=["exponential"],
-                    help="scenario mobility model (trace models not ported)")
+    ap.add_argument("--mobility", default="exponential",
+                    choices=["exponential", "rwp", "gauss_markov", "manhattan",
+                             "hotspot", "static"],
+                    help="scenario engine mobility model (scenarios/)")
+    ap.add_argument("--scenario-backend", default="numpy",
+                    choices=["numpy", "jax"],
+                    help="scenario engine: numpy oracle kinematics on the "
+                         "host, or 'jax', the device-resident engine (the "
+                         "reference's name; here torch on --device, "
+                         "scenarios/torch_kinematics.py; trace models only)")
+    ap.add_argument("--dropout", type=float, default=0.0,
+                    help="heterogeneity dropout prob (fl.het_dropout)")
+    ap.add_argument("--availability", type=float, default=1.0,
+                    help="heterogeneity: stationary P(client available)")
+    ap.add_argument("--compute-mean", type=float, default=0.0,
+                    help="heterogeneity: mean Exp compute latency (s) "
+                         "subtracted from each contact window")
+    ap.add_argument("--area", type=float, default=1000.0, help="m, square side")
+    ap.add_argument("--comm-range", type=float, default=100.0)
     ap.add_argument("--contact", type=float, default=4.0)
     ap.add_argument("--intercontact", type=float, default=400.0)
     ap.add_argument("--v-weight", type=float, default=1e-4)
@@ -94,9 +120,12 @@ def main(argv=None):
     fl = FLConfig(
         num_devices=args.devices, rounds=args.rounds, batch_size=args.batch_size,
         learning_rate=args.lr, dirichlet_rho=args.rho, speed=args.speed,
-        mobility_model=args.mobility, mean_contact=args.contact,
-        mean_intercontact=args.intercontact, lyapunov_v=args.v_weight,
-        seed=args.seed,
+        mobility_model=args.mobility, area=args.area, comm_range=args.comm_range,
+        mean_contact=args.contact, mean_intercontact=args.intercontact,
+        lyapunov_v=args.v_weight, seed=args.seed,
+        scenario_backend=args.scenario_backend,
+        het_dropout=args.dropout, het_availability=args.availability,
+        het_compute_mean=args.compute_mean,
         sparsifier="exact" if model.num_params() < 2_000_000 else "sampled",
     )
     log.info("arch=%s params=%d policy=%s rounds=%d devices=%d device=%s",

@@ -150,6 +150,56 @@ def test_run_afl_tracks_reference_eval(setup, policy, monkeypatch):
     np.testing.assert_allclose(port.history["uploads"], ref.history["uploads"])
 
 
+TRACE_SCENARIOS = {
+    "manhattan": dict(mobility_model="manhattan", speed=15.0, area=300.0),
+    "manhattan-het": dict(mobility_model="manhattan", speed=15.0, area=300.0,
+                          het_dropout=0.2, het_availability=0.8,
+                          het_avail_persist=0.3, het_compute_mean=1.0),
+}
+
+
+@pytest.mark.parametrize("scenario", sorted(TRACE_SCENARIOS))
+def test_run_afl_tracks_reference_under_trace_mobility(setup, scenario,
+                                                       monkeypatch):
+    """Five loop-engine rounds of ``mads`` on a Manhattan-grid schedule
+    (numpy backend; gated by the heterogeneity layer in the second case)
+    from the same weights and data: the same uploads, k within 2, the
+    eval within 0.02 of the reference's."""
+    cfg, model, tmodel, fl5, tfl5, state, w_np, _ = setup
+    kw = TRACE_SCENARIOS[scenario]
+    fl = dataclasses.replace(fl5, **kw)
+    tfl = dataclasses.replace(tfl5, **kw)
+    monkeypatch.setattr(runner, "afl_init", JIT_INIT)  # the fixture's weights
+    dev, ev = build_device_data(cfg, fl, train_n=64, eval_n=128, seed=0)
+    ref = run_afl(model, cfg, fl, "mads", DeviceLoader(dev, 4, 0), ev,
+                  rounds=5, eval_every=1, engine="loop")
+    port = t_run_afl(tmodel, tmodel.cfg, tfl, "mads", TDeviceLoader(dev, 4, 0),
+                     ev, rounds=5, eval_every=1, device="cpu",
+                     params=load_params(tmodel, w_np))
+    assert port.history["uploads"][-1] > 0
+    np.testing.assert_allclose(port.history["uploads"], ref.history["uploads"])
+    np.testing.assert_allclose(port.history["k_mean"], ref.history["k_mean"],
+                               atol=2)
+    np.testing.assert_allclose(port.history["eval"], ref.history["eval"],
+                               atol=0.02)
+
+
+def test_fedmobile_runs_on_a_device_backend_schedule(setup):
+    """FedMobile's relay rewrite is host code; a schedule built by the
+    device-resident backend reaches it (here on the CPU; on the card in
+    test_torch_cuda.py)."""
+    _, _, tmodel, _, tfl, _, w_np, batch = setup
+    fl = dataclasses.replace(tfl, mobility_model="gauss_markov", area=300.0,
+                             scenario_backend="jax")
+    loader = TDeviceLoader([{k: v[i] for k, v in batch.items()}
+                            for i in range(N)], 4, 0)
+    res = t_run_afl(tmodel, tmodel.cfg, fl, "fedmobile", loader,
+                    {k: v[0] for k, v in batch.items()}, rounds=1,
+                    device="cpu", params=load_params(tmodel, w_np))
+    assert res.history["round"] == [1]
+    assert np.isfinite(res.final_eval) and torch.isfinite(res.state.w).all()
+
+
 @pytest.mark.parametrize("policy", sorted(TBL.ALL))
 def test_every_policy_runs_a_round(setup, policy):
     """Every ported policy takes a round on the CPU: finite models, 0/1
@@ -211,6 +261,25 @@ def test_train_cli_writes_history_and_reference_checkpoint(tmp_path):
         assert a.shape == b.shape and a.dtype == b.dtype
     for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(port_tree)):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--mobility", "manhattan", "--speed", "15"],
+    ["--mobility", "gauss_markov", "--scenario-backend", "jax", "--dropout",
+     "0.2", "--availability", "0.8", "--compute-mean", "1"],
+], ids=["manhattan", "gauss-markov-device-het"])
+def test_train_cli_trace_mobility(tmp_path, flags):
+    """The trace-mobility flags reach FLConfig as the reference's CLI sets
+    them; contacts occur in a short run at --area 400."""
+    res = t_train.main(flags + [
+        "--device", "cpu", "--width", "4", "--devices", "12", "--rounds", "6",
+        "--eval-every", "3", "--batch-size", "8", "--train-n", "160",
+        "--area", "400", "--comm-range", "100", "--workdir", str(tmp_path)])
+    hist = json.loads((tmp_path / "history.json").read_text())
+    assert hist["args"]["mobility"] == flags[1] and hist["args"]["area"] == 400
+    assert hist["history"]["round"] == [3, 6]
+    assert res.history["uploads"][-1] > 0
+    assert np.isfinite(res.history["eval"]).all()
 
 
 def test_train_cli_defaults_to_cuda(tmp_path, monkeypatch):

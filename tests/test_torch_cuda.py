@@ -415,3 +415,151 @@ def test_reduced_serve_cuda_matches_cpu(cuda, arch):
     kernel = DA if cfg.family == "dense" else SSD
     want = 8 * cfg.num_layers if cfg.family == "dense" else cfg.num_layers
     assert sum(kernel.LAUNCHES.values()) == want
+
+
+# ---------------------------------------------------------------------------
+# The device-resident scenario engine on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["gauss_markov", "rwp", "manhattan", "hotspot"])
+def test_device_engine_matches_numpy_extraction(cuda, model):
+    """A trace built on the card, its in-range mask moved to the host: the
+    card's extraction equals the numpy oracle's cell by cell."""
+    import numpy as np
+
+    from repro_torch.mobility import intervals_to_rounds
+    from repro_torch.scenarios import (TORCH_MODELS, contact_intervals,
+                                       contact_intervals_torch,
+                                       rounds_from_in_range)
+
+    m = TORCH_MODELS[model](num_devices=3000, area=800.0, seed=1,
+                            device=str(cuda))
+    mask = m.trace(400.0, 1.0).in_range(100.0)
+    host = mask.cpu().numpy()
+    dev, start, dur = contact_intervals(host, 1.0)
+    z_o, t_o = intervals_to_rounds(dev, start, dur, 3000, 40, 10.0)
+    z, t = rounds_from_in_range(mask, 1.0, 40, 10.0)
+    assert z.device.type == "cuda" and z_o.sum() > 0
+    assert np.array_equal(z.cpu().numpy(), z_o)
+    assert np.array_equal(t.cpu().numpy(), t_o)
+    got = contact_intervals_torch(mask, 1.0)
+    for a, b in zip(got, (dev, start, dur)):
+        assert np.array_equal(a.cpu().numpy(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["gauss_markov", "rwp", "manhattan", "hotspot",
+                                   "static"])
+def test_device_schedule_never_waits_for_the_card(cuda, model):
+    """The schedule build and the heterogeneity gate make no synchronising
+    call (torch's sync debug mode raises on one)."""
+    from repro_torch.configs import FLConfig
+    from repro_torch.scenarios import ScenarioProvider
+
+    fl = FLConfig(num_devices=500, rounds=20, mobility_model=model,
+                  scenario_backend="jax", area=500.0, het_dropout=0.2,
+                  het_availability=0.8, het_compute_mean=1.0)
+    provider = ScenarioProvider.from_config(fl, device=str(cuda))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        zeta, tau, h2 = provider.schedule()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert zeta.device.type == tau.device.type == h2.device.type == "cuda"
+    assert torch.equal(tau > 0, zeta == 1)
+    assert provider.aux["dropout"].device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_torch_apply_on_the_card(cuda):
+    """Draws and gating on the card: equal to ``reference_apply`` on the
+    same draws, and P(available) at its stationary value."""
+    import numpy as np
+
+    from repro_torch.scenarios.heterogeneity import (HeterogeneityModel,
+                                                     reference_apply,
+                                                     torch_apply, torch_draws)
+
+    m = HeterogeneityModel(num_devices=20000, availability=0.8,
+                           avail_persist=0.4, compute_mean=2.0, dropout=0.2,
+                           seed=3)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    zeta = (torch.rand(30, 20000, generator=g, device=cuda) < 0.4).to(torch.int32)
+    tau = torch.rand(30, 20000, generator=g, device=cuda) * 12 * zeta
+    avail, latency, drop = torch_draws(m, 30, cuda)
+    assert abs(avail.float().mean().item() - 0.8) < 0.02
+    z, t, aux = torch_apply(m, zeta, tau)
+    # the vectorised rule against the loop, on a slice (the loop is slow)
+    sl = slice(0, 300)
+    z_r, t_r, aux_r = reference_apply(
+        *(x[:, sl].cpu().numpy() for x in (zeta, tau, avail, latency, drop)))
+    assert np.array_equal(z[:, sl].cpu().numpy(), z_r)
+    assert np.array_equal(t[:, sl].cpu().numpy(), t_r)
+    for k in aux_r:
+        assert np.array_equal(aux[k][:, sl].cpu().numpy(), aux_r[k])
+    assert z.device.type == "cuda" and aux["dropout"][:, sl].sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["numpy", "jax"])
+def test_trace_mobility_run_on_the_card_matches_cpu(cuda, backend):
+    """Two ``mads`` rounds at ResNet-9 width 4 under a Manhattan schedule
+    with heterogeneity, on the card (one sparsify_ef launch a round) and
+    on the CPU: the numpy schedule is the same array on both, so the same
+    uploads and an eval within 0.02; the device backend builds its
+    schedule on the card and runs."""
+    import numpy as np
+
+    from repro_torch.configs import FLConfig, get_config
+    from repro_torch.core.runner import run_afl
+    from repro_torch.data import DeviceLoader
+    from repro_torch.launch.train import build_device_data
+    from repro_torch.models.registry import build_model
+
+    model = build_model(get_config("resnet9-cifar10").replace(d_model=4))
+    fl = FLConfig(num_devices=4, rounds=2, batch_size=4, mobility_model="manhattan",
+                  speed=15.0, area=300.0, het_dropout=0.2, het_availability=0.8,
+                  scenario_backend=backend)
+    dev, ev = build_device_data(model.cfg, fl, train_n=64, eval_n=128, seed=0)
+    out = {}
+    for d in ("cpu", cuda):
+        K.reset_launches()
+        res = run_afl(model, model.cfg, fl, "mads", DeviceLoader(dev, 4, 0), ev,
+                      rounds=2, eval_every=1, device=d)
+        out[str(d)] = (res.history, dict(K.LAUNCHES))
+    (hc, lc), (hg, lg) = out["cpu"], out[str(cuda)]
+    assert lc["sparsify_ef"] == 0 and lg["sparsify_ef"] == 2
+    assert np.isfinite(hg["eval"]).all()
+    if backend == "numpy":
+        assert hg["uploads"] == hc["uploads"] and hc["uploads"][-1] > 0
+        assert max(abs(a - b) for a, b in zip(hg["eval"], hc["eval"])) <= 0.02
+
+
+@pytest.mark.cuda
+def test_fedmobile_on_a_card_resident_schedule(cuda):
+    """FedMobile's host-side relay rewrite gets a schedule that the device
+    backend built on the card."""
+    import numpy as np
+
+    from repro_torch.configs import FLConfig, get_config
+    from repro_torch.core.runner import build_provider, run_afl
+    from repro_torch.data import DeviceLoader
+    from repro_torch.launch.train import build_device_data
+    from repro_torch.models.registry import build_model
+
+    fl = FLConfig(num_devices=4, rounds=3, batch_size=4,
+                  mobility_model="gauss_markov", area=300.0,
+                  scenario_backend="jax")
+    zeta = build_provider(fl, "mads", None, 3, 0, cuda).schedule()[0]
+    assert zeta.device.type == "cuda"
+    relayed = build_provider(fl, "fedmobile", None, 3, 0, cuda).schedule()
+    assert all(isinstance(x, np.ndarray) for x in relayed)
+    assert (relayed[0] >= zeta.cpu().numpy()).all()
+    model = build_model(get_config("resnet9-cifar10").replace(d_model=4))
+    dev, ev = build_device_data(model.cfg, fl, train_n=64, eval_n=64, seed=0)
+    res = run_afl(model, model.cfg, fl, "fedmobile", DeviceLoader(dev, 4, 0),
+                  ev, rounds=1, device=cuda)
+    assert np.isfinite(res.final_eval)

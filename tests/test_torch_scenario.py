@@ -62,6 +62,14 @@ def test_device_loader_sequences():
             np.testing.assert_array_equal(a[k], b[k])
 
 
+def test_device_loader_refuses_short_shards():
+    """A device with fewer samples than the batch would never yield a
+    batch: the loader refuses it instead of looping forever."""
+    dev = [{"labels": np.arange(n)} for n in (9, 3)]
+    with pytest.raises(ValueError, match="device 1 holds 3 samples"):
+        TDeviceLoader(dev, 4, 0)
+
+
 @pytest.mark.parametrize("kw", [
     {},
     {"mean_intercontact": 20.0},
@@ -93,8 +101,9 @@ def test_array_schedule_and_channel():
     np.testing.assert_array_equal(ref.rate(0.2, 1e-9), port.rate(0.2, 1e-9))
 
 
-def test_unported_scenarios_raise():
-    for kw in ({"mobility_model": "rwp"}, {"het_dropout": 0.2},
-               {"scenario_backend": "jax"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ScenarioProvider.from_config(TFLConfig(**kw), 5)
+def test_unknown_mobility_model_raises():
+    for backend in ("numpy", "jax"):
+        with pytest.raises(KeyError, match="unknown mobility model"):
+            ScenarioProvider.from_config(
+                TFLConfig(mobility_model="levy", scenario_backend=backend), 5,
+                device="cpu")
