@@ -85,7 +85,22 @@ Phases, each of which raises on failure (a failed phase exits non-zero):
    contact rate and mean tau within 20 % of the numpy backend's at N = 512;
    ``gate_windows`` on the card equal to the reference on shared draws and
    ``torch_apply``'s P(available) within 0.02 of its stationary value;
-13. profile: a ``torch.profiler`` pass over ``decode_attn`` and
+13. telemetry: full-width ResNet-9 and LaneGCN ``mads`` (N = 20, batch
+   32, 8 rounds) through the training CLI with telemetry off, with
+   ``--telemetry`` and with ``--telemetry --perdevice --probes``, in turns
+   (two runs each, six for LaneGCN; steady rounds/s), then once more with
+   ``--profile-dir``:
+   one sparsify_ef launch a round; the fetched snapshot consistent (8
+   rounds, successes = uploads, bin totals = contacts or successes, the
+   table's and the probes' counts = the counters); telemetry.jsonl read
+   back and rendered; the Chrome trace holding the phase spans and the
+   sparsify kernel.  The records of the registry, the table, the probes
+   and the suite on card tensors under
+   ``torch.cuda.set_sync_debug_mode("error")`` (host ms and kernels per
+   record); a width-4 Manhattan + heterogeneity telemetry run on CUDA
+   against the CPU (counters, bins and count fields equal); the quickstart
+   and the speed sweep (exponential, manhattan) twins on the card;
+14. profile: a ``torch.profiler`` pass over ``decode_attn`` and
    ``ssd_scan`` at their timed shapes, device time by kernel (the five
    launches of ``ssd_scan``), and over a few full-width training rounds
    of LaneGCN and ResNet-9 (``mads``): device-busy seconds per round
@@ -733,6 +748,248 @@ def device_engine(smi: str) -> dict:
     return out
 
 
+# phase 13: telemetry on full-width training, N = 20, batch 32
+TEL_ROUNDS = 8
+TEL_MODES = {"off": [], "registry": ["--telemetry"],
+             "suite": ["--telemetry", "--perdevice", "--probes"]}
+# unprofiled runs in turns, so that each mode is read twice on one card
+TEL_ORDER = ("off", "registry", "suite", "suite", "registry", "off")
+
+
+def check_telemetry(name: str, res, rounds: int) -> None:
+    """The fetched snapshot agrees with itself and with the run's history;
+    fails the phase on a miss."""
+    tel = res.telemetry
+    snap = tel["metrics"] if "metrics" in tel else tel
+    c, h = snap["counters"], snap["hist"]
+    checks = {
+        "rounds": c["rounds"] == rounds,
+        "successes = uploads": c["successes"] == res.history["uploads"][-1],
+        "staleness, contact_tau bins = contacts": all(
+            h[k].sum() == c["contacts"] for k in ("staleness", "contact_tau")),
+        "k, bits, b bins = successes": all(
+            h[k].sum() == c["successes"] for k in ("k", "bits", "b")),
+    }
+    if "device" in tel:
+        checks["table successes = counter"] = \
+            tel["device"]["successes"].sum() == c["successes"]
+        checks["table rounds"] = tel["device"]["rounds"] == rounds
+    if "probes" in tel:
+        checks["probes contacts = counter"] = \
+            tel["probes"]["contacts"] == c["contacts"]
+    missed = [k for k, ok in checks.items() if not ok]
+    if missed:
+        fail(f"{name}: telemetry snapshot inconsistent ({missed}): {snap['counters']}")
+
+
+def telemetry_run(K, arch: str, mode: str, profile: bool = False) -> dict:
+    """One full-width ``mads`` run through the training CLI with the mode's
+    flags (and ``--profile-dir``): one sparsify_ef launch a round, the
+    snapshot's checks, telemetry.jsonl read back and rendered, and with a
+    profile the span names and the sparsify kernel in its Chrome trace."""
+    from repro_torch.launch import train as T
+    from repro_torch.telemetry import read_jsonl, render_report
+
+    name = f"{arch} mads telemetry {mode}{' + profile' if profile else ''}"
+    with tempfile.TemporaryDirectory() as wd:
+        argv = ["--arch", arch, "--policy", "mads", "--rounds", str(TEL_ROUNDS),
+                "--devices", str(N_DEV), "--batch-size", "32", "--train-n",
+                "2000", "--eval-every", str(TEL_ROUNDS), "--intercontact", "20",
+                "--device", "cuda", "--seed", "0", "--workdir", wd,
+                *TEL_MODES[mode]]
+        if profile:
+            argv += ["--profile-dir", f"{wd}/prof"]
+        K.reset_launches()
+        res = T.main(argv)
+        launches = K.LAUNCHES["sparsify_ef"]
+        events = read_jsonl(f"{wd}/telemetry.jsonl")
+        trace = (json.loads(Path(f"{wd}/prof/trace.json").read_text())
+                 if profile else None)
+    if launches != TEL_ROUNDS or sum(K.LAUNCHES.values()) != TEL_ROUNDS:
+        fail(f"{name}: sparsify_ef not launched once a round: {K.LAUNCHES}")
+    kinds = [e["kind"] for e in events]
+    spans = {e["name"] for e in events if e["kind"] == "span"}
+    if spans != {"compile", "execute", "eval"}:
+        fail(f"{name}: spans {spans}")
+    if mode == "off":
+        if res.telemetry is not None or "metrics" in kinds:
+            fail(f"{name}: telemetry recorded with every knob off")
+    else:
+        check_telemetry(name, res, TEL_ROUNDS)
+        want = "probe_report" if mode == "suite" else "metrics"
+        if kinds[-1] != want or "## Federation counters" not in \
+                render_report(events):
+            fail(f"{name}: telemetry.jsonl records {kinds[-3:]}")
+    if profile:
+        names = [e.get("name", "") for e in trace["traceEvents"]]
+        kernels = sum("row_pass" in n for n in names)
+        if not {"compile", "execute", "eval"} <= set(names) or kernels < TEL_ROUNDS:
+            fail(f"{name}: the Chrome trace lacks the spans or the sparsify "
+                 f"kernel ({kernels} row_pass events)")
+    steady = res.round_seconds[1:]
+    out = dict(rps=len(steady) / sum(steady), launches=launches,
+               eval=res.history["eval"][-1], uploads=res.history["uploads"][-1])
+    print(f"telemetry run {name}: {json.dumps(out)}", flush=True)
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def telemetry_costs() -> dict:
+    """Host ms per round of the records of the registry, the per-device
+    table (with its heterogeneity update), the probes and the full suite
+    on card tensors at N = 20 (mean over 200 records, no wait inside),
+    with the card's sync debug mode set to raise on any synchronising
+    call; and the kernels one record launches and their device ms (from a
+    torch.profiler trace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.telemetry import (AFL_REGISTRY, DeviceTable, TelemetrySuite,
+                                       TheoryProbes, record_het, record_round)
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    okf = (torch.rand(N_DEV, generator=g, device="cuda") < 0.5).float()
+    m = {"uploads": okf, "success": okf, "theta": torch.randint(
+        1, 50, (N_DEV,), generator=g, device="cuda").float(),
+         "k": okf * 1e5, "bits": okf * 4.7e6, "b": okf * 32,
+         "energy": okf * 0.3, "x_norm2": okf + 1.0, "e_norm2": okf * 1e-3}
+    tau = torch.rand(N_DEV, generator=g, device="cuda") * 10
+    het = {"unavail": okf, "dropout": 1.0 - okf}
+    table, probes = DeviceTable(N_DEV), TheoryProbes(s=S_RESNET9)
+    # the suite, and each of its parts alone (which update costs what)
+    suites = {"registry": AFL_REGISTRY,
+              "table": TelemetrySuite(device=table),
+              "probes": TelemetrySuite(probes=probes),
+              "suite": TelemetrySuite(metrics=AFL_REGISTRY, device=table,
+                                      probes=probes)}
+    out = {}
+    for label, tel in suites.items():
+        def record(state):
+            return record_het(tel, record_round(tel, state, m, tau), het)
+
+        state = tel.init_state("cuda")
+        for _ in range(3):
+            state = record(state)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            for _ in range(200):
+                state = record(state)
+            host_ms = (time.perf_counter() - t0) / 200 * 1e3
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            record(state)
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as d:
+            prof.export_chrome_trace(f"{d}/t.json")
+            evs = json.loads(Path(f"{d}/t.json").read_text())["traceEvents"]
+        kernels = [e for e in evs if e.get("cat") == "kernel"]
+        out[label] = dict(host_ms_per_record=host_ms, kernels_per_record=len(
+            kernels), device_ms_per_record=sum(e.get("dur", 0)
+                                                for e in kernels) / 1e3)
+    print(f"telemetry record cost (N={N_DEV}, card tensors, no sync under "
+          f"set_sync_debug_mode('error')): {json.dumps(out)}", flush=True)
+    return out
+
+
+def telemetry_against_cpu() -> None:
+    """The same telemetry run on the card and on the CPU from one seed:
+    ResNet-9 width 4, ``mads``, 6 rounds, Manhattan schedule (numpy
+    backend, the same arrays on both) with heterogeneity.  Counters, bins
+    and the table's count fields equal; float fields within the CPU tests'
+    whole-run tolerances (rtol 1e-4; e_norm2 rtol 0.5)."""
+    from repro_torch.configs import FLConfig, get_config
+    from repro_torch.core.runner import run_afl
+    from repro_torch.data import DeviceLoader
+    from repro_torch.launch.train import build_device_data
+    from repro_torch.models.registry import build_model
+
+    model = build_model(get_config(RESNET9).replace(d_model=4))
+    fl = FLConfig(num_devices=12, rounds=6, batch_size=8,
+                  mobility_model="manhattan", speed=15.0, area=400.0,
+                  het_dropout=0.2, het_availability=0.8,
+                  telemetry_perdevice=True, telemetry_probes=True)
+    dev, ev = build_device_data(model.cfg, fl, train_n=160, seed=0)
+    snaps = {d: run_afl(model, model.cfg, fl, "mads", DeviceLoader(dev, 8, 0),
+                        ev, rounds=6, eval_every=3, device=d).telemetry
+             for d in ("cuda", "cpu")}
+    a, b = snaps["cuda"], snaps["cpu"]
+    am, bm = a["metrics"], b["metrics"]
+    miss = [k for k in ("rounds", "contacts", "successes")
+            if am["counters"][k] != bm["counters"][k]]
+    miss += [k for k in am["hist"] if not np.array_equal(am["hist"][k],
+                                                         bm["hist"][k])]
+    miss += [k for k in ("contacts", "successes", "failures", "last_contact",
+                         "staleness_sum", "staleness_max", "unavail",
+                         "dropouts")
+             if not np.array_equal(a["device"][k], b["device"][k])]
+    miss += [k for k in ("rounds", "contacts", "successes")
+             if a["probes"][k] != b["probes"][k]]
+    miss += [k for k in ("bits_total", "energy_total")
+             if not np.isclose(am["counters"][k], bm["counters"][k], rtol=1e-4)]
+    miss += [k for k in ("tau_sum", "bits_sum", "energy_sum")
+             if not np.allclose(a["device"][k], b["device"][k], rtol=1e-4)]
+    if not np.allclose(a["device"]["e_norm2"], b["device"]["e_norm2"],
+                       rtol=0.5, atol=1e-9):
+        miss.append("e_norm2")
+    if miss or not am["counters"]["contacts"] > 0:
+        fail(f"telemetry cuda vs cpu differ in {miss}: {am['counters']} vs "
+             f"{bm['counters']}")
+    print(f"telemetry cuda run matches cpu run (resnet9 width 4, manhattan + "
+          f"heterogeneity): counters {am['counters']}, unavail "
+          f"{a['device']['unavail'].sum()}, dropouts "
+          f"{a['device']['dropouts'].sum()}", flush=True)
+
+
+def examples_on_card() -> None:
+    """The example twins on the card: the quickstart, and the speed sweep
+    for the exponential and Manhattan models (30 rounds; the table is
+    printed, the speed trend not asserted)."""
+    from repro_torch.examples import mobility_speed_sweep, quickstart
+
+    res = quickstart.main(["--device", "cuda"])
+    if not (res.history["uploads"][-1] > 0 and math.isfinite(res.final_eval)):
+        fail(f"quickstart: {res.history}")
+    rows = mobility_speed_sweep.main(["--models", "exponential,manhattan",
+                                      "--device", "cuda"])
+    if len(rows) != 8 or not all(math.isfinite(r["acc"]) for r in rows):
+        fail(f"speed sweep: {rows}")
+    print(f"speed sweep (ResNet-9 width 8, N 8, 30 rounds, afl-spar): "
+          f"{json.dumps(rows)}", flush=True)
+
+
+def telemetry_phase(K, smi: str) -> dict:
+    """Phase 13: full-width ResNet-9 and LaneGCN ``mads`` with telemetry
+    off, with the registry and with the full suite (in turns: two reads
+    each for ResNet-9, six for LaneGCN), the record costs, the card against the CPU, the examples, and
+    last a profiled full-suite run per model.  Returns the sparsify_ef
+    launch count of each run."""
+    runs, launches = {}, {}
+    # LaneGCN's host-bound rounds spread more: three passes of the turns
+    for arch, passes in ((RESNET9, 1), (LANEGCN, 3)):
+        for mode in TEL_ORDER * passes:
+            out = telemetry_run(K, arch, mode)
+            runs.setdefault((arch, mode), []).append(out["rps"])
+            launches[f"{arch} {mode}"] = out["launches"]
+    print(f"rounds/s with telemetry (steady, full width, mads, N={N_DEV}, "
+          f"batch 32, {TEL_ROUNDS} rounds; in turns, ResNet-9 two runs each, "
+          f"LaneGCN six) on {smi}: "
+          + "; ".join(f"{arch} {mode} {rps}" for (arch, mode), rps in
+                      runs.items()), flush=True)
+    telemetry_costs()
+    telemetry_against_cpu()
+    examples_on_card()
+    for arch in (RESNET9, LANEGCN):
+        out = telemetry_run(K, arch, "suite", profile=True)
+        launches[f"{arch} suite + profile"] = out["launches"]
+        print(f"rounds/s with the full suite under --profile-dir ({arch}) on "
+              f"{smi}: {out['rps']}", flush=True)
+    return launches
+
+
 def bound(nbytes: float, ops: float, dtype) -> dict:
     """The least time for the work: bytes over the HBM rate or operations
     over the peak rate of their type (a key of PEAK_OPS_PER_S), whichever
@@ -948,7 +1205,7 @@ def profile_kernels(DA, SSD) -> None:
 
 
 def profile_rounds(arch: str, policy: str = "mads", rounds: int = 6) -> dict:
-    """Phase 13 for training: a full-width run of ``rounds`` rounds (one
+    """Phase 14 for training: a full-width run of ``rounds`` rounds (one
     eval, at the end) under ``torch.profiler``; the device-busy time per
     round (every kernel of the run, model set-up and the eval included,
     divided by the rounds) against the steady rounds' wall clock, and the
@@ -981,7 +1238,7 @@ def profile_rounds(arch: str, policy: str = "mads", rounds: int = 6) -> dict:
 
 
 def profile_schedules(engine: dict) -> None:
-    """Phase 13 for the device-resident scenario engine: device-busy ms of
+    """Phase 14 for the device-resident scenario engine: device-busy ms of
     one N = 1e5 schedule build per model (every kernel of the build, by
     ``device_times``) against phase 12's ms between CUDA events, and the
     kernels that take the most."""
@@ -1167,7 +1424,11 @@ def main() -> None:
     engine = device_engine(smi)
     torch.cuda.empty_cache()
 
-    # 13. device time by kernel, last (the profiler slows later launches)
+    # 13. telemetry on the training path
+    tel_launches = telemetry_phase(K, smi)
+    torch.cuda.empty_cache()
+
+    # 14. device time by kernel, last (the profiler slows later launches)
     profile_kernels(DA, SSD)
     for arch in (LANEGCN, RESNET9):
         profile_rounds(arch)
@@ -1185,6 +1446,7 @@ def main() -> None:
                  "launches"]["sparsify_ef"],
              launches_lanegcn_mads_gauss_markov_device_het=trace[
                  f"{LANEGCN} mads gauss_markov"]["launches"]["sparsify_ef"],
+             launches_telemetry=tel_launches,
              **timing["sparsify_ef"]),
         dict(name="sparsify_quantize_ef", route="cuda",
              source=src + "sparsify_ef.cu",

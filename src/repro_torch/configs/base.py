@@ -152,9 +152,9 @@ class FLConfig:
     staleness_hinge_a: float = 10.0
     staleness_hinge_b: float = 4.0
     staleness_poly_a: float = 0.5
-    # telemetry (the reference's repro/telemetry: metric registry,
-    # per-device flight recorder, theory probes).  Not ported yet:
-    # core/runner.py::run_afl raises NotImplementedError when any is set
+    # telemetry (repro_torch/telemetry, as the reference's): the metric
+    # registry; the per-device flight recorder and the theory probes each
+    # upgrade it to a TelemetrySuite (core/runner.py::resolve_telemetry)
     telemetry: bool = False
     telemetry_perdevice: bool = False
     telemetry_probes: bool = False

@@ -2,13 +2,16 @@
 
 Build a federation, pick a policy (MADS or a §VI-B baseline), run R
 rounds, record metrics + periodic global-model evaluation.  This is the
-reference's loop engine (one ``afl_round`` per round); the whole-run
-engines, telemetry and tracing wait for their slices.
+reference's loop engine (one ``afl_round`` per round), with its telemetry
+(``repro_torch.telemetry``: recorded on the run's device each round,
+fetched once at the end) and phase tracing; the whole-run engines wait
+for their slice.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+from contextlib import nullcontext
 from typing import Optional
 
 import numpy as np
@@ -18,17 +21,15 @@ from repro_torch.channel import WirelessChannel
 from repro_torch.core import baselines as BL
 from repro_torch.core.afl import AflState, afl_init, afl_round
 from repro_torch.scenarios import ScenarioProvider
+from repro_torch.telemetry import (AFL_REGISTRY, HIST_KEYS, DeviceTable,
+                                   TelemetrySuite, TheoryProbes, record_het,
+                                   record_round)
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.logging import get_logger
 
 log = get_logger("repro_torch.runner")
 
-HIST_KEYS = (
-    "round", "eval", "uploads", "k_mean", "energy", "theta_mean",
-    "power_mean", "bits_mean"
-)
-# FLConfig knobs of the reference's telemetry; refused until it is ported
-TELEMETRY_KNOBS = ("telemetry", "telemetry_perdevice", "telemetry_probes")
+__all__ = ["HIST_KEYS", "RunResult", "resolve_telemetry", "run_afl"]
 
 
 @dataclasses.dataclass
@@ -40,6 +41,34 @@ class RunResult:
     # host wall clock of each round, ending in the metrics' copy to the
     # host (which waits for the device); eval time is not included
     round_seconds: list
+    # fetched MetricRegistry snapshot, or a TelemetrySuite's sectioned
+    # {"metrics"/"device"/"probes"} snapshot when the suite knobs are on
+    telemetry: Optional[dict] = None
+
+
+def resolve_telemetry(fl, telemetry, s: int = 0):
+    """The run's telemetry: an explicit registry/suite wins; otherwise the
+    FLConfig knobs decide — ``telemetry`` alone turns on the built-in AFL
+    registry, and ``telemetry_perdevice`` / ``telemetry_probes`` upgrade
+    it to a ``TelemetrySuite`` carrying the per-device flight recorder
+    and/or the theory probes alongside the registry.
+
+    ``s`` is the model size (``model.num_params()``): the probes compare
+    measured error/staleness/success against the closed forms at that
+    (s, u) operating point.
+    """
+    if telemetry is not None:
+        return telemetry
+    want_dev = fl.telemetry_perdevice
+    want_probes = fl.telemetry_probes and s > 0
+    if want_dev or want_probes:
+        return TelemetrySuite(
+            metrics=AFL_REGISTRY,
+            device=DeviceTable(fl.num_devices) if want_dev else None,
+            probes=(TheoryProbes(s=s, u=fl.value_bits)
+                    if want_probes else None),
+        )
+    return AFL_REGISTRY if fl.telemetry else None
 
 
 def make_eval_fn(model, cfg):
@@ -107,6 +136,17 @@ def _on(device, arrays: dict) -> dict:
     return {k: torch.as_tensor(v).to(device) for k, v in arrays.items()}
 
 
+def _het_masks(telemetry, provider, device):
+    """The heterogeneity loss masks, (rounds, N) f32 on ``device``, when a
+    per-device table records them (else None): brought to the device once,
+    before round 0, so that no round copies them over."""
+    if not (isinstance(telemetry, TelemetrySuite)
+            and telemetry.device is not None) or provider.aux is None:
+        return None
+    return {k: torch.as_tensor(v).to(device=device, dtype=torch.float32)
+            for k, v in provider.aux.items()}
+
+
 def run_afl(
     model,
     cfg,
@@ -122,25 +162,29 @@ def run_afl(
     engine: str = "loop",
     device="cuda",
     params=None,
+    telemetry=None,
+    tracer=None,
 ) -> RunResult:
     """Run ``rounds`` AFL rounds of ``policy_name`` on ``device``.
 
     ``params`` (a tree of tensors) replaces the seeded initial model.
+    ``telemetry`` (a registry or suite; by default from the FLConfig knobs,
+    ``resolve_telemetry``) is recorded on ``device`` inside each round and
+    fetched once at the end into ``RunResult.telemetry``.  ``tracer`` (a
+    ``PhaseTracer``) times each round under the span ``compile`` (round 0,
+    which pays kernel loading and cuDNN autotuning) or ``execute``, and
+    each evaluation under ``eval``.
     """
     if engine != "loop":
         raise NotImplementedError(
             f"engine {engine!r} is not ported (ROADMAP.md, queue 1: the "
             "scan/seed-vmap engines); use 'loop'")
-    wanted = [k for k in TELEMETRY_KNOBS if getattr(fl, k)]
-    if wanted:
-        raise NotImplementedError(
-            f"FLConfig {', '.join(wanted)} is not ported (ROADMAP.md, "
-            "queue 1: telemetry); leave it False")
     device = resolve_device(device)
     rounds = rounds or fl.rounds
     seed = fl.seed if seed is None else seed
 
     s = model.num_params()
+    telemetry = resolve_telemetry(fl, telemetry, s=s)
     policy = BL.ALL[policy_name](s, fl)
     provider = build_provider(fl, policy_name, schedule, rounds, seed, device)
     budgets = torch.as_tensor(sample_budgets(fl, seed), device=device)
@@ -148,6 +192,10 @@ def run_afl(
     state = afl_init(model, fl, seed, device, params=params)
     eval_batch = _on(device, eval_batch)
     hist: dict = {k: [] for k in HIST_KEYS}
+    tstate = telemetry.init_state(device) if telemetry is not None else None
+    het = _het_masks(telemetry, provider, device)
+    span = tracer.span if tracer is not None else (
+        lambda name, **kw: nullcontext())
     tot_uploads = tot_k = tot_power = tot_theta = tot_bits = 0.0
     n = fl.num_devices
     round_seconds = []
@@ -155,14 +203,22 @@ def run_afl(
         t0 = time.perf_counter()
         batch = _on(device, loader.sample_all())
         zeta_r, tau_r, h2_r = provider.round(r)
-        state, m = afl_round(
-            state, batch, torch.as_tensor(zeta_r, device=device),
-            torch.as_tensor(tau_r, dtype=torch.float32, device=device),
-            torch.as_tensor(h2_r, dtype=torch.float32, device=device), budgets,
-            model=model, fl=fl, policy=policy,
-        )
-        sums = torch.stack([m[k].sum() for k in
-                            ("success", "k", "power", "theta", "bits")]).tolist()
+        tau_dev = torch.as_tensor(tau_r, dtype=torch.float32, device=device)
+        with span("compile" if r == 0 else "execute"):
+            state, m = afl_round(
+                state, batch, torch.as_tensor(zeta_r, device=device), tau_dev,
+                torch.as_tensor(h2_r, dtype=torch.float32, device=device),
+                budgets, model=model, fl=fl, policy=policy,
+            )
+            if telemetry is not None:
+                tstate = record_round(telemetry, tstate, m, tau_dev)
+                tstate = record_het(telemetry, tstate, None if het is None
+                                    else {k: v[r] for k, v in het.items()})
+            # the round's one wait for the device
+            sums = torch.stack([m[k].sum() for k in (
+                "success", "k", "power", "theta", "bits")]).tolist()
+            if tracer is not None:
+                tracer.fence(m)
         round_seconds.append(time.perf_counter() - t0)
         tot_uploads += sums[0]
         tot_k += sums[1]
@@ -170,7 +226,8 @@ def run_afl(
         tot_theta += sums[3]
         tot_bits += sums[4]
         if (r + 1) % eval_every == 0 or r == rounds - 1:
-            ev = evaluate(model, cfg, state.w, eval_batch)
+            with span("eval"):
+                ev = evaluate(model, cfg, state.w, eval_batch)
             hist["round"].append(r + 1)
             hist["eval"].append(ev)
             hist["uploads"].append(tot_uploads)  # cumulative
@@ -185,4 +242,6 @@ def run_afl(
                     policy_name, r + 1, ev, hist["uploads"][-1],
                     hist["k_mean"][-1], hist["energy"][-1],
                 )
-    return RunResult(policy_name, hist, hist["eval"][-1], state, round_seconds)
+    snapshot = telemetry.fetch(tstate) if telemetry is not None else None
+    return RunResult(policy_name, hist, hist["eval"][-1], state, round_seconds,
+                     telemetry=snapshot)

@@ -19,7 +19,12 @@ arm the heterogeneity layer.  The data are synthetic stand-ins generated
 from the seed: CIFAR-10 for ResNet-9 (``--arch resnet9-cifar10``),
 Argoverse tracks for LaneGCN (``--arch lanegcn-argoverse``, the paper's
 §VI-C experiment).  A checkpoint of the global model and a JSON metrics
-history land in ``--workdir``, in the reference's formats.
+history land in ``--workdir``, in the reference's formats, with
+``telemetry.jsonl`` beside them: the phase spans and, with
+``--telemetry`` (``--perdevice`` and ``--probes`` imply it), the run's
+metric snapshot and the theory-vs-measured probe report
+(``python -m repro_torch.telemetry.report`` renders it).
+``--profile-dir`` adds a ``torch.profiler`` Chrome trace of the run.
 """
 from __future__ import annotations
 
@@ -32,10 +37,12 @@ import numpy as np
 from repro_torch.checkpoint import save
 from repro_torch.configs import FLConfig, get_config
 from repro_torch.core import baselines as BL
-from repro_torch.core.runner import run_afl
+from repro_torch.core.runner import resolve_telemetry, run_afl
 from repro_torch.data import (DeviceLoader, SyntheticCifar,
                               SyntheticTrajectories, dirichlet_partition)
 from repro_torch.models.registry import build_model
+from repro_torch.telemetry import (JsonlSink, PhaseTracer, TelemetrySuite,
+                                   report_from_config, to_jsonable)
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.logging import get_logger
 
@@ -106,6 +113,22 @@ def main(argv=None):
     ap.add_argument("--eval-every", type=int, default=20)
     ap.add_argument("--engine", default="loop", choices=["loop"],
                     help="per-round dispatch (the scan engine is not ported)")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="device-resident round metrics (repro_torch/"
+                         "telemetry): staleness/bits/tau histograms + "
+                         "counters, written to workdir/telemetry.jsonl")
+    ap.add_argument("--perdevice", action="store_true",
+                    help="also carry the per-device flight recorder (implies "
+                         "--telemetry): (N,) participation/staleness/tau/"
+                         "bits/energy rows, straggler table at the end")
+    ap.add_argument("--probes", action="store_true",
+                    help="also carry the online theory probes (implies "
+                         "--telemetry): theory-vs-measured deltas against "
+                         "core/theory.py closed forms, emitted as a "
+                         "probe_report event")
+    ap.add_argument("--profile-dir", default="",
+                    help="torch.profiler Chrome trace dir (trace.json); also "
+                         "annotates the compile/execute/eval phase spans")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without CUDA) or cpu")
     ap.add_argument("--seed", type=int, default=0)
@@ -127,6 +150,9 @@ def main(argv=None):
         het_dropout=args.dropout, het_availability=args.availability,
         het_compute_mean=args.compute_mean,
         sparsifier="exact" if model.num_params() < 2_000_000 else "sampled",
+        telemetry=args.telemetry or args.perdevice or args.probes,
+        telemetry_perdevice=args.perdevice,
+        telemetry_probes=args.probes,
     )
     log.info("arch=%s params=%d policy=%s rounds=%d devices=%d device=%s",
              cfg.name, model.num_params(), args.policy, args.rounds,
@@ -134,14 +160,35 @@ def main(argv=None):
 
     dev, ev = build_device_data(cfg, fl, train_n=args.train_n, seed=args.seed)
     loader = DeviceLoader(dev, fl.batch_size, args.seed)
-    res = run_afl(model, cfg, fl, args.policy, loader, ev,
-                  rounds=args.rounds, eval_every=args.eval_every,
-                  log_progress=True, engine=args.engine, device=device)
+    tracer = PhaseTracer(profile_dir=args.profile_dir or None)
+    tracer.start()
+    try:
+        res = run_afl(model, cfg, fl, args.policy, loader, ev,
+                      rounds=args.rounds, eval_every=args.eval_every,
+                      log_progress=True, engine=args.engine, device=device,
+                      tracer=tracer)
+    finally:
+        tracer.stop()
 
     os.makedirs(args.workdir, exist_ok=True)
     save(args.workdir, args.rounds, model.layout.unflatten(res.state.w))
     with open(os.path.join(args.workdir, "history.json"), "w") as f:
         json.dump({"args": vars(args), "history": res.history}, f, indent=2)
+    # the same resolution run_afl used — registry alone, or the suite
+    # carrying the per-device table / theory probes
+    telemetry = resolve_telemetry(fl, None, s=model.num_params())
+    with JsonlSink(os.path.join(args.workdir, "telemetry.jsonl")) as sink:
+        sink.extend(tracer.events())
+        if res.telemetry is not None:
+            sink.emit({"kind": "metrics", **to_jsonable(res.telemetry)})
+            if (isinstance(telemetry, TelemetrySuite)
+                    and telemetry.probes is not None):
+                rep = report_from_config(
+                    telemetry.probes, res.telemetry["probes"], fl)
+                sink.emit({"kind": "probe_report", **rep})
+    if res.telemetry is not None:
+        print(telemetry.summary(res.telemetry))
+    log.info("phase wall clock:\n%s", tracer.summary())
     log.info("final eval=%.4f; wrote %s", res.final_eval, args.workdir)
     return res
 

@@ -227,13 +227,45 @@ def test_every_policy_runs_a_round(setup, policy):
 
 @pytest.mark.parametrize("knob", ["telemetry", "telemetry_perdevice",
                                   "telemetry_probes"])
-def test_unported_telemetry_knobs_raise(setup, knob):
-    """The reference's telemetry is not ported: setting one of its knobs
-    is refused, naming the ROADMAP item, instead of running without it."""
-    _, _, tmodel, _, tfl, _, _, _ = setup
-    with pytest.raises(NotImplementedError, match=f"{knob}.*ROADMAP"):
-        t_run_afl(tmodel, tmodel.cfg, dataclasses.replace(tfl, **{knob: True}),
-                  "mads", None, {}, rounds=1, device="cpu")
+def test_telemetry_knobs_resolve_like_reference(setup, knob):
+    """Each FLConfig telemetry knob resolves to the reference's registry
+    or suite (the same parts, table size and probe operating point), and
+    a one-round run returns a fetched snapshot with the reference's
+    sections and keys."""
+    from repro.core.runner import resolve_telemetry
+    from repro.telemetry import AFL_REGISTRY
+    from repro_torch.core.runner import resolve_telemetry as t_resolve
+    from repro_torch.telemetry import AFL_REGISTRY as T_AFL_REGISTRY
+
+    _, model, tmodel, fl, tfl, _, w_np, batch = setup
+    fl, tfl = (dataclasses.replace(c, **{knob: True}) for c in (fl, tfl))
+    s = model.num_params()
+    ref, port = resolve_telemetry(fl, None, s=s), t_resolve(tfl, None, s=s)
+    assert type(port).__name__ == type(ref).__name__
+    if knob == "telemetry":
+        assert ref is AFL_REGISTRY and port is T_AFL_REGISTRY
+    else:
+        assert (port.metrics is T_AFL_REGISTRY) and (ref.metrics is AFL_REGISTRY)
+        for part in ("device", "probes"):
+            a, b = getattr(ref, part), getattr(port, part)
+            assert (a is None) == (b is None), part
+            if a is not None:
+                assert dataclasses.asdict(a) == dataclasses.asdict(b), part
+    assert t_resolve(tfl, T_AFL_REGISTRY, s=s) is T_AFL_REGISTRY
+    assert t_resolve(dataclasses.replace(tfl, **{knob: False}), None,
+                     s=s) is None
+    loader = TDeviceLoader([{k: v[i] for k, v in batch.items()}
+                            for i in range(N)], 4, 0)
+    res = t_run_afl(tmodel, tmodel.cfg, tfl, "mads", loader,
+                    {k: v[0] for k, v in batch.items()}, rounds=1,
+                    device="cpu", params=load_params(tmodel, w_np))
+    want = ref.fetch(ref.init_state())
+    assert res.telemetry.keys() == want.keys()
+    for sec, v in want.items():
+        assert res.telemetry[sec].keys() == v.keys(), sec
+    rounds = (res.telemetry["counters"] if knob == "telemetry"
+              else res.telemetry["metrics"]["counters"])["rounds"]
+    assert rounds == 1.0
 
 
 def test_train_cli_writes_history_and_reference_checkpoint(tmp_path):

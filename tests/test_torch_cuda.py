@@ -563,3 +563,148 @@ def test_fedmobile_on_a_card_resident_schedule(cuda):
     res = run_afl(model, model.cfg, fl, "fedmobile", DeviceLoader(dev, 4, 0),
                   ev, rounds=1, device=cuda)
     assert np.isfinite(res.final_eval)
+
+
+def _telemetry_inputs(rounds, n, seed=0):
+    """Metric dicts, tau and heterogeneity masks (numpy) for ``rounds``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(rounds):
+        okf = (rng.random(n) < 0.6).astype(np.float32)
+        succ = (okf * (rng.random(n) < 0.8)).astype(np.float32)
+        k = np.floor(rng.uniform(0, 26350, n) * succ).astype(np.float32)
+        m = {"uploads": okf, "success": succ, "k": k, "bits": k * 46.7,
+             "b": succ * 32, "theta": rng.integers(1, 140, n).astype(np.float32),
+             "energy": rng.uniform(0, 2, n).astype(np.float32) * okf,
+             "x_norm2": rng.exponential(3.0, n).astype(np.float32),
+             "e_norm2": rng.exponential(1e-3, n).astype(np.float32)}
+        tau = rng.exponential(6.0, n).astype(np.float32)
+        het = {"unavail": rng.random(n) < 0.2, "dropout": rng.random(n) < 0.1}
+        out.append((m, tau, het))
+    return out
+
+
+@pytest.mark.cuda
+def test_telemetry_records_on_the_card_without_a_sync(cuda):
+    """record_round (suite: registry, DeviceTable.update, TheoryProbes.update),
+    record_het and record_ingest on card tensors make no synchronising
+    call (torch's sync debug mode raises on one), and give the CPU's bins
+    and counts."""
+    import numpy as np
+
+    from repro_torch.telemetry import (AFL_REGISTRY, SERVE_REGISTRY,
+                                       DeviceTable, TelemetrySuite,
+                                       TheoryProbes, record_het, record_ingest,
+                                       record_round)
+
+    suite = TelemetrySuite(metrics=AFL_REGISTRY, device=DeviceTable(20),
+                           probes=TheoryProbes(s=26350))
+    inputs = _telemetry_inputs(8, 20)
+    snaps = {}
+    for dev in ("cpu", cuda):
+        rounds = [({f: torch.as_tensor(v).to(dev) for f, v in m.items()},
+                   torch.as_tensor(tau).to(dev),
+                   {f: torch.as_tensor(v).to(dev) for f, v in het.items()})
+                  for m, tau, het in inputs]
+        state, serve = suite.init_state(dev), SERVE_REGISTRY.init_state(dev)
+        if dev is cuda:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for m, tau, het in rounds:
+                state = record_het(suite, record_round(suite, state, m, tau),
+                                   het)
+                serve = record_ingest(SERVE_REGISTRY, serve,
+                                      mask=m["uploads"], dtau=m["theta"],
+                                      bits=m["bits"], weights=m["uploads"])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert state["device"]["contacts"].device.type == torch.device(dev).type
+        snaps[str(dev)] = (suite.fetch(state), SERVE_REGISTRY.fetch(serve))
+    (a, sa), (b, sb) = snaps["cpu"], snaps[str(cuda)]
+    for k in a["metrics"]["hist"]:
+        assert np.array_equal(a["metrics"]["hist"][k], b["metrics"]["hist"][k])
+    for k in sa["hist"]:
+        assert np.array_equal(sa["hist"][k], sb["hist"][k])
+    for k in ("rounds", "contacts", "successes"):
+        assert a["metrics"]["counters"][k] == b["metrics"]["counters"][k]
+        assert a["probes"][k] == b["probes"][k]
+    for k in ("contacts", "successes", "failures", "last_contact",
+              "staleness_sum", "staleness_max", "unavail", "dropouts"):
+        assert np.array_equal(a["device"][k], b["device"][k]), k
+    for k in a["probes"]:
+        assert np.isclose(a["probes"][k], b["probes"][k], rtol=1e-6), k
+
+
+@pytest.mark.cuda
+def test_telemetry_run_on_the_card_matches_cpu(cuda):
+    """Six ``mads`` rounds at ResNet-9 width 4, Manhattan schedule (numpy
+    backend, the same arrays on both devices) with heterogeneity, with the
+    full suite, on the card and on the CPU: equal counters, bins and
+    count fields; float fields within the CPU tests' whole-run tolerances
+    (tests/test_torch_telemetry.py: rtol 1e-4, e_norm2 rtol 0.5)."""
+    import numpy as np
+
+    from repro_torch.configs import FLConfig, get_config
+    from repro_torch.core.runner import run_afl
+    from repro_torch.data import DeviceLoader
+    from repro_torch.launch.train import build_device_data
+    from repro_torch.models.registry import build_model
+
+    model = build_model(get_config("resnet9-cifar10").replace(d_model=4))
+    fl = FLConfig(num_devices=4, rounds=6, batch_size=4, mobility_model="manhattan",
+                  speed=15.0, area=300.0, het_dropout=0.2, het_availability=0.8,
+                  telemetry_perdevice=True, telemetry_probes=True)
+    dev, ev = build_device_data(model.cfg, fl, train_n=64, eval_n=64, seed=0)
+    out = {}
+    for d in ("cpu", cuda):
+        K.reset_launches()
+        res = run_afl(model, model.cfg, fl, "mads", DeviceLoader(dev, 4, 0), ev,
+                      rounds=6, eval_every=3, device=d)
+        out[str(d)] = (res.telemetry, dict(K.LAUNCHES))
+    (a, lc), (b, lg) = out["cpu"], out[str(cuda)]
+    assert lc["sparsify_ef"] == 0 and lg["sparsify_ef"] == 6
+    am, bm = a["metrics"], b["metrics"]
+    assert bm["counters"]["contacts"] > 0
+    for k in ("rounds", "contacts", "successes"):
+        assert am["counters"][k] == bm["counters"][k], k
+    for k in am["hist"]:
+        assert am["hist"][k].sum() == bm["hist"][k].sum(), k
+    for k in ("staleness", "contact_tau"):
+        assert np.array_equal(am["hist"][k], bm["hist"][k]), k
+    for k in ("contacts", "successes", "failures", "last_contact",
+              "staleness_sum", "staleness_max", "unavail", "dropouts"):
+        assert np.array_equal(a["device"][k], b["device"][k]), k
+    for k in ("bits_total", "energy_total"):
+        assert np.isclose(am["counters"][k], bm["counters"][k], rtol=1e-4), k
+    assert np.allclose(a["device"]["e_norm2"], b["device"]["e_norm2"],
+                       rtol=0.5, atol=1e-9)
+    for k in ("contacts", "successes", "rounds", "tau_sum"):
+        assert np.isclose(a["probes"][k], b["probes"][k], rtol=1e-6), k
+
+
+@pytest.mark.cuda
+def test_train_cli_profile_trace_holds_spans_and_the_kernel(cuda, tmp_path):
+    """``--telemetry --perdevice --probes --profile-dir`` on the card: the
+    Chrome trace holds the phase spans and the sparsify kernel, and the
+    telemetry.jsonl renders."""
+    import json
+
+    from repro_torch.launch import train
+    from repro_torch.telemetry import read_jsonl, render_report
+
+    prof = tmp_path / "prof"
+    res = train.main(["--width", "4", "--devices", "4", "--rounds", "3",
+                      "--eval-every", "3", "--batch-size", "8", "--train-n",
+                      "64", "--intercontact", "20", "--telemetry",
+                      "--perdevice", "--probes", "--profile-dir", str(prof),
+                      "--workdir", str(tmp_path / "w")])
+    assert res.telemetry["metrics"]["counters"]["rounds"] == 3.0
+    names = [e.get("name", "") for e in
+             json.loads((prof / "trace.json").read_text())["traceEvents"]]
+    assert {"compile", "execute", "eval"} <= set(names)
+    assert any("row_pass" in n for n in names)
+    text = render_report(read_jsonl(str(tmp_path / "w" / "telemetry.jsonl")))
+    assert "## Theory vs measured" in text
