@@ -100,11 +100,25 @@ Phases, each of which raises on failure (a failed phase exits non-zero):
    record); a width-4 Manhattan + heterogeneity telemetry run on CUDA
    against the CPU (counters, bins and count fields equal); the quickstart
    and the speed sweep (exponential, manhattan) twins on the card;
-14. profile: a ``torch.profiler`` pass over ``decode_attn`` and
+14. the whole-run engine (``experiments/``), full width, N = 20, batch
+   32, exponential contacts: ``run_afl_scanned`` (the round captured once
+   as a CUDA graph and replayed) against ``run_afl(engine="loop")`` on the
+   same prestacked draws for ResNet-9 ``mads``, LaneGCN ``mads`` and
+   LaneGCN per-layer ``mads-joint``, 8 rounds under cuDNN's deterministic
+   algorithms (uploads equal, histories within rtol 2e-4 / atol 1e-5,
+   bit-equal states printed, one sparsify launch a round; the engine
+   replays under ``set_sync_debug_mode("error")``); steady rounds/s of
+   both engines in turns, 20 rounds, evals and peak memory apart;
+   ``run_seed_batch`` (S = 3 LaneGCN, S = 2 ResNet-9) against each seed's
+   own run, and its rounds/s against the S single runs; the sweep CLI at
+   full-width LaneGCN (8 cells, a resumed second call, ``report.md``);
+   the ``cifar_mads_vs_baselines`` twin;
+15. profile: a ``torch.profiler`` pass over ``decode_attn`` and
    ``ssd_scan`` at their timed shapes, device time by kernel (the five
    launches of ``ssd_scan``), and over a few full-width training rounds
-   of LaneGCN and ResNet-9 (``mads``): device-busy seconds per round
-   against the host's wall clock, and the kernels that take the most; and
+   of LaneGCN and ResNet-9 (``mads``), eager and captured: device-busy
+   seconds per round against the wall clock, the kernels that take the
+   most, and the sparsify kernels the card ran in the captured run; and
    over one N = 1e5 schedule build per model (device-busy ms against
    phase 12's time); last, so that the profiler's tracing cannot weigh on
    the host-bound decodes, rounds and builds timed before it.
@@ -405,26 +419,19 @@ def train(argv):
     from repro_torch.launch import train as T
 
     with tempfile.TemporaryDirectory() as wd:
-        return T.main(argv + ["--workdir", wd])
+        # the loop engine, whose numbers PERF.md keeps (the CLI's default
+        # is the captured engine, phase 14)
+        return T.main(["--engine", "loop"] + argv + ["--workdir", wd])
 
 
 def train_per_layer(arch: str, rounds: int):
     """``mads-joint`` with ``FLConfig(per_layer_budget=True)`` through
     ``run_afl``, configured as the training CLI configures a run (the CLI
     has no per-layer switch, as the reference's has none)."""
-    from repro_torch.configs import FLConfig, get_config
     from repro_torch.core.runner import run_afl
     from repro_torch.data import DeviceLoader
-    from repro_torch.launch.train import build_device_data
-    from repro_torch.models.registry import build_model
 
-    cfg = get_config(arch)
-    model = build_model(cfg)
-    fl = FLConfig(num_devices=N_DEV, rounds=rounds, batch_size=32,
-                  mean_intercontact=20.0, seed=0, per_layer_budget=True,
-                  sparsifier="exact" if model.num_params() < 2_000_000
-                  else "sampled")
-    dev, ev = build_device_data(cfg, fl, train_n=2000, seed=0)
+    model, cfg, fl, dev, ev = engine_setup(arch, True, rounds)
     return run_afl(model, cfg, fl, "mads-joint", DeviceLoader(dev, 32, 0), ev,
                    rounds=rounds, eval_every=rounds, device="cuda")
 
@@ -796,7 +803,7 @@ def telemetry_run(K, arch: str, mode: str, profile: bool = False) -> dict:
                 "--devices", str(N_DEV), "--batch-size", "32", "--train-n",
                 "2000", "--eval-every", str(TEL_ROUNDS), "--intercontact", "20",
                 "--device", "cuda", "--seed", "0", "--workdir", wd,
-                *TEL_MODES[mode]]
+                "--engine", "loop", *TEL_MODES[mode]]
         if profile:
             argv += ["--profile-dir", f"{wd}/prof"]
         K.reset_launches()
@@ -988,6 +995,401 @@ def telemetry_phase(K, smi: str) -> dict:
         print(f"rounds/s with the full suite under --profile-dir ({arch}) on "
               f"{smi}: {out['rps']}", flush=True)
     return launches
+
+
+# phase 14: the whole-run engine (a CUDA-graph-captured round), seed
+# batching and the sweep CLI, full width, N = 20, batch 32
+ENGINE_CASES = ((RESNET9, "mads", False), (LANEGCN, "mads", False),
+                (LANEGCN, "mads-joint", True))
+ENGINE_ROUNDS, ENGINE_TIMED_ROUNDS, ENGINE_EVERY = 8, 20, 4
+HIST_RTOL, HIST_ATOL = 2e-4, 1e-5  # the reference's cross-engine tolerance
+KERNEL_OF = {"mads": "sparsify_ef",
+             "mads-joint": "sparsify_quantize_ef_segmented"}
+# the device function each entry launches, as the profiler names it
+KERNEL_SYMBOL = {"sparsify_ef": "row_pass",
+                 "sparsify_quantize_ef_segmented": "segmented_pass"}
+
+
+def engine_setup(arch: str, per_layer: bool, rounds: int):
+    """(model, cfg, fl, device data, eval batch) of a full-width run,
+    configured as the training CLI configures one (exponential contacts,
+    mean inter-contact 20 s)."""
+    from repro_torch.configs import FLConfig, get_config
+    from repro_torch.launch.train import build_device_data
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    fl = FLConfig(num_devices=N_DEV, rounds=rounds, batch_size=32,
+                  mean_intercontact=20.0, seed=0, per_layer_budget=per_layer,
+                  sparsifier="exact" if model.num_params() < 2_000_000
+                  else "sampled")
+    dev, ev = build_device_data(cfg, fl, train_n=2000, seed=0)
+    return model, cfg, fl, dev, ev
+
+
+def hist_close(a: dict, b: dict) -> bool:
+    return a["round"] == b["round"] and all(
+        abs(x - y) <= HIST_ATOL + HIST_RTOL * abs(y)
+        for k in a if k != "round" for x, y in zip(a[k], b[k]))
+
+
+def state_equal(a, b) -> bool:
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("w", "w_n", "g_n", "e_n", "kappa", "q", "energy"))
+
+
+def steady_rate(res) -> tuple:
+    """(steady rounds/s, mean eval seconds) of a run: round 0 (which
+    carries the warm-up, and the capture) left out."""
+    steady = res.round_seconds[1:]
+    ev = res.eval_seconds or [0.0]
+    return len(steady) / sum(steady), sum(ev) / len(ev)
+
+
+def captured_against_eager(K) -> dict:
+    """Phase 14a: ``run_afl_scanned`` (captured round, replayed) against
+    ``run_afl(engine="loop")`` on the same prestacked DeviceLoader draws,
+    same seed, for each case.  Under ``torch.backends.cudnn.deterministic``
+    (cuDNN's default weight-gradient algorithms add in another order from
+    run to run, and LaneGCN's eval then drifts by ~1e-4 between two eager
+    runs): uploads equal, histories within the reference's cross-engine
+    tolerance, and whether the final states are bit-equal.  One sparsify
+    launch a round (the counts reset just before the captured run, read
+    just after); the engine runs its replays and evals under
+    ``torch.cuda.set_sync_debug_mode("error")``.  A ``torch.profiler``
+    pass over captured runs (phase 15, ``profile_captured``) counts the
+    sparsify kernels the card ran, and the kernels line holds the two
+    counts against each other (``captured_launches``)."""
+    from repro_torch.core.runner import run_afl
+    from repro_torch.data import DeviceLoader
+    from repro_torch.experiments import prestack_batches, run_afl_scanned
+
+    out = {"eager noise": eager_noise()}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for arch, policy, per_layer in ENGINE_CASES:
+            name = f"{arch} {policy}{' per-layer' if per_layer else ''}"
+            model, cfg, fl, dev, ev = engine_setup(arch, per_layer,
+                                                   ENGINE_ROUNDS)
+            kw = dict(rounds=ENGINE_ROUNDS, eval_every=ENGINE_EVERY,
+                      device="cuda")
+            loop = run_afl(model, cfg, fl, policy, DeviceLoader(dev, 32, 0),
+                           ev, engine="loop", **kw)
+            pre = prestack_batches(DeviceLoader(dev, 32, 0), ENGINE_ROUNDS)
+            K.reset_launches()
+            scan = run_afl_scanned(model, cfg, fl, policy, pre, ev, **kw)
+            launches = dict(K.LAUNCHES)
+            a, b = scan.history, loop.history
+            if a["uploads"] != b["uploads"] or not hist_close(a, b):
+                fail(f"{name}: captured and eager runs differ: {a} vs {b}")
+            if launches[KERNEL_OF[policy]] != ENGINE_ROUNDS or \
+                    sum(launches.values()) != ENGINE_ROUNDS:
+                fail(f"{name}: {launches} sparsify launches in "
+                     f"{ENGINE_ROUNDS} captured rounds, not one a round")
+            bit_equal = state_equal(scan.state, loop.state)
+            out[name] = dict(launches=launches, bit_equal_state=bit_equal,
+                             uploads=a["uploads"], eval_captured=a["eval"],
+                             eval_eager=b["eval"])
+            print(f"captured matches eager ({name}, {ENGINE_ROUNDS} rounds, "
+                  f"cudnn deterministic): {json.dumps(out[name])}", flush=True)
+            del loop, scan, pre
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def eager_noise() -> dict:
+    """Two eager LaneGCN ``mads`` runs of the loop engine, same seed and
+    draws, cuDNN's default algorithms: how far apart run-to-run ordering
+    alone puts them (why phase 14a compares under the deterministic
+    ones)."""
+    from repro_torch.core.runner import run_afl
+    from repro_torch.data import DeviceLoader
+
+    model, cfg, fl, dev, ev = engine_setup(LANEGCN, False, ENGINE_ROUNDS)
+    a, b = (run_afl(model, cfg, fl, "mads", DeviceLoader(dev, 32, 0), ev,
+                    rounds=ENGINE_ROUNDS, eval_every=ENGINE_EVERY,
+                    device="cuda") for _ in range(2))
+    out = dict(bit_equal_state=state_equal(a.state, b.state),
+               eval_rel_diff=max(abs(x - y) / abs(y) for x, y in
+                                 zip(a.history["eval"], b.history["eval"])),
+               uploads_equal=a.history["uploads"] == b.history["uploads"])
+    print(f"two eager LaneGCN mads runs, default cuDNN ({ENGINE_ROUNDS} "
+          f"rounds): {json.dumps(out)}", flush=True)
+    return out
+
+
+def device_timeline(prof) -> tuple:
+    """(ms in which at least one device activity runs, the streams they ran
+    on) of a ``torch.profiler`` run: the union of the activities'
+    intervals, which a plain sum overstates when activities overlap."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    streams = {e.device_resource_id for e in prof.events()
+               if e.device_type == DeviceType.CUDA}
+    return busy_us / 1e3, len(streams)
+
+
+def profile_captured(K, arch: str, policy: str, per_layer: bool = False,
+                     short: int = 2, long: int = ENGINE_ROUNDS) -> dict:
+    """Phase 15 for the captured engine: two runs of ``short`` and ``long``
+    rounds (one eval each, at the end) under ``torch.profiler``; their
+    difference is ``long - short`` steady replays, set-up, round 0 and the
+    eval cancelling: device-busy ms per replay (the kernels' summed times,
+    and the union of their intervals, which overlapping kernels do not
+    double) against the replays' wall ms (CUDA events), the streams the
+    kernels ran on, the kernels that take the most (device ms and
+    launches a replay), and the sparsify kernels the card ran (one a
+    round: the profiler sees the graph's kernels), held against the
+    ``LAUNCHES`` count of the same run (round 0, plus the capture's count
+    once a replay) and per replay."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.experiments import DataShard, run_afl_scanned
+
+    kernel = KERNEL_OF[policy]
+    runs = {}
+    for rounds in (short, long):
+        model, cfg, fl, dev, ev = engine_setup(arch, per_layer, rounds)
+        shard = DataShard(dev, 32, 0)
+        K.reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            res = run_afl_scanned(model, cfg, fl, policy, shard, ev,
+                                  rounds=rounds, eval_every=rounds,
+                                  device="cuda")
+            torch.cuda.synchronize()
+        counted = dict(K.LAUNCHES)
+        by_kernel, calls = {}, 0
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", 0) or 0
+            if us > 0:
+                by_kernel[e.key[:60]] = (us / 1e3, e.count)
+            if KERNEL_SYMBOL[kernel] in e.key:
+                calls += e.count
+        if calls != rounds or counted[kernel] != calls or \
+                sum(counted.values()) != calls:
+            fail(f"{arch} {policy} captured: the profiler saw {calls} "
+                 f"{KERNEL_SYMBOL[kernel]} kernels in {rounds} rounds, "
+                 f"LAUNCHES counted {counted}")
+        runs[rounds] = (by_kernel, calls, res.round_seconds[1:],
+                        device_timeline(prof))
+    steps = long - short
+    (k_short, c_short, _, (u_short, _)), \
+        (k_long, calls, steady, (u_long, streams)) = runs[short], runs[long]
+    per_replay = (calls - c_short) / steps
+    if per_replay != 1:
+        fail(f"{arch} {policy} captured: {per_replay} {kernel} kernels a "
+             f"replay")
+    # (device ms, launches) per replay, kernel by kernel
+    per_round = {k: [(v - k_short.get(k, (0.0, 0))[0]) / steps,
+                     (n - k_short.get(k, (0.0, 0))[1]) / steps]
+                 for k, (v, n) in k_long.items()}
+    busy_ms = sum(v[0] for v in per_round.values())
+    wall_ms = 1e3 * sum(steady) / len(steady)
+    top = dict(sorted(per_round.items(), key=lambda kv: -kv[1][0])[:6])
+    union_ms = (u_long - u_short) / steps
+    out = dict(arch=arch, policy=policy, per_layer=per_layer,
+               rounds=[short, long], kernel=kernel,
+               sparsify_kernels_profiled=calls,
+               sparsify_kernels_profiled_per_replay=per_replay,
+               device_busy_ms_per_round=busy_ms, wall_ms_per_round=wall_ms,
+               busy_share=busy_ms / wall_ms,
+               device_busy_union_ms_per_round=union_ms,
+               busy_share_union=union_ms / wall_ms, streams=streams,
+               kernels=len(k_long), top_device_ms_per_round=top)
+    print(f"profile {arch} {policy}{' per-layer' if per_layer else ''} "
+          f"captured (full width): {json.dumps(out)}", flush=True)
+    return out
+
+
+def engine_run(arch: str, policy: str, per_layer: bool, engine: str,
+               rounds: int):
+    """One timed run: ``scan`` (the captured round) and ``loop-shard``
+    (the loop engine) sample on the card from a DataShard, ``loop`` draws
+    DeviceLoader batches on the host as the training CLI's loop does.
+    Steady rounds/s, round 0 (with the warm-up and the capture for
+    ``scan``) and the whole run's wall seconds (set-up from the model on),
+    peak memory beside them."""
+    from repro_torch.core.runner import run_afl
+    from repro_torch.data import DeviceLoader
+    from repro_torch.experiments import DataShard
+
+    model, cfg, fl, dev, ev = engine_setup(arch, per_layer, rounds)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loader = (DeviceLoader(dev, 32, 0) if engine == "loop"
+              else DataShard(dev, 32, 0))
+    res = run_afl(model, cfg, fl, policy, loader, ev, rounds=rounds,
+                  eval_every=ENGINE_EVERY, engine=engine.split("-")[0],
+                  device="cuda")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    rps, eval_s = steady_rate(res)
+    return dict(rps=rps, eval_s=eval_s if engine == "scan" else None,
+                round0_s=res.round_seconds[0], wall_s=wall_s,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                uploads=res.history["uploads"][-1])
+
+
+ENGINES = ("loop", "loop-shard", "scan")
+
+
+def engine_rates(smi: str) -> dict:
+    """Phase 14b: steady rounds/s of the engines, read in turns (loop,
+    loop-shard, scan, scan, loop-shard, loop), ENGINE_TIMED_ROUNDS rounds;
+    the captured engine's replays between CUDA events, its evals apart.
+    ``loop-shard`` against ``loop`` is the sampler's share, ``scan``
+    against ``loop-shard`` the capture's."""
+    out = {}
+    for arch, policy, per_layer in ENGINE_CASES:
+        name = f"{arch} {policy}{' per-layer' if per_layer else ''}"
+        runs = {engine: [] for engine in ENGINES}
+        for engine in ENGINES + ENGINES[::-1]:
+            runs[engine].append(engine_run(arch, policy, per_layer, engine,
+                                           ENGINE_TIMED_ROUNDS))
+            torch.cuda.empty_cache()
+        out[name] = runs
+        print(f"rounds/s by engine ({name}, full width, N={N_DEV}, batch 32, "
+              f"{ENGINE_TIMED_ROUNDS} rounds, in turns) on {smi}: "
+              f"{json.dumps(runs)}", flush=True)
+    return out
+
+
+def seed_batches(smi: str) -> dict:
+    """Phase 14c: ``run_seed_batch`` (S = 3 LaneGCN, S = 2 ResNet-9, the
+    seed axis folded into the rows) against an independent
+    ``run_afl_scanned`` of each seed on the same DataShard: 8 rounds under
+    cuDNN's deterministic algorithms, uploads equal and histories within
+    the cross-engine tolerance (bit-equal states printed); then 20 rounds
+    in default mode timed as the batch against the S single runs."""
+    from repro_torch.experiments import (DataShard, run_afl_scanned,
+                                         run_seed_batch)
+
+    out = {}
+    for arch, seeds in ((LANEGCN, 3), (RESNET9, 2)):
+        model, cfg, fl, dev, ev = engine_setup(arch, False, ENGINE_ROUNDS)
+        shard = DataShard(dev, 32, 0)
+        kw = dict(rounds=ENGINE_ROUNDS, eval_every=ENGINE_EVERY, device="cuda")
+        torch.backends.cudnn.deterministic = True
+        try:
+            batch = run_seed_batch(model, cfg, fl, "mads", shard, ev,
+                                   seeds=list(range(seeds)), **kw)
+            equal = []
+            for sd, res in enumerate(batch):
+                ind = run_afl_scanned(model, cfg, fl, "mads", shard, ev,
+                                      seed=sd, **kw)
+                a, b = res.history, ind.history
+                if a["uploads"] != b["uploads"] or not hist_close(a, b):
+                    fail(f"{arch} seed batch: seed {sd} differs from its own "
+                         f"run: {a} vs {b}")
+                equal.append(state_equal(res.state, ind.state))
+                del ind
+            if len({tuple(r.history["uploads"]) for r in batch}) != seeds:
+                fail(f"{arch} seed batch: seeds gave equal uploads")
+        finally:
+            torch.backends.cudnn.deterministic = False
+        del batch
+        torch.cuda.empty_cache()
+        kw["rounds"] = ENGINE_TIMED_ROUNDS
+        torch.cuda.reset_peak_memory_stats()
+        batch = run_seed_batch(model, cfg, fl, "mads", shard, ev,
+                               seeds=list(range(seeds)), **kw)
+        rps, _ = steady_rate(batch[0])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del batch
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        single = [steady_rate(run_afl_scanned(
+            model, cfg, fl, "mads", shard, ev, seed=sd, **kw))[0]
+            for sd in range(seeds)]
+        out[arch] = dict(seeds=seeds, bit_equal_states=equal,
+                         batch_rounds_per_s=rps,
+                         batch_seed_rounds_per_s=rps * seeds,
+                         batch_peak_gib=peak, single_rounds_per_s=single,
+                         single_peak_gib=torch.cuda.max_memory_allocated()
+                         / 2**30)
+        print(f"seed batch ({arch} mads, S={seeds}, full width, N={N_DEV}) "
+              f"matches independent runs; {ENGINE_TIMED_ROUNDS} rounds on "
+              f"{smi}: {json.dumps(out[arch])}", flush=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def sweep_on_card(K) -> dict:
+    """Phase 14d: the sweep CLI in-process at full-width LaneGCN (policies
+    mads and afl-spar, speeds 5 and 20 m/s, 2 seeds, 20 rounds, N = 20,
+    batch 32): the table, 8 cells in results.jsonl, a second call that
+    skips every cell, and report.md from --report."""
+    from repro_torch.launch import sweep
+
+    with tempfile.TemporaryDirectory() as out:
+        argv = ["--arch", LANEGCN, "--policies", "mads,afl-spar", "--speeds",
+                "5,20", "--seeds", "2", "--rounds", "20", "--eval-every", "10",
+                "--devices", str(N_DEV), "--batch-size", "32", "--train-n",
+                "2000", "--report", "--device", "cuda", "--out", out]
+        K.reset_launches()
+        t0 = time.perf_counter()
+        table = sweep.main(argv)
+        first_s = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        cells = Path(out, "results.jsonl").read_text().splitlines()
+        report = Path(out, "report.md").read_text()
+        t0 = time.perf_counter()
+        again = sweep.main(argv)
+        second_s = time.perf_counter() - t0
+        cells_after = Path(out, "results.jsonl").read_text().splitlines()
+    # 4 groups of 2 seeds, 20 rounds each: one sparsify_ef launch a round
+    # of each group (mads and afl-spar both go through sparsify_ef)
+    if len(cells) != 8 or cells_after != cells or again != table:
+        fail(f"sweep: {len(cells)} cells, then {len(cells_after)}")
+    if launches["sparsify_ef"] != 4 * 20:
+        fail(f"sweep: sparsify launches {launches}, not one a group round")
+    if "## Per-group results" not in report:
+        fail("sweep: report.md lacks its per-group section")
+    out = dict(cells=len(cells), first_s=first_s, resumed_s=second_s,
+               launches=launches)
+    print(f"sweep CLI (LaneGCN full width, mads,afl-spar x v 5,20 x 2 seeds, "
+          f"20 rounds):\n{table}\n{json.dumps(out)}", flush=True)
+    return out
+
+
+def captured_launches(whole_run: dict, profiled: dict, name: str) -> dict:
+    """A captured case's launches for the kernels line: ``LAUNCHES``'s
+    count over phase 14a's ENGINE_ROUNDS rounds beside the kernels the
+    profiler saw the card run in phase 15's run of as many rounds, and
+    per replay; the two counts must agree."""
+    p = profiled[name]
+    counted = whole_run["captured"][name]["launches"][p["kernel"]]
+    if counted != p["sparsify_kernels_profiled"]:
+        fail(f"{name}: LAUNCHES counted {counted} captured launches, the "
+             f"profiler saw {p['sparsify_kernels_profiled']}")
+    return dict(rounds=ENGINE_ROUNDS, counted=counted,
+                profiled=p["sparsify_kernels_profiled"],
+                profiled_per_replay=p["sparsify_kernels_profiled_per_replay"])
+
+
+def engine_phase(K, smi: str) -> dict:
+    """Phase 14: the whole-run engine, seed batching, the sweep CLI and the
+    comparison example twin on the card."""
+    from repro_torch.examples import cifar_mads_vs_baselines
+
+    out = dict(captured=captured_against_eager(K), rates=engine_rates(smi),
+               seed_batch=seed_batches(smi), sweep=sweep_on_card(K))
+    rows = cifar_mads_vs_baselines.main(["--device", "cuda"])
+    if len(rows) != 9 or not all(math.isfinite(r["acc"]) for r in rows):
+        fail(f"cifar_mads_vs_baselines: {rows}")
+    print(f"cifar_mads_vs_baselines (ResNet-9 width 8, N 8, 40 rounds, 3 "
+          f"seeds a policy, seed-batched): {json.dumps(rows)}", flush=True)
+    return out
 
 
 def bound(nbytes: float, ops: float, dtype) -> dict:
@@ -1205,7 +1607,7 @@ def profile_kernels(DA, SSD) -> None:
 
 
 def profile_rounds(arch: str, policy: str = "mads", rounds: int = 6) -> dict:
-    """Phase 14 for training: a full-width run of ``rounds`` rounds (one
+    """Phase 15 for training: a full-width run of ``rounds`` rounds (one
     eval, at the end) under ``torch.profiler``; the device-busy time per
     round (every kernel of the run, model set-up and the eval included,
     divided by the rounds) against the steady rounds' wall clock, and the
@@ -1219,11 +1621,12 @@ def profile_rounds(arch: str, policy: str = "mads", rounds: int = 6) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         res = train(argv)
         torch.cuda.synchronize()
-    by_kernel = {}
+    by_kernel, launches = {}, {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0) or 0
         if us > 0:
             by_kernel[e.key[:60]] = us / rounds / 1e3
+            launches[e.key[:60]] = e.count / rounds
     busy_ms = sum(by_kernel.values())
     steady = res.round_seconds[1:]
     wall_ms = 1e3 * sum(steady) / len(steady)
@@ -1231,14 +1634,15 @@ def profile_rounds(arch: str, policy: str = "mads", rounds: int = 6) -> dict:
     out = dict(arch=arch, policy=policy, rounds=rounds,
                device_busy_ms_per_round=busy_ms, wall_ms_per_round=wall_ms,
                busy_share=busy_ms / wall_ms, kernels=len(by_kernel),
-               top_device_ms_per_round=top)
+               top_device_ms_per_round=top,
+               top_launches_per_round={k: launches[k] for k in top})
     print(f"profile {arch} {policy} (profiled, full width): {json.dumps(out)}",
           flush=True)
     return out
 
 
 def profile_schedules(engine: dict) -> None:
-    """Phase 14 for the device-resident scenario engine: device-busy ms of
+    """Phase 15 for the device-resident scenario engine: device-busy ms of
     one N = 1e5 schedule build per model (every kernel of the build, by
     ``device_times``) against phase 12's ms between CUDA events, and the
     kernels that take the most."""
@@ -1428,10 +1832,19 @@ def main() -> None:
     tel_launches = telemetry_phase(K, smi)
     torch.cuda.empty_cache()
 
-    # 14. device time by kernel, last (the profiler slows later launches)
+    # 14. the whole-run engine (the captured round), seed batching, the
+    # sweep CLI
+    whole_run = engine_phase(K, smi)
+    torch.cuda.empty_cache()
+
+    # 15. device time by kernel, last (the profiler slows later launches)
     profile_kernels(DA, SSD)
+    profiled = {}
     for arch in (LANEGCN, RESNET9):
         profile_rounds(arch)
+        profiled[f"{arch} mads"] = profile_captured(K, arch, "mads")
+    profiled[f"{LANEGCN} mads-joint per-layer"] = profile_captured(
+        K, LANEGCN, "mads-joint", per_layer=True)
     profile_schedules(engine)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
@@ -1447,6 +1860,9 @@ def main() -> None:
              launches_lanegcn_mads_gauss_markov_device_het=trace[
                  f"{LANEGCN} mads gauss_markov"]["launches"]["sparsify_ef"],
              launches_telemetry=tel_launches,
+             launches_captured={
+                 name: captured_launches(whole_run, profiled, name)
+                 for name in (f"{RESNET9} mads", f"{LANEGCN} mads")},
              **timing["sparsify_ef"]),
         dict(name="sparsify_quantize_ef", route="cuda",
              source=src + "sparsify_ef.cu",
@@ -1465,6 +1881,8 @@ def main() -> None:
              launches=launches_pl["sparsify_quantize_ef_segmented"],
              launches_lanegcn=lanegcn["mads-joint"]["launches"][
                  "sparsify_quantize_ef_segmented"],
+             launches_captured_lanegcn=captured_launches(
+                 whole_run, profiled, f"{LANEGCN} mads-joint per-layer"),
              **segmented[RESNET9],
              **{f"{key}_lanegcn": segmented[LANEGCN][key] for key in
                 ("ms", "ms_per_call", "plain_ms", "bound_ms", "bound_share",

@@ -27,6 +27,7 @@ import torch
 from repro_torch.compression import quant as Q
 from repro_torch.core.sparsify import sample_abs
 from repro_torch.kernels import ops
+from repro_torch.utils.device import constant
 from repro_torch.utils.fmath import div
 
 
@@ -103,9 +104,11 @@ class Compressor:
             k_target = torch.floor(torch.clamp(k_target * (1.0 - rel), min=0.0))
         t = strict_threshold(xt, layout, k_target, method=self.method,
                              sample=self.sample)
+        if not isinstance(b, torch.Tensor):  # a codec's fixed width
+            b = constant(float(b), device=xt.device)
         if quantize:
             levels = torch.broadcast_to(
-                Q.quant_levels(b).to(xt.device), t.shape).contiguous()
+                Q.quant_levels(b), t.shape).contiguous()
             step = Q.quant_step(Q.tree_amax(xt), levels)
             payload, error, k_actual = self.masked_payload(
                 xt, t, quantize=True, step=step, levels=levels, seeds=seeds)
@@ -123,8 +126,7 @@ class Compressor:
         stats = {
             "k": k_actual,
             "bits": bits * feasible,
-            "b": torch.as_tensor(b, dtype=torch.float32,
-                                 device=xt.device) * (k_actual > 0),
+            "b": b * (k_actual > 0),
             # the message's quantisation scale; 1.0 on the raw-f32 path
             "step": step if quantize else torch.ones_like(k_actual),
         }

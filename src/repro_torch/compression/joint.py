@@ -22,12 +22,13 @@ import torch
 from repro_torch.compression import quant as Q
 from repro_torch.compression.base import Compressor
 from repro_torch.compression.perlayer import compress_per_layer
+from repro_torch.utils.device import constant
 from repro_torch.utils.fmath import div
 
 
 def solve_kb(budget_bits, s: int, index_bits: int, b_grid):
     """Closed-form (k, b) split per device: budget_bits (N,) -> (k, b) (N,)."""
-    bg = torch.tensor(b_grid, dtype=torch.float32, device=budget_bits.device)
+    bg = constant(b_grid, device=budget_bits.device)
     avail = torch.clamp(budget_bits - Q.SCALE_BITS, min=0.0)
     kappa = torch.clamp(avail[..., None] / (float(s) * (bg + index_bits)),
                         0.0, 1.0)

@@ -40,6 +40,7 @@ import torch
 from repro_torch.compression import quant as Q
 from repro_torch.compression.base import strict_threshold
 from repro_torch.kernels import ops
+from repro_torch.utils.device import constant
 from repro_torch.utils.fmath import div
 from repro_torch.utils.tree import TreeLayout
 
@@ -67,8 +68,7 @@ def _cumfold(t: torch.Tensor) -> torch.Tensor:
 
 
 def _sizes(sizes, device) -> torch.Tensor:
-    return torch.tensor([float(n) for n in sizes], dtype=torch.float32,
-                        device=device)
+    return constant([float(n) for n in sizes], device=device)
 
 
 def _columns(x: torch.Tensor, layout):
@@ -115,7 +115,7 @@ def uniform_split(budget_bits, sizes, index_bits: int, b_grid):
     budget_bits (N,) -> k, b (N, L)."""
     dev = budget_bits.device
     sz = _sizes(sizes, dev)
-    bg = torch.tensor(b_grid, dtype=torch.float32, device=dev)
+    bg = constant(b_grid, device=dev)
     avail = _avail(budget_bits, len(sizes))
     return _solve_avail(avail[:, None] * sz / _fold(sz), sz, index_bits, bg)
 
@@ -129,12 +129,13 @@ def solve_kb_per_leaf(budget_bits, sizes, energies, index_bits: int, b_grid):
     """
     dev = budget_bits.device
     sz = _sizes(sizes, dev)
-    bg = torch.tensor(b_grid, dtype=torch.float32, device=dev)
+    bg = constant(b_grid, device=dev)
     lam = float(index_bits)
     avail = _avail(budget_bits, len(sizes))
 
     # marginal-density-optimal width: common to every unsaturated leaf
-    b0 = bg[torch.argmax(div(1.0 - eps_b(bg), bg + lam))]
+    b0 = bg.index_select(
+        0, torch.argmax(div(1.0 - eps_b(bg), bg + lam))[None])
 
     # fractional-knapsack fill in decreasing energy-per-coordinate order
     # (a stable sort: zero-energy leaves tie and keep their leaf order)

@@ -29,20 +29,31 @@ def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & _M32
 
 
-def dither_u01(seed, idx) -> torch.Tensor:
-    """U[0,1) dither for global element indices ``idx`` under ``seed``.
+def _u32(x):
+    if isinstance(x, int):
+        return x & _M32
+    return torch.as_tensor(x).to(torch.int64) & _M32
 
-    ``seed`` and ``idx`` are integer tensors (broadcastable); both are
-    taken mod 2^32, as the reference's int32 -> uint32 casts do.
+
+def lowbias32(seed, idx) -> torch.Tensor:
+    """The lowbias32 hash of ``idx ^ seed``, as int64 in [0, 2^32).
+
+    ``seed`` and ``idx`` are integer tensors or Python ints (at least one
+    a tensor; broadcastable); both are taken mod 2^32, as the reference's
+    int32 -> uint32 casts do.
     """
-    h = (torch.as_tensor(idx).to(torch.int64) & _M32) ^ (
-        torch.as_tensor(seed).to(torch.int64) & _M32)
+    h = _u32(idx) ^ _u32(seed)
     h = h ^ (h >> 16)
     h = _mul32(h, 0x7FEB352D)
     h = h ^ (h >> 15)
     h = _mul32(h, 0x846CA68B)
-    h = h ^ (h >> 16)
-    return h.to(torch.float32) * (1.0 / 4294967296.0)
+    return h ^ (h >> 16)
+
+
+def dither_u01(seed, idx) -> torch.Tensor:
+    """U[0,1) dither for global element indices ``idx`` under ``seed``
+    (integer tensors, broadcastable): ``lowbias32(seed, idx) / 2^32``."""
+    return lowbias32(seed, idx).to(torch.float32) * (1.0 / 4294967296.0)
 
 
 def quant_levels(b) -> torch.Tensor:

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.compression import quant as Q
 from repro_torch.compression.base import Compressor
+from repro_torch.utils.device import constant
 from repro_torch.utils.fmath import div
 
 
@@ -48,8 +49,8 @@ class FixedKbCompressor(Compressor):
         k_cap = torch.floor(torch.clamp(
             div(budget_bits - overhead, self.b + self.index_bits),
             0.0, float(self.s)))
-        k_fixed = torch.floor(torch.tensor(self.k_frac * self.s,
-                                           dtype=torch.float32))
-        k_target = torch.minimum(k_fixed.to(k_cap.device), k_cap)
+        k_fixed = torch.floor(constant(self.k_frac * self.s,
+                                       device=k_cap.device))
+        k_target = torch.minimum(k_fixed, k_cap)
         return self.spend(xt, layout, k_target, self.b, budget_bits, seeds,
                           quantize=quantize)

@@ -10,6 +10,12 @@ and every §VI-B baseline are policies over the same engine.
 Per-device state lives in flat (N, s) buffers (leaves in flatten order,
 ``model.layout`` maps them), so the sparsify + error-feedback pass is one
 fused kernel launch per round over the whole federation.
+
+Seed batching (``experiments/batch.py``) folds G independent federations
+into the rows: the per-device buffers are (G N, s), the global models
+(G, s); the gradients and the aggregation work group by group, everything
+else (thresholds, the kernel launch, the codecs) over all G N rows.  A
+single federation is the case G = 1.
 """
 from __future__ import annotations
 
@@ -27,14 +33,16 @@ from repro_torch.utils.fmath import div
 
 @dataclasses.dataclass
 class AflState:
-    w: torch.Tensor  # (s,) global model, flat
-    w_n: torch.Tensor  # (N, s) per-device models
+    w: torch.Tensor  # (s,) global model, flat; (G, s) for G seed groups
+    w_n: torch.Tensor  # (N, s) per-device models ((G N, s) under groups)
     g_n: torch.Tensor  # (N, s) cumulative gradients (eta-scaled)
     e_n: torch.Tensor  # (N, s) error memory
     kappa: torch.Tensor  # (N,) int32 last global-model reception round
     q: torch.Tensor  # (N,) virtual energy queues
     energy: torch.Tensor  # (N,) cumulative energy spent
-    rnd: int  # round index r
+    # round index r: an int, or (the whole-run engine, whose captured
+    # round advances it on the card) a 0-dim int32 tensor
+    rnd: int | torch.Tensor
     gen: torch.Generator  # draws the stochastic codecs' dither seeds
 
 
@@ -164,23 +172,44 @@ def sq_norms(x, layout):
                for l in layout.leaves(x))
 
 
+def _cat_groups(parts: list) -> torch.Tensor:
+    """The per-group results of a round as one tensor along dim 0: the
+    one part itself (no copy) for a single federation."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
 def afl_round(state: AflState, batch, zeta, tau, h2, energy_budget,
-              *, model, fl, policy: Policy) -> tuple[AflState, dict]:
+              *, model, fl, policy: Policy,
+              seeds=None) -> tuple[AflState, dict]:
     """One round r of Algorithm 1.
 
     batch: stacked per-device minibatches (leading N); zeta (N,) 0/1;
     tau (N,) contact durations; h2 (N,) channel gains; energy_budget (N,)
-    E_n^con — all tensors on the state's device.
+    E_n^con — all tensors on the state's device.  ``seeds``: the codecs'
+    (N,) int32 dither seeds (by default drawn from ``state.gen``; the
+    whole-run engine draws a run's seeds before it starts).
+
+    A state whose global model is (G, s) holds G federations of N =
+    ``fl.num_devices`` devices each, in consecutive row blocks: every
+    per-device input then has G N rows, and each group aggregates into
+    its own global model.
     """
     n = fl.num_devices
+    groups = state.w.numel() // state.w_n.shape[-1]
     eta = fl.learning_rate
     layout = model.layout
     ctl = policy.controller or MadsController(s=model.num_params())
     r = state.rnd + 1
     theta = (r - state.kappa).to(torch.float32)
 
-    # --- local stochastic gradients (all devices, vmapped) -----------------
-    grads = device_grads(model, state.w_n, batch)
+    # --- local stochastic gradients (vmapped over each group's devices) -----
+    # group by group, in the single federation's shapes: a seed's gradients
+    # then round as in its own run (a batched matmul or convolution over
+    # G N rows may pick other kernels)
+    grads = _cat_groups([device_grads(
+        model, state.w_n[g * n:(g + 1) * n],
+        {k: v[g * n:(g + 1) * n] for k, v in batch.items()})
+        for g in range(groups)])
     if not policy.train_every_round:
         grads = grads * zeta[:, None].to(grads.dtype)
     g_new = state.g_n + eta * grads
@@ -202,7 +231,11 @@ def afl_round(state: AflState, batch, zeta, tau, h2, energy_budget,
         # codec path: the budget is the realised contact capacity tau*A(p)
         rate = M.rate_bps(p, h2, ctl.bandwidth, ctl.noise_w_hz)
         budget_bits = tau * rate * okf
-        seeds = Q.draw_seeds(state.gen, n, x.device)
+        if seeds is None:
+            if groups > 1:
+                raise ValueError("seed groups take their dither seeds "
+                                 "(seeds=), one generator cannot give them")
+            seeds = Q.draw_seeds(state.gen, n, x.device)
         upload, e_after, cstats = compress_uploads(
             policy.compressor, g_new, state.e_n, budget_bits, seeds, layout)
         k_actual = cstats["k"]
@@ -225,17 +258,22 @@ def afl_round(state: AflState, batch, zeta, tau, h2, energy_budget,
     # --- MES aggregation: w <- w - (1/N) sum a s(theta) zeta S(x_n) ---------
     mix = okf if policy.staleness.is_identity \
         else okf * policy.staleness.weight(theta)
-    w_new = state.w - div(mix @ upload.to(torch.float32), float(n)).to(
-        state.w.dtype)
+    up32 = upload.to(torch.float32)
+    # one product per group, each the single federation's: (G, s)
+    agg = _cat_groups([(mix[g * n:(g + 1) * n] @ up32[g * n:(g + 1) * n])[None]
+                       for g in range(groups)])
+    w = state.w.view(groups, -1)
+    w_new = w - div(agg, float(n)).to(w.dtype)
 
     # --- device-side state transitions --------------------------------------
     w_local = state.w_n - eta * grads if policy.local_updates else state.w_n
     okc = ok[:, None]
-    w_n_new = torch.where(okc, w_new[None, :], w_local)
+    w_n_new = torch.where(okc.view(groups, n, 1), w_new[:, None, :],
+                          w_local.view(groups, n, -1)).view_as(w_local)
     e_n_new = torch.where(okc, e_after, state.e_n)
     g_n_new = torch.where(okc, torch.zeros((), dtype=g_new.dtype,
                                            device=g_new.device), g_new)
-    kappa_new = torch.where(ok, torch.full_like(state.kappa, r), state.kappa)
+    kappa_new = torch.where(ok, r, state.kappa)
     q_new = ctl.queue_update(state.q, energy, energy_budget, fl.rounds)
 
     metrics = {
@@ -253,7 +291,7 @@ def afl_round(state: AflState, batch, zeta, tau, h2, energy_budget,
         "b": b_used,  # value bit-width on the wire (u, or the codec's b*)
     }
     new_state = AflState(
-        w=w_new, w_n=w_n_new, g_n=g_n_new, e_n=e_n_new, kappa=kappa_new,
+        w=w_new.view_as(state.w), w_n=w_n_new, g_n=g_n_new, e_n=e_n_new, kappa=kappa_new,
         q=q_new, energy=state.energy + energy, rnd=r, gen=state.gen,
     )
     return new_state, metrics

@@ -4,8 +4,9 @@ Build a federation, pick a policy (MADS or a §VI-B baseline), run R
 rounds, record metrics + periodic global-model evaluation.  This is the
 reference's loop engine (one ``afl_round`` per round), with its telemetry
 (``repro_torch.telemetry``: recorded on the run's device each round,
-fetched once at the end) and phase tracing; the whole-run engines wait
-for their slice.
+fetched once at the end) and phase tracing; ``engine="scan"`` hands the
+run to the whole-run engine (``experiments/scan_engine.py``: on CUDA the
+round captured once as a CUDA graph and replayed).
 """
 from __future__ import annotations
 
@@ -44,6 +45,8 @@ class RunResult:
     # fetched MetricRegistry snapshot, or a TelemetrySuite's sectioned
     # {"metrics"/"device"/"probes"} snapshot when the suite knobs are on
     telemetry: Optional[dict] = None
+    # the whole-run engine's seconds per eval, apart from the rounds
+    eval_seconds: Optional[list] = None
 
 
 def resolve_telemetry(fl, telemetry, s: int = 0):
@@ -136,7 +139,16 @@ def _on(device, arrays: dict) -> dict:
     return {k: torch.as_tensor(v).to(device) for k, v in arrays.items()}
 
 
-def _het_masks(telemetry, provider, device):
+def _round_batch(loader, r: int, shard_key, device) -> dict:
+    """One stacked (N, B, ...) batch on ``device``: a ``DataShard`` draws
+    round r's batch on its own device (the whole-run engine draws the
+    same), a ``DeviceLoader`` is copied over."""
+    if shard_key is not None:
+        return loader.traced_batch(shard_key, r)
+    return _on(device, loader.sample_all())
+
+
+def het_masks(telemetry, provider, device):
     """The heterogeneity loss masks, (rounds, N) f32 on ``device``, when a
     per-device table records them (else None): brought to the device once,
     before round 0, so that no round copies them over."""
@@ -173,18 +185,27 @@ def run_afl(
     fetched once at the end into ``RunResult.telemetry``.  ``tracer`` (a
     ``PhaseTracer``) times each round under the span ``compile`` (round 0,
     which pays kernel loading and cuDNN autotuning) or ``execute``, and
-    each evaluation under ``eval``.
+    each evaluation under ``eval``.  ``loader`` is a ``DeviceLoader`` or a
+    ``DataShard`` on ``device``.
+
+    ``engine="scan"`` runs the whole-run engine instead
+    (``experiments.scan_engine.run_afl_scanned``, with the same arguments).
     """
-    if engine != "loop":
-        raise NotImplementedError(
-            f"engine {engine!r} is not ported (ROADMAP.md, queue 1: the "
-            "scan/seed-vmap engines); use 'loop'")
-    device = resolve_device(device)
     rounds = rounds or fl.rounds
     seed = fl.seed if seed is None else seed
-
     s = model.num_params()
     telemetry = resolve_telemetry(fl, telemetry, s=s)
+    if engine == "scan":
+        from repro_torch.experiments.scan_engine import run_afl_scanned
+
+        return run_afl_scanned(
+            model, cfg, fl, policy_name, loader, eval_batch, rounds=rounds,
+            eval_every=eval_every, seed=seed, schedule=schedule,
+            log_progress=log_progress, telemetry=telemetry, tracer=tracer,
+            device=device, params=params)
+    if engine != "loop":
+        raise ValueError(f"unknown engine {engine!r}; known: loop, scan")
+    device = resolve_device(device)
     policy = BL.ALL[policy_name](s, fl)
     provider = build_provider(fl, policy_name, schedule, rounds, seed, device)
     budgets = torch.as_tensor(sample_budgets(fl, seed), device=device)
@@ -193,15 +214,16 @@ def run_afl(
     eval_batch = _on(device, eval_batch)
     hist: dict = {k: [] for k in HIST_KEYS}
     tstate = telemetry.init_state(device) if telemetry is not None else None
-    het = _het_masks(telemetry, provider, device)
+    het = het_masks(telemetry, provider, device)
     span = tracer.span if tracer is not None else (
         lambda name, **kw: nullcontext())
     tot_uploads = tot_k = tot_power = tot_theta = tot_bits = 0.0
     n = fl.num_devices
     round_seconds = []
+    shard_key = loader.seed_key(seed) if hasattr(loader, "seed_key") else None
     for r in range(rounds):
         t0 = time.perf_counter()
-        batch = _on(device, loader.sample_all())
+        batch = _round_batch(loader, r, shard_key, device)
         zeta_r, tau_r, h2_r = provider.round(r)
         tau_dev = torch.as_tensor(tau_r, dtype=torch.float32, device=device)
         with span("compile" if r == 0 else "execute"):

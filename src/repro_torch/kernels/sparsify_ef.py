@@ -68,7 +68,7 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=32)
+@functools.cache  # unbounded: a captured graph reads these tables
 def _tile_table(offsets: tuple, tile: int, device: torch.device):
     rows = [(leaf, c, min(c + tile, end))
             for leaf, (start, end) in enumerate(zip(offsets, offsets[1:]))

@@ -25,6 +25,11 @@ history land in ``--workdir``, in the reference's formats, with
 metric snapshot and the theory-vs-measured probe report
 (``python -m repro_torch.telemetry.report`` renders it).
 ``--profile-dir`` adds a ``torch.profiler`` Chrome trace of the run.
+``--engine scan`` (the default, as in the reference) runs the whole-run
+engine (``experiments/scan_engine.py``): on the card, the round captured
+once as a CUDA graph and replayed, minibatches drawn on the device from a
+``DataShard``; ``--engine loop`` issues each round from Python, drawing
+from a ``DeviceLoader``.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from repro_torch.core import baselines as BL
 from repro_torch.core.runner import resolve_telemetry, run_afl
 from repro_torch.data import (DeviceLoader, SyntheticCifar,
                               SyntheticTrajectories, dirichlet_partition)
+from repro_torch.experiments import DataShard
 from repro_torch.models.registry import build_model
 from repro_torch.telemetry import (JsonlSink, PhaseTracer, TelemetrySuite,
                                    report_from_config, to_jsonable)
@@ -111,8 +117,11 @@ def main(argv=None):
                     help=">0: override d_model (CPU-sized smoke runs)")
     ap.add_argument("--train-n", type=int, default=2000)
     ap.add_argument("--eval-every", type=int, default=20)
-    ap.add_argument("--engine", default="loop", choices=["loop"],
-                    help="per-round dispatch (the scan engine is not ported)")
+    ap.add_argument("--engine", default="scan", choices=["scan", "loop"],
+                    help="scan: the whole run on the device, the round "
+                         "captured once as a CUDA graph and replayed "
+                         "(repro_torch/experiments); loop: per-round "
+                         "dispatch from Python")
     ap.add_argument("--telemetry", action="store_true",
                     help="device-resident round metrics (repro_torch/"
                          "telemetry): staleness/bits/tau histograms + "
@@ -159,7 +168,12 @@ def main(argv=None):
              args.devices, device)
 
     dev, ev = build_device_data(cfg, fl, train_n=args.train_n, seed=args.seed)
-    loader = DeviceLoader(dev, fl.batch_size, args.seed)
+    if args.engine == "scan":
+        # device-resident shard sampled inside the captured round; a
+        # DeviceLoader would make the engine prestack every round's batch
+        loader = DataShard(dev, fl.batch_size, seed=args.seed, device=device)
+    else:
+        loader = DeviceLoader(dev, fl.batch_size, args.seed)
     tracer = PhaseTracer(profile_dir=args.profile_dir or None)
     tracer.start()
     try:

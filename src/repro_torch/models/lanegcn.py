@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.sharding.rules import ParamSpec
+from repro_torch.utils.device import constant
 
 FUTURE = 30
 
@@ -81,8 +82,7 @@ def forward(params, cfg, batch_past, batch_lanes, **_):
     k = _lin(params["fuse_k"], m)
     v = _lin(params["fuse_v"], m)
     # the reference's scale: sqrt(d_model) taken in f32
-    scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32,
-                                    device=q.device))
+    scale = torch.sqrt(constant(float(cfg.d_model), device=q.device))
     att = torch.softmax(torch.einsum("bqd,bmd->bqm", q, k) / scale, -1)
     ctx = torch.einsum("bqm,bmd->bqd", att, v)[:, 0]  # (B,d)
 

@@ -33,6 +33,8 @@ from typing import Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.utils.device import constant
+
 # Per-eval-point history keys of ``core/runner.py::run_afl``.
 HIST_KEYS = (
     "round", "eval", "uploads", "k_mean", "energy", "theta_mean",
@@ -45,16 +47,14 @@ HIST_KEYS = (
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=64)
 def _edges(edges: Tuple[float, ...], device: torch.device) -> torch.Tensor:
     """A histogram's interior edges as an f32 tensor on ``device`` (one
     copy per (edges, device); read-only)."""
-    return torch.tensor(edges, dtype=torch.float32, device=device)
+    return constant(edges, device=device)
 
 
-@functools.lru_cache(maxsize=64)
 def _bin_ids(num_bins: int, device: torch.device) -> torch.Tensor:
-    return torch.arange(num_bins, device=device)
+    return constant(range(num_bins), torch.int64, device)
 
 
 def as_f32(x, device: torch.device) -> torch.Tensor:

@@ -700,7 +700,7 @@ def test_train_cli_profile_trace_holds_spans_and_the_kernel(cuda, tmp_path):
                       "--eval-every", "3", "--batch-size", "8", "--train-n",
                       "64", "--intercontact", "20", "--telemetry",
                       "--perdevice", "--probes", "--profile-dir", str(prof),
-                      "--workdir", str(tmp_path / "w")])
+                      "--engine", "loop", "--workdir", str(tmp_path / "w")])
     assert res.telemetry["metrics"]["counters"]["rounds"] == 3.0
     names = [e.get("name", "") for e in
              json.loads((prof / "trace.json").read_text())["traceEvents"]]
@@ -708,3 +708,142 @@ def test_train_cli_profile_trace_holds_spans_and_the_kernel(cuda, tmp_path):
     assert any("row_pass" in n for n in names)
     text = render_report(read_jsonl(str(tmp_path / "w" / "telemetry.jsonl")))
     assert "## Theory vs measured" in text
+
+
+# ---------------------------------------------------------------------------
+# The whole-run engine: the captured round on the card
+# ---------------------------------------------------------------------------
+
+
+def _engine_fed(policy_rounds=6):
+    from repro_torch.configs import FLConfig, get_config
+    from repro_torch.launch.train import build_device_data
+    from repro_torch.models.registry import build_model
+
+    model = build_model(get_config("resnet9-cifar10").replace(d_model=4))
+    fl = FLConfig(num_devices=4, rounds=policy_rounds, batch_size=8,
+                  mean_contact=6.0, mean_intercontact=30.0)
+    dev, ev = build_device_data(model.cfg, fl, train_n=160, eval_n=64, seed=0)
+    return model, fl, dev, ev
+
+
+def _states_equal(a, b):
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("w", "w_n", "g_n", "e_n", "kappa", "q", "energy"))
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    """cuDNN's default weight-gradient algorithms add in another order from
+    run to run; bit-equal comparisons of two runs need the deterministic
+    ones."""
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.cuda
+def test_captured_run_replays_without_a_sync(cuda, monkeypatch):
+    """The replays and evals run under the sync debug mode "error": a host
+    read slipped into the eval raises; the mode is restored after."""
+    from repro_torch.core import runner
+    from repro_torch.experiments import DataShard, run_afl_scanned
+
+    model, fl, dev, ev = _engine_fed()
+    shard = DataShard(dev, 8, 0)
+    res = run_afl_scanned(model, model.cfg, fl, "mads", shard, ev, rounds=6,
+                          eval_every=3)
+    assert res.history["uploads"][-1] > 0 and len(res.round_seconds) == 6
+    assert torch.cuda.get_sync_debug_mode() == 0
+    plain = runner.make_eval_fn
+
+    def syncing(model, cfg):
+        fn = plain(model, cfg)
+        return lambda p, b: fn(p, b) + 0 * fn(p, b).item()
+
+    from repro_torch.experiments import scan_engine
+    monkeypatch.setattr(scan_engine, "make_eval_fn", syncing)
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        run_afl_scanned(model, model.cfg, fl, "mads", shard, ev, rounds=4,
+                        eval_every=2)
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,kernel", [
+    ("mads", "sparsify_ef"), ("mads-joint", "sparsify_quantize_ef")])
+def test_captured_run_equals_eager_body_and_counts_replays(
+        cuda, deterministic_cudnn, monkeypatch, policy, kernel):
+    """The captured run equals the same round run eagerly on the card
+    (``_capture`` swapped for an eager step) bit for bit, and its kernel
+    count is one launch a round: the capture's own count taken back, one
+    added per replay."""
+    from repro_torch.experiments import DataShard, run_afl_scanned
+    from repro_torch.experiments import scan_engine
+
+    model, fl, dev, ev = _engine_fed()
+    shard = DataShard(dev, 8, 0)
+    K.reset_launches()
+    captured = run_afl_scanned(model, model.cfg, fl, policy, shard, ev,
+                               rounds=6, eval_every=3)
+    assert K.LAUNCHES[kernel] == 6 and sum(K.LAUNCHES.values()) == 6
+
+    def eager(body, device):
+        body()
+        return body, {}
+
+    monkeypatch.setattr(scan_engine, "_capture", eager)
+    K.reset_launches()
+    plain = run_afl_scanned(model, model.cfg, fl, policy, shard, ev,
+                            rounds=6, eval_every=3)
+    assert K.LAUNCHES[kernel] == 6
+    assert captured.history == plain.history
+    assert _states_equal(captured.state, plain.state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["mads-joint", "qsgd"])
+def test_predrawn_dither_seeds_give_the_loops_uploads(
+        cuda, deterministic_cudnn, policy):
+    """The codecs' dither seeds, drawn for the whole run before it starts,
+    are the loop's round by round: the captured run's state equals the
+    loop engine's bit for bit on the same prestacked draws."""
+    from repro_torch.core.runner import run_afl
+    from repro_torch.data import DeviceLoader
+    from repro_torch.experiments import prestack_batches, run_afl_scanned
+
+    model, fl, dev, ev = _engine_fed()
+    loop = run_afl(model, model.cfg, fl, policy, DeviceLoader(dev, 8, 0), ev,
+                   rounds=6, eval_every=3, device="cuda")
+    scan = run_afl_scanned(model, model.cfg, fl, policy,
+                           prestack_batches(DeviceLoader(dev, 8, 0), 6), ev,
+                           rounds=6, eval_every=3)
+    assert loop.history["uploads"][-1] > 0
+    assert scan.history["uploads"] == loop.history["uploads"]
+    assert _states_equal(scan.state, loop.state)
+
+
+@pytest.mark.cuda
+def test_train_cli_scan_engine_on_the_card(cuda, tmp_path):
+    """The training CLI's default engine on the card, with the full
+    telemetry suite and ``--profile-dir``: the capture, run and fetch
+    spans and one sparsify kernel a round in the Chrome trace, and the
+    snapshot counting every round."""
+    import json
+
+    from repro_torch.launch import train
+
+    prof = tmp_path / "prof"
+    K.reset_launches()
+    res = train.main(["--width", "4", "--devices", "4", "--rounds", "4",
+                      "--eval-every", "2", "--batch-size", "8", "--train-n",
+                      "64", "--intercontact", "20", "--telemetry",
+                      "--perdevice", "--probes", "--profile-dir", str(prof),
+                      "--workdir", str(tmp_path / "w")])
+    assert K.LAUNCHES["sparsify_ef"] == 4
+    assert res.telemetry["metrics"]["counters"]["rounds"] == 4.0
+    assert res.history["round"] == [2, 4]
+    names = [e.get("name", "") for e in
+             json.loads((prof / "trace.json").read_text())["traceEvents"]]
+    assert {"capture", "run", "fetch"} <= set(names)
+    assert sum("row_pass" in n for n in names) == 4

@@ -608,7 +608,7 @@ def test_train_cli_telemetry_records_and_report(tmp_path):
                         "--rounds", "3", "--eval-every", "1", "--batch-size",
                         "8", "--train-n", "64", "--intercontact", "20",
                         "--telemetry", "--perdevice", "--probes",
-                        "--workdir", str(wd)])
+                        "--engine", "loop", "--workdir", str(wd)])
     events = TT.read_jsonl(str(wd / "telemetry.jsonl"))
     kinds = [e["kind"] for e in events]
     assert kinds == ["span"] * 6 + ["metrics", "probe_report"]
@@ -653,7 +653,8 @@ def test_train_cli_without_telemetry_writes_spans_only(tmp_path):
     wd = tmp_path / "w"
     res = t_train.main(["--device", "cpu", "--width", "4", "--devices", "4",
                         "--rounds", "2", "--eval-every", "2", "--batch-size",
-                        "8", "--train-n", "64", "--workdir", str(wd)])
+                        "8", "--train-n", "64", "--engine", "loop",
+                        "--workdir", str(wd)])
     assert res.telemetry is None
     events = TT.read_jsonl(str(wd / "telemetry.jsonl"))
     assert [e["name"] for e in events] == ["compile", "execute", "eval"]
