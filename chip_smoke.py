@@ -113,7 +113,31 @@ Phases, each of which raises on failure (a failed phase exits non-zero):
    own run, and its rounds/s against the S single runs; the sweep CLI at
    full-width LaneGCN (8 cells, a resumed second call, ``report.md``);
    the ``cifar_mads_vs_baselines`` twin;
-15. profile: a ``torch.profiler`` pass over ``decode_attn`` and
+15. ingest (``serve/``, ``launch/soak.py``), every fused ingest under
+   ``torch.cuda.set_sync_debug_mode("error")``: full-width ResNet-9, N =
+   20, batch 32, exponential contacts, 4 rounds of each codec policy
+   (``mads-topk``, ``mads-joint``, ``qsgd``, ``fixed-kb``) through
+   ``afl_round`` with ``expose_uploads``, every round's uploads encoded to
+   the wire and ingested by an ``IngestServer`` at batch = N, max_k = s:
+   the server's weights against ``afl_round``'s after each round (bit
+   equality printed, rtol 1e-6 asserted); the soak CLI's ``run_soak`` at s
+   = 6,573,130 (``topk`` and ``joint``: batch 64, max_k 65,536, 1,024
+   uploads in chunks of 64) and s = 247,100 (``topk``: batch 256, max_k
+   4,096, 10,000 uploads; ``topk32``: 2,048), the parity and scatter modes
+   in turns and ``hinge`` staleness once: fused and loop uploads/s, host
+   ms per pack, device ms per ingest (CUDA events), the device-busy share
+   of a step, peak memory; one sparsify launch per payload chunk; the
+   snapshot's counters add up;
+16. federated LM fine-tuning: the training CLI with ``--reduced`` for
+   ``internlm2-1.8b`` (dense) and ``mamba2-2.7b`` (ssm), ``mads``, N = 20,
+   batch 32, seq 64, 8 rounds, loop and captured engines in turns (one
+   ``sparsify_ef`` launch a round, uploads > 0, a finite loss within 0.05
+   of its first reading, steady rounds/s; whether it fell is printed);
+   plain SGD on one device (float32, 30 steps) as a yardstick of how fast
+   the reduced models learn the token data at all; both in float32 on the card and on the CPU (N = 4:
+   equal uploads, eval within 0.02); the CUDA ``ssd_scan`` refusing
+   inputs that require a gradient; the ``federated_llm_finetune`` twin;
+17. profile: a ``torch.profiler`` pass over ``decode_attn`` and
    ``ssd_scan`` at their timed shapes, device time by kernel (the five
    launches of ``ssd_scan``), and over a few full-width training rounds
    of LaneGCN and ResNet-9 (``mads``), eager and captured: device-busy
@@ -140,6 +164,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -1058,7 +1083,7 @@ def captured_against_eager(K) -> dict:
     launch a round (the counts reset just before the captured run, read
     just after); the engine runs its replays and evals under
     ``torch.cuda.set_sync_debug_mode("error")``.  A ``torch.profiler``
-    pass over captured runs (phase 15, ``profile_captured``) counts the
+    pass over captured runs (phase 17, ``profile_captured``) counts the
     sparsify kernels the card ran, and the kernels line holds the two
     counts against each other (``captured_launches``)."""
     from repro_torch.core.runner import run_afl
@@ -1141,7 +1166,7 @@ def device_timeline(prof) -> tuple:
 
 def profile_captured(K, arch: str, policy: str, per_layer: bool = False,
                      short: int = 2, long: int = ENGINE_ROUNDS) -> dict:
-    """Phase 15 for the captured engine: two runs of ``short`` and ``long``
+    """Phase 17 for the captured engine: two runs of ``short`` and ``long``
     rounds (one eval each, at the end) under ``torch.profiler``; their
     difference is ``long - short`` steady replays, set-up, round 0 and the
     eval cancelling: device-busy ms per replay (the kernels' summed times,
@@ -1365,7 +1390,7 @@ def sweep_on_card(K) -> dict:
 def captured_launches(whole_run: dict, profiled: dict, name: str) -> dict:
     """A captured case's launches for the kernels line: ``LAUNCHES``'s
     count over phase 14a's ENGINE_ROUNDS rounds beside the kernels the
-    profiler saw the card run in phase 15's run of as many rounds, and
+    profiler saw the card run in phase 17's run of as many rounds, and
     per replay; the two counts must agree."""
     p = profiled[name]
     counted = whole_run["captured"][name]["launches"][p["kernel"]]
@@ -1390,6 +1415,374 @@ def engine_phase(K, smi: str) -> dict:
     print(f"cifar_mads_vs_baselines (ResNet-9 width 8, N 8, 40 rounds, 3 "
           f"seeds a policy, seed-batched): {json.dumps(rows)}", flush=True)
     return out
+
+
+# phase 15: the streaming ingest server (serve/), full width
+INGEST_POLICIES = ("mads-topk", "mads-joint", "qsgd", "fixed-kb")
+# soak generations: (label, s, codec, uploads, batch, max_k, chunk); each
+# set of payloads is ingested in the modes of SOAK_RUNS, in turns
+SOAK_POINTS = (
+    ("resnet9 topk", S_RESNET9, "topk", 1024, 64, 65_536, 64),
+    ("resnet9 joint", S_RESNET9, "joint", 1024, 64, 65_536, 64),
+    ("lanegcn topk", S_LANEGCN, "topk", 10_000, 256, 4096, 512),
+    ("lanegcn topk32", S_LANEGCN, "topk32", 2048, 256, 4096, 512),
+)
+SOAK_RUNS = {"lanegcn topk": (("parity", "constant"), ("scatter", "constant"),
+                              ("scatter", "constant"), ("parity", "constant"),
+                              ("parity", "hinge")),
+             "lanegcn topk32": (("parity", "constant"),)}
+SOAK_TURNS = (("parity", "constant"), ("scatter", "constant"),
+              ("scatter", "constant"), ("parity", "constant"))
+
+
+@contextmanager
+def no_sync_ingests():
+    """Every fused ingest built inside the block runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host sync in it raises."""
+    import repro_torch.serve.server as S
+
+    made = S.make_fused_ingest
+
+    def make(*args, **kw):
+        fn = made(*args, **kw)
+
+        def ingest(*a):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+
+        return ingest
+
+    S.make_fused_ingest = make
+    try:
+        yield
+    finally:
+        S.make_fused_ingest = made
+
+
+def ingest_device_ms(srv, runs: int = 10) -> float:
+    """Median device ms of one fused ingest of the server's last packed
+    batch (the work does not depend on how full it is), between CUDA
+    events; the result is discarded."""
+    times = []
+    for _ in range(runs + 2):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+            enable_timing=True)
+        a.record()
+        srv._ingest(srv.w, srv.packed, srv.tstate)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times[2:]))
+
+
+def ingest_against_afl_round(smi: str) -> dict:
+    """Phase 15a: full-width ResNet-9, N = 20, batch 32, exponential
+    contacts, ROUNDS rounds of each codec policy through ``afl_round`` with
+    ``expose_uploads``; every round's 20 uploads encoded to the wire and
+    driven through an ``IngestServer`` at batch = N, max_k = s.  The
+    server's weights against ``afl_round``'s after every round: whether
+    they are bit-equal is printed; beyond rtol 1e-6 fails."""
+    import dataclasses
+
+    from repro_torch.compression.wire import encode_upload
+    from repro_torch.core import baselines as BL
+    from repro_torch.core.afl import afl_init, afl_round
+    from repro_torch.core.runner import build_provider, sample_budgets
+    from repro_torch.data import DeviceLoader
+    from repro_torch.serve import IngestServer
+
+    model, _, fl, dev, _ = engine_setup(RESNET9, False, ROUNDS)
+    s = model.num_params()
+    out = {}
+    for name in INGEST_POLICIES:
+        policy = dataclasses.replace(BL.ALL[name](s, fl), expose_uploads=True)
+        provider = build_provider(fl, name, None, ROUNDS, 0, "cuda")
+        budgets = torch.as_tensor(sample_budgets(fl, 0)).cuda()
+        state = afl_init(model, fl, 0, "cuda")
+        loader = DeviceLoader(dev, 32, 0)
+        srv = IngestServer(state.w.clone(), num_devices=N_DEV, batch=N_DEV,
+                           max_k=s, queue_capacity=N_DEV)
+        bitwise, shipped, worst, encode_s = [], 0.0, 0.0, 0.0
+        for r in range(ROUNDS):
+            batch = {k: torch.as_tensor(v).cuda()
+                     for k, v in loader.sample_all().items()}
+            z, t, h2 = provider.round(r)
+            state, m = afl_round(
+                state, batch, torch.as_tensor(z).cuda(),
+                torch.as_tensor(t, dtype=torch.float32).cuda(),
+                torch.as_tensor(h2, dtype=torch.float32).cuda(), budgets,
+                model=model, fl=fl, policy=policy)
+            b, step, okf = torch.stack(
+                [m["b"], m["upload_step"], m["uploads"]]).double().cpu().numpy()
+            t0 = time.perf_counter()
+            for i in range(N_DEV):
+                p = encode_upload(m["upload"][i], b=b[i] if b[i] > 0 else 32.0,
+                                  step=float(step[i]), device=i, ok=float(okf[i]))
+                if not srv.submit(p):
+                    fail(f"ingest {name}: upload {i} of round {r} refused")
+                shipped += p.k * okf[i]
+            encode_s += time.perf_counter() - t0
+            if srv.step() != N_DEV:
+                fail(f"ingest {name}: round {r} did not ingest {N_DEV} uploads")
+            bitwise.append(bool(torch.equal(srv.w, state.w)))
+            diff = (srv.w - state.w).abs().max().item()
+            worst = max(worst, diff / state.w.abs().max().item())
+            if diff > 1e-6 * state.w.abs().max().item():
+                fail(f"ingest {name}: round {r} server weights {diff} from "
+                     f"afl_round's")
+        if shipped <= 0:
+            fail(f"ingest {name}: no coordinate shipped in {ROUNDS} rounds")
+        res = dict(policy=name, rounds=ROUNDS, bitwise_each_round=bitwise,
+                   max_rel_diff=worst, coords_shipped=shipped,
+                   device_ms_per_ingest=ingest_device_ms(srv),
+                   encode_ms_per_upload=1e3 * encode_s / (ROUNDS * N_DEV))
+        print(f"ingest against afl_round (full-width ResNet-9, N={N_DEV}, "
+              f"batch = N, max_k = s) {name}: bit-equal every round: "
+              f"{all(bitwise)}; {json.dumps(res)} on {smi}", flush=True)
+        out[name] = res
+        del srv, state, m
+        torch.cuda.empty_cache()
+    return out
+
+
+def soak_on_card(K, smi: str) -> dict:
+    """Phase 15b: ``launch/soak.py``'s points on the card, each set of
+    payloads made once (one sparsify launch per chunk, counted) and
+    ingested in turns: fused and loop uploads/s, host ms per pack, device
+    ms per ingest, the device-busy share of a step, peak memory; the
+    snapshot's counters must add up."""
+    from repro_torch.launch import soak
+    from repro_torch.telemetry.tracing import PhaseTracer
+
+    out = {}
+    for label, s, codec, uploads, batch, max_k, chunk in SOAK_POINTS:
+        K.reset_launches()
+        t0 = time.perf_counter()
+        payloads = soak.make_payloads(uploads, s, max_k, codec=codec,
+                                      chunk=chunk, device="cuda")
+        gen_s = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        chunks = -(-uploads // chunk)
+        if sum(launches.values()) != chunks:
+            fail(f"soak {label}: {launches} sparsify launches for {chunks} "
+                 f"chunks")
+        runs = []
+        for mode, staleness in SOAK_RUNS.get(label, SOAK_TURNS):
+            tracer = PhaseTracer()
+            torch.cuda.reset_peak_memory_stats()
+            res = soak.run_soak(uploads=uploads, batch=batch, s=s, max_k=max_k,
+                                codec=codec, staleness_family=staleness,
+                                mode=mode, tracer=tracer, device="cuda",
+                                payloads=payloads)
+            srv = res.pop("server")
+            c = res.pop("snapshot")["counters"]
+            if not (c["accepted"] == c["ingested"] == uploads and c["received"]
+                    == c["accepted"] + c["rejected"] + c["deferred"]):
+                fail(f"soak {label} {mode}: counters do not add up: {c}")
+            packs = [sp.duration for sp in tracer.spans
+                     if sp.name == "serve.pack" and sp.parent == "soak.fused"]
+            steps = srv.rnd
+            dev_ms = ingest_device_ms(srv)
+            step_ms = 1e3 * res["fused_wall_s"] / steps
+            runs.append(dict(
+                mode=mode, staleness=staleness,
+                fused_per_s=res["fused_per_s"], loop_per_s=res["loop_per_s"],
+                speedup_vs_loop=res["speedup_vs_loop"], steps=steps,
+                host_ms_per_pack=1e3 * sum(packs) / len(packs),
+                device_ms_per_ingest=dev_ms, ms_per_step=step_ms,
+                device_busy_share=dev_ms / step_ms,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                deferred=c["deferred"]))
+            del srv
+        point = dict(s=s, codec=codec, uploads=uploads, batch=batch,
+                     max_k=max_k, chunk=chunk, generate_s=gen_s,
+                     launches=launches, runs=runs)
+        print(f"soak {label} (s={s}, {uploads} uploads, batch {batch}, max_k "
+              f"{max_k}) on {smi}: " + "; ".join(
+                  f"{r['mode']}/{r['staleness']} {r['fused_per_s']:.0f} "
+                  f"uploads/s (loop {r['loop_per_s']:.0f}, "
+                  f"{r['speedup_vs_loop']:.1f}x)" for r in runs)
+              + f"; unrounded {json.dumps(point)}", flush=True)
+        out[label] = point
+        del payloads
+        torch.cuda.empty_cache()
+    return out
+
+
+def ingest_phase(K, smi: str) -> dict:
+    """Phase 15: the ingest server at full width, every ingest under the
+    sync debug mode "error"."""
+    t0 = time.perf_counter()
+    with no_sync_ingests():
+        out = dict(parity=ingest_against_afl_round(smi),
+                   soak=soak_on_card(K, smi))
+    print(f"ingest phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+# phase 16: federated LM fine-tuning, reduced (the token generator's V x V
+# table and N devices' (N, s) state do not fit at full width)
+LM_ARCHS = ("internlm2-1.8b", "mamba2-2.7b")
+LM_ROUNDS, LM_EVERY = 8, 2
+F32 = dict(dtype="float32", param_dtype="float32")
+
+
+def lm_run(K, arch: str, engine: str) -> dict:
+    """The training CLI with ``--reduced``: N = 20, batch 32, 8 rounds, seq
+    64 (a multiple of Mamba2's reduced chunk, 32), train-n 4000 (1000
+    sequences, 50 a device), the CLI's lr.  One sparsify_ef launch a
+    round, uploads > 0, a finite loss that stays within 0.05 of its first
+    reading (the reduced models barely learn this data by SGD in so few
+    steps, ``sgd_probe``: the loss wobbles, so a fall is printed, not
+    asserted)."""
+    K.reset_launches()
+    res = train(["--arch", arch, "--reduced", "--policy", "mads",
+                 "--devices", str(N_DEV), "--rounds", str(LM_ROUNDS),
+                 "--batch-size", "32", "--train-n", "4000", "--seq-len", "64",
+                 "--eval-every", str(LM_EVERY), "--intercontact", "20",
+                 "--engine", engine, "--device", "cuda", "--seed", "0"])
+    launches = dict(K.LAUNCHES)
+    hist = res.history
+    name = f"{arch} reduced {engine}"
+    if launches["sparsify_ef"] != LM_ROUNDS or sum(launches.values()) != LM_ROUNDS:
+        fail(f"{name}: not one sparsify_ef launch a round: {launches}")
+    if not hist["uploads"][-1] > 0:
+        fail(f"{name}: no uploads")
+    if not all(math.isfinite(v) and abs(v - hist["eval"][0]) < 0.05
+               for v in hist["eval"]):
+        fail(f"{name}: loss not finite or not bounded: {hist['eval']}")
+    rps = steady_rate(res)[0]
+    out = dict(launches=launches, rps=rps, eval=hist["eval"],
+               fell=hist["eval"][-1] < hist["eval"][0],
+               uploads=hist["uploads"][-1], k_mean=hist["k_mean"][-1],
+               round0_s=res.round_seconds[0])
+    print(f"lm {name}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def sgd_probe(arch: str, lr: float = 0.5, steps: int = 30) -> list:
+    """Phase 16d: how fast the reduced model learns the token data at all:
+    plain SGD on one device (float32, batch 32 of the CLI's data, full
+    gradient steps at ``lr``); the eval loss every 10 steps, printed."""
+    from repro_torch.configs import FLConfig, get_config
+    from repro_torch.launch.train import build_device_data
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config(arch).reduced().replace(**F32)
+    model = build_model(cfg)
+    dev, ev = build_device_data(cfg, FLConfig(num_devices=1), train_n=4000,
+                                seq_len=64, seed=0)
+    data = {k: torch.as_tensor(v).cuda() for k, v in dev[0].items()}
+    ev = {k: torch.as_tensor(v).cuda() for k, v in ev.items()}
+    w = model.layout.flatten(model.init(torch.Generator().manual_seed(0),
+                                        "cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def loss(flat, batch):
+        return model.loss_fn(model.layout.unflatten(flat), cfg, batch)
+
+    losses = []
+    for step in range(steps + 1):
+        if step % 10 == 0:
+            with torch.no_grad():
+                losses.append(float(loss(w, ev)))
+        if step < steps:
+            idx = torch.randint(0, len(data["tokens"]), (32,), generator=gen,
+                                device="cuda")
+            w = w - lr * torch.func.grad(loss)(w, {k: v[idx] for k, v in
+                                                   data.items()})
+    print(f"sgd probe {arch} reduced f32 (one device, batch 32, lr {lr}): "
+          f"eval loss every 10 steps {losses}", flush=True)
+    return losses
+
+
+def lm_against_cpu() -> None:
+    """Phase 16b: the reduced runs in float32 (N = 4, 4 rounds, batch 4,
+    the loop engine) on the card and on the CPU from one seed: equal
+    uploads, eval losses within 0.02 (the CPU tests' tolerance)."""
+    from repro_torch.configs import FLConfig, get_config
+    from repro_torch.core.runner import run_afl
+    from repro_torch.data import DeviceLoader
+    from repro_torch.launch.train import build_device_data
+    from repro_torch.models.registry import build_model
+
+    for arch in LM_ARCHS:
+        cfg = get_config(arch).reduced().replace(**F32)
+        model = build_model(cfg)
+        fl = FLConfig(num_devices=4, rounds=4, batch_size=4,
+                      mean_intercontact=20.0, seed=0)
+        dev, ev = build_device_data(cfg, fl, train_n=200, eval_n=64,
+                                    seq_len=64, seed=0)
+        hists = {d: run_afl(model, cfg, fl, "mads", DeviceLoader(dev, 4, 0),
+                            ev, rounds=4, eval_every=1, device=d).history
+                 for d in ("cuda", "cpu")}
+        a, b = hists["cuda"], hists["cpu"]
+        if a["uploads"] != b["uploads"] or not a["uploads"][-1] > 0:
+            fail(f"lm {arch} f32: cuda and cpu uploads differ: {a} vs {b}")
+        if any(abs(x - y) > 0.02 for x, y in zip(a["eval"], b["eval"])):
+            fail(f"lm {arch} f32: cuda and cpu eval differ: {a['eval']} vs "
+                 f"{b['eval']}")
+        print(f"lm {arch} reduced f32: cuda run matches cpu run: eval "
+              f"{a['eval']} vs {b['eval']}, uploads {a['uploads']}", flush=True)
+
+
+def ssd_scan_refuses_gradients(SSD) -> None:
+    """Phase 16c: the CUDA ``ssd_scan`` has no backward; with inputs that
+    require a gradient it raises, called directly and from a Mamba2
+    forward under ``torch.func.grad``, and launches nothing."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = _randn((1, 64, 2, 64), gen).requires_grad_()
+    a = -_randn((1, 64, 2), gen).abs()
+    b, c = _randn((1, 64, 16), gen), _randn((1, 64, 16), gen)
+    cfg = get_config("mamba2-2.7b").reduced().replace(**F32)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cuda")
+    tokens = torch.zeros((1, 64), dtype=torch.int32, device="cuda")
+    SSD.reset_launches()
+    for label, call in (
+            ("direct", lambda: ops.ssd_scan(x, a, b, c, 32)),
+            ("forward under grad", lambda: torch.func.grad(
+                lambda p: model.forward(p, cfg, tokens)[0].sum())(params))):
+        try:
+            call()
+        except NotImplementedError as e:
+            print(f"ssd_scan with gradients ({label}) refused: {e}", flush=True)
+        else:
+            fail(f"ssd_scan with gradients ({label}) was not refused")
+    if SSD.LAUNCHES["ssd_scan"]:
+        fail(f"a refused ssd_scan launched: {SSD.LAUNCHES}")
+
+
+def lm_phase(K, SSD, smi: str) -> dict:
+    """Phase 16: federated LM fine-tuning on the card."""
+    from repro_torch.examples import federated_llm_finetune
+
+    t0 = time.perf_counter()
+    out = {}
+    for arch in LM_ARCHS:
+        for engine in ("loop", "scan", "scan", "loop"):
+            out.setdefault(f"{arch} {engine}", []).append(lm_run(K, arch, engine))
+    print(f"lm rounds/s (reduced, N={N_DEV}, batch 32, seq 64, {LM_ROUNDS} "
+          f"rounds) on {smi}: "
+          + ", ".join(f"{k} {[r['rps'] for r in v]}" for k, v in out.items()),
+          flush=True)
+    lm_against_cpu()
+    for arch in LM_ARCHS:
+        sgd_probe(arch)
+    ssd_scan_refuses_gradients(SSD)
+    res = federated_llm_finetune.main(["--device", "cuda"])
+    if not (res.history["uploads"][-1] > 0 and math.isfinite(res.final_eval)):
+        fail(f"federated_llm_finetune: {res.history}")
+    print(f"lm phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {k: v[0]["launches"]["sparsify_ef"] for k, v in out.items()}
 
 
 def bound(nbytes: float, ops: float, dtype) -> dict:
@@ -1607,7 +2000,7 @@ def profile_kernels(DA, SSD) -> None:
 
 
 def profile_rounds(arch: str, policy: str = "mads", rounds: int = 6) -> dict:
-    """Phase 15 for training: a full-width run of ``rounds`` rounds (one
+    """Phase 17 for training: a full-width run of ``rounds`` rounds (one
     eval, at the end) under ``torch.profiler``; the device-busy time per
     round (every kernel of the run, model set-up and the eval included,
     divided by the rounds) against the steady rounds' wall clock, and the
@@ -1642,7 +2035,7 @@ def profile_rounds(arch: str, policy: str = "mads", rounds: int = 6) -> dict:
 
 
 def profile_schedules(engine: dict) -> None:
-    """Phase 15 for the device-resident scenario engine: device-busy ms of
+    """Phase 17 for the device-resident scenario engine: device-busy ms of
     one N = 1e5 schedule build per model (every kernel of the build, by
     ``device_times``) against phase 12's ms between CUDA events, and the
     kernels that take the most."""
@@ -1837,7 +2230,15 @@ def main() -> None:
     whole_run = engine_phase(K, smi)
     torch.cuda.empty_cache()
 
-    # 15. device time by kernel, last (the profiler slows later launches)
+    # 15. the streaming ingest server at full width
+    ingest = ingest_phase(K, smi)
+    torch.cuda.empty_cache()
+
+    # 16. federated LM fine-tuning (reduced dense and ssm)
+    lm_launches = lm_phase(K, SSD, smi)
+    torch.cuda.empty_cache()
+
+    # 17. device time by kernel, last (the profiler slows later launches)
     profile_kernels(DA, SSD)
     profiled = {}
     for arch in (LANEGCN, RESNET9):
@@ -1863,6 +2264,10 @@ def main() -> None:
              launches_captured={
                  name: captured_launches(whole_run, profiled, name)
                  for name in (f"{RESNET9} mads", f"{LANEGCN} mads")},
+             launches_lm=lm_launches,
+             launches_soak={label: p["launches"]["sparsify_ef"]
+                            for label, p in ingest["soak"].items()
+                            if p["launches"]["sparsify_ef"]},
              **timing["sparsify_ef"]),
         dict(name="sparsify_quantize_ef", route="cuda",
              source=src + "sparsify_ef.cu",
@@ -1872,6 +2277,9 @@ def main() -> None:
                  "sparsify_quantize_ef"],
              launches_resnet9_mads_joint_rwp=trace[f"{RESNET9} mads-joint rwp"][
                  "launches"]["sparsify_quantize_ef"],
+             launches_soak={label: p["launches"]["sparsify_quantize_ef"]
+                            for label, p in ingest["soak"].items()
+                            if p["launches"]["sparsify_quantize_ef"]},
              **timing["sparsify_quantize_ef"]),
         # the per-layer codec's route to the same TPU kernel: launches and
         # times at ResNet-9's (20, 6,573,130), *_lanegcn at (20, 247,100)

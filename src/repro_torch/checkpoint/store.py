@@ -3,7 +3,8 @@
 Layout: <dir>/step_<n>/arrays.npz + tree.json (key paths + dtypes).
 The reference's layout, so either package reads the other's checkpoints.
 Tensors are moved to the host and written via ``np.savez`` with
-'/'-joined key paths.
+'/'-joined key paths; bfloat16 leaves (which numpy has no type for) are
+written as their exact float32 values.
 """
 from __future__ import annotations
 
@@ -24,7 +25,10 @@ def _flatten(tree, prefix=""):
         for i, v in enumerate(tree):
             out.update(_flatten(v, f"{prefix}#{i}/"))
     elif isinstance(tree, torch.Tensor):
-        out[prefix[:-1]] = tree.detach().cpu().numpy()
+        t = tree.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.to(torch.float32)
+        out[prefix[:-1]] = t.numpy()
     else:
         out[prefix[:-1]] = np.asarray(tree)
     return out

@@ -194,5 +194,5 @@ def load_all() -> None:
     import importlib
 
     for mod in ("resnet9_cifar10", "lanegcn_argoverse", "llama3_2_3b",
-                "mamba2_2_7b"):
+                "mamba2_2_7b", "internlm2_1_8b", "qwen2_7b", "qwen3_32b"):
         importlib.import_module(f"repro_torch.configs.{mod}")

@@ -105,7 +105,14 @@ class Policy:
     # None -> top-k at ctl.u-bit values; a compression codec replaces the
     # sparsify/quantize stage and spends tau*A(p) bits itself
     compressor: Compressor | None = None
+    # the alpha * s(delta_tau) mixing weight, shared by the engines and the
+    # streaming ingest server (serve/aggregate.py)
     staleness: StalenessWeight = StalenessWeight()
+    # True -> afl_round also returns the round's dense (N, s) uploads under
+    # metrics["upload"] and their quantisation steps under
+    # metrics["upload_step"], for the serve parity checks (the wire format
+    # and the fused ingest take the same uploads); the engines leave it off
+    expose_uploads: bool = False
 
     def select(self, ctl: MadsController, zeta, theta, x_norm2, q, tau, h2):
         if self.controller is not None and self.fixed_power <= 0:
@@ -290,6 +297,13 @@ def afl_round(state: AflState, batch, zeta, tau, h2, energy_budget,
         "bits": bits,  # realised upload payload (<= tau*A budget; eq. 7c)
         "b": b_used,  # value bit-width on the wire (u, or the codec's b*)
     }
+    if policy.expose_uploads:
+        # the payloads the MES just applied, and the step a wire encoder
+        # needs to turn them back into grid codes (1.0 = raw floats)
+        metrics["upload"] = upload
+        metrics["upload_step"] = (
+            cstats["step"] if policy.compressor is not None
+            else torch.ones_like(okf))
     new_state = AflState(
         w=w_new.view_as(state.w), w_n=w_n_new, g_n=g_n_new, e_n=e_n_new, kappa=kappa_new,
         q=q_new, energy=state.energy + energy, rnd=r, gen=state.gen,

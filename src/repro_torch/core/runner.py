@@ -76,7 +76,8 @@ def resolve_telemetry(fl, telemetry, s: int = 0):
 
 def make_eval_fn(model, cfg):
     """Family-appropriate eval metric over a params tree: accuracy for
-    vision (higher is better), ADE for trajectory (lower is better)."""
+    vision (higher is better), ADE for trajectory and the LM loss for the
+    language families (lower is better)."""
     if cfg.family == "vision":
         from repro_torch.models.resnet import accuracy
 
@@ -89,7 +90,7 @@ def make_eval_fn(model, cfg):
             return ade(pred, b["future"])
 
         return f
-    raise NotImplementedError(f"eval for family {cfg.family!r} is not ported")
+    return lambda p, b: model.loss_fn(p, cfg, b)
 
 
 def evaluate(model, cfg, w_flat, eval_batch) -> float:

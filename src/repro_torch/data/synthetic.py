@@ -8,8 +8,9 @@ generators, exactly).
 * ``SyntheticTrajectories`` — kinematic vehicle tracks (constant turn rate
   + noise) with lane-centreline context; target = next 30 positions at
   10 Hz, metric = ADE (paper §VI-C).
-
-The token generator waits for the LLM training examples.
+* ``SyntheticTokens`` — order-1 Markov token streams over the vocab with a
+  low-rank transition (the federated LM fine-tuning corpus).  It holds a
+  V x V float64 transition matrix, so it serves reduced vocabularies.
 """
 from __future__ import annotations
 
@@ -79,3 +80,30 @@ class SyntheticTrajectories:
         lanes = (s * lane_dir[:, None, :] * speed[:, :, None]).astype(np.float32)
         lanes += rng.normal(0, 0.2, lanes.shape).astype(np.float32)
         return {"past": past, "lanes": lanes, "future": future.astype(np.float32)}
+
+
+@dataclasses.dataclass
+class SyntheticTokens:
+    """Order-1 Markov chain over the vocab with a low-rank transition."""
+
+    vocab_size: int = 1024
+    rank: int = 8
+    seed: int = 0
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        a = rng.normal(0, 1, (self.vocab_size, self.rank))
+        b = rng.normal(0, 1, (self.rank, self.vocab_size))
+        logits = a @ b / np.sqrt(self.rank)
+        self.probs = np.exp(logits - logits.max(-1, keepdims=True))
+        self.probs /= self.probs.sum(-1, keepdims=True)
+
+    def make_split(self, n: int, seq_len: int, seed: int = 1):
+        rng = np.random.default_rng(seed)
+        out = np.zeros((n, seq_len + 1), np.int32)
+        out[:, 0] = rng.integers(0, self.vocab_size, n)
+        cdf = np.cumsum(self.probs, axis=-1)
+        for t in range(seq_len):
+            u = rng.random(n)
+            out[:, t + 1] = (u[:, None] < cdf[out[:, t]]).argmax(-1)
+        return {"tokens": out[:, :-1], "labels": out[:, 1:]}

@@ -21,6 +21,16 @@ def _device(x) -> str:
     return x.device.type
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if any of ``tensors`` requires a gradient (also inside
+    ``torch.func.grad``): the kernel would return a result with none."""
+    if any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"the {name} kernel has no backward (the reference has no "
+            "backward kernel for it either): differentiate its plain "
+            "formula instead")
+
+
 def sparsify_ef(x, thresholds):
     """x (N, s), thresholds (N,) f32 -> (upload, error, count (N,) f32)."""
     if _device(x) == "cuda":
@@ -61,8 +71,11 @@ def ssd_scan(x, a, b, c, chunk: int):
     """Chunked SSD scan -> (y (B,S,H,P), final state (B,H,P,N)), f32.
 
     The inputs are taken as f32, as the reference kernel reads them (b and
-    c come in the activation dtype)."""
+    c come in the activation dtype).  The kernel has no backward: CUDA
+    inputs that require a gradient raise (training differentiates
+    ``models/mamba2.py::ssd_chunked``)."""
     x, a, b, c = (t.to(torch.float32) for t in (x, a, b, c))
     if _device(x) == "cuda":
+        refuse_grad("ssd_scan", x, a, b, c)
         return SSD.ssd_scan_cuda(x, a, b, c, chunk)
     return ref.ssd_scan_plain(x, a, b, c, chunk)

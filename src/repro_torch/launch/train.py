@@ -5,6 +5,8 @@ Example:
       --policy mads --rounds 200 --devices 20 --device cuda
   PYTHONPATH=src python -m repro_torch.launch.train --arch resnet9-cifar10 \
       --policy mads --mobility manhattan --speed 15 --area 500
+  PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
+      --reduced --policy mads --rounds 50    # federated LM fine-tuning
 
 Runs on the card by default (``--device cuda``, which raises when CUDA is
 absent); ``--device cpu`` runs the same path with the kernels' plain
@@ -18,7 +20,11 @@ the torch one).  ``--dropout``, ``--availability`` and ``--compute-mean``
 arm the heterogeneity layer.  The data are synthetic stand-ins generated
 from the seed: CIFAR-10 for ResNet-9 (``--arch resnet9-cifar10``),
 Argoverse tracks for LaneGCN (``--arch lanegcn-argoverse``, the paper's
-§VI-C experiment).  A checkpoint of the global model and a JSON metrics
+§VI-C experiment), order-1 Markov token streams of ``--seq-len`` tokens
+for the dense and ssm LM families (federated fine-tuning; ``--reduced``
+runs the family's reduced variant, as the reference does: the token
+generator's V x V table and N devices' (N, s) state do not fit at full
+width).  A checkpoint of the global model and a JSON metrics
 history land in ``--workdir``, in the reference's formats, with
 ``telemetry.jsonl`` beside them: the phase spans and, with
 ``--telemetry`` (``--perdevice`` and ``--probes`` imply it), the run's
@@ -43,7 +49,7 @@ from repro_torch.checkpoint import save
 from repro_torch.configs import FLConfig, get_config
 from repro_torch.core import baselines as BL
 from repro_torch.core.runner import resolve_telemetry, run_afl
-from repro_torch.data import (DeviceLoader, SyntheticCifar,
+from repro_torch.data import (DeviceLoader, SyntheticCifar, SyntheticTokens,
                               SyntheticTrajectories, dirichlet_partition)
 from repro_torch.experiments import DataShard
 from repro_torch.models.registry import build_model
@@ -55,11 +61,13 @@ from repro_torch.utils.logging import get_logger
 log = get_logger("repro_torch.train")
 
 
-def build_device_data(cfg, fl, *, train_n=2000, eval_n=512, seed=0):
+def build_device_data(cfg, fl, *, train_n=2000, eval_n=512, seq_len=64,
+                      seed=0):
     """Synthetic per-device datasets (numpy) and the eval batch.
 
-    Images are split by Dirichlet class mixtures; trajectories have no
-    classes and are dealt out by a seeded permutation in equal chunks."""
+    Images are split by Dirichlet class mixtures; trajectories and token
+    streams (``train_n // 4`` sequences of ``seq_len``) have no classes and
+    are dealt out by a seeded permutation in equal chunks."""
     if cfg.family == "vision":
         ds = SyntheticCifar(seed=seed)
         imgs, labels = ds.make_split(train_n, seed=seed + 1)
@@ -75,10 +83,26 @@ def build_device_data(cfg, fl, *, train_n=2000, eval_n=512, seed=0):
         chunks = np.array_split(order, fl.num_devices)
         dev = [{k: v[c] for k, v in data.items()} for c in chunks]
         ev = ds.make_split(eval_n, seed=seed + 2)
+    elif cfg.family in ("dense", "ssm"):  # order-1 Markov streams
+        ds = SyntheticTokens(vocab_size=cfg.vocab_size, seed=seed)
+        data = ds.make_split(train_n // 4, seq_len, seed=seed + 1)
+        order = np.random.default_rng(seed).permutation(len(data["tokens"]))
+        chunks = np.array_split(order, fl.num_devices)
+        dev = [{k: v[c] for k, v in data.items()} for c in chunks]
+        ev = ds.make_split(eval_n // 4, seq_len, seed=seed + 2)
     else:
         raise NotImplementedError(
-            f"data for family {cfg.family!r} is not ported")
+            f"family {cfg.family!r} is not ported (ROADMAP.md, queue 1 item "
+            "3b: the other LLM families)")
     return dev, ev
+
+
+def build_federation(cfg, fl, *, train_n=2000, eval_n=512, seq_len=64,
+                     seed=0):
+    """``build_device_data`` wrapped in the host-side DeviceLoader."""
+    dev, ev = build_device_data(cfg, fl, train_n=train_n, eval_n=eval_n,
+                                seq_len=seq_len, seed=seed)
+    return DeviceLoader(dev, fl.batch_size, seed), ev
 
 
 def main(argv=None):
@@ -113,8 +137,13 @@ def main(argv=None):
     ap.add_argument("--contact", type=float, default=4.0)
     ap.add_argument("--intercontact", type=float, default=400.0)
     ap.add_argument("--v-weight", type=float, default=1e-4)
+    ap.add_argument("--reduced", action="store_true",
+                    help="use the reduced variant (2 layers, d_model <= 256, "
+                         "vocab <= 1024)")
     ap.add_argument("--width", type=int, default=0,
                     help=">0: override d_model (CPU-sized smoke runs)")
+    ap.add_argument("--seq-len", type=int, default=64,
+                    help="tokens per sequence (language families)")
     ap.add_argument("--train-n", type=int, default=2000)
     ap.add_argument("--eval-every", type=int, default=20)
     ap.add_argument("--engine", default="scan", choices=["scan", "loop"],
@@ -146,6 +175,8 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
     if args.width > 0:
         cfg = cfg.replace(d_model=args.width)
     model = build_model(cfg)
@@ -167,7 +198,8 @@ def main(argv=None):
              cfg.name, model.num_params(), args.policy, args.rounds,
              args.devices, device)
 
-    dev, ev = build_device_data(cfg, fl, train_n=args.train_n, seed=args.seed)
+    dev, ev = build_device_data(cfg, fl, train_n=args.train_n,
+                                seq_len=args.seq_len, seed=args.seed)
     if args.engine == "scan":
         # device-resident shard sampled inside the captured round; a
         # DeviceLoader would make the engine prestack every round's batch

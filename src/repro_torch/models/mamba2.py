@@ -3,10 +3,14 @@
 
 Chunked SSD: the sequence is split into chunks of ``cfg.ssm_chunk``;
 intra-chunk terms use the quadratic (attention-like) form, inter-chunk
-terms carry the (H, P, N) state from chunk to chunk.  A prefill whose
-length is a multiple of the chunk goes through the ``ssd_scan`` kernel
-(``kernels/ops.py``); otherwise, and in decode (the O(1)-per-token
-recurrent update), the plain code runs, as in the reference.
+terms carry the (H, P, N) state from chunk to chunk.  A forward or
+prefill whose length is a multiple of the chunk goes through the
+``ssd_scan`` kernel (``kernels/ops.py``); otherwise, and in decode (the
+O(1)-per-token recurrent update), the plain code runs, as in the
+reference.  Training (``loss_fn``, and so ``afl_round``'s vmapped
+gradient) differentiates the chunked formula ``ssd_chunked``, as the
+reference does on every backend where it trains: the kernel has no
+backward, in the reference as here.
 
 Projections are separate tensors (wz/wx/wB/wC/wdt), as in the reference's
 tree.
@@ -141,10 +145,12 @@ def softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def mamba_block(p, cfg, x, conv_state=None, ssm_state=None, collect_cache=False):
+def mamba_block(p, cfg, x, conv_state=None, ssm_state=None, collect_cache=False,
+                train=False):
     """Full Mamba2 block. x: (B,S,d).
 
-    Training: states None -> returns (y, final_ssm_state).
+    Training (``train=True``: the chunked formula, differentiable):
+    states None -> returns (y, final_ssm_state).
     Prefill (collect_cache): returns (y, conv_tails, final_ssm_state).
     Decode (S==1): pass states -> returns (y, new_conv, new_ssm).
     """
@@ -184,7 +190,7 @@ def mamba_block(p, cfg, x, conv_state=None, ssm_state=None, collect_cache=False)
         y1, new_ssm = ssd_decode_step(
             ssm_state, x_disc[:, 0], log_decay[:, 0], bin_[:, 0], cin[:, 0])
         y = y1[:, None]
-    elif x_disc.shape[1] % cfg.ssm_chunk == 0:
+    elif not train and x_disc.shape[1] % cfg.ssm_chunk == 0:
         y, new_ssm = ops.ssd_scan(x_disc, log_decay, bin_, cin, cfg.ssm_chunk)
     else:
         y, new_ssm = ssd_chunked(x_disc, log_decay, bin_, cin, cfg.ssm_chunk)
@@ -221,12 +227,14 @@ def param_specs(cfg) -> dict:
     }
 
 
-def forward(params, cfg, tokens):
+def forward(params, cfg, tokens, *, train=False):
+    """Logits and a zero aux loss; ``train=True`` runs the differentiable
+    chunked SSD in place of the kernel."""
     x = L.embed(params, cfg, tokens)
     for i in range(cfg.num_layers):
         lp = layer(params["layers"], i)
         h = L.rms_norm(x, lp["ln"], cfg.norm_eps)
-        y, _ = mamba_block(lp["mamba"], cfg, h)
+        y, _ = mamba_block(lp["mamba"], cfg, h, train=train)
         x = x + y
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = x @ params["unembed"]["w"].to(x.dtype)
@@ -234,7 +242,7 @@ def forward(params, cfg, tokens):
 
 
 def loss_fn(params, cfg, batch):
-    logits, _ = forward(params, cfg, batch["tokens"])
+    logits, _ = forward(params, cfg, batch["tokens"], train=True)
     return L.cross_entropy(logits, batch["labels"])
 
 

@@ -847,3 +847,124 @@ def test_train_cli_scan_engine_on_the_card(cuda, tmp_path):
              json.loads((prof / "trace.json").read_text())["traceEvents"]]
     assert {"capture", "run", "fetch"} <= set(names)
     assert sum("row_pass" in n for n in names) == 4
+
+
+# ---------------------------------------------------------------------------
+# The ingest server and federated LM fine-tuning
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_ssd_scan_refuses_gradients_on_the_card(cuda):
+    """The CUDA ``ssd_scan`` has no backward: inputs that require a
+    gradient raise before any launch; the Mamba2 loss differentiates the
+    chunked formula and launches nothing."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    x = torch.randn(1, 64, 2, 64, device=cuda, requires_grad=True)
+    a = -torch.rand(1, 64, 2, device=cuda)
+    b, c = torch.randn(1, 64, 16, device=cuda), torch.randn(1, 64, 16, device=cuda)
+    SSD.reset_launches()
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.ssd_scan(x, a, b, c, 32)
+    cfg = get_config("mamba2-2.7b").reduced().replace(
+        dtype="float32", param_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), cuda)
+    tokens = torch.zeros((2, 64), dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        torch.func.grad(lambda p: model.forward(p, cfg, tokens)[0].sum())(params)
+    grads = torch.func.grad(lambda p: model.loss_fn(
+        p, cfg, {"tokens": tokens, "labels": tokens}))(params)
+    assert torch.isfinite(model.layout.flatten(grads)).all()
+    assert SSD.LAUNCHES["ssd_scan"] == 0
+    with torch.no_grad():
+        model.forward(params, cfg, tokens)
+    assert SSD.LAUNCHES["ssd_scan"] == cfg.num_layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["parity", "scatter"])
+def test_ingest_on_the_card_matches_cpu_without_a_sync(cuda, mode):
+    """Uploads encoded from card tensors equal those from host tensors; the
+    server on the card ingests them with no host sync inside the op
+    (``set_sync_debug_mode("error")``) and lands on the CPU server's
+    weights bit for bit (no two uploads share a coordinate)."""
+    import numpy as np
+
+    from repro_torch.compression.wire import encode_upload
+    from repro_torch.core.afl import StalenessWeight
+    from repro_torch.serve import IngestServer
+
+    s, n = 4096, 12
+    rng = np.random.default_rng(0)
+    cols = rng.choice(s, n * 64, replace=False).reshape(n, 64)
+    dense = np.zeros((n, s), np.float32)
+    for i in range(n):
+        dense[i, cols[i]] = rng.standard_normal(64).astype(np.float32)
+    card = torch.as_tensor(dense).to(cuda)
+    ups = [encode_upload(card[i], device=i, rnd=-i) for i in range(n)]
+    for i, p in enumerate(ups):
+        ref = encode_upload(dense[i], device=i, rnd=-i)
+        assert np.array_equal(p.coords, ref.coords)
+        assert np.array_equal(p.codes, ref.codes) and p.bits == ref.bits
+    sw = StalenessWeight(family="hinge", alpha=0.7)
+    out = {}
+    for dev in ("cpu", cuda):
+        srv = IngestServer(torch.zeros(s, device=dev), num_devices=16,
+                           batch=4, max_k=64, staleness=sw, mode=mode)
+        fn = srv._ingest
+
+        def no_sync(*a, fn=fn):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        srv._ingest = no_sync
+        for p in ups:
+            srv.submit(p)
+        assert srv.drain() == n and srv.rnd == 3
+        out[str(dev)] = (srv.w.cpu(), srv.snapshot())
+    (w_cpu, snap_cpu), (w_card, snap_card) = out["cpu"], out[str(cuda)]
+    assert torch.equal(w_card, w_cpu)
+    assert snap_card["counters"] == snap_cpu["counters"]
+    for k, v in snap_cpu["hist"].items():
+        assert np.array_equal(snap_card["hist"][k], v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-2.7b"])
+def test_lm_captured_run_equals_eager_body(cuda, monkeypatch, arch):
+    """Reduced LM rounds through the whole-run engine on the card: the
+    captured run equals the same round run eagerly, bit for bit, with one
+    sparsify_ef launch a round."""
+    from repro_torch.configs import FLConfig, get_config
+    from repro_torch.experiments import DataShard, run_afl_scanned
+    from repro_torch.experiments import scan_engine
+    from repro_torch.launch.train import build_device_data
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    fl = FLConfig(num_devices=4, rounds=4, batch_size=4, learning_rate=0.5,
+                  mean_intercontact=20.0)
+    dev, ev = build_device_data(cfg, fl, train_n=200, eval_n=32, seed=0)
+    shard = DataShard(dev, 4, 0)
+    K.reset_launches()
+    captured = run_afl_scanned(model, cfg, fl, "mads", shard, ev, rounds=4,
+                               eval_every=2)
+    assert K.LAUNCHES["sparsify_ef"] == 4 and sum(K.LAUNCHES.values()) == 4
+
+    def eager(body, device):
+        body()
+        return body, {}
+
+    monkeypatch.setattr(scan_engine, "_capture", eager)
+    plain = run_afl_scanned(model, cfg, fl, "mads", shard, ev, rounds=4,
+                            eval_every=2)
+    assert captured.history["uploads"][-1] > 0
+    assert captured.history == plain.history
+    assert _states_equal(captured.state, plain.state)

@@ -1,9 +1,9 @@
 """The port stands alone: no JAX and nothing of the reference package.
 
 An AST scan of every module of ``src/repro_torch`` and of ``chip_smoke.py``
-finds no import of ``jax`` or ``repro``, and importing the training and
-serving CLIs in a fresh interpreter leaves ``jax`` and ``repro`` out of
-``sys.modules``.
+finds no import of ``jax`` or ``repro``, and importing the training,
+serving and soak CLIs in a fresh interpreter leaves ``jax`` and ``repro``
+out of ``sys.modules``.
 """
 import ast
 import os
@@ -53,3 +53,8 @@ def test_serve_cli_import_leaves_jax_out():
     _import_leaves_jax_out("repro_torch.launch.serve, "
                            "repro_torch.models.transformer, "
                            "repro_torch.models.mamba2")
+
+
+def test_soak_cli_import_leaves_jax_out():
+    _import_leaves_jax_out("repro_torch.launch.soak, repro_torch.serve, "
+                           "repro_torch.compression.wire")
