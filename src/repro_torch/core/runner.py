@@ -77,7 +77,7 @@ def resolve_telemetry(fl, telemetry, s: int = 0):
 def make_eval_fn(model, cfg):
     """Family-appropriate eval metric over a params tree: accuracy for
     vision (higher is better), ADE for trajectory and the LM loss for the
-    language families (lower is better)."""
+    language families (lower is better; the value of ``model.loss_fn``)."""
     if cfg.family == "vision":
         from repro_torch.models.resnet import accuracy
 
@@ -90,7 +90,15 @@ def make_eval_fn(model, cfg):
             return ade(pred, b["future"])
 
         return f
-    return lambda p, b: model.loss_fn(p, cfg, b)
+    from repro_torch.models.layers import cross_entropy
+
+    def lm_loss(p, b):
+        # ``loss_fn`` without its gradient: Mamba2's forward then keeps the
+        # CUDA ssd_scan (``loss_fn`` trains through the chunked formula)
+        logits, _ = model.forward(p, cfg, b["tokens"])
+        return cross_entropy(logits, b["labels"])
+
+    return lm_loss
 
 
 def evaluate(model, cfg, w_flat, eval_batch) -> float:

@@ -26,7 +26,7 @@ import time
 
 import numpy as np
 
-__all__ = ["run_soak", "make_payloads", "main"]
+__all__ = ["ingest_soak", "make_payloads", "run_soak", "main"]
 
 _CODECS = ("topk", "topk32", "qsgd", "joint", "fixed-kb")
 
@@ -123,15 +123,8 @@ def run_soak(*, uploads: int = 10_000, batch: int = 256, s: int = 4096,
              queue_cap: int = 0, queue_policy: str = "defer",
              mode: str = "parity", baseline: bool = True,
              baseline_n: int = 2048, mesh=None, seed: int = 0,
-             tracer=None, chunk: int = 512, device="cuda",
-             payloads=None) -> dict:
-    """One soak point; returns throughput numbers + the telemetry snapshot.
-
-    ``payloads`` (a list from ``make_payloads``) skips the generation."""
-    import torch
-
-    from repro_torch.core.afl import StalenessWeight
-    from repro_torch.serve import IngestServer
+             tracer=None, chunk: int = 512, device="cuda") -> dict:
+    """One soak point; returns throughput numbers + the telemetry snapshot."""
     from repro_torch.telemetry.tracing import PhaseTracer
     from repro_torch.utils.device import resolve_device
 
@@ -143,10 +136,34 @@ def run_soak(*, uploads: int = 10_000, batch: int = 256, s: int = 4096,
     tracer = tracer or PhaseTracer()
     if codec == "qsgd":
         max_k = s  # dense codec: every coordinate rides the wire
-    if payloads is None:
-        with tracer.span("soak.generate", uploads=uploads):
-            payloads = make_payloads(uploads, s, max_k, codec=codec,
-                                     seed=seed, chunk=chunk, device=device)
+    with tracer.span("soak.generate", uploads=uploads):
+        payloads = make_payloads(uploads, s, max_k, codec=codec,
+                                 seed=seed, chunk=chunk, device=device)
+    out = ingest_soak(payloads, s=s, max_k=max_k, batch=batch,
+                      staleness_family=staleness_family, alpha=alpha,
+                      queue_cap=queue_cap, queue_policy=queue_policy,
+                      mode=mode, baseline=baseline, baseline_n=baseline_n,
+                      tracer=tracer, device=device)
+    out["codec"] = codec
+    return out
+
+
+def ingest_soak(payloads, *, s: int, max_k: int, batch: int = 256,
+                staleness_family: str = "constant", alpha: float = 1.0,
+                queue_cap: int = 0, queue_policy: str = "defer",
+                mode: str = "parity", baseline: bool = True,
+                baseline_n: int = 2048, tracer=None, device="cuda") -> dict:
+    """Drive ``payloads`` through a fused ``IngestServer`` of ``batch``
+    uploads a step and (``baseline``) the first ``baseline_n`` through a
+    server of one upload a step; returns ``run_soak``'s numbers."""
+    import torch
+
+    from repro_torch.core.afl import StalenessWeight
+    from repro_torch.serve import IngestServer
+    from repro_torch.telemetry.tracing import PhaseTracer
+
+    tracer = tracer or PhaseTracer()
+    uploads = len(payloads)
     sw = StalenessWeight(family=staleness_family, alpha=alpha)
     w = {"layer0": torch.zeros((s // 2,), device=device),
          "layer1": torch.zeros((s - s // 2,), device=device)}
@@ -170,7 +187,7 @@ def run_soak(*, uploads: int = 10_000, batch: int = 256, s: int = 4096,
     done = snap["counters"]["ingested"]
     out = {
         "uploads": uploads, "batch": batch, "s": s, "max_k": max_k,
-        "codec": codec, "staleness": staleness_family, "mode": mode,
+        "staleness": staleness_family, "mode": mode,
         "fused_wall_s": fused_wall, "fused_per_s": done / fused_wall,
         "snapshot": snap, "server": server,
     }

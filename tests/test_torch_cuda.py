@@ -940,7 +940,8 @@ def test_ingest_on_the_card_matches_cpu_without_a_sync(cuda, mode):
 def test_lm_captured_run_equals_eager_body(cuda, monkeypatch, arch):
     """Reduced LM rounds through the whole-run engine on the card: the
     captured run equals the same round run eagerly, bit for bit, with one
-    sparsify_ef launch a round."""
+    sparsify_ef launch a round and, for Mamba2, one ssd_scan launch a
+    layer at each eval (the eval forward needs no gradient)."""
     from repro_torch.configs import FLConfig, get_config
     from repro_torch.experiments import DataShard, run_afl_scanned
     from repro_torch.experiments import scan_engine
@@ -954,9 +955,13 @@ def test_lm_captured_run_equals_eager_body(cuda, monkeypatch, arch):
     dev, ev = build_device_data(cfg, fl, train_n=200, eval_n=32, seed=0)
     shard = DataShard(dev, 4, 0)
     K.reset_launches()
+    SSD.reset_launches()
     captured = run_afl_scanned(model, cfg, fl, "mads", shard, ev, rounds=4,
                                eval_every=2)
     assert K.LAUNCHES["sparsify_ef"] == 4 and sum(K.LAUNCHES.values()) == 4
+    evals = len(captured.history["eval"])
+    assert SSD.LAUNCHES["ssd_scan"] == (
+        cfg.num_layers * evals if cfg.family == "ssm" else 0)
 
     def eager(body, device):
         body()

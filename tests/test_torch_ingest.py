@@ -526,7 +526,8 @@ def test_soak_smoke_point(codec):
     """The reference's ``--smoke`` point (1500 uploads, s = 2048, batch and
     max_k 128), hinge staleness: the counters add up, and every payload
     has k <= max_k, ascending coordinates and bits by eq. 7c.  One codec
-    pass per chunk of 512 uploads, each one kernel call."""
+    pass per chunk of 512 uploads, each one kernel call; the payloads then
+    go through ``ingest_soak``, ``run_soak``'s server half."""
     s, max_k = 2048, 128
     K.reset_launches()
     payloads = soak.make_payloads(1500, s, max_k, codec=codec, device="cpu")
@@ -538,9 +539,9 @@ def test_soak_smoke_point(codec):
         quantised = p.b < 32
         assert p.bits == p.k * (p.b + W.index_bits(s)) + 32 * quantised
         assert (p.b == 32.0) == (codec == "topk32")
-    res = soak.run_soak(uploads=1500, batch=128, s=s, max_k=max_k,
-                        codec=codec, staleness_family="hinge",
-                        baseline_n=64, device="cpu", payloads=payloads)
+    res = soak.ingest_soak(payloads, s=s, max_k=max_k, batch=128,
+                           staleness_family="hinge", baseline_n=64,
+                           device="cpu")
     c = res["snapshot"]["counters"]
     assert c["received"] == c["accepted"] + c["rejected"] + c["deferred"]
     assert c["accepted"] == c["ingested"] == 1500

@@ -58,6 +58,7 @@ NEW_DENSE = ("internlm2-1.8b", "qwen2-7b", "qwen3-32b")
 N = 4
 SEQ = 64  # a multiple of the reduced Mamba2's SSD chunk (32)
 JIT_INIT = jax.jit(afl_init, static_argnums=(0, 1, 2))
+EVAL_ATOL = {"internlm2-1.8b": 0.02, "mamba2-2.7b": 1e-4}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -215,6 +216,37 @@ def test_mamba2_trains_through_the_chunked_formula(pair, monkeypatch):
     torch.testing.assert_close(logits, trained, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("engine", ["loop", "scan"])
+def test_lm_eval_runs_the_forward_without_gradients(pair, monkeypatch, engine,
+                                                    tmp_path):
+    """The language eval is ``loss_fn``'s value from the forward without
+    gradients: Mamba2's then reaches ``ops.ssd_scan`` (on the card the
+    CUDA kernel) once per layer at each eval of a run, on both engines,
+    and equals ``loss_fn`` to 1e-5."""
+    from repro_torch.core.runner import make_eval_fn
+
+    _, _, _, tcfg, tmodel, tp = pair("mamba2-2.7b")
+    batch = {k: torch.as_tensor(v) for k, v in
+             demo_batch(tcfg, 2, SEQ, np.random.default_rng(3)).items()}
+    calls = []
+    kernel = ops.ssd_scan
+    monkeypatch.setattr(ops, "ssd_scan",
+                        lambda *a, **kw: calls.append(1) or kernel(*a, **kw))
+    with torch.no_grad():
+        got = make_eval_fn(tmodel, tcfg)(tp, batch)
+        want = tmodel.loss_fn(tp, tcfg, batch)
+    assert len(calls) == tcfg.num_layers
+    np.testing.assert_allclose(float(got), float(want), atol=1e-5)
+    calls.clear()
+    res = t_train.main([
+        "--device", "cpu", "--arch", "mamba2-2.7b", "--reduced", "--devices",
+        "4", "--rounds", "4", "--eval-every", "2", "--batch-size", "4",
+        "--train-n", "200", "--seq-len", str(SEQ), "--intercontact", "20",
+        "--engine", engine, "--workdir", str(tmp_path)])
+    assert res.history["round"] == [2, 4]
+    assert len(calls) == tcfg.num_layers * 2
+
+
 def test_kernels_refuse_tensors_that_need_a_gradient():
     """The guard in front of the CUDA ``ssd_scan`` (called on the card in
     test_torch_cuda.py): inputs that require a gradient raise, also inside
@@ -295,10 +327,100 @@ def test_one_round_matches_reference():
     assert np.sum(bad_w) <= 2 * N and np.sum(bad_e) <= 2 * N
 
 
+def _port_state(tmodel, tfl, ref_state):
+    """The reference's ``AflState`` as the port's (flat, on the CPU)."""
+    st = t_afl_init(tmodel, tfl, 0, "cpu", params=load_params(
+        tmodel, jax.tree.map(np.asarray, ref_state.w)))
+    return dataclasses.replace(
+        st, **{f: torch.as_tensor(_flat(getattr(ref_state, f), (N,)))
+               for f in ("w_n", "g_n", "e_n")},
+        **{f: torch.as_tensor(np.array(getattr(ref_state, f)))
+           for f in ("kappa", "q", "energy")},
+        rnd=torch.as_tensor(np.array(ref_state.rnd)))
+
+
+def _f64(state):
+    return dataclasses.replace(state, **{f: getattr(state, f).double() for f in
+                                         ("w", "w_n", "g_n", "e_n")})
+
+
+@pytest.mark.parametrize("name", ["internlm2-1.8b", "mamba2-2.7b"])
+def test_each_round_of_a_run_matches_reference(name):
+    """Three ``mads`` rounds (f32, N = 4) of the reference on a run's data,
+    with stale devices carrying g_n and e_n into later rounds; each round
+    also through the port from the reference's state, in f32 and in f64.
+    The same successes, k within 2; the update of w and each device's x =
+    e_n + g_n + upload after the round (the sparsifier's input, whichever
+    side of the threshold a coordinate fell) no further from the port's
+    f64 round, relative to its largest entry, than twice the reference's
+    f32 round is.  (Whole runs of reduced InternLM2 cannot be held so:
+    local steps on its small-init embedding amplify the f32 gradients'
+    ~1e-3 differences until two f32 runs are a whole update apart.)"""
+    cfg = get_config(name).reduced().replace(**F32)
+    tcfg = t_get_config(name).reduced().replace(**F32)
+    model, tmodel = build_model(cfg), t_build_model(tcfg)
+    tmodel64 = t_build_model(tcfg.replace(dtype=torch.float64,
+                                          param_dtype=torch.float64))
+    kw = dict(num_devices=N, rounds=3, batch_size=2, mean_intercontact=20.0)
+    fl, tfl = FLConfig(**kw), TFLConfig(**kw)
+    policy = dataclasses.replace(BL.ALL["mads"](model.num_params(), fl),
+                                 expose_uploads=True)
+    tpolicy = dataclasses.replace(TBL.ALL["mads"](tmodel.num_params(), tfl),
+                                  expose_uploads=True)
+    state = JIT_INIT(model, cfg, fl, jax.random.key(0))
+    dev, _ = build_device_data(cfg, fl, train_n=64, eval_n=8, seq_len=SEQ,
+                               seed=0)
+    loader = DeviceLoader(dev, 2, 0)
+    zetas = np.array([[1, 0, 1, 0], [0, 1, 1, 0], [1, 1, 0, 1]], np.int32)
+    h2 = np.full(N, 1e-9, np.float32)
+    budgets = np.full(N, 100.0, np.float32)
+    uploads = 0.0
+    for r, zeta in enumerate(zetas):
+        batch = loader.sample_all()
+        tau = 8.0 * zeta.astype(np.float32)
+        new, m = afl_round(state, {k: jnp.asarray(v) for k, v in batch.items()},
+                           jnp.asarray(zeta), jnp.asarray(tau), jnp.asarray(h2),
+                           jnp.asarray(budgets), model=model, cfg=cfg, fl=fl,
+                           policy=policy)
+        tstate = _port_state(tmodel, tfl, state)
+        tb = {k: torch.as_tensor(v) for k, v in batch.items()}
+        ins = [torch.as_tensor(v) for v in (zeta, tau, h2, budgets)]
+        port = t_afl_round(tstate, tb, *ins, model=tmodel, fl=tfl,
+                           policy=tpolicy)
+        exact = t_afl_round(_f64(tstate), tb, *ins, model=tmodel64, fl=tfl,
+                            policy=tpolicy)
+        np.testing.assert_array_equal(port[1]["success"].numpy(),
+                                      np.asarray(m["success"]))
+        np.testing.assert_allclose(port[1]["k"].numpy(), np.asarray(m["k"]),
+                                   atol=2)
+        uploads += float(np.asarray(m["success"]).sum())
+        w0 = _flat(state.w).astype(np.float64)
+        ref_q = {"update": _flat(new.w).astype(np.float64) - w0,
+                 "x": (_flat(new.e_n, (N,)) + _flat(new.g_n, (N,))
+                       + _flat(m["upload"], (N,))).astype(np.float64)}
+        for q, want in ref_q.items():
+            got, f64 = ({"update": st.w.double().numpy() - w0,
+                         "x": (st.e_n + st.g_n + mm["upload"]).double().numpy()}[q]
+                        for st, mm in (port, exact))
+            peak = max(np.abs(f64).max(), 1e-30)
+            d_port = np.abs(got - f64).max() / peak
+            d_ref = np.abs(want - f64).max() / peak
+            print(f"{name} round {r} {q}: port {d_port:.3g}, reference "
+                  f"{d_ref:.3g} of its largest entry from f64")
+            assert d_port <= 2 * d_ref + 1e-6, (r, q)
+        state = new
+    assert uploads >= 5
+
+
 @pytest.mark.parametrize("name", ["internlm2-1.8b", "mamba2-2.7b"])
 def test_run_afl_tracks_reference_eval_loss(name, monkeypatch):
     """Four loop-engine rounds of ``mads`` (f32) from the reference's
-    weights, data and schedule: uploads equal, eval loss within 0.02."""
+    weights, data and schedule, read every round: uploads equal, k within
+    2 and the eval loss within ``EVAL_ATOL``: 1e-4 for Mamba2 (the runs
+    agree to ~2e-6); 0.02 for InternLM2, whose f32 runs drift apart by
+    ~4e-3 in four rounds (the local steps amplify gradient rounding:
+    ``test_each_round_of_a_run_matches_reference``), so its run is held
+    round by round there."""
     cfg = get_config(name).reduced().replace(**F32)
     tcfg = t_get_config(name).reduced().replace(**F32)
     model, tmodel = build_model(cfg), t_build_model(tcfg)
@@ -309,15 +431,19 @@ def test_run_afl_tracks_reference_eval_loss(name, monkeypatch):
     dev, ev = build_device_data(cfg, fl, train_n=64, eval_n=32, seq_len=SEQ,
                                 seed=0)
     ref = run_afl(model, cfg, fl, "mads", DeviceLoader(dev, 2, 0), ev,
-                  rounds=4, eval_every=2, engine="loop")
+                  rounds=4, eval_every=1, engine="loop")
     port = t_run_afl(tmodel, tcfg, tfl, "mads", TDeviceLoader(dev, 2, 0), ev,
-                     rounds=4, eval_every=2, device="cpu",
+                     rounds=4, eval_every=1, device="cpu",
                      params=load_params(tmodel, jax.tree.map(np.asarray, state.w)))
-    assert port.history["round"] == ref.history["round"] == [2, 4]
+    assert port.history["round"] == ref.history["round"] == [1, 2, 3, 4]
     assert port.history["uploads"][-1] > 0
     np.testing.assert_allclose(port.history["uploads"], ref.history["uploads"])
+    np.testing.assert_allclose(port.history["k_mean"], ref.history["k_mean"],
+                               atol=2)
+    gap = np.abs(np.subtract(port.history["eval"], ref.history["eval"]))
+    print(f"{name}: eval loss apart by {gap.tolist()} (rounds 1-4)")
     np.testing.assert_allclose(port.history["eval"], ref.history["eval"],
-                               atol=0.02)
+                               atol=EVAL_ATOL[name])
 
 
 @pytest.mark.parametrize("name", ["internlm2-1.8b", "mamba2-2.7b"])
