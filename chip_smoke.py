@@ -62,9 +62,10 @@ Phases, each of which raises on failure (a failed phase exits non-zero):
    [0, vocab), finite logits; prefill and decode seconds and tok/s;
 8. serve, ssm: the same at full-width Mamba2-2.7B, batch 4, prompt 4096:
    ``ssd_scan`` launched 64 times (once per layer of the prefill);
-9. serve reference: reduced Llama and Mamba2 in float32 on the card and on
-   the CPU from one seed, prompt 64 (a multiple of the reduced SSD chunk,
-   32): the same greedy tokens, prefill logits within 1e-3;
+9. serve reference: reduced Llama, Mamba2, Qwen3-MoE, Zamba2, Whisper
+   (with its stub frames) and Qwen2-VL in float32 on the card and on the
+   CPU from one seed, prompt 64 (a multiple of the reduced SSD chunk, 32):
+   the same greedy tokens, prefill logits within 1e-3;
 10. scenarios, numpy: ``ScenarioProvider.from_config`` on the host for
    every trace model (rwp, gauss_markov, manhattan, hotspot, static) at
    N = 20, 60 rounds, area 500: contact rate, mean tau, host ms;
@@ -143,15 +144,34 @@ Phases, each of which raises on failure (a failed phase exits non-zero):
    from f64 than 3x the CPU's, the eval of the CPU's weights within
    1e-4); the CUDA ``ssd_scan`` refusing inputs that require a gradient;
    the ``federated_llm_finetune`` twin;
-17. profile: a ``torch.profiler`` pass over ``decode_attn`` and
+17. serve, other families: ``repro_torch.launch.serve`` in-process, bf16,
+   random weights from a CUDA generator, gen 32, at full width:
+   Qwen3-MoE-30B-A3B (48 layers, batch 4, prompt 2048: ``decode_attn``
+   48 x 32 times at G 8, D 128), Qwen2-MoE-A2.7B (24 layers, batch 8,
+   prompt 2048: 24 x 32 at G 1), Zamba2-7B (81 layers, batch 4, prompt
+   4096: ``ssd_scan`` once per Mamba2 layer of the prefill, 81, at 112
+   heads and N 64; its shared attention's decode is the plain
+   ``window_pos`` path, as the reference's), Whisper-large-v3 (32 + 32
+   layers, batch 8, prompt 64, frames (8, 1500, 1280): ``decode_attn`` 32
+   x 32 times for the cross-attention over 1,500 encoder positions) and
+   Qwen2-VL-72B at full width cut to 8 of its 80 layers (135.4 GiB of
+   bf16 at full depth do not fit one card; batch 4, prompt 2048: 8 x 32),
+   each model freed before the next; launch counts read around each run,
+   tokens in [0, vocab), finite logits, prefill and decode seconds,
+   tok/s, peak GiB; each model's first kernel call at each new shape held
+   against its plain version (phase 3's tolerances);
+18. profile: a ``torch.profiler`` pass over ``decode_attn`` and
    ``ssd_scan`` at their timed shapes, device time by kernel (the five
    launches of ``ssd_scan``), and over a few full-width training rounds
    of LaneGCN and ResNet-9 (``mads``), eager and captured: device-busy
    seconds per round against the wall clock, the kernels that take the
    most, and the sparsify kernels the card ran in the captured run; and
    over one N = 1e5 schedule build per model (device-busy ms against
-   phase 12's time); last, so that the profiler's tracing cannot weigh on
-   the host-bound decodes, rounds and builds timed before it.
+   phase 12's time); and over 4 decode steps of full-width Qwen3-MoE and
+   of the 8-layer Qwen2-VL (device-busy ms a step against phase 17's
+   wall ms a step: whether the host paces the decode); last, so that the
+   profiler's tracing cannot weigh on the host-bound decodes, rounds and
+   builds timed before it.
 
 The last three lines are the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -197,6 +217,10 @@ DECODE_DEEP = (8, 24, 8, 32768, 128)
 CACHES = 4  # distinct serve-shape caches timed in rotation (> 2x the L2)
 # ssd_scan at the serve path's shape (Mamba2-2.7B); (B, S, H, P, N, chunk)
 SSD_MAIN = (MAMBA_BATCH, MAMBA_PROMPT, 80, 64, 128, 256)
+# phase 17: (arch, batch, prompt, layers: 0 = the config's depth)
+OTHER_SERVES = (("qwen3-moe-30b-a3b", 4, 2048, 0), ("qwen2-moe-a2.7b", 8, 2048, 0),
+                ("zamba2-7b", 4, 4096, 0), ("whisper-large-v3", 8, 64, 0),
+                ("qwen2-vl-72b", 4, 2048, 8))
 T_ROW = [0.0, 0.7, 1.5, math.inf, math.nextafter(-math.inf, math.inf)]
 TIMED_RUNS = 25
 TIMING = ("ms: median of 25 batches of 10 back-to-back calls; ms_per_call: "
@@ -1089,7 +1113,7 @@ def captured_against_eager(K) -> dict:
     launch a round (the counts reset just before the captured run, read
     just after); the engine runs its replays and evals under
     ``torch.cuda.set_sync_debug_mode("error")``.  A ``torch.profiler``
-    pass over captured runs (phase 17, ``profile_captured``) counts the
+    pass over captured runs (phase 18, ``profile_captured``) counts the
     sparsify kernels the card ran, and the kernels line holds the two
     counts against each other (``captured_launches``)."""
     from repro_torch.core.runner import run_afl
@@ -1172,7 +1196,7 @@ def device_timeline(prof) -> tuple:
 
 def profile_captured(K, arch: str, policy: str, per_layer: bool = False,
                      short: int = 2, long: int = ENGINE_ROUNDS) -> dict:
-    """Phase 17 for the captured engine: two runs of ``short`` and ``long``
+    """Phase 18 for the captured engine: two runs of ``short`` and ``long``
     rounds (one eval each, at the end) under ``torch.profiler``; their
     difference is ``long - short`` steady replays, set-up, round 0 and the
     eval cancelling: device-busy ms per replay (the kernels' summed times,
@@ -1396,7 +1420,7 @@ def sweep_on_card(K) -> dict:
 def captured_launches(whole_run: dict, profiled: dict, name: str) -> dict:
     """A captured case's launches for the kernels line: ``LAUNCHES``'s
     count over phase 14a's ENGINE_ROUNDS rounds beside the kernels the
-    profiler saw the card run in phase 17's run of as many rounds, and
+    profiler saw the card run in phase 18's run of as many rounds, and
     per replay; the two counts must agree."""
     p = profiled[name]
     counted = whole_run["captured"][name]["launches"][p["kernel"]]
@@ -1560,23 +1584,32 @@ def ingest_against_afl_round(smi: str) -> dict:
 HELD = []
 
 
+def _call_shape(name: str, args) -> tuple:
+    """A kernel call's shape: ``decode_attn``'s (B, H, KV, S, D), the
+    first argument's for the others."""
+    if name == "decode_attn":
+        (b, h, d), (_, s, kv, _) = args[0].shape, args[1].shape
+        return (b, h, kv, s, d)
+    return tuple(args[0].shape)
+
+
 @contextmanager
 def recording_calls():
     """Record (cloned) the first CUDA call at each shape that the code in
     the block makes through ``kernels/ops.py`` to ``sparsify_ef``,
-    ``sparsify_quantize_ef`` or ``ssd_scan``; yields the record, which
-    ``hold_recorded`` holds against the plain versions once the launch
-    counts are read.  Not around a captured run (a clone inside a CUDA
-    graph capture would be captured too)."""
+    ``sparsify_quantize_ef``, ``ssd_scan`` or ``decode_attn``; yields the
+    record, which ``hold_recorded`` holds against the plain versions once
+    the launch counts are read.  Not around a captured run (a clone inside
+    a CUDA graph capture would be captured too)."""
     from repro_torch.kernels import ops
 
-    names = ("sparsify_ef", "sparsify_quantize_ef", "ssd_scan")
+    names = ("sparsify_ef", "sparsify_quantize_ef", "ssd_scan", "decode_attn")
     real = {n: getattr(ops, n) for n in names}
     calls = {}
 
     def spy(name):
         def call(*args, **kw):
-            key = (name, tuple(args[0].shape))
+            key = (name, _call_shape(name, args))
             if args[0].is_cuda and key not in calls:
                 calls[key] = ([a.clone() if isinstance(a, torch.Tensor) else a
                                for a in args], kw)
@@ -1597,14 +1630,24 @@ def hold_recorded(tag: str, calls: dict) -> None:
     """Each recorded call through the CUDA kernel and its plain version on
     the same inputs, with phase 3's tolerances: the sparsify pair's
     uploads and counts bit-equal and errors within 1e-6; ``ssd_scan``
-    within 2e-4 (1 + |want|) of the plain version in f64.  These launches
-    come after the main path's counts were read."""
+    within 2e-4 (1 + |want|) of the plain version in f64; ``decode_attn``
+    within 2e-5 (f32) or 3e-2 (bf16) (1 + |want|) at the call's own
+    length.  These launches come after the main path's counts were read."""
+    from repro_torch.kernels import decode_attn as DA
     from repro_torch.kernels import ref as R
     from repro_torch.kernels import sparsify_ef as K
     from repro_torch.kernels import ssd_scan as SSD
 
     for (name, shape), (args, kw) in calls.items():
-        if name == "ssd_scan":
+        if name == "decode_attn":
+            got = DA.decode_attn_cuda(*args)
+            want = R.decode_attn_plain(*args)
+            tol = 2e-5 if args[0].dtype == torch.float32 else 3e-2
+            err, excess = _max_excess(got, want, tol)
+            if excess > 0:
+                fail(f"{tag}: decode_attn at {shape} length {args[3]} differs "
+                     f"by {err} from its plain version")
+        elif name == "ssd_scan":
             x, a, b, c = (t.float() for t in args[:4])
             got = SSD.ssd_scan_cuda(x, a, b, c, args[4])
             want = R.ssd_scan_plain(*(t.double() for t in (x, a, b, c)),
@@ -1628,12 +1671,16 @@ def hold_recorded(tag: str, calls: dict) -> None:
                     and err <= 1e-6):
                 fail(f"{tag}: {name} at {shape} differs from its plain "
                      f"version (error off by {err})")
-        HELD.append(dict(name=name, tag=tag, shape=list(shape),
-                         dtype=str(args[0].dtype).replace("torch.", ""),
-                         max_abs_err=err))
+        held = dict(name=name, tag=tag, shape=list(shape),
+                    dtype=str(args[0].dtype).replace("torch.", ""),
+                    max_abs_err=err)
+        if name == "decode_attn":
+            held["length"] = int(args[3])
+        HELD.append(held)
         print(f"{tag}: {name} matches its plain version on the main path's "
-              f"inputs at {shape} {args[0].dtype}: max abs err {err}",
-              flush=True)
+              f"inputs at {shape} {args[0].dtype}"
+              + (f" length {args[3]}" if name == "decode_attn" else "")
+              + f": max abs err {err}", flush=True)
         del got, want
     calls.clear()
     torch.cuda.empty_cache()
@@ -2143,14 +2190,14 @@ def llm_kernel_calls(DA, SSD) -> dict:
 def profile_kernels(DA, SSD) -> None:
     """Device time by kernel (``device_times``) of the LLM kernels' calls.
     Run last, so that the profiler's tracing cannot weigh on the
-    host-bound decodes of phases 7-8."""
+    host-bound decodes of phases 7-8 and 17."""
     for label, fn in llm_kernel_calls(DA, SSD).items():
         print(f"{label} device time by kernel: {json.dumps(device_times(fn))}",
               flush=True)
 
 
 def profile_rounds(arch: str, policy: str = "mads", rounds: int = 6) -> dict:
-    """Phase 17 for training: a full-width run of ``rounds`` rounds (one
+    """Phase 18 for training: a full-width run of ``rounds`` rounds (one
     eval, at the end) under ``torch.profiler``; the device-busy time per
     round (every kernel of the run, model set-up and the eval included,
     divided by the rounds) against the steady rounds' wall clock, and the
@@ -2184,8 +2231,64 @@ def profile_rounds(arch: str, policy: str = "mads", rounds: int = 6) -> dict:
     return out
 
 
+PROFILED_DECODES = ("qwen3-moe-30b-a3b", "qwen2-vl-72b")  # phase 18
+
+
+def profile_decode(arch: str, batch: int, prompt: int, layers: int,
+                   wall_ms: float, steps: int = 4) -> dict:
+    """Phase 18 for serving: one full-width model (phase 17's batch,
+    prompt and depth), its prefill, one warm decode step, then ``steps``
+    decode steps under ``torch.profiler``: the device-busy ms a step (every
+    kernel, divided by the steps) against ``wall_ms``, phase 17's
+    unprofiled decode seconds a step, and the kernels that take the most.
+    A busy share well under 1 means the host paces the decode."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, prompt)).astype(np.int32)).cuda()
+    last, cache = model.prefill(params, cfg, prompts,
+                                max_seq=prompt + steps + 1)
+    tok = torch.argmax(last, dim=-1).to(torch.int32)
+    del last
+    logits, cache = model.decode_step(params, cfg, cache, tok, prompt)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            logits, cache = model.decode_step(params, cfg, cache, tok,
+                                              prompt + 1 + i)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+    by_kernel, launches = {}, {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us > 0:
+            by_kernel[e.key[:60]] = us / steps / 1e3
+            launches[e.key[:60]] = e.count / steps
+    busy = sum(by_kernel.values())
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6])
+    out = dict(arch=arch, layers=cfg.num_layers, batch=batch,
+               device_busy_ms_per_step=busy, wall_ms_per_step=wall_ms,
+               busy_share=busy / wall_ms,
+               kernel_launches_per_step=sum(launches.values()),
+               top_device_ms_per_step=top)
+    print(f"profile decode {arch} (full width, {cfg.num_layers} layers, "
+          f"batch {batch}): {json.dumps(out)}", flush=True)
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return out
+
+
 def profile_schedules(engine: dict) -> None:
-    """Phase 17 for the device-resident scenario engine: device-busy ms of
+    """Phase 18 for the device-resident scenario engine: device-busy ms of
     one N = 1e5 schedule build per model (every kernel of the build, by
     ``device_times``) against phase 12's ms between CUDA events, and the
     kernels that take the most."""
@@ -2206,16 +2309,31 @@ def profile_schedules(engine: dict) -> None:
               f"{json.dumps(out)}", flush=True)
 
 
-def serve_full(mods, arch: str, batch: int, prompt: int):
-    """Phases 7-8: the full-width serve path, counts read around it."""
+def serve_full(mods, arch: str, batch: int, prompt: int, layers: int = 0):
+    """Phases 7-8 and 17: the full-width serve path, through the CLI, or
+    cut to ``layers`` layers when given, through ``serve`` on the CLI's
+    draws; counts read around it; returns (cfg, launches, the run's
+    numbers)."""
+    from repro_torch.configs import get_config
     from repro_torch.launch import serve as S
+    from repro_torch.models.registry import build_model
 
     for mod in mods.values():
         mod.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    cfg, toks, stats = S.main(["--arch", arch, "--batch", str(batch),
-                               "--prompt-len", str(prompt), "--gen", str(GEN),
-                               "--device", "cuda", "--seed", "0"])
+    if layers:
+        cfg = get_config(arch).replace(num_layers=layers)
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                            torch.device("cuda"))
+        prompts = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (batch, prompt)).astype(np.int32)).cuda()
+        toks, stats = S.serve(cfg, model, params, prompts, GEN)
+        del model, params, prompts
+    else:
+        cfg, toks, stats = S.main(["--arch", arch, "--batch", str(batch),
+                                   "--prompt-len", str(prompt), "--gen", str(GEN),
+                                   "--device", "cuda", "--seed", "0"])
     launches = {k: v for mod in mods.values() for k, v in mod.LAUNCHES.items()}
     if tuple(toks.shape) != (batch, GEN):
         fail(f"{arch}: tokens {tuple(toks.shape)}")
@@ -2224,13 +2342,50 @@ def serve_full(mods, arch: str, batch: int, prompt: int):
     if not torch.isfinite(stats["prefill_logits"].float()).all():
         fail(f"{arch}: prefill logits not finite")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"serve {arch} (full width, batch {batch}, prompt {prompt}, gen "
-          f"{GEN}): prefill_s {stats['prefill_s']}, decode_s "
+    run = dict(prefill_s=stats["prefill_s"], decode_s=stats["decode_s"],
+               tok_per_s=stats["tok_per_s"], peak_gib=peak)
+    depth = f"{cfg.num_layers} layers" + (" (cut)" if layers else "")
+    print(f"serve {arch} (full width, {depth}, batch {batch}, prompt {prompt}, "
+          f"gen {GEN}): prefill_s {stats['prefill_s']}, decode_s "
           f"{stats['decode_s']}, tok/s {stats['tok_per_s']}, peak "
           f"{peak:.2f} GiB, launches {launches}", flush=True)
     del toks, stats
     torch.cuda.empty_cache()
-    return cfg, launches
+    return cfg, launches, run
+
+
+def serve_other_families(mods, smi: str) -> dict:
+    """Phase 17: the MoE, hybrid, audio and VLM families served at full
+    width (``OTHER_SERVES``), one model at a time; ``decode_attn``
+    launched once a layer a token (Zamba2: never; its shared block's
+    decode is the plain ``window_pos`` path, as the reference's) and
+    ``ssd_scan`` once a Mamba2 layer of Zamba2's prefill; each model's
+    first kernel call at each shape held against its plain version once
+    its counts are read and its weights freed.  Returns {arch: (launches,
+    the run's numbers)}."""
+    t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated() / 2**30
+    out = {}
+    for arch, batch, prompt, layers in OTHER_SERVES:
+        with recording_calls() as calls:
+            cfg, launches, run = serve_full(mods, arch, batch, prompt, layers)
+        if cfg.family == "hybrid":
+            want = {"decode_attn": 0, "ssd_scan": cfg.num_layers}
+        else:
+            want = {"decode_attn": cfg.num_layers * GEN, "ssd_scan": 0}
+        got = {k: launches[k] for k in want}
+        if got != want:
+            fail(f"{arch} serve launched {got}, not {want}")
+        hold_recorded(f"serve {arch}", calls)
+        left = torch.cuda.memory_allocated() / 2**30
+        if left > base + 1:  # the next model needs the card to itself
+            fail(f"{arch}: {left - base:.2f} GiB still allocated after its serve")
+        out[arch] = (launches, dict(run, layers=cfg.num_layers, batch=batch,
+                                    prompt=prompt))
+    print(f"serve, other families (full width, gen {GEN}) on {smi}: "
+          f"{json.dumps({a: r for a, (_, r) in out.items()})}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def serve_against_cpu():
@@ -2239,17 +2394,24 @@ def serve_against_cpu():
     from repro_torch.launch.serve import serve
     from repro_torch.models.registry import build_model
 
-    for arch in ("llama3.2-3b", "mamba2-2.7b"):
+    for arch in ("llama3.2-3b", "mamba2-2.7b", "qwen3-moe-30b-a3b",
+                 "zamba2-7b", "whisper-large-v3", "qwen2-vl-72b"):
         cfg = get_config(arch).reduced().replace(dtype="float32",
                                                  param_dtype="float32")
         model = build_model(cfg)
         params = model.init(torch.Generator().manual_seed(0))
-        prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        rng = np.random.default_rng(0)
+        prompts = torch.from_numpy(rng.integers(
             0, cfg.vocab_size, (2, 64)).astype(np.int32))
+        frames = None
+        if cfg.family == "audio":
+            frames = torch.from_numpy(rng.normal(
+                0, 0.02, (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
         out = {}
         for dev in ("cuda", "cpu"):
             p = model.layout.unflatten(model.layout.flatten(params).to(dev))
-            out[dev] = serve(cfg, model, p, prompts.to(dev), gen=8)
+            out[dev] = serve(cfg, model, p, prompts.to(dev), gen=8,
+                             frames=None if frames is None else frames.to(dev))
         (tg, sg), (tc, sc) = out["cuda"], out["cpu"]
         e = (sg["prefill_logits"].cpu() - sc["prefill_logits"]).abs().max().item()
         if not torch.equal(tg.cpu(), tc) or e > 1e-3:
@@ -2351,11 +2513,13 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 7-8. serve path at full width, counts read around each model's run
-    cfg, launches_dense = serve_full(mods, "llama3.2-3b", LLAMA_BATCH, LLAMA_PROMPT)
+    cfg, launches_dense, _ = serve_full(mods, "llama3.2-3b", LLAMA_BATCH,
+                                        LLAMA_PROMPT)
     if launches_dense["decode_attn"] != cfg.num_layers * GEN:
         fail(f"dense serve launched decode_attn {launches_dense['decode_attn']} "
              f"times, not {cfg.num_layers} x {GEN}")
-    cfg, launches_ssm = serve_full(mods, "mamba2-2.7b", MAMBA_BATCH, MAMBA_PROMPT)
+    cfg, launches_ssm, _ = serve_full(mods, "mamba2-2.7b", MAMBA_BATCH,
+                                      MAMBA_PROMPT)
     if launches_ssm["ssd_scan"] != cfg.num_layers:
         fail(f"ssm serve launched ssd_scan {launches_ssm['ssd_scan']} times, "
              f"not {cfg.num_layers}")
@@ -2388,7 +2552,11 @@ def main() -> None:
     lm_launches = lm_phase(K, SSD, smi)
     torch.cuda.empty_cache()
 
-    # 17. device time by kernel, last (the profiler slows later launches)
+    # 17. serve, other families (MoE, hybrid, audio, VLM) at full width
+    others = serve_other_families(mods, smi)
+    torch.cuda.empty_cache()
+
+    # 18. device time by kernel, last (the profiler slows later launches)
     profile_kernels(DA, SSD)
     profiled = {}
     for arch in (LANEGCN, RESNET9):
@@ -2397,6 +2565,11 @@ def main() -> None:
     profiled[f"{LANEGCN} mads-joint per-layer"] = profile_captured(
         K, LANEGCN, "mads-joint", per_layer=True)
     profile_schedules(engine)
+    for arch, batch, prompt, layers in OTHER_SERVES:
+        if arch in PROFILED_DECODES:
+            run = others[arch][1]
+            profile_decode(arch, batch, prompt, layers,
+                           1e3 * run["decode_s"] / GEN)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
@@ -2447,13 +2620,18 @@ def main() -> None:
                  "tiles")}),
         dict(name="decode_attn", route="cuda", source=src + "decode_attn.cu",
              replaces="src/repro/kernels/decode_attn.py:64",
-             launches=launches_dense["decode_attn"], **decode["main"],
+             launches=launches_dense["decode_attn"],
+             launches_serve={a: l["decode_attn"] for a, (l, _) in others.items()
+                             if l["decode_attn"]},
+             **decode["main"],
              **{f"{key}_32k": decode["deep"][key] for key in
                 ("ms", "ms_per_call", "plain_ms", "library_ms", "bound_ms",
                  "bound_share")}),
         dict(name="ssd_scan", route="cuda", source=src + "ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:60",
              launches=launches_ssm["ssd_scan"],
+             launches_serve={a: l["ssd_scan"] for a, (l, _) in others.items()
+                             if l["ssd_scan"]},
              # the LM phase's eval forwards (reduced Mamba2, 2 layers)
              launches_lm={k: v["ssd_scan"] for k, v in lm_launches.items()
                           if v["ssd_scan"]},
@@ -2462,7 +2640,8 @@ def main() -> None:
     for entry in kernels:
         entry["timing"] = TIMING
         entry["held_on_main_path_inputs"] = [
-            {k: h[k] for k in ("tag", "shape", "dtype", "max_abs_err")}
+            {k: h[k] for k in ("tag", "shape", "length", "dtype", "max_abs_err")
+             if k in h}
             for h in HELD if h["name"] == entry["name"]]
     print(smi)
     print(json.dumps({"kernels": kernels}))

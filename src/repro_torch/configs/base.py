@@ -3,10 +3,9 @@
 ``FLConfig`` copies ``repro.configs.base.FLConfig`` with the same fields
 and defaults, so a configuration means the same thing in both packages;
 the knobs of layers not ported yet are refused where they would be read.
-``ModelConfig`` keeps only the fields of the ported model families
-(vision, trajectory, dense, ssm), with the reference's defaults; the MoE,
-VLM, hybrid and audio fields come with those families.  The registry lists only the
-architectures this package ports (``load_all``).
+``ModelConfig`` has the reference's model fields and defaults for every
+family (vision, trajectory, dense, MoE, ssm, hybrid, audio, VLM).  The
+registry lists every architecture of the reference (``load_all``).
 """
 from __future__ import annotations
 
@@ -21,10 +20,11 @@ from repro_torch.sharding.rules import torch_dtype
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """One architecture of a ported family (vision, trajectory, dense, ssm)."""
+    """One architecture. Covers dense / MoE / SSM / hybrid / enc-dec / VLM,
+    and the paper's vision and trajectory models."""
 
     name: str
-    family: str  # vision | trajectory | dense | ssm
+    family: str  # dense | moe | ssm | hybrid | audio | vlm | vision | trajectory
     num_layers: int
     d_model: int  # vision: base channel width
     vocab_size: int  # vision: number of classes
@@ -36,19 +36,32 @@ class ModelConfig:
     qkv_bias: bool = False
     qk_norm: bool = False
     rope_theta: float = 1e6
+    mrope_sections: Tuple[int, ...] = ()  # Qwen2-VL M-RoPE (t, h, w) splits
     sliding_window: int = 0  # 0 = full attention; >0 = ring-buffer cache
-    # --- SSM -----------------------------------------------------------------
+    # --- MoE ----------------------------------------------------------------
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    num_shared_experts: int = 0
+    moe_d_ff: int = 0  # per-expert hidden size (d_ff used for shared/dense)
+    capacity_factor: float = 1.25
+    router_aux_loss: float = 0.001
+    # --- SSM / hybrid --------------------------------------------------------
     ssm_state: int = 0
     ssm_heads: int = 0  # mamba2 value heads; 0 -> derived
     ssm_expand: int = 2
     ssm_chunk: int = 128
     conv_kernel: int = 4
+    attn_every: int = 0  # hybrid: shared attention block every k layers
+    # --- enc-dec (whisper) ----------------------------------------------------
+    encoder_layers: int = 0
+    encoder_seq: int = 0  # frames after the (stubbed) conv frontend
     # --- misc -----------------------------------------------------------------
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
-    kv_cache_dtype: str = ""  # "" = activation dtype; "int8" is not ported
+    kv_cache_dtype: str = ""  # "" = activation dtype; "int8" = quantized cache
+    expert_dtype: str = ""  # "" = param dtype; "int8" = quantized expert weights
     source: str = ""  # citation
 
     # ------------------------------------------------------------------
@@ -57,14 +70,17 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.num_heads
 
     @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    @property
     def activation_dtype(self) -> torch.dtype:
         return torch_dtype(self.dtype)
 
     def reduced(self) -> "ModelConfig":
-        """Reduced variant for CPU tests: the reference's ``reduced()`` for
-        the fields this package keeps (2 layers, d_model <= 256)."""
-        return dataclasses.replace(
-            self,
+        """Reduced variant for CPU tests, the reference's ``reduced()`` (2
+        layers, d_model <= 256, <= 4 experts; the hybrid keeps 4 layers)."""
+        changes = dict(
             num_layers=2,
             d_model=min(self.d_model, 256),
             num_heads=min(self.num_heads, 4),
@@ -77,6 +93,18 @@ class ModelConfig:
             ssm_heads=0,
             sliding_window=min(self.sliding_window, 64) if self.sliding_window else 0,
         )
+        if self.is_moe:
+            changes.update(
+                num_experts=min(self.num_experts, 4),
+                num_experts_per_tok=min(self.num_experts_per_tok, 2),
+                num_shared_experts=min(self.num_shared_experts, 1),
+                moe_d_ff=min(self.moe_d_ff or self.d_ff, 128),
+            )
+        if self.encoder_layers:
+            changes.update(encoder_layers=2, encoder_seq=64)
+        if self.attn_every:
+            changes.update(attn_every=2, num_layers=4)
+        return dataclasses.replace(self, **changes)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -190,9 +218,11 @@ def list_configs():
 
 
 def load_all() -> None:
-    """Import every ported config module (they self-register)."""
+    """Import every config module (they self-register)."""
     import importlib
 
     for mod in ("resnet9_cifar10", "lanegcn_argoverse", "llama3_2_3b",
-                "mamba2_2_7b", "internlm2_1_8b", "qwen2_7b", "qwen3_32b"):
+                "mamba2_2_7b", "internlm2_1_8b", "qwen2_7b", "qwen3_32b",
+                "qwen2_moe_a2_7b", "qwen3_moe_30b_a3b", "zamba2_7b",
+                "whisper_large_v3", "qwen2_vl_72b"):
         importlib.import_module(f"repro_torch.configs.{mod}")

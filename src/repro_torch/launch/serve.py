@@ -5,14 +5,19 @@ Examples:
       --reduced --batch 4 --prompt-len 64 --gen 16 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
       --batch 4 --prompt-len 4096 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \
+      --reduced --device cpu
 
-Runs on the card by default (``--device cuda``, which raises when CUDA is
-absent): the dense family decodes through the ``decode_attn`` kernel and
-the ssm family's prefill goes through the ``ssd_scan`` kernel when the
+Serves every LLM family: dense, MoE, ssm, hybrid, audio (enc-dec) and VLM
+(text-only prompts).  Runs on the card by default (``--device cuda``,
+which raises when CUDA is absent): the dense, MoE and VLM decodes and the
+audio decoder's cross-attention go through the ``decode_attn`` kernel,
+and the ssm and hybrid prefills through the ``ssd_scan`` kernel when the
 prompt is a multiple of the SSD chunk.  ``--device cpu`` runs the same
 path on the kernels' plain versions.  Weights are random, drawn from
-``--seed`` by a ``torch.Generator`` on the run's device; prompts are the
-reference's numpy draws.  Sampling is greedy.
+``--seed`` by a ``torch.Generator`` on the run's device; prompts (and the
+audio family's stub encoder frames) are the reference's numpy draws.
+Sampling is greedy.
 """
 from __future__ import annotations
 
@@ -29,36 +34,34 @@ from repro_torch.utils.logging import get_logger
 
 log = get_logger("repro_torch.serve")
 
-UNPORTED = ("moe", "vlm", "hybrid", "audio")
-
-
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
-def serve(cfg, model, params, prompts, gen: int, window: int = 0):
+def serve(cfg, model, params, prompts, gen: int, window: int = 0,
+          frames=None):
     """Greedy generation: returns (tokens (B, gen) int32, stats dict).
 
-    stats: ``prefill_s`` and ``decode_s`` (host clock around work that ends
-    in a synchronise on the card), ``tok_per_s`` (B * gen / decode_s) and
-    ``prefill_logits`` (B, vocab), the logits of each prompt's last token.
+    ``frames``: the encoder features of the audio family, passed through
+    to ``model.prefill``.  stats: ``prefill_s`` and ``decode_s`` (host
+    clock around work that ends in a synchronise on the card),
+    ``tok_per_s`` (B * gen / decode_s) and ``prefill_logits`` (B, vocab),
+    the logits of each prompt's last token.
     """
-    if cfg.family in UNPORTED:
-        raise NotImplementedError(
-            f"serving family {cfg.family!r} is not ported (ROADMAP.md, queue "
-            "1: the other LLM families)")
-    if window and cfg.family == "dense":
+    if window and cfg.family in ("dense", "moe", "vlm"):
         cfg = cfg.replace(sliding_window=window)
     b, plen = prompts.shape
     max_seq = window or (plen + gen)
+    fkw = {} if frames is None else {"frames": frames}
     device = prompts.device
     _sync(device)
     t0 = time.perf_counter()
     if cfg.family == "ssm":
-        last, cache = model.prefill(params, cfg, prompts)
+        last, cache = model.prefill(params, cfg, prompts, **fkw)
     else:
-        last, cache = model.prefill(params, cfg, prompts, max_seq=max_seq)
+        last, cache = model.prefill(params, cfg, prompts, max_seq=max_seq,
+                                    **fkw)
     _sync(device)
     t_prefill = time.perf_counter() - t0
 
@@ -98,7 +101,7 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    if cfg.family == "vision":
+    if cfg.family in ("vision", "trajectory"):
         raise SystemExit("serve is for autoregressive archs")
     model = build_model(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(args.seed),
@@ -110,7 +113,13 @@ def main(argv=None):
     log.info("arch=%s params=%d batch=%d prompt=%d gen=%d device=%s",
              cfg.name, model.num_params(), args.batch, args.prompt_len,
              args.gen, device)
-    toks, stats = serve(cfg, model, params, prompts, args.gen, args.window)
+    frames = None
+    if cfg.family == "audio":  # the stub encoder features, drawn after the prompts
+        frames = torch.from_numpy(rng.normal(
+            0, 0.02, (args.batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        ).to(device)
+    toks, stats = serve(cfg, model, params, prompts, args.gen, args.window,
+                        frames=frames)
     log.info("generated %s tokens; prefill=%.2fs decode=%.2fs (%.1f tok/s)",
              tuple(toks.shape), stats["prefill_s"], stats["decode_s"],
              stats["tok_per_s"])

@@ -92,8 +92,9 @@ def build_device_data(cfg, fl, *, train_n=2000, eval_n=512, seq_len=64,
         ev = ds.make_split(eval_n // 4, seq_len, seed=seed + 2)
     else:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported (ROADMAP.md, queue 1 item "
-            "3b: the other LLM families)")
+            f"federated fine-tuning of family {cfg.family!r} is not ported "
+            "(ROADMAP.md, queue 1 item 3b: the other LLM families; they "
+            "serve through launch/serve.py)")
     return dev, ev
 
 

@@ -6,13 +6,15 @@ Conventions, as in the reference:
 * prefill attention is the chunked online softmax over KV chunks, written
   out in torch (not SDPA) so that it stays comparable with the reference;
 * GQA repeats KV heads at compute time;
-* plain RoPE (M-RoPE raises: the VLM family is not ported);
+* plain RoPE and Qwen2-VL's M-RoPE (t/h/w sections of the frequencies);
 * decode attends one token against a KV cache, either through the
   ``decode_attn`` kernel (``kernels/ops.py``) or, in ring-buffer
-  (``window_pos``) mode, through the plain einsum path.
+  (``window_pos``) mode, through the plain einsum path;
+* the int8 KV cache (``quantize_kv``, ``decode_attention_q``) is plain
+  torch, as the reference's is plain ``jnp`` outside any kernel.
 
-Not in this package yet: the int8 KV cache (``quantize_kv``,
-``decode_attention_q``) and the mesh-only ``_replicate``.
+Not in this package: the reference's mesh-only ``_replicate`` (a sharding
+constraint, the identity outside a mesh).
 """
 from __future__ import annotations
 
@@ -39,8 +41,17 @@ def rms_norm(x, scale, eps: float = 1e-6):
     return (x * torch.rsqrt(var + eps) * scale.to(F32)).to(dtype)
 
 
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    dtype = x.dtype
+    x = x.to(F32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.to(F32) + bias.to(F32)).to(dtype)
+
+
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE / M-RoPE
 # ---------------------------------------------------------------------------
 
 
@@ -56,13 +67,26 @@ def _rotate(x, cos, sin):
 
 def rope_cos_sin(positions, head_dim: int, theta: float,
                  sections: Tuple[int, ...] = ()):
-    """cos/sin tables (B, S, head_dim/2) in f32 for positions (B, S)."""
-    if sections:
-        raise NotImplementedError(
-            "M-RoPE belongs to the VLM family, which is not ported "
-            "(ROADMAP.md, queue 1)")
+    """cos/sin tables (B, S, head_dim/2) in f32.
+
+    positions: (B, S) for plain RoPE, or (3, B, S) for M-RoPE, where the
+    frequency slots are split into contiguous (t, h, w) ``sections`` and
+    each section reads its own positional stream (Qwen2-VL §2.1).  As in
+    the reference, a section past the head_dim/2 slots is cut short
+    silently: the reduced Qwen2-VL (head_dim 64, sections (16, 24, 24))
+    gives t slots 0-15, h slots 16-31 and w none.
+    """
     inv = rope_freqs(head_dim, theta, positions.device)
     ang = positions.to(F32)[..., None] * inv
+    if sections:
+        if positions.dim() != 3 or positions.shape[0] != len(sections):
+            raise ValueError(f"M-RoPE needs positions ({len(sections)}, B, S), "
+                             f"got {tuple(positions.shape)}")
+        pieces, off = [], 0
+        for i, sec in enumerate(sections):
+            pieces.append(ang[i, ..., off:off + sec])
+            off += sec
+        ang = torch.cat(pieces, dim=-1)
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -73,6 +97,12 @@ def apply_rope(q, k, cos, sin):
     qf = _rotate(q.to(F32), c, s).to(q.dtype)
     kf = _rotate(k.to(F32), c, s).to(k.dtype)
     return qf, kf
+
+
+def text_mrope_positions(batch: int, seq: int, device=None) -> torch.Tensor:
+    """For pure-text streams all three M-RoPE position channels coincide."""
+    pos = torch.arange(seq, device=device)
+    return pos.expand(3, batch, seq)
 
 
 # ---------------------------------------------------------------------------
@@ -88,8 +118,10 @@ def _repeat_kv(k, groups: int):
         b, s, kv * groups, d)
 
 
-def causal_attention(q, k, v, *, chunk: int = 1024, sliding_window: int = 0):
-    """Memory-efficient causal attention from position 0.
+def causal_attention(q, k, v, *, chunk: int = 1024, sliding_window: int = 0,
+                     causal: bool = True):
+    """Memory-efficient attention from position 0; causal unless
+    ``causal=False`` (the encoder and cross-attention).
 
     q: (B, Sq, H, D); k, v: (B, Sk, KV, D).  The online softmax runs over
     KV chunks of ``chunk`` keys, so peak memory is O(Sq * chunk) per head.
@@ -114,10 +146,11 @@ def causal_attention(q, k, v, *, chunk: int = 1024, sliding_window: int = 0):
         vb = v[:, start:start + chunk].to(F32)
         k_pos = start + torch.arange(kb.shape[1], device=q.device)
         s_ = torch.einsum("bqhd,bkhd->bhqk", qf, kb) * scale
-        mask = q_pos[:, None] >= k_pos[None, :]
-        if sliding_window:
-            mask &= q_pos[:, None] - k_pos[None, :] < sliding_window
-        s_ = torch.where(mask[None, None], s_, -torch.inf)
+        if causal:
+            mask = q_pos[:, None] >= k_pos[None, :]
+            if sliding_window:
+                mask &= q_pos[:, None] - k_pos[None, :] < sliding_window
+            s_ = torch.where(mask[None, None], s_, -torch.inf)
         m_new = torch.maximum(m, s_.amax(-1))
         p = torch.exp(s_ - m_new[..., None])
         p = torch.where(torch.isfinite(m_new)[..., None], p, 0.0)
@@ -151,6 +184,42 @@ def decode_attention(q, k_cache, v_cache, length: int, *,
     s_ = torch.where(valid[:, None, None, :], s_, -torch.inf)
     p = torch.softmax(s_, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(F32))
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def quantize_kv(x):
+    """Symmetric per-(token, head) int8 quantisation. x: (..., S, KV, D).
+
+    Returns (int8 values, f32 scales (..., S, KV)): halves the decode
+    cache's bytes against bf16."""
+    xf = x.to(F32)
+    amax = torch.amax(torch.abs(xf), dim=-1)
+    scale = torch.clamp(amax, min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def decode_attention_q(q, kq, vq, k_scale, v_scale, length: int, *,
+                       window_pos: Optional[torch.Tensor] = None):
+    """``decode_attention`` over an int8 cache; the scales multiply the
+    score and probability rows, so the dequantised cache never exists.
+    Plain torch, as the reference's is plain ``jnp``.
+
+    q: (B, H, D); kq, vq: (B, S, KV, D) int8; scales: (B, S, KV) f32."""
+    b, s, kv, d = kq.shape
+    h = q.shape[1]
+    groups = h // max(kv, 1)
+    qf = q.to(F32).reshape(b, kv, groups, d)
+    s_ = torch.einsum("bkgd,bskd->bkgs", qf, kq.to(F32)) / math.sqrt(d)
+    s_ = s_ * k_scale.permute(0, 2, 1)[:, :, None, :]  # (B,KV,1,S)
+    if window_pos is None:
+        valid = (torch.arange(s, device=q.device) < length)[None].expand(b, s)
+    else:
+        valid = window_pos >= 0
+    s_ = torch.where(valid[:, None, None, :], s_, -torch.inf)
+    p = torch.softmax(s_, dim=-1)
+    p = p * v_scale.permute(0, 2, 1)[:, :, None, :]
+    out = torch.einsum("bkgs,bskd->bkgd", p, vq.to(F32))
     return out.reshape(b, h, d).to(q.dtype)
 
 

@@ -260,7 +260,7 @@ def init_cache(cfg, batch: int, max_seq: int = 0, device="cpu"):
     }
 
 
-_CONV = (("conv_x", "x"), ("conv_B", "B"), ("conv_C", "C"))
+CONV_KEYS = (("conv_x", "x"), ("conv_B", "B"), ("conv_C", "C"))
 
 
 def prefill(params, cfg, tokens):
@@ -272,7 +272,7 @@ def prefill(params, cfg, tokens):
         h = L.rms_norm(x, lp["ln"], cfg.norm_eps)
         y, conv, ssm = mamba_block(lp["mamba"], cfg, h, collect_cache=True)
         x = x + y
-        for key, short in _CONV:
+        for key, short in CONV_KEYS:
             cache[key][i] = conv[short]
         cache["ssm"][i] = ssm
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
@@ -287,11 +287,11 @@ def decode_step(params, cfg, cache, token, pos=None):
     for i in range(cfg.num_layers):
         lp = layer(params["layers"], i)
         h = L.rms_norm(x, lp["ln"], cfg.norm_eps)
-        conv = {short: cache[key][i] for key, short in _CONV}
+        conv = {short: cache[key][i] for key, short in CONV_KEYS}
         y, new_conv, new_ssm = mamba_block(
             lp["mamba"], cfg, h, conv_state=conv, ssm_state=cache["ssm"][i])
         x = x + y
-        for key, short in _CONV:
+        for key, short in CONV_KEYS:
             cache[key][i] = new_conv[short]
         cache["ssm"][i] = new_ssm
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)

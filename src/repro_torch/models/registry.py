@@ -2,10 +2,10 @@
 
 ``build_model(cfg)`` returns a ``Model`` whose functions close over
 nothing — params and caches are explicit dicts of tensors — so the AFL
-core can vmap them over devices.  The paper's two models (vision: ResNet-9;
-trajectory: LaneGCN) and the dense (Llama) and ssm (Mamba2) LLM families
-are ported; ``load_params`` carries a reference parameter tree (numpy
-arrays) over.
+core can vmap them over devices.  Every family of the reference is here:
+the paper's two models (vision: ResNet-9; trajectory: LaneGCN) and the
+LLM families (dense, MoE, ssm, hybrid, audio enc-dec, VLM);
+``load_params`` carries a reference parameter tree (numpy arrays) over.
 """
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ class Model:
     decode_step: Optional[Callable] = None  # (params, cfg, cache, token, pos)
     prefill: Optional[Callable] = None
     init_cache: Optional[Callable] = None  # (cfg, batch, max_seq, device)
+    encode: Optional[Callable] = None  # enc-dec only
 
     def init(self, gen: torch.Generator, device="cpu") -> dict:
         return init_params(self.specs, gen, torch_dtype(self.cfg.param_dtype),
@@ -54,20 +55,37 @@ def build_model(cfg: ModelConfig) -> Model:
         from repro_torch.models import lanegcn as G
 
         return Model(cfg, G.param_specs(cfg), G.loss_fn, G.forward)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         from repro_torch.models import transformer as T
 
         return Model(cfg, T.param_specs(cfg), T.loss_fn, T.forward,
                      decode_step=T.decode_step, prefill=T.prefill,
                      init_cache=T.init_cache)
+    if cfg.family == "vlm":
+        from repro_torch.models import vlm as V
+
+        return Model(cfg, V.param_specs(cfg), V.loss_fn, V.forward,
+                     decode_step=V.decode_step, prefill=V.prefill,
+                     init_cache=V.init_cache)
     if cfg.family == "ssm":
         from repro_torch.models import mamba2 as M
 
         return Model(cfg, M.param_specs(cfg), M.loss_fn, M.forward,
                      decode_step=M.decode_step, prefill=M.prefill,
                      init_cache=M.init_cache)
-    raise NotImplementedError(
-        f"model family {cfg.family!r} is not ported yet (ROADMAP.md, queue 1)")
+    if cfg.family == "hybrid":
+        from repro_torch.models import hybrid as H
+
+        return Model(cfg, H.param_specs(cfg), H.loss_fn, H.forward,
+                     decode_step=H.decode_step, prefill=H.prefill,
+                     init_cache=H.init_cache)
+    if cfg.family == "audio":
+        from repro_torch.models import encdec as E
+
+        return Model(cfg, E.param_specs(cfg), E.loss_fn, E.forward,
+                     decode_step=E.decode_step, prefill=E.prefill,
+                     init_cache=E.init_cache, encode=E.encode)
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def _to_tensor(leaf, dtype: torch.dtype, device) -> torch.Tensor:
@@ -83,7 +101,9 @@ def _to_tensor(leaf, dtype: torch.dtype, device) -> torch.Tensor:
 
 
 def load_params(model: Model, tree, device="cpu") -> dict:
-    """The reference's parameter tree (numpy arrays) as the port's tensors.
+    """The reference's parameter tree (numpy arrays) as the port's tensors,
+    each in its spec's dtype (``param_dtype`` unless the spec names one:
+    int8 experts and their f32 scales stay so).
 
     Checks the leaf paths (in flatten order) and shapes against the
     model's specs and raises ``ValueError`` on any mismatch.
@@ -97,7 +117,10 @@ def load_params(model: Model, tree, device="cpu") -> dict:
             raise ValueError(f"leaf {'/'.join(path)}: shape "
                              f"{tuple(np.shape(leaf))} != spec {shape}")
     dt = torch_dtype(model.cfg.param_dtype)
-    return tree_unflatten(paths, [_to_tensor(l, dt, device) for l in leaves])
+    dts = [torch_dtype(s.dtype) if s.dtype else dt
+           for s in tree_flatten(model.specs)[1]]
+    return tree_unflatten(paths, [_to_tensor(l, d, device)
+                                  for l, d in zip(leaves, dts)])
 
 
 def demo_batch(cfg: ModelConfig, batch: int, seq: int,
@@ -114,9 +137,15 @@ def demo_batch(cfg: ModelConfig, batch: int, seq: int,
             "lanes": rng.normal(0, 1, (batch, 32, 2)).astype(np.float32),
             "future": rng.normal(0, 1, (batch, 30, 2)).astype(np.float32),
         }
-    if cfg.family in ("dense", "ssm"):
-        return {
-            "tokens": rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32),
-            "labels": rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32),
-        }
-    raise NotImplementedError(f"demo_batch for family {cfg.family!r}")
+    out = {
+        "tokens": rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32),
+        "labels": rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32),
+    }
+    if cfg.family == "vlm":
+        n_img = 16
+        out["vision_embeds"] = rng.normal(
+            0, 0.02, (batch, n_img, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        out["frames"] = rng.normal(
+            0, 0.02, (batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return out

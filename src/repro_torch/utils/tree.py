@@ -18,19 +18,23 @@ from typing import Any, Callable, Tuple
 import torch
 
 
+def _walk(node, prefix, paths, leaves) -> None:
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _walk(node[k], prefix + (k,), paths, leaves)
+    else:
+        paths.append(prefix)
+        leaves.append(node)
+
+
 def tree_flatten(tree):
-    """(paths, leaves) of a nested dict, keys sorted at every level."""
+    """(paths, leaves) of a nested dict, keys sorted at every level.
+
+    A module-level walk, not a closure: a nested recursive function refers
+    to itself through its own cell, and that cycle would keep ``leaves``
+    (and the tensors in it) alive until Python's cyclic collector runs."""
     paths, leaves = [], []
-
-    def walk(node, prefix):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], prefix + (k,))
-        else:
-            paths.append(prefix)
-            leaves.append(node)
-
-    walk(tree, ())
+    _walk(tree, (), paths, leaves)
     return paths, leaves
 
 

@@ -52,7 +52,9 @@ def test_train_cli_import_leaves_jax_out():
 def test_serve_cli_import_leaves_jax_out():
     _import_leaves_jax_out("repro_torch.launch.serve, "
                            "repro_torch.models.transformer, "
-                           "repro_torch.models.mamba2")
+                           "repro_torch.models.mamba2, repro_torch.models.moe, "
+                           "repro_torch.models.vlm, repro_torch.models.hybrid, "
+                           "repro_torch.models.encdec")
 
 
 def test_soak_cli_import_leaves_jax_out():
