@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --time-tree DIR   # time another checkout's kernels
+    python3 chip_smoke.py --phase-19        # phases 1, 2 and 19 alone
+    python3 chip_smoke.py --mesh 4          # the round over 4 cards
 
 Phases, each of which raises on failure (a failed phase exits non-zero):
 
@@ -171,7 +173,22 @@ Phases, each of which raises on failure (a failed phase exits non-zero):
    of the 8-layer Qwen2-VL (device-busy ms a step against phase 17's
    wall ms a step: whether the host paces the decode); last, so that the
    profiler's tracing cannot weigh on the host-bound decodes, rounds and
-   builds timed before it.
+   builds timed before it;
+19. the distributed AFL round (``core/distributed.py``), run before 18:
+   ``make_afl_train_system`` on a single-rank NCCL client mesh
+   (``launch/mesh.py``) at full-width InternLM2-1.8B (s = 1,889,110,016,
+   bf16 weights and client states), N = 2, global batch 4, seq 512,
+   ``donate=True``, 4 rounds through ``run_afl_rounds`` of ``mads``
+   (``sparsify_ef`` at (2, s) bf16, once a round) and of sampled
+   ``mads-joint`` (``sparsify_quantize_ef``, once a round), both clients
+   in contact in round 2: launch counts, uploads > 0, a finite loss, w
+   moved, round seconds, peak GiB (under 75), each kernel call held as it
+   returns against its plain version on its own inputs, 2^26 columns at a
+   time (uploads and counts bit-equal, errors within 1e-6); both kernels
+   timed at that shape; reduced InternLM2 in f32 (N = 4, 3 rounds) on the
+   card against the CPU from the CPU's state each round (phase 16's
+   standard), and the same rounds through the single-rank group
+   bit-equal to the rounds without one.
 
 The last three lines are the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -2422,6 +2439,639 @@ def serve_against_cpu():
               flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the distributed AFL round at full-width InternLM2-1.8B
+# ---------------------------------------------------------------------------
+
+DIST_ARCH = "internlm2-1.8b"
+DIST_N, DIST_BATCH, DIST_SEQ, DIST_ROUNDS = 2, 4, 512, 4
+DIST_FORCED = 1  # the (0-based) round in which both clients meet the MES
+DIST_RUNS = (("mads", "sparsify_ef"), ("mads-joint", "sparsify_quantize_ef"))
+HOLD_BLOCK = 1 << 26  # columns of a row held against the plain version at once
+
+
+def dist_provider(fl, policy_name: str, rounds: int):
+    """The exponential contacts, with every client in contact in round
+    ``DIST_FORCED`` for at least the mean contact time."""
+    from repro_torch.core.runner import build_provider
+    from repro_torch.scenarios import ScenarioProvider
+
+    zeta, tau, h2 = (np.array(a, copy=True) for a in build_provider(
+        fl, policy_name, None, rounds, 0, "cpu").schedule())
+    zeta[DIST_FORCED] = 1
+    tau[DIST_FORCED] = np.maximum(tau[DIST_FORCED], fl.mean_contact)
+    return ScenarioProvider.from_arrays(zeta, tau, h2=h2)
+
+
+def hold_in_blocks(name: str, x, args, kw, out, tag: str) -> float:
+    """A sparsify kernel's output on x (N, s) against its plain version on
+    the same inputs, ``HOLD_BLOCK`` columns at a time (the plain version is
+    elementwise along a row and the dither counter is base + column, so a
+    block's result is the whole call's; the count is the exact int total
+    of the plain version's mask, as one unblocked call gives it): uploads
+    and counts bit-equal, errors within 1e-6 (phase 3's tolerances).
+    Returns the largest error difference."""
+    from repro_torch.kernels import ref as R
+
+    up, err, cnt = out
+    total = torch.zeros(x.shape[0], dtype=torch.int64, device=x.device)
+    worst = 0.0
+    for c0 in range(0, x.shape[1], HOLD_BLOCK):
+        cols = slice(c0, min(c0 + HOLD_BLOCK, x.shape[1]))
+        xb = x[:, cols]
+        if name == "sparsify_ef":
+            want = R.sparsify_ef_plain(xb, args[0])
+        else:
+            t, steps, levels, seeds = args[:4]
+            base = kw.get("base", args[4] if len(args) > 4 else 0)
+            want = R.sparsify_quantize_ef_plain(xb, t, steps, levels, seeds,
+                                                base + c0)
+        if not torch.equal(up[:, cols], want[0]):
+            fail(f"{tag}: {name} upload differs from its plain version in "
+                 f"columns {cols}")
+        worst = max(worst, (err[:, cols].float() - want[1].float())
+                    .abs().max().item())
+        total += (xb.float().abs() >= args[0][:, None]).sum(dim=1)
+        del want
+    if not torch.equal(cnt, total.to(torch.float32)) or worst > 1e-6:
+        fail(f"{tag}: {name} counts {cnt.tolist()} (plain {total.tolist()}) "
+             f"or errors (off by {worst}) differ from its plain version")
+    return worst
+
+
+@contextmanager
+def holding_in_run(tag: str, stats: dict):
+    """Hold every CUDA call the block makes through ``kernels/ops.py`` to
+    ``sparsify_ef`` / ``sparsify_quantize_ef`` against its plain version as
+    it returns, on the run's own inputs and outputs (``hold_in_blocks``;
+    no kernel is launched for it).  Its host seconds go to
+    ``stats["hold_s"]``; ``stats["peak"]`` keeps the run's peak memory
+    without the holding's temporaries (the peak counter is read before and
+    reset after each hold)."""
+    from repro_torch.kernels import ops
+
+    names = ("sparsify_ef", "sparsify_quantize_ef")
+    real = {n: getattr(ops, n) for n in names}
+
+    def spy(name):
+        def call(x, *args, **kw):
+            out = real[name](x, *args, **kw)
+            if not x.is_cuda:
+                return out
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats["peak"] = max(stats["peak"], torch.cuda.max_memory_allocated())
+            err = hold_in_blocks(name, x, args, kw, out, tag)
+            HELD.append(dict(name=name, tag=tag, shape=list(x.shape),
+                             dtype=str(x.dtype).replace("torch.", ""),
+                             max_abs_err=err))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            stats["hold_s"] += time.perf_counter() - t0
+            stats["held"] += 1
+            return out
+
+        return call
+
+    for n in names:
+        setattr(ops, n, spy(n))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(ops, n, real[n])
+
+
+def dist_full_width(K, mesh, policy_name: str, kernel: str, smi: str) -> dict:
+    """Phase 19a: ``make_afl_train_system`` on the single-rank NCCL mesh at
+    full-width InternLM2-1.8B (bf16 weights and client states), N = 2,
+    global batch 4 (2 a client), seq 512, 4 rounds through
+    ``run_afl_rounds`` with ``donate=True``; both clients in contact in
+    round 2.  Held: exactly one ``kernel`` launch a round and no other,
+    each held against its plain version as it returns; uploads > 0; a
+    finite loss before and after; w moved; peak under 75 GiB.  Steady
+    round seconds leave the holding out."""
+    from repro_torch.configs import FLConfig, get_config
+    from repro_torch.core import baselines as BL
+    from repro_torch.core import mads as M
+    from repro_torch.core.afl import device_grads
+    from repro_torch.core.distributed import (DistConfig,
+                                              make_afl_train_system,
+                                              run_afl_rounds)
+    from repro_torch.core.runner import evaluate, sample_budgets
+    from repro_torch.models.registry import build_model, demo_batch
+
+    cfg = get_config(DIST_ARCH)
+    model = build_model(cfg)
+    s = model.num_params()
+    fl = FLConfig(num_devices=DIST_N, rounds=DIST_ROUNDS,
+                  mean_intercontact=20.0, sparsifier="sampled", seed=0)
+    policy = BL.ALL[policy_name](s, fl)
+    dcfg = DistConfig(num_clients=DIST_N, learning_rate=fl.learning_rate,
+                      rounds=DIST_ROUNDS, sample_size=fl.sample_size)
+    rng = np.random.default_rng(0)
+    batches = [{k: torch.as_tensor(v).cuda() for k, v in
+                demo_batch(cfg, DIST_BATCH, DIST_SEQ, rng).items()}
+               for _ in range(DIST_ROUNDS + 1)]
+    stats = dict(peak=0, hold_s=0.0, held=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    system = make_afl_train_system(
+        model, cfg, mesh, dcfg=dcfg, controller=policy.controller,
+        compressor=policy.compressor, staleness=policy.staleness, donate=True)
+    state = system["init_state"](0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if state.w_n.dtype != torch.bfloat16 or tuple(state.w_n.shape) != (DIST_N, s):
+        fail(f"dist {policy_name}: client state {state.w_n.dtype} "
+             f"{tuple(state.w_n.shape)}")
+    if policy_name == "mads":  # the vmapped gradient's own peak, once
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads = device_grads(model, state.w_n, {
+            k: v.reshape(DIST_N, -1, *v.shape[1:]) for k, v in batches[0].items()})
+        stats["grad_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        stats["grad_peak_over_state_gib"] = (
+            torch.cuda.max_memory_allocated() - before) / 2**30
+        del grads
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    probe = torch.arange(0, s, 997, device="cuda")
+    w0 = state.w[probe].clone()
+    loss0 = evaluate(model, cfg, state.w, batches[-1])
+    marks = []
+
+    def batch_fn(r):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), stats["hold_s"]))
+        return batches[r]
+
+    provider = dist_provider(fl, policy_name, DIST_ROUNDS)
+    K.reset_launches()
+    with holding_in_run(f"dist {policy_name}", stats):
+        state, hist = run_afl_rounds(system["step"], state, provider,
+                                     batch_fn, sample_budgets(fl, 0))
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), stats["hold_s"]))
+    launches = dict(K.LAUNCHES)
+    stats["peak"] = max(stats["peak"], torch.cuda.max_memory_allocated())
+    want = {k: (DIST_ROUNDS if k == kernel else 0) for k in launches}
+    if launches != want:
+        fail(f"dist {policy_name}: launches {launches}, not {want}")
+    if stats["held"] != DIST_ROUNDS:
+        fail(f"dist {policy_name}: {stats['held']} kernel calls held, not "
+             f"{DIST_ROUNDS}")
+    round_s = [(t1 - t0) - (h1 - h0)
+               for (t0, h0), (t1, h1) in zip(marks, marks[1:])]
+    uploads = sum(float(m["success"].sum()) for m in hist)
+    ctl = policy.controller
+    budget = [(torch.as_tensor(tau).cuda() * M.rate_bps(
+        m["power"], torch.as_tensor(h2).cuda(), ctl.bandwidth, ctl.noise_w_hz)
+        * m["uploads"]).tolist() for m, (_, tau, h2) in zip(hist, provider)]
+    loss = evaluate(model, cfg, state.w, batches[-1])
+    moved = (state.w[probe] != w0).float().mean().item()
+    peak = stats["peak"] / 2**30
+    out = dict(
+        launches=launches, uploads=uploads, loss_before=loss0, loss=loss,
+        share_of_w_moved=moved, peak_gib=peak, init_s=init_s,
+        round_s=round_s, steady_round_s=sorted(round_s[1:])[len(round_s[1:]) // 2],
+        held_s=stats["hold_s"], budget_bits=budget,
+        **{k: v for k, v in stats.items() if k.startswith("grad_peak")},
+        k=[m["k"].tolist() for m in hist], bits=[m["bits"].tolist() for m in hist],
+        b=[m["b"].tolist() for m in hist])
+    if not uploads > 0:
+        fail(f"dist {policy_name}: no uploads: {out}")
+    if not (math.isfinite(loss) and math.isfinite(loss0)):
+        fail(f"dist {policy_name}: loss not finite: {out}")
+    if not moved > 0:
+        fail(f"dist {policy_name}: w never moved: {out}")
+    if not peak < 75:
+        fail(f"dist {policy_name}: peak {peak:.2f} GiB, not under 75")
+    print(f"dist {DIST_ARCH} (full width, s = {s:,}, bf16 states, N = "
+          f"{DIST_N}, batch {DIST_BATCH}, seq {DIST_SEQ}) {policy_name} on "
+          f"{smi}: {json.dumps(out)}", flush=True)
+    del state, hist, system, batches, w0, probe, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_kernel_times(K, s: int, card: str) -> dict:
+    """Phase 19b: both sparsify kernels timed at the run's shape, (2,
+    1,889,110,016) bf16, on random rows (thresholds keeping ~1 % and ~13 %
+    of a row); bound: bytes over the HBM rate (x read, upload and error
+    written) against phase 3's operation counts at the f32 rate."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.empty((DIST_N, s), dtype=torch.bfloat16, device="cuda")
+    for c0 in range(0, s, HOLD_BLOCK):
+        c1 = min(c0 + HOLD_BLOCK, s)
+        x[:, c0:c1] = torch.randn((DIST_N, c1 - c0), generator=g, device="cuda")
+    t = torch.tensor([2.5, 1.5], device="cuda")
+    steps = torch.tensor([0.01, 0.02], device="cuda")
+    levels = torch.tensor([7.0, 2047.0], device="cuda")
+    seeds = torch.tensor([11, 7930], dtype=torch.int32, device="cuda")
+    n_el = x.numel()
+    calls = {
+        "sparsify_ef": (lambda: K.sparsify_ef_cuda(x, t), 4 * n_el),
+        "sparsify_quantize_ef": (lambda: K.sparsify_quantize_ef_cuda(
+            x, t, steps, levels, seeds, 0), 22 * n_el),
+    }
+    out = {}
+    for name, (fn, ops) in calls.items():
+        ms = median_ms(fn, runs=9, batch=3)
+        b = bound(3 * 2 * n_el + 5 * 4 * DIST_N, ops, torch.float32)
+        out[name] = dict(ms=ms, shape=[DIST_N, s], dtype="bfloat16", **b,
+                         bound_share=b["bound_ms"] / ms)
+        print(f"{name}: {ms:.4f} ms at ({DIST_N}, {s}) bf16 (bound "
+              f"{b['bound_ms']:.4f} ms by {b['bound_by']}) on {card}",
+              flush=True)
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_on(state, device, dtype=None):
+    """A distributed state with its tensors on ``device``; with ``dtype``,
+    w and the client buffers cast to it."""
+    import dataclasses
+
+    moved = {}
+    for f in ("w", "w_n", "g_n", "e_n", "kappa", "q", "energy"):
+        v = getattr(state, f).to(device)
+        if dtype is not None and f in ("w", "w_n", "g_n", "e_n"):
+            v = v.to(dtype)
+        moved[f] = v
+    return dataclasses.replace(state, **moved)
+
+
+def dist_reduced(mesh) -> None:
+    """Phase 19c: reduced InternLM2 in float32 (N = 4, batch 16, seq 64, 3
+    rounds, every client's contact forced in round 2, a threshold sample
+    of every coordinate), the ``mads`` step
+    on the card against the CPU from the CPU's state each round (successes
+    equal, k within 2, the update of w and of w_n no further from the f64
+    step's, relative to its largest entry, than 3x the CPU's f32 step:
+    phase 16's standard); and the same rounds on the card through the
+    single-rank NCCL mesh against the step without a group, for ``mads``
+    and ``mads-joint``: metrics and states bit-equal."""
+    import dataclasses
+
+    from repro_torch.configs import FLConfig, get_config
+    from repro_torch.core import baselines as BL
+    from repro_torch.core import distributed as D
+    from repro_torch.core.runner import sample_budgets
+    from repro_torch.models.registry import build_model, demo_batch
+
+    cfg = get_config(DIST_ARCH).reduced().replace(**F32)
+    cfg64 = cfg.replace(dtype=torch.float64, param_dtype=torch.float64)
+    model, model64 = build_model(cfg), build_model(cfg64)
+    rounds, n = 3, 4
+    fl = FLConfig(num_devices=n, rounds=rounds, mean_intercontact=20.0,
+                  sparsifier="sampled", seed=0)
+    provider = dist_provider(fl, "mads", rounds)
+    budgets = torch.as_tensor(sample_budgets(fl, 0))
+    rng = np.random.default_rng(1)
+    batches = [{k: torch.as_tensor(v) for k, v in
+                demo_batch(cfg, 4 * n, 64, rng).items()} for _ in range(rounds)]
+    # a sample of 2^21 >= s takes every coordinate, so the fixed-u
+    # threshold is the exact order statistic and k is held within 2, as
+    # phase 16 holds it; at the default 65,536 a swap of two samples of
+    # near-equal |x| moves k by ~s/m = 26 coordinates a swap
+    dc = D.DistConfig(num_clients=n, learning_rate=fl.learning_rate,
+                      rounds=rounds, state_dtype="float32",
+                      sample_size=1 << 21)
+    dc64 = dataclasses.replace(dc, state_dtype=torch.float64,
+                               upload_dtype=torch.float64,
+                               accum_dtype=torch.float64)
+    pol = BL.ALL["mads"](model.num_params(), fl)
+    step = D.make_afl_train_step(model, cfg, dc, pol.controller)
+    step64 = D.make_afl_train_step(model64, cfg64, dc64, pol.controller)
+    state = D.init_state(model, dc, 0, device="cpu")
+    dists, uploads = [], 0.0
+    for r in range(rounds):
+        z, t, h2 = provider.round(r)
+        ins = [torch.as_tensor(v, dtype=torch.float32) for v in (z, t, h2)]
+        out = {}
+        for label, stp, d, dt in (("cuda", step, "cuda", None),
+                                  ("cpu", step, "cpu", None),
+                                  ("f64", step64, "cpu", torch.float64)):
+            new, m = stp(_dist_on(state, d, dt),
+                         {k: v.to(d) for k, v in batches[r].items()},
+                         *(v.to(d) for v in ins), budgets.to(d))
+            out[label] = dict(new=new, success=m["success"].cpu(),
+                              k=m["k"].cpu(),
+                              w=new.w.double().cpu() - state.w.double(),
+                              w_n=new.w_n.double().cpu() - state.w_n.double())
+        a, c, e = out["cuda"], out["cpu"], out["f64"]
+        if not (torch.equal(a["success"], c["success"])
+                and torch.equal(c["success"], e["success"])):
+            fail(f"dist reduced round {r}: successes differ: "
+                 f"{[o['success'].tolist() for o in (a, c, e)]}")
+        if (a["k"] - c["k"]).abs().max().item() > 2:
+            fail(f"dist reduced round {r}: k {a['k'].tolist()} on the card, "
+                 f"{c['k'].tolist()} on the cpu")
+        for q in ("w", "w_n"):
+            peak = max(e[q].abs().max().item(), 1e-30)
+            d_card = (a[q] - e[q]).abs().max().item() / peak
+            d_cpu = (c[q] - e[q]).abs().max().item() / peak
+            if d_card > 3 * d_cpu + 1e-6:
+                fail(f"dist reduced round {r}: the card's update of {q} is "
+                     f"{d_card} of its largest entry from the f64 step's, "
+                     f"the cpu's {d_cpu}")
+            dists.append([r, q, d_card, d_cpu])
+        uploads += c["success"].sum().item()
+        state = c["new"]
+    if not uploads > 0:
+        fail("dist reduced: no uploads")
+    print(f"dist {DIST_ARCH} reduced f32, each round on the card against "
+          f"the cpu from its state: successes equal, k within 2 "
+          f"({uploads:.0f} uploads); [round, quantity, card's, cpu's distance "
+          f"from the f64 step / its largest entry] {json.dumps(dists)}",
+          flush=True)
+
+    # the embedding's gradient adds its rows in a run-dependent order
+    # unless deterministic algorithms are asked for
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for policy_name in ("mads", "mads-joint"):
+            group_equals_none(D, BL, model, cfg, dc, fl, mesh, policy_name,
+                              provider, batches, budgets, rounds)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def group_equals_none(D, BL, model, cfg, dc, fl, mesh, policy_name, provider,
+                      batches, budgets, rounds) -> None:
+    """Phase 19c's second half for one policy: ``rounds`` rounds on the
+    card through the single-rank mesh and without a group, bit-equal."""
+    pol = BL.ALL[policy_name](model.num_params(), fl)
+    kw = dict(compressor=pol.compressor, staleness=pol.staleness)
+    with_group = D.make_afl_train_step(model, cfg, dc, pol.controller,
+                                       mesh=mesh, **kw)
+    without = D.make_afl_train_step(model, cfg, dc, pol.controller, **kw)
+    sg = D.init_state(model, dc, 0, mesh=mesh)
+    sn = D.init_state(model, dc, 0, device="cuda")
+    for r in range(rounds):
+        z, t, h2 = (torch.as_tensor(v, dtype=torch.float32).cuda()
+                    for v in provider.round(r))
+        b = {k: v.cuda() for k, v in batches[r].items()}
+        sg, mg = with_group(sg, b, z, t, h2, budgets.cuda())
+        sn, mn = without(sn, b, z, t, h2, budgets.cuda())
+        same = all(torch.equal(mg[k], mn[k]) for k in mn) and all(
+            torch.equal(getattr(sg, f), getattr(sn, f))
+            for f in ("w", "w_n", "g_n", "e_n", "kappa", "q", "energy"))
+        if not same:
+            fail(f"dist reduced {policy_name} round {r}: the single-rank "
+                 f"group's round differs from the round without one")
+    print(f"dist reduced {policy_name}: {rounds} rounds through the "
+          f"single-rank NCCL group bit-equal to the rounds without one "
+          f"(uploads {float(mn['success'].sum())} in the last)",
+          flush=True)
+
+
+def dist_phase(K, smi: str) -> dict:
+    """Phase 19: the distributed AFL round (``core/distributed.py``) on a
+    single-rank NCCL client mesh."""
+    from repro_torch.launch.mesh import make_client_mesh
+
+    t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated() / 2**30
+    mesh = make_client_mesh(DIST_N)
+    try:
+        runs = {policy: dist_full_width(K, mesh, policy, kernel, smi)
+                for policy, kernel in DIST_RUNS}
+        left = torch.cuda.memory_allocated() / 2**30
+        if left > base + 1:
+            fail(f"dist: {left - base:.2f} GiB still allocated after the "
+                 f"full-width runs")
+        from repro_torch.configs import get_config
+        from repro_torch.models.registry import build_model
+
+        s = build_model(get_config(DIST_ARCH)).num_params()
+        times = dist_kernel_times(K, s, smi)
+        dist_reduced(mesh)
+    finally:
+        mesh.close()
+    torch.cuda.empty_cache()
+    print(f"dist phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(runs=runs, times=times)
+
+
+# ---------------------------------------------------------------------------
+# --mesh P: the distributed round over P cards (one process a card)
+# ---------------------------------------------------------------------------
+
+MESH_CODECS = (("mads", False), ("mads-topk", False), ("mads-joint", False),
+               ("mads-joint", True), ("qsgd", False), ("fixed-kb", False))
+MESH_ROUNDS = 3
+
+
+def mesh_parity(mesh) -> dict:
+    """One rank's reduced rounds: ResNet-9 at width 4, N = 2 P clients
+    (2 a rank), 3 rounds of each policy of ``MESH_CODECS`` from one seed,
+    alone on this rank's card (no group, all N clients) and through the
+    mesh (this rank's 2 rows), under deterministic cuDNN: whether the bits
+    histories are equal, and how far the global model and the rank's rows
+    of the client models are apart, relative to their largest entry (the
+    largest, and the share of coordinates beyond 1e-6)."""
+    import dataclasses
+
+    from repro_torch.configs import FLConfig, get_config
+    from repro_torch.core import baselines as BL
+    from repro_torch.core import distributed as D
+    from repro_torch.core.runner import build_provider, sample_budgets
+    from repro_torch.experiments import DataShard
+    from repro_torch.launch.train import build_device_data
+    from repro_torch.models.registry import build_model
+
+    n = 2 * mesh.world_size
+    cfg = get_config(RESNET9).replace(d_model=4)
+    model = build_model(cfg)
+    fl = FLConfig(num_devices=n, rounds=MESH_ROUNDS, batch_size=8,
+                  learning_rate=0.02, mean_contact=6.0, mean_intercontact=30.0,
+                  energy_budget=(40.0, 80.0))
+    dev, _ = build_device_data(cfg, fl, train_n=80 * n, eval_n=32, seed=0)
+    shard = DataShard(dev, fl.batch_size, seed=0, device=mesh.device)
+    key = shard.seed_key(0)
+    params = model.init(torch.Generator().manual_seed(0), mesh.device)
+    rows = mesh.rows(n)
+    out = {}
+    for name, per_layer in MESH_CODECS:
+        flv = dataclasses.replace(fl, per_layer_budget=per_layer)
+        pol = BL.ALL[name](model.num_params(), flv)
+        dc = D.DistConfig(num_clients=n, rounds=MESH_ROUNDS,
+                          learning_rate=flv.learning_rate,
+                          state_dtype="float32")
+        res = {}
+        for label, m in (("alone", None), ("mesh", mesh)):
+            step = D.make_afl_train_step(model, cfg, dc, pol.controller,
+                                         compressor=pol.compressor,
+                                         staleness=pol.staleness, mesh=m)
+            st = D.init_state(model, dc, 0, mesh=m, device=mesh.device,
+                              params=params)
+            st, hist = D.run_afl_rounds(
+                step, st, build_provider(flv, name, None, MESH_ROUNDS, 0,
+                                         "cpu"),
+                lambda r: {k: v.flatten(0, 1)
+                           for k, v in shard.traced_batch(key, r).items()},
+                sample_budgets(flv, 0))
+            res[label] = (st, torch.stack([h["bits"] for h in hist]))
+        (sa, ba), (sm, bm) = res["alone"], res["mesh"]
+        tag = name + ("+pl" if per_layer else "")
+        out[tag] = dict(bits_equal=bool(torch.equal(ba, bm)),
+                        bits_total=float(ba.sum()),
+                        local_rows=int(sm.w_n.shape[0]))
+        for f, a, b in (("w", sa.w, sm.w), ("w_n", sa.w_n[rows], sm.w_n)):
+            off = (a - b).abs() / a.abs().max()
+            out[tag][f"{f}_off"] = float(off.max())
+            out[tag][f"{f}_far_share"] = float((off > 1e-6).float().mean())
+    return out
+
+
+def mesh_full_width(mesh) -> dict:
+    """One rank's full-width rounds: InternLM2-1.8B in bf16, one client a
+    card (N = P), global batch 2 P, seq 512, ``donate=True``, 4 rounds of
+    ``mads`` with every client in contact in round 2: this rank's launch
+    count, round seconds (each round ends at a barrier), peak GiB, and a
+    probe of w that every rank must hold bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import FLConfig, get_config
+    from repro_torch.core import baselines as BL
+    from repro_torch.core.distributed import (DistConfig,
+                                              make_afl_train_system,
+                                              run_afl_rounds)
+    from repro_torch.core.runner import evaluate, sample_budgets
+    from repro_torch.kernels import sparsify_ef as K
+    from repro_torch.models.registry import build_model, demo_batch
+
+    n = mesh.world_size
+    cfg = get_config(DIST_ARCH)
+    model = build_model(cfg)
+    s = model.num_params()
+    fl = FLConfig(num_devices=n, rounds=DIST_ROUNDS, mean_intercontact=20.0,
+                  sparsifier="sampled", seed=0)
+    policy = BL.ALL["mads"](s, fl)
+    dcfg = DistConfig(num_clients=n, learning_rate=fl.learning_rate,
+                      rounds=DIST_ROUNDS, sample_size=fl.sample_size)
+    rng = np.random.default_rng(0)
+    batches = [{k: torch.as_tensor(v).to(mesh.device) for k, v in
+                demo_batch(cfg, 2 * n, DIST_SEQ, rng).items()}
+               for _ in range(DIST_ROUNDS + 1)]
+    torch.cuda.reset_peak_memory_stats()
+    system = make_afl_train_system(
+        model, cfg, mesh, dcfg=dcfg, controller=policy.controller,
+        staleness=policy.staleness, donate=True)
+    state = system["init_state"](0)
+    marks = []
+
+    def batch_fn(r):
+        torch.cuda.synchronize()
+        dist.barrier()
+        marks.append(time.perf_counter())
+        return batches[r]
+
+    K.reset_launches()
+    state, hist = run_afl_rounds(system["step"], state,
+                                 dist_provider(fl, "mads", DIST_ROUNDS),
+                                 batch_fn, sample_budgets(fl, 0))
+    torch.cuda.synchronize()
+    dist.barrier()
+    marks.append(time.perf_counter())
+    probe = state.w[::997].float()
+    probes = [torch.empty_like(probe) for _ in range(n)]
+    dist.all_gather(probes, probe)
+    out = dict(
+        launches=dict(K.LAUNCHES),
+        round_s=[b - a for a, b in zip(marks, marks[1:])],
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        uploads=sum(float(m["success"].sum()) for m in hist),
+        w_same_on_every_rank=all(torch.equal(p, probe) for p in probes),
+        loss=evaluate(model, cfg, state.w, batches[-1]),
+        k=[m["k"].tolist() for m in hist])
+    del state, hist, system, batches, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank(rank: int, world: int, store_path: str) -> None:
+    """``--mesh-rank r P STORE``: one rank of ``--mesh P``, on card r."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_client_mesh
+
+    mesh = make_client_mesh(2 * world, store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        out = dict(rank=mesh.rank, card=str(mesh.device),
+                   parity=mesh_parity(mesh), full=mesh_full_width(mesh))
+    finally:
+        mesh.close()
+    print("MESH_RANK " + json.dumps(out), flush=True)
+
+
+def mesh_main(world: int) -> None:
+    """``--mesh P``: the distributed round over P cards, one process a
+    card on a file store.  Each rank runs ``mesh_parity`` (world 1 on its
+    own card against world P: bits histories equal; w and its rows of
+    w_n within 1e-6 of their largest entry at 97 % of the coordinates or
+    more and within 1e-4 everywhere) and ``mesh_full_width`` (one sparsify_ef launch a
+    round on every rank, uploads > 0, a finite loss, the same w on every
+    rank, peak GiB, round seconds).  Prints one JSON line of every
+    rank's results, then fails if any check does."""
+    from repro_torch.kernels import sparsify_ef as K
+
+    if torch.cuda.device_count() < world:
+        fail(f"--mesh {world} needs {world} cards, found "
+             f"{torch.cuda.device_count()}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"mesh of {world}: {smi.splitlines()}", flush=True)
+    build_kernels({"sparsify_ef": K})
+    store = Path(tempfile.mkdtemp(prefix="mesh_store_")) / "store"
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-rank", str(r),
+         str(world), str(store)], stdout=subprocess.PIPE, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            text = p.communicate(timeout=1200)[0]
+            if p.returncode != 0:
+                fail(f"a mesh rank exited with {p.returncode}")
+            outs.append(json.loads([line for line in text.splitlines()
+                                    if line.startswith("MESH_RANK ")][-1][10:]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    print(json.dumps({"mesh": world, "card": smi.splitlines()[0],
+                      "ranks": outs}), flush=True)
+    for o in outs:
+        for tag, p in o["parity"].items():
+            # the all-reduce adds in another order than one rank's
+            # contraction, and where a quantised code sits that close to a
+            # dither step it moves by one: the standard the CPU tests hold
+            # the reference's step to
+            if not (p["bits_equal"] and p["bits_total"] > 0
+                    and max(p["w_off"], p["w_n_off"]) <= 1e-4
+                    and max(p["w_far_share"], p["w_n_far_share"]) <= 0.03):
+                fail(f"mesh rank {o['rank']} {tag}: world {world} differs "
+                     f"from world 1: {p}")
+        f = o["full"]
+        if not (f["launches"]["sparsify_ef"] == DIST_ROUNDS
+                and sum(f["launches"].values()) == DIST_ROUNDS
+                and f["uploads"] > 0 and math.isfinite(f["loss"])
+                and f["w_same_on_every_rank"]):
+            fail(f"mesh rank {o['rank']} full width: {f}")
+    print(f"mesh of {world}: every check passed", flush=True)
+
+
 def time_tree(tree: str) -> None:
     """``--time-tree DIR``: device times of the LLM kernels from the port
     in DIR/src (another checkout, say a parent commit's), by this script's
@@ -2438,11 +3088,24 @@ def time_tree(tree: str) -> None:
     print(json.dumps(out), flush=True)
 
 
+def dist_entry(dist: dict, policy: str, name: str) -> dict:
+    """Phase 19's numbers for a kernel's entry of the kernels line."""
+    times = dist["times"][name]
+    return {"launches_internlm2_dist": dist["runs"][policy]["launches"][name],
+            **{f"{k}_internlm2_dist": times[k]
+               for k in ("shape", "ms", "bound_ms", "bound_share")}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     if sys.argv[1:2] == ["--time-tree"]:
         return time_tree(sys.argv[2])
+    if sys.argv[1:2] == ["--mesh"]:
+        return mesh_main(int(sys.argv[2]))
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    only_dist = sys.argv[1:2] == ["--phase-19"]
     from repro_torch.kernels import decode_attn as DA
     from repro_torch.kernels import ref as R
     from repro_torch.kernels import sparsify_ef as K
@@ -2463,6 +3126,11 @@ def main() -> None:
 
     # 2. build
     build_kernels(mods)
+    if only_dist:  # phases 1, 2 and 19 alone; no kernels line
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist_phase(K, smi)
+        print(json.dumps(dict(phase_19_held=HELD)))
+        return
 
     # 3. kernels against their plain versions
     torch.backends.cudnn.allow_tf32 = False
@@ -2556,6 +3224,10 @@ def main() -> None:
     others = serve_other_families(mods, smi)
     torch.cuda.empty_cache()
 
+    # 19. the distributed AFL round, full-width InternLM2-1.8B (before the
+    # profile pass, which stays last)
+    dist = dist_phase(K, smi)
+
     # 18. device time by kernel, last (the profiler slows later launches)
     profile_kernels(DA, SSD)
     profiled = {}
@@ -2591,6 +3263,7 @@ def main() -> None:
              launches_soak={label: p["launches"]["sparsify_ef"]
                             for label, p in ingest["soak"].items()
                             if p["launches"]["sparsify_ef"]},
+             **dist_entry(dist, "mads", "sparsify_ef"),
              **timing["sparsify_ef"]),
         dict(name="sparsify_quantize_ef", route="cuda",
              source=src + "sparsify_ef.cu",
@@ -2603,6 +3276,7 @@ def main() -> None:
              launches_soak={label: p["launches"]["sparsify_quantize_ef"]
                             for label, p in ingest["soak"].items()
                             if p["launches"]["sparsify_quantize_ef"]},
+             **dist_entry(dist, "mads-joint", "sparsify_quantize_ef"),
              **timing["sparsify_quantize_ef"]),
         # the per-layer codec's route to the same TPU kernel: launches and
         # times at ResNet-9's (20, 6,573,130), *_lanegcn at (20, 247,100)

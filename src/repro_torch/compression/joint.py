@@ -50,6 +50,10 @@ class JointCompressor(Compressor):
     def compress(self, x, budget_bits, error, seeds, layout):
         xt = x + error
         if self.per_layer:
+            if self.group is not None:
+                raise NotImplementedError(
+                    "per_layer budgets over a partitioned row (group=) are "
+                    "not supported, as in the reference")
             return compress_per_layer(self, xt, layout, budget_bits, seeds)
         k_target, b = solve_kb(budget_bits, self.s, self.index_bits,
                                self.b_grid)

@@ -32,14 +32,14 @@ class QSGDCompressor(Compressor):
         send = (b >= self.b_min).to(torch.float32)
         b = b * send
         levels = Q.quant_levels(b)
-        step = Q.quant_step(Q.tree_amax(xt), levels)
+        step = Q.quant_step(Q.tree_amax(xt, group=self.group), levels)
         # threshold 0 keeps every coordinate (the kernels' mask is >=);
         # send = 0 withholds the round
         payload, error, _ = self.masked_payload(
             xt, torch.zeros_like(step), quantize=True, step=step,
             levels=levels, seeds=seeds)
-        payload = (payload * send[:, None]).to(payload.dtype)
-        error = torch.where(send[:, None] > 0, error, xt)
+        payload.mul_(send[:, None].to(payload.dtype))
+        torch.where(send[:, None] > 0, error, xt, out=error)
         if not self.error_feedback:
             error = torch.zeros_like(error)
         # bits <= budget by construction: b = floor((budget - 32) / s)

@@ -16,6 +16,7 @@ no product leaves the int64 range.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 # one fp32 scale per compressed message, counted against the bit budget
 SCALE_BITS = 32
@@ -88,6 +89,16 @@ def draw_seeds(gen: torch.Generator, n: int, device=None) -> torch.Tensor:
     return seeds.to(device) if device is not None else seeds
 
 
-def tree_amax(flat: torch.Tensor) -> torch.Tensor:
-    """Max |value| over the last axis of a flat (..., s) message (exact)."""
-    return flat.to(torch.float32).abs().amax(dim=-1)
+def tree_amax(flat: torch.Tensor, group=None) -> torch.Tensor:
+    """Max |value| over the last axis of a flat (..., s) message (exact).
+
+    The larger of |max| and |min|, each taken in the message's dtype (a
+    cast to f32 is exact and keeps order), so no (..., s) temporary is
+    made.  ``group``: a process group over which the message's columns are
+    partitioned; the rank maxima are MAX-reduced over it (exact under any
+    split), so every rank derives the same step."""
+    amax = torch.maximum(flat.amax(dim=-1).to(torch.float32).abs(),
+                         flat.amin(dim=-1).to(torch.float32).abs())
+    if group is not None:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    return amax

@@ -19,7 +19,14 @@ Each wrapper takes CUDA tensors only, checks them, launches on the current
 stream and adds one to ``LAUNCHES[name]``; ``ops.py`` sends CPU tensors to
 the plain versions.  Counts come back as f32 of an exact int32 total,
 which equals the reference's sum of per-leaf f32 counts below 2^24 (s =
-6,573,130 for ResNet-9 is below it).
+6,573,130 for ResNet-9 is below it).  Above 2^24 the two can differ by an
+f32 ulp of the count (64-128 at s ~ 1e9): the reference adds rounded f32
+partial counts, the port rounds the exact total once.
+
+``check_index_range`` holds each call inside the kernels' index types
+before it launches: a row's count is an int32 (so s < 2^31), and the
+dither column ``base + column`` is a uint32 (so base + s <= 2^32).
+Nothing widens or splits a call that is out of range: it raises.
 """
 from __future__ import annotations
 
@@ -31,7 +38,8 @@ import torch
 from repro_torch.kernels import build
 
 __all__ = [
-    "LAUNCHES", "library", "reset_launches", "sparsify_ef_cuda",
+    "INT32_COLUMNS", "LAUNCHES", "UINT32_COLUMNS", "check_index_range",
+    "library", "reset_launches", "sparsify_ef_cuda",
     "sparsify_quantize_ef_cuda", "sparsify_quantize_ef_segmented_cuda",
     "tiles",
 ]
@@ -43,6 +51,26 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _THREADS = 256  # kThreads of the .cu
 TILE_VECS = 8  # 16-byte vectors per thread in a segmented tile
+INT32_COLUMNS = 2**31  # a row's count is an int32: s must stay below
+UINT32_COLUMNS = 2**32  # the dither column base + i is a uint32
+
+
+def check_index_range(cols: int, base: int | None = None) -> None:
+    """Raise ``ValueError`` unless a row of ``cols`` columns fits the
+    kernels' index types: cols < 2^31 (the int32 per-row count) and, for
+    the quantising entries (``base`` given), base + cols <= 2^32 (the
+    uint32 dither column).  Shapes only: it allocates nothing."""
+    cols = int(cols)
+    if cols >= INT32_COLUMNS:
+        raise ValueError(
+            f"s = {cols:,} columns a row reach the sparsify kernels' limit "
+            f"of 2^31 - 1 = {INT32_COLUMNS - 1:,}: a row's count is an "
+            "int32 (ROADMAP queue 2: int64 counts)")
+    if base is not None and int(base) + cols > UINT32_COLUMNS:
+        raise ValueError(
+            f"base {int(base):,} + s {cols:,} passes the quantising "
+            f"kernels' limit of 2^32 = {UINT32_COLUMNS:,}: the dither "
+            "column is a uint32")
 
 
 def reset_launches() -> None:
@@ -131,6 +159,7 @@ def _raise_on(rc: int, name: str) -> None:
 def sparsify_ef_cuda(x: torch.Tensor, thresholds: torch.Tensor):
     """x (N, s) f32/bf16, thresholds (N,) f32 -> (upload, error, count f32)."""
     _check(x, thresholds=thresholds)
+    check_index_range(x.shape[1])
     lib = library()
     up, err, cnt = _outputs(x)
     with torch.cuda.device(x.device):
@@ -149,6 +178,7 @@ def sparsify_quantize_ef_cuda(x: torch.Tensor, thresholds, steps, levels,
     """x (N, s); thresholds, steps, levels (N,) f32; seeds (N,) int32;
     base: dither counter of column 0 -> (upload, error, count f32)."""
     _check(x, thresholds=thresholds, steps=steps, levels=levels, seeds=seeds)
+    check_index_range(x.shape[1], base)
     lib = library()
     up, err, cnt = _outputs(x)
     with torch.cuda.device(x.device):
@@ -171,6 +201,7 @@ def sparsify_quantize_ef_segmented_cuda(x: torch.Tensor, thresholds, steps,
     counter is the column."""
     offsets = tuple(int(o) for o in offsets)
     _check(x, seeds=seeds)
+    check_index_range(x.shape[1], 0)
     leaves = len(offsets) - 1
     if (leaves < 1 or offsets[0] != 0 or offsets[-1] != x.shape[1]
             or any(b < a for a, b in zip(offsets, offsets[1:]))):

@@ -60,3 +60,8 @@ def test_serve_cli_import_leaves_jax_out():
 def test_soak_cli_import_leaves_jax_out():
     _import_leaves_jax_out("repro_torch.launch.soak, repro_torch.serve, "
                            "repro_torch.compression.wire")
+
+
+def test_distributed_import_leaves_jax_out():
+    _import_leaves_jax_out("repro_torch.core.distributed, "
+                           "repro_torch.launch.mesh")
