@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --time-tree DIR   # time another checkout's kernels
-    python3 chip_smoke.py --phase-19        # phases 1, 2 and 19 alone
+    python3 chip_smoke.py --only 19,20      # phases 1, 2 and those named
+                                            # (of 3c, 19, 20, 21) alone
     python3 chip_smoke.py --mesh 4          # the round over 4 cards
 
 Phases, each of which raises on failure (a failed phase exits non-zero):
@@ -44,6 +45,12 @@ Phases, each of which raises on failure (a failed phase exits non-zero):
      plain version is timed; its bound counts the 3xTF32 route's operations
      (3 per flop) at the TF32 rate, the f32 rate without tensor cores
      printed beside it;
+   - (3c) both sparsify kernels on one bf16 row of 2^31 + 2^20 columns:
+     ``sparsify_ef`` at t = 0 (the count passes 2^31) and 1.5,
+     ``sparsify_quantize_ef`` at base 0 and at a base whose dither
+     columns cross 2^32, each held against its plain version in column
+     blocks (uploads and the exact count bit-equal, errors within 1e-6),
+     then both timed with their bytes bound;
 4. training path, ResNet-9: ``repro_torch.launch.train`` in-process at
    full width, N = 20, batch 32, for policies ``mads`` (through
    ``sparsify_ef``) and ``mads-joint`` (through ``sparsify_quantize_ef``),
@@ -188,7 +195,36 @@ Phases, each of which raises on failure (a failed phase exits non-zero):
    timed at that shape; reduced InternLM2 in f32 (N = 4, 3 rounds) on the
    card against the CPU from the CPU's state each round (phase 16's
    standard), and the same rounds through the single-rank group
-   bit-equal to the rounds without one.
+   bit-equal to the rounds without one;
+20. the seed and ingest meshes on a single-rank NCCL group (run after
+   19): ``run_seed_batch(mesh=)`` at full-width ResNet-9 (N = 20, batch
+   32, S = 2, 6 rounds of ``mads``, deterministic cuDNN) bit-equal to
+   ``mesh=None`` (histories and states); phase 15's parity ingest of
+   ``mads-topk`` and ``mads-joint`` through ``IngestServer(mesh=)`` at s =
+   6,573,130, bit-equal to the server without a mesh every round and held
+   to ``afl_round`` as phase 15 holds it; a soak point through
+   ``run_soak(mesh=)`` (256 ``topk`` uploads, batch 64, one sparsify
+   launch a chunk of 64, the counters adding up);
+21. remat (``ModelConfig.remat``) at phase 19's configuration (full-width
+   InternLM2-1.8B, N = 2 bf16 clients on a single-rank mesh, batch 4,
+   seq 512, 4 ``mads`` rounds, ``donate=True``): first the allocator's
+   history over the vmapped gradient under ``none``, its live blocks at
+   the peak grouped by the port's allocating frame and by block size;
+   then for ``none``, ``full`` and ``dots`` the gradient's peak over the
+   state, the round's peak, steady round seconds and one sparsify launch
+   a round; reduced InternLM2 in f32 on the card, each policy's vmapped
+   gradient against ``none``'s (bit equality printed, beyond 1e-6 of the
+   largest entry fails).
+
+``--mesh P`` runs, on each of P cards (one process a card, a file
+store): world 1 against world P for six policies at ResNet-9 width 4;
+full-width InternLM2 with one bf16 client a card; the seed mesh at
+full-width ResNet-9 (S = 4, one seed a card; on rank 0 each seed alone
+and the four batched on its card: every history bit-equal, seed-rounds/s
+of both); the ingest mesh at s = 6,573,130, batch 64, 1,024 ``topk``
+uploads (w bit-equal on every rank; on rank 0 one card's server: counts
+and bins equal, w within 1e-6 of its largest entry at 97 % of the
+coordinates and 1e-4 everywhere; uploads/s of both).
 
 The last three lines are the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -202,6 +238,7 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -1526,13 +1563,16 @@ def ingest_device_ms(srv, runs: int = 10) -> float:
     return float(np.median(times[2:]))
 
 
-def ingest_against_afl_round(smi: str) -> dict:
+def ingest_against_afl_round(smi: str, policies=INGEST_POLICIES,
+                             mesh=None) -> dict:
     """Phase 15a: full-width ResNet-9, N = 20, batch 32, exponential
     contacts, ROUNDS rounds of each codec policy through ``afl_round`` with
     ``expose_uploads``; every round's 20 uploads encoded to the wire and
     driven through an ``IngestServer`` at batch = N, max_k = s.  The
     server's weights against ``afl_round``'s after every round: whether
-    they are bit-equal is printed; beyond rtol 1e-6 fails."""
+    they are bit-equal is printed; beyond rtol 1e-6 fails.  With ``mesh``
+    (phase 20b) the same uploads also go through ``IngestServer(mesh=)``,
+    whose weights must equal the server's without a mesh bit for bit."""
     import dataclasses
 
     from repro_torch.compression.wire import encode_upload
@@ -1545,7 +1585,7 @@ def ingest_against_afl_round(smi: str) -> dict:
     model, _, fl, dev, _ = engine_setup(RESNET9, False, ROUNDS)
     s = model.num_params()
     out = {}
-    for name in INGEST_POLICIES:
+    for name in policies:
         policy = dataclasses.replace(BL.ALL[name](s, fl), expose_uploads=True)
         provider = build_provider(fl, name, None, ROUNDS, 0, "cuda")
         budgets = torch.as_tensor(sample_budgets(fl, 0)).cuda()
@@ -1553,6 +1593,9 @@ def ingest_against_afl_round(smi: str) -> dict:
         loader = DeviceLoader(dev, 32, 0)
         srv = IngestServer(state.w.clone(), num_devices=N_DEV, batch=N_DEV,
                            max_k=s, queue_capacity=N_DEV)
+        msrv = None if mesh is None else IngestServer(
+            state.w.clone(), num_devices=N_DEV, batch=N_DEV, max_k=s,
+            queue_capacity=N_DEV, mesh=mesh)
         bitwise, shipped, worst, encode_s = [], 0.0, 0.0, 0.0
         for r in range(ROUNDS):
             batch = {k: torch.as_tensor(v).cuda()
@@ -1571,10 +1614,16 @@ def ingest_against_afl_round(smi: str) -> dict:
                                   step=float(step[i]), device=i, ok=float(okf[i]))
                 if not srv.submit(p):
                     fail(f"ingest {name}: upload {i} of round {r} refused")
+                if msrv is not None and not msrv.submit(p):
+                    fail(f"ingest {name}: the mesh refused upload {i}")
                 shipped += p.k * okf[i]
             encode_s += time.perf_counter() - t0
             if srv.step() != N_DEV:
                 fail(f"ingest {name}: round {r} did not ingest {N_DEV} uploads")
+            if msrv is not None and (msrv.step() != N_DEV
+                                     or not torch.equal(msrv.w, srv.w)):
+                fail(f"ingest {name}: round {r} through the mesh differs "
+                     f"from the server without one")
             bitwise.append(bool(torch.equal(srv.w, state.w)))
             diff = (srv.w - state.w).abs().max().item()
             worst = max(worst, diff / state.w.abs().max().item())
@@ -1584,14 +1633,17 @@ def ingest_against_afl_round(smi: str) -> dict:
         if shipped <= 0:
             fail(f"ingest {name}: no coordinate shipped in {ROUNDS} rounds")
         res = dict(policy=name, rounds=ROUNDS, bitwise_each_round=bitwise,
+                   mesh_world=None if mesh is None else mesh.world_size,
                    max_rel_diff=worst, coords_shipped=shipped,
                    device_ms_per_ingest=ingest_device_ms(srv),
                    encode_ms_per_upload=1e3 * encode_s / (ROUNDS * N_DEV))
         print(f"ingest against afl_round (full-width ResNet-9, N={N_DEV}, "
-              f"batch = N, max_k = s) {name}: bit-equal every round: "
+              f"batch = N, max_k = s{'' if mesh is None else ', and through '
+              'a single-rank mesh: equal to the server without one'}) "
+              f"{name}: bit-equal every round: "
               f"{all(bitwise)}; {json.dumps(res)} on {smi}", flush=True)
         out[name] = res
-        del srv, state, m
+        del srv, msrv, state, m
         torch.cuda.empty_cache()
     return out
 
@@ -2858,6 +2910,423 @@ def dist_phase(K, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3c: the sparsify kernels on a row of 2^31 columns and more
+# ---------------------------------------------------------------------------
+
+WIDE_S = 2**31 + 2**20  # columns of the one bf16 row
+WIDE_BASE = 2**32 - 2**30  # a dither base whose columns cross 2^32
+
+
+def check_wide_row(K, card: str) -> dict:
+    """Phase 3c: both sparsify kernels on one bf16 row of WIDE_S columns
+    (x, upload and error 4.3 GB each): ``sparsify_ef`` at t = 0 (every
+    column kept: a count past 2^31) and at t = 1.5, ``sparsify_quantize_ef``
+    at base 0 and at WIDE_BASE (the dither column wraps mod 2^32 at column
+    2^30), each call held against its plain version in column blocks
+    (``hold_in_blocks``: uploads and the exact count bit-equal, errors
+    within 1e-6); both timed, with their bytes bound."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.empty((1, WIDE_S), dtype=torch.bfloat16, device="cuda")
+    for c0 in range(0, WIDE_S, HOLD_BLOCK):
+        c1 = min(c0 + HOLD_BLOCK, WIDE_S)
+        x[:, c0:c1] = torch.randn((1, c1 - c0), generator=g, device="cuda")
+    steps = torch.tensor([0.01], device="cuda")
+    levels = torch.tensor([127.0], device="cuda")
+    seeds = torch.tensor([11], dtype=torch.int32, device="cuda")
+    out, worst = {}, {"sparsify_ef": 0.0, "sparsify_quantize_ef": 0.0}
+    counts = []
+    for name, t, base in (("sparsify_ef", 0.0, None),
+                          ("sparsify_ef", 1.5, None),
+                          ("sparsify_quantize_ef", 1.5, 0),
+                          ("sparsify_quantize_ef", 0.7, WIDE_BASE)):
+        tt = torch.tensor([t], device="cuda")
+        if base is None:
+            args, got = (tt,), K.sparsify_ef_cuda(x, tt)
+        else:
+            args = (tt, steps, levels, seeds, base)
+            got = K.sparsify_quantize_ef_cuda(x, *args)
+        torch.cuda.synchronize()
+        worst[name] = max(worst[name], hold_in_blocks(
+            name, x, args, {}, got, f"wide row t={t} base={base}"))
+        counts.append(dict(name=name, t=t, base=base, count=float(got[2][0])))
+        if t == 0.0 and float(got[2][0]) != float(WIDE_S):
+            fail(f"wide row: sparsify_ef kept {float(got[2][0])} of {WIDE_S}")
+        del got
+    print(f"wide row (1, {WIDE_S}) bf16: both kernels held against their "
+          f"plain versions, counts exact: {json.dumps(counts)}", flush=True)
+    tt = torch.tensor([1.5], device="cuda")
+    calls = {
+        "sparsify_ef": (lambda: K.sparsify_ef_cuda(x, tt), 4 * WIDE_S),
+        "sparsify_quantize_ef": (lambda: K.sparsify_quantize_ef_cuda(
+            x, tt, steps, levels, seeds, WIDE_BASE), 22 * WIDE_S),
+    }
+    for name, (fn, ops) in calls.items():
+        ms = median_ms(fn, runs=9, batch=3)
+        b = bound(3 * 2 * WIDE_S + 5 * 4, ops, torch.float32)
+        out[name] = dict(shape=[1, WIDE_S], dtype="bfloat16", ms=ms, **b,
+                         bound_share=b["bound_ms"] / ms,
+                         max_abs_err=worst[name],
+                         base=0 if name == "sparsify_ef" else WIDE_BASE)
+        print(f"{name}: {ms:.4f} ms at (1, {WIDE_S}) bf16 (bound "
+              f"{b['bound_ms']:.4f} ms by {b['bound_by']}, "
+              f"{100 * b['bound_ms'] / ms:.1f} %) on {card}", flush=True)
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: the seed and ingest meshes on a single-rank NCCL group
+# ---------------------------------------------------------------------------
+
+MESH_SEED_ROUNDS, MESH_SEED_EVERY = 6, 3
+MESH_SOAK = (S_RESNET9, "topk", 256, 64, 65_536, 64)  # s, codec, uploads,
+# batch, max_k, chunk
+
+
+def seed_mesh_run(mesh, seeds: list, smi: str, label: str) -> dict:
+    """``run_seed_batch(mesh=)`` at full-width ResNet-9 (N = 20, batch 32,
+    ``mads``) under deterministic cuDNN against the same seeds without a
+    mesh (on one rank of a larger mesh: only this rank's seeds and the
+    gathered histories).  Histories equal, and the states this rank holds
+    bit-equal; the mesh run's wall seconds, steady seed-rounds/s and
+    sparsify launches."""
+    from repro_torch.experiments import DataShard, run_seed_batch
+    from repro_torch.kernels import sparsify_ef as K
+
+    model, cfg, fl, dev, ev = engine_setup(RESNET9, False, MESH_SEED_ROUNDS)
+    shard = DataShard(dev, 32, 0, device=mesh.device)
+    kw = dict(rounds=MESH_SEED_ROUNDS, eval_every=MESH_SEED_EVERY,
+              device=mesh.device)
+    torch.backends.cudnn.deterministic = True
+    try:
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run_seed_batch(model, cfg, fl, "mads", shard, ev, seeds=seeds,
+                             mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        mine = [sd for sd, r in zip(seeds, got) if r.state is not None]
+        want = run_seed_batch(model, cfg, fl, "mads", shard, ev, seeds=mine,
+                              **kw)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    here = {sd: r for sd, r in zip(seeds, got) if r.state is not None}
+    for sd, w in zip(mine, want):
+        if here[sd].history != w.history or not state_equal(here[sd].state,
+                                                            w.state):
+            fail(f"{label}: seed {sd} through the mesh differs from its run "
+                 f"without one")
+    steady = [len(r.round_seconds[1:]) / sum(r.round_seconds[1:]) for r in got]
+    out = dict(seeds=seeds, held_here=mine, wall_s=wall,
+               steady_rounds_per_s=steady, launches=launches,
+               uploads=[r.history["uploads"][-1] for r in got])
+    print(f"{label} (full-width ResNet-9 mads, N={N_DEV}, "
+          f"{MESH_SEED_ROUNDS} rounds, world {mesh.world_size}) on {smi}: "
+          f"histories and held states bit-equal to runs without a mesh; "
+          f"{json.dumps(out)}", flush=True)
+    del got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def soak_mesh(mesh, smi: str) -> dict:
+    """Phase 20c: a soak point through ``run_soak(mesh=)`` at s =
+    6,573,130 (``topk``, batch 64, max_k 65,536, 256 uploads, parity,
+    no loop baseline): every upload ingested, the counters adding up."""
+    from repro_torch.kernels import sparsify_ef as K
+    from repro_torch.launch import soak
+
+    s, codec, uploads, batch, max_k, chunk = MESH_SOAK
+    K.reset_launches()
+    res = soak.run_soak(uploads=uploads, batch=batch, s=s, max_k=max_k,
+                        codec=codec, mode="parity", baseline=False, mesh=mesh,
+                        chunk=chunk)
+    launches = dict(K.LAUNCHES)
+    if launches["sparsify_quantize_ef"] != -(-uploads // chunk):
+        fail(f"soak through the mesh: launches {launches}")
+    c = res["snapshot"]["counters"]
+    if not (c["accepted"] == c["ingested"] == uploads and c["received"]
+            == c["accepted"] + c["rejected"] + c["deferred"]):
+        fail(f"soak through the mesh: counters do not add up: {c}")
+    out = dict(s=s, codec=codec, uploads=uploads, batch=batch,
+               launches=launches,
+               world_size=res["world_size"], fused_per_s=res["fused_per_s"],
+               fused_wall_s=res["fused_wall_s"])
+    print(f"soak through run_soak(mesh=) on {smi}: {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def mesh_phase(smi: str) -> dict:
+    """Phase 20: the seed mesh (``run_seed_batch(mesh=)``), the ingest
+    mesh (``IngestServer(mesh=)``: the parity ingest bit-equal to the
+    server without a mesh and held to ``afl_round`` as phase 15 holds it)
+    and a soak point (``run_soak(mesh=)``) on a single-rank NCCL group, at
+    full width."""
+    from repro_torch.launch.mesh import make_client_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_client_mesh(2)
+    try:
+        out = dict(
+            seeds=seed_mesh_run(mesh, [0, 1], smi, "seed mesh"),
+            parity=ingest_against_afl_round(
+                smi, policies=("mads-topk", "mads-joint"), mesh=mesh),
+            soak=soak_mesh(mesh, smi))
+    finally:
+        mesh.close()
+    torch.cuda.empty_cache()
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: activation checkpointing (remat) at full-width InternLM2-1.8B
+# ---------------------------------------------------------------------------
+
+REMAT_POLICIES = ("none", "full", "dots")
+
+
+def _peak_live(trace: list) -> tuple:
+    """The live blocks at the peak of an allocator trace (alloc and
+    free_completed events): (peak bytes over the trace's start, the live
+    blocks then as (size, frames))."""
+    cur = peak = 0
+    at = -1
+    for i, e in enumerate(trace):
+        if e["action"] == "alloc":
+            cur += e["size"]
+            if cur > peak:
+                peak, at = cur, i
+        elif e["action"] == "free_completed":
+            cur -= e["size"]
+    live = {}
+    for e in trace[:at + 1]:
+        if e["action"] == "alloc":
+            live[e["addr"]] = (e["size"], e.get("frames") or [])
+        elif e["action"] == "free_completed":
+            live.pop(e["addr"], None)
+    return peak, list(live.values())
+
+
+def _site(frames: list) -> str:
+    """Where an allocation was made: the innermost frame of the port, else
+    the backward node that made it (``...generated::XBackward0::apply``),
+    else "other"."""
+    for f in frames:
+        if "repro_torch" in f.get("filename", ""):
+            return (f"{f['filename'].split('repro_torch/')[-1]}:{f['line']} "
+                    f"{f['name']}")
+    for pattern in (r"(\w+Backward\d*)::apply", r"generated::details::(\w+)",
+                    r"at::native::(\w+)"):
+        for f in frames:
+            m = re.search(pattern, f.get("name", ""))
+            if m:
+                return ("backward " if "native" not in pattern else "op ") + \
+                    m.group(1)
+    return "other"
+
+
+def grad_memory_snapshot(model, w_n, batch, smi: str) -> dict:
+    """Phase 21a: the allocator's history over one vmapped gradient of
+    the clients (``device_grads``, remat "none"): the live blocks at its
+    peak, over what was allocated before it, grouped by the frame of the
+    port that allocated them and by block size."""
+    from repro_torch.core.afl import device_grads
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.memory._record_memory_history(
+        enabled="all", context="alloc", stacks="all", max_entries=2_000_000)
+    try:
+        grads = device_grads(model, w_n, batch)
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    peak_over = (torch.cuda.max_memory_allocated() - before) / 2**30
+    del grads
+    trace = [e for dev in snap["device_traces"] for e in dev]
+    peak, live = _peak_live(trace)
+    sites, sizes = {}, {}
+    for size, frames in live:
+        site = _site(frames)
+        sites[site] = sites.get(site, 0) + size
+        sizes[size] = sizes.get(size, 0) + 1
+    top = sorted(sites.items(), key=lambda kv: -kv[1])[:24]
+    big = sorted(sizes.items(), key=lambda kv: -kv[0] * kv[1])[:10]
+    out = dict(
+        peak_over_state_gib=peak_over, traced_peak_gib=peak / 2**30,
+        live_blocks=len(live), trace_events=len(trace),
+        by_site_gib=[[site, b / 2**30] for site, b in top],
+        by_block_size=[[size / 2**20, n, size * n / 2**30] for size, n in big])
+    print(f"remat {model.cfg.remat}: the vmapped gradient's live memory at "
+          f"its peak, "
+          f"{peak / 2**30:.2f} GiB over the state ({len(live)} blocks) on "
+          f"{smi}; by allocating frame (GiB):", flush=True)
+    for site, gib in out["by_site_gib"]:
+        print(f"  {gib:8.3f}  {site}", flush=True)
+    print("  by block size (MiB, count, GiB): " + json.dumps(
+        out["by_block_size"]), flush=True)
+    for size, _ in big[:6]:  # the sites of the largest blocks
+        where = {}
+        for sz, frames in live:
+            if sz == size:
+                site = _site(frames)
+                where[site] = where.get(site, 0) + 1
+        print(f"  {size / 2**20:.1f} MiB blocks by site: " + json.dumps(where),
+              flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_full_width(mesh, policy: str, smi: str, snapshot: bool) -> dict:
+    """Phase 21b: phase 19's ``mads`` run (full-width InternLM2-1.8B, N = 2
+    bf16 clients on the single-rank mesh, batch 4, seq 512, 4 rounds,
+    ``donate=True``) with ``remat=policy``: the vmapped gradient's peak
+    over the state, the round's peak, steady round seconds, launches; with
+    ``snapshot``, first the allocator's history of the gradient."""
+    from repro_torch.configs import FLConfig, get_config
+    from repro_torch.core import baselines as BL
+    from repro_torch.core.afl import device_grads
+    from repro_torch.core.distributed import (DistConfig,
+                                              make_afl_train_system,
+                                              run_afl_rounds)
+    from repro_torch.core.runner import evaluate, sample_budgets
+    from repro_torch.kernels import sparsify_ef as K
+    from repro_torch.models.registry import build_model, demo_batch
+
+    cfg = get_config(DIST_ARCH).replace(remat=policy)
+    model = build_model(cfg)
+    s = model.num_params()
+    fl = FLConfig(num_devices=DIST_N, rounds=DIST_ROUNDS,
+                  mean_intercontact=20.0, sparsifier="sampled", seed=0)
+    pol = BL.ALL["mads"](s, fl)
+    dcfg = DistConfig(num_clients=DIST_N, learning_rate=fl.learning_rate,
+                      rounds=DIST_ROUNDS, sample_size=fl.sample_size)
+    rng = np.random.default_rng(0)
+    batches = [{k: torch.as_tensor(v).cuda() for k, v in
+                demo_batch(cfg, DIST_BATCH, DIST_SEQ, rng).items()}
+               for _ in range(DIST_ROUNDS + 1)]
+    system = make_afl_train_system(model, cfg, mesh, dcfg=dcfg,
+                                   controller=pol.controller,
+                                   staleness=pol.staleness, donate=True)
+    state = system["init_state"](0)
+    split = {k: v.reshape(DIST_N, -1, *v.shape[1:])
+             for k, v in batches[0].items()}
+    out = dict(policy=policy)
+    if snapshot:
+        out["snapshot"] = grad_memory_snapshot(model, state.w_n, split, smi)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    grads = device_grads(model, state.w_n, split)
+    torch.cuda.synchronize()
+    out["grad_s"] = time.perf_counter() - t0
+    out["grad_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["grad_peak_over_state_gib"] = (torch.cuda.max_memory_allocated()
+                                       - before) / 2**30
+    del grads
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    marks = []
+
+    def batch_fn(r):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return batches[r]
+
+    K.reset_launches()
+    state, hist = run_afl_rounds(system["step"], state,
+                                 dist_provider(fl, "mads", DIST_ROUNDS),
+                                 batch_fn, sample_budgets(fl, 0))
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    rounds = [b - a for a, b in zip(marks, marks[1:])]
+    out.update(launches=dict(K.LAUNCHES),
+               round_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               round_s=rounds,
+               steady_round_s=sorted(rounds[1:])[len(rounds[1:]) // 2],
+               uploads=sum(float(m["success"].sum()) for m in hist),
+               loss=evaluate(model, cfg, state.w, batches[-1]))
+    if out["launches"]["sparsify_ef"] != DIST_ROUNDS:
+        fail(f"remat {policy}: launches {out['launches']}")
+    if not (math.isfinite(out["loss"]) and out["uploads"] > 0):
+        fail(f"remat {policy}: loss {out['loss']}, uploads {out['uploads']}")
+    print(f"remat {policy} ({DIST_ARCH} full width, N = {DIST_N} bf16 "
+          f"clients, batch {DIST_BATCH}, seq {DIST_SEQ}) on {smi}: "
+          f"{json.dumps({k: v for k, v in out.items() if k != 'snapshot'})}",
+          flush=True)
+    del state, hist, system, batches, model, split
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_reduced() -> dict:
+    """Phase 21c: reduced InternLM2 in float32 on the card, two clients'
+    vmapped gradient (``device_grads``) under each policy against
+    ``none``'s, under deterministic algorithms: bit-equal printed; beyond
+    1e-6 of the largest entry fails."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.afl import device_grads
+    from repro_torch.models.registry import build_model, demo_batch
+
+    cfg = get_config(DIST_ARCH).reduced().replace(**F32)
+    model = build_model(cfg)
+    w = model.layout.flatten(model.init(torch.Generator().manual_seed(0),
+                                        "cuda"))
+    w_n = torch.stack([w, w * 1.01])
+    rng = np.random.default_rng(1)
+    batch = {k: torch.as_tensor(v).cuda().reshape(2, -1, *v.shape[1:])
+             for k, v in demo_batch(cfg, 4, 64, rng).items()}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        want = device_grads(model, w_n, batch)
+        out = {}
+        for policy in REMAT_POLICIES[1:]:
+            got = device_grads(dataclasses.replace(
+                model, cfg=cfg.replace(remat=policy)), w_n, batch)
+            off = ((got - want).abs().max() / want.abs().max()).item()
+            out[policy] = dict(bit_equal=bool(torch.equal(got, want)),
+                               max_rel_diff=off)
+            if off > 1e-6:
+                fail(f"remat {policy}: the reduced f32 gradient is {off} of "
+                     f"its largest entry from none's")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"remat reduced f32 gradients against none's: {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def remat_phase(smi: str) -> dict:
+    """Phase 21: remat at full-width InternLM2-1.8B (phase 19's
+    configuration) and the reduced f32 check."""
+    from repro_torch.launch.mesh import make_client_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_client_mesh(DIST_N)
+    try:
+        runs = {p: remat_full_width(mesh, p, smi, snapshot=p != "dots")
+                for p in REMAT_POLICIES}
+        reduced = remat_reduced()
+    finally:
+        mesh.close()
+    torch.cuda.empty_cache()
+    print(f"remat phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(runs=runs, reduced=reduced)
+
+
+# ---------------------------------------------------------------------------
 # --mesh P: the distributed round over P cards (one process a card)
 # ---------------------------------------------------------------------------
 
@@ -2994,6 +3463,129 @@ def mesh_full_width(mesh) -> dict:
     return out
 
 
+MESH_SEEDS = 4  # one seed a card
+MESH_INGEST = (S_RESNET9, "topk", 1024, 64, 65_536, 64)  # s, codec,
+# uploads, batch, max_k, chunk
+
+
+def mesh_seeds(mesh) -> dict:
+    """One rank's seed mesh: full-width ResNet-9 ``mads`` (N = 20, batch
+    32), S = 4 seeds over the P ranks (``make_seed_mesh``), deterministic
+    cuDNN.  The run's wall seconds between barriers and each seed's steady
+    rounds/s; on rank 0 also each seed alone and the S seeds batched on
+    its one card: every gathered history equal to its single run (and
+    whether it equals the one-card batch's, printed)."""
+    import torch.distributed as dist
+
+    from repro_torch.experiments import DataShard, run_seed_batch
+    from repro_torch.launch.mesh import make_seed_mesh
+
+    seed_mesh = make_seed_mesh(MESH_SEEDS)
+    if seed_mesh is None or seed_mesh.world_size != mesh.world_size:
+        fail(f"make_seed_mesh({MESH_SEEDS}) over {mesh.world_size} ranks: "
+             f"{seed_mesh}")
+    model, cfg, fl, dev, ev = engine_setup(RESNET9, False, MESH_SEED_ROUNDS)
+    shard = DataShard(dev, 32, 0, device=mesh.device)
+    kw = dict(rounds=MESH_SEED_ROUNDS, eval_every=MESH_SEED_EVERY,
+              device=mesh.device)
+    seeds = list(range(MESH_SEEDS))
+
+    def timed(m, sds):
+        torch.cuda.synchronize()
+        if m is not None:
+            dist.barrier()
+        t0 = time.perf_counter()
+        res = run_seed_batch(model, cfg, fl, "mads", shard, ev, seeds=sds,
+                             mesh=m, **kw)
+        torch.cuda.synchronize()
+        if m is not None:
+            dist.barrier()
+        return res, time.perf_counter() - t0
+
+    def steady(r):
+        return len(r.round_seconds[1:]) / sum(r.round_seconds[1:])
+
+    got, wall = timed(seed_mesh, seeds)
+    out = dict(wall_s=wall, seed_rounds_per_s=len(seeds) * MESH_SEED_ROUNDS
+               / wall, steady_rounds_per_s=[steady(r) for r in got],
+               held_here=[sd for sd, r in zip(seeds, got)
+                          if r.state is not None])
+    if mesh.rank == 0:
+        out["equal_to_single_runs"] = [
+            timed(None, [sd])[0][0].history == got[sd].history for sd in seeds]
+        one, one_wall = timed(None, seeds)
+        out.update(one_card_wall_s=one_wall,
+                   one_card_seed_rounds_per_s=len(seeds) * MESH_SEED_ROUNDS
+                   / one_wall,
+                   one_card_steady_seed_rounds_per_s=len(seeds)
+                   * steady(one[0]),
+                   equal_to_one_card=[a.history == b.history
+                                      for a, b in zip(got, one)])
+        del one
+    del got
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def mesh_ingest(mesh) -> dict:
+    """One rank's ingest mesh: the same payloads on every rank (soak's
+    ``make_payloads``, s = 6,573,130, ``topk``, 1,024 uploads), each rank
+    offering its 16 of each batch of 64 to ``IngestServer(mesh=)``
+    (parity): uploads/s between barriers, and w gathered from every rank;
+    on rank 0 also one card's server over all the payloads: w within 1e-6
+    of its largest entry at 97 % of the coordinates and 1e-4 everywhere,
+    the ingest's counters and bins equal."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import soak
+    from repro_torch.serve import IngestServer
+    from repro_torch.telemetry.tracing import PhaseTracer
+
+    s, codec, uploads, batch, max_k, chunk = MESH_INGEST
+    payloads = soak.make_payloads(uploads, s, max_k, codec=codec, chunk=chunk,
+                                  device=mesh.device)
+
+    def drive(m):
+        srv = IngestServer(torch.zeros(s, device=mesh.device),
+                           num_devices=uploads, batch=batch, max_k=max_k,
+                           mesh=m, queue_policy="defer")
+        PhaseTracer.fence(srv._ingest(srv.w, srv.pack([]), srv.tstate))
+        torch.cuda.synchronize()
+        if m is not None:
+            dist.barrier()
+        t0 = time.perf_counter()
+        soak.drain_all(srv, soak.rank_share(payloads, batch, m))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        snap = srv.snapshot()
+        return srv.w, snap, wall
+
+    w, snap, wall = drive(mesh)
+    parts = [torch.empty_like(w) for _ in range(mesh.world_size)]
+    dist.all_gather(parts, w)
+    keys = ("batches", "ingested", "bits_ingested", "weight_sum")
+    out = dict(uploads_per_s=snap["counters"]["ingested"] / wall, wall_s=wall,
+               w_same_on_every_rank=all(torch.equal(p, w) for p in parts),
+               counters={k: snap["counters"][k] for k in keys})
+    if mesh.rank == 0:
+        w1, snap1, wall1 = drive(None)
+        off = (w - w1).abs() / w1.abs().max()
+        out.update(
+            one_card_uploads_per_s=snap1["counters"]["ingested"] / wall1,
+            counts_equal=all(snap["counters"][k] == snap1["counters"][k]
+                             for k in keys[:3])
+            and all(np.array_equal(snap["hist"][k], snap1["hist"][k])
+                    for k in snap1["hist"]),
+            w_off=float(off.max()), w_far_share=float((off > 1e-6).float()
+                                                      .mean()),
+            w_bit_equal_to_one_card=bool(torch.equal(w, w1)))
+    del payloads
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
 def mesh_rank(rank: int, world: int, store_path: str) -> None:
     """``--mesh-rank r P STORE``: one rank of ``--mesh P``, on card r."""
     import torch.distributed as dist
@@ -3008,7 +3600,8 @@ def mesh_rank(rank: int, world: int, store_path: str) -> None:
     torch.backends.cudnn.benchmark = False
     try:
         out = dict(rank=mesh.rank, card=str(mesh.device),
-                   parity=mesh_parity(mesh), full=mesh_full_width(mesh))
+                   parity=mesh_parity(mesh), full=mesh_full_width(mesh),
+                   seeds=mesh_seeds(mesh), ingest=mesh_ingest(mesh))
     finally:
         mesh.close()
     print("MESH_RANK " + json.dumps(out), flush=True)
@@ -3069,6 +3662,16 @@ def mesh_main(world: int) -> None:
                 and f["uploads"] > 0 and math.isfinite(f["loss"])
                 and f["w_same_on_every_rank"]):
             fail(f"mesh rank {o['rank']} full width: {f}")
+        g = o["ingest"]
+        if not g["w_same_on_every_rank"]:
+            fail(f"mesh rank {o['rank']}: the ingest's w differs over ranks")
+        if o["rank"] == 0:
+            if not all(o["seeds"]["equal_to_single_runs"]):
+                fail(f"seed mesh: a seed's history differs from its run on "
+                     f"one card: {o['seeds']}")
+            if not (g["counts_equal"] and g["w_off"] <= 1e-4
+                    and g["w_far_share"] <= 0.03):
+                fail(f"ingest mesh: world {world} differs from one card: {g}")
     print(f"mesh of {world}: every check passed", flush=True)
 
 
@@ -3105,7 +3708,10 @@ def main() -> None:
         return mesh_main(int(sys.argv[2]))
     if sys.argv[1:2] == ["--mesh-rank"]:
         return mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
-    only_dist = sys.argv[1:2] == ["--phase-19"]
+    only = (set(sys.argv[2].split(",")) if sys.argv[1:2] == ["--only"]
+            else None)
+    if only is not None and not only <= {"3c", "19", "20", "21"}:
+        fail(f"--only takes phases of 3c, 19, 20, 21, not {sys.argv[2]}")
     from repro_torch.kernels import decode_attn as DA
     from repro_torch.kernels import ref as R
     from repro_torch.kernels import sparsify_ef as K
@@ -3126,10 +3732,15 @@ def main() -> None:
 
     # 2. build
     build_kernels(mods)
-    if only_dist:  # phases 1, 2 and 19 alone; no kernels line
+    if only is not None:  # phases 1, 2 and the named ones; no kernels line
+        torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-        dist_phase(K, smi)
-        print(json.dumps(dict(phase_19_held=HELD)))
+        phases = {"3c": lambda: check_wide_row(K, smi),
+                  "19": lambda: dist_phase(K, smi),
+                  "20": lambda: mesh_phase(smi),
+                  "21": lambda: remat_phase(smi)}
+        done = {p: phases[p]() for p in ("3c", "19", "20", "21") if p in only}
+        print(json.dumps(dict(phases=sorted(done), held=HELD), default=str))
         return
 
     # 3. kernels against their plain versions
@@ -3137,6 +3748,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     timing = check_kernels(K, R, smi)
     segmented = check_segmented(K, R, smi)
+    wide = check_wide_row(K, smi)
     decode = check_decode_attn(DA, R, smi)
     ssd = check_ssd_scan(SSD, R, smi)
     torch.cuda.empty_cache()
@@ -3228,6 +3840,12 @@ def main() -> None:
     # profile pass, which stays last)
     dist = dist_phase(K, smi)
 
+    # 20. the seed and ingest meshes on a single-rank NCCL group
+    meshes = mesh_phase(smi)
+
+    # 21. remat at full-width InternLM2-1.8B (phase 19's configuration)
+    remat = remat_phase(smi)
+
     # 18. device time by kernel, last (the profiler slows later launches)
     profile_kernels(DA, SSD)
     profiled = {}
@@ -3264,6 +3882,10 @@ def main() -> None:
                             for label, p in ingest["soak"].items()
                             if p["launches"]["sparsify_ef"]},
              **dist_entry(dist, "mads", "sparsify_ef"),
+             launches_seed_mesh=meshes["seeds"]["launches"]["sparsify_ef"],
+             launches_remat={p: r["launches"]["sparsify_ef"]
+                             for p, r in remat["runs"].items()},
+             **{f"{k}_wide_row": v for k, v in wide["sparsify_ef"].items()},
              **timing["sparsify_ef"]),
         dict(name="sparsify_quantize_ef", route="cuda",
              source=src + "sparsify_ef.cu",
@@ -3277,6 +3899,10 @@ def main() -> None:
                             for label, p in ingest["soak"].items()
                             if p["launches"]["sparsify_quantize_ef"]},
              **dist_entry(dist, "mads-joint", "sparsify_quantize_ef"),
+             launches_soak_mesh=meshes["soak"]["launches"][
+                 "sparsify_quantize_ef"],
+             **{f"{k}_wide_row": v
+                for k, v in wide["sparsify_quantize_ef"].items()},
              **timing["sparsify_quantize_ef"]),
         # the per-layer codec's route to the same TPU kernel: launches and
         # times at ResNet-9's (20, 6,573,130), *_lanegcn at (20, 247,100)

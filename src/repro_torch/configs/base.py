@@ -17,6 +17,8 @@ import torch
 
 from repro_torch.sharding.rules import torch_dtype
 
+REMAT_POLICIES = ("none", "full", "dots")  # models/remat.py's POLICIES
+
 
 @dataclass(frozen=True)
 class ModelConfig:
@@ -62,7 +64,14 @@ class ModelConfig:
     param_dtype: str = "bfloat16"
     kv_cache_dtype: str = ""  # "" = activation dtype; "int8" = quantized cache
     expert_dtype: str = ""  # "" = param dtype; "int8" = quantized expert weights
+    # activation checkpoint policy of training: none | full | dots
+    # (models/remat.py; only the transformer reads "dots")
+    remat: str = "none"
     source: str = ""  # citation
+
+    def __post_init__(self):
+        if self.remat not in REMAT_POLICIES:
+            raise ValueError(f"remat {self.remat!r} not in {REMAT_POLICIES}")
 
     # ------------------------------------------------------------------
     @property

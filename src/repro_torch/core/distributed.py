@@ -36,8 +36,8 @@ state after the call.
 ``abstract_state`` gives meta tensors (shapes and dtypes, no memory).  A
 ``model`` axis (tensor-parallel parameters, the reference's
 ``state_shardings``) is not ported: ``make_client_mesh(model=)`` raises.
-``ingest_shardings`` waits for ``IngestServer(mesh=)`` (ROADMAP queue 1
-item 5b).
+``ingest_shardings`` is the serve path's split of a packed upload batch
+over a mesh (``serve/server.py``).
 """
 from __future__ import annotations
 
@@ -376,6 +376,34 @@ def run_afl_rounds(step, state: DistAflState, provider, batch_fn, budgets,
     if telemetry is not None:
         return state, history, tstate
     return state, history
+
+
+@dataclasses.dataclass(frozen=True)
+class IngestSharding:
+    """How the fused ingest splits over a mesh (the reference's
+    ``ingest_shardings``: the packed batch's leading axis over ``data``,
+    the global model replicated): rank r packs, decodes and scatters rows
+    [r B/P, (r + 1) B/P) of each batch into its partial weighted sum, and
+    one ``all_reduce(SUM)`` over ``group`` adds the partial sums before
+    the staleness-weighted update, which every rank applies to its own
+    copy of ``w``."""
+
+    group: object
+    rank: int
+    world_size: int
+
+    def rows(self, batch: int) -> slice:
+        """The rank's rows of a batch of ``batch`` uploads."""
+        if batch % self.world_size:
+            raise ValueError(f"batch={batch} not divisible by mesh size "
+                             f"{self.world_size}")
+        per = batch // self.world_size
+        return slice(self.rank * per, (self.rank + 1) * per)
+
+
+def ingest_shardings(mesh: ClientMesh) -> IngestSharding:
+    """The serve path's fused ingest split over ``mesh``."""
+    return IngestSharding(mesh.group, mesh.rank, mesh.world_size)
 
 
 def make_afl_train_system(model, cfg, mesh: ClientMesh | None = None,

@@ -14,18 +14,58 @@ initial federation state, the dither seeds, the minibatch key — is
 stacked seed by seed along the device axis, and
 ``scan_engine.make_run_fn`` runs the whole group as one captured round
 on the card.  Each seed keeps its own telemetry state, fetched on its
-own.  With one card there is no seed mesh (ROADMAP.md, queue 1 item 5).
+own.
+
+On a seed mesh (``launch/mesh.py::make_seed_mesh``: one process a card)
+rank r runs seeds [r S/P, (r + 1) S/P) as one such run on its own card,
+and the histories, telemetry snapshots and timings of all S seeds are
+gathered over the group (one ``all_gather_object``), so that every rank
+returns S ``RunResult``s in seed order.  A seed's final state stays on
+the card of the rank that ran it (at full-width ResNet-9 a seed's state
+is ~2 GB): on the other ranks ``RunResult.state`` is None.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.afl import afl_init
 from repro_torch.core.runner import RunResult
 from repro_torch.experiments.scan_engine import run_seeds
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.logging import get_logger
+
+log = get_logger("repro_torch.batch")
+
+
+def _usable_mesh(mesh, num_seeds: int):
+    """The mesh if its ranks split the seed axis evenly, else None (run
+    unsharded, every rank all the seeds), as the reference decides."""
+    if mesh is None:
+        return None
+    if num_seeds % mesh.world_size:
+        log.warning("seeds=%d not divisible by mesh size %d; running "
+                    "unsharded", num_seeds, mesh.world_size)
+        return None
+    return mesh
+
+
+def _gather(results: list, mesh) -> list[RunResult]:
+    """Every rank's seeds' results, in seed order, on every rank; the
+    states only where they were run."""
+    keep = ("policy", "history", "final_eval", "round_seconds", "telemetry",
+            "eval_seconds")
+    mine = [{k: getattr(r, k) for k in keep} for r in results]
+    parts = [None] * mesh.world_size
+    dist.all_gather_object(parts, mine, group=mesh.group)
+    out = []
+    for rank, part in enumerate(parts):
+        for i, fields in enumerate(part):
+            out.append(RunResult(state=results[i].state if rank == mesh.rank
+                                 else None, **fields))
+    return out
 
 
 def run_seed_batch(
@@ -54,21 +94,21 @@ def run_seed_batch(
 
     ``telemetry``: a registry or suite; each RunResult carries its seed's
     fetched snapshot (merge them with ``repro_torch.telemetry.
-    merge_fetched``).  ``mesh`` must be None: sharding seeds across cards
-    waits for the distributed step.
+    merge_fetched``).  ``mesh``: a seed mesh (a ``ClientMesh`` whose rows
+    are seeds; the run's device is its card); when S does not split
+    evenly over it, every rank runs all S seeds, as the reference does.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "a seed mesh across cards is not ported (ROADMAP.md, queue 1 "
-            "item 5: the distributed step); run with mesh=None")
     device = resolve_device(device)
     if shard.device != device:
         raise ValueError(f"the DataShard is on {shard.device}, the run on "
                          f"{device}")
     seeds = [int(sd) for sd in seeds]
-    return run_seeds(
+    mesh = _usable_mesh(mesh, len(seeds))
+    mine = seeds if mesh is None else seeds[mesh.rows(len(seeds))]
+    results = run_seeds(
         model, cfg, fl, policy_name,
-        [afl_init(model, fl, sd, device) for sd in seeds], seeds,
-        shard.traced_batch, torch.stack([shard.seed_key(sd) for sd in seeds]),
+        [afl_init(model, fl, sd, device) for sd in mine], mine,
+        shard.traced_batch, torch.stack([shard.seed_key(sd) for sd in mine]),
         eval_batch, rounds=rounds or fl.rounds, eval_every=eval_every,
         telemetry=telemetry)
+    return results if mesh is None else _gather(results, mesh)

@@ -25,7 +25,14 @@
 // elements before a row's first aligned vector and its ragged tail are
 // done one by one. Nothing is padded, so the count needs no correction.
 // The count is reduced in registers, by warp shuffles and shared memory,
-// with one atomicAdd per block into the row's int32 total.
+// with one 64-bit atomicAdd per block into the row's int64 total, so a
+// row may hold 2^31 columns and more (a thread's own count stays an int:
+// it sees at most a 2^-8 share of a row).
+//
+// The dither column is a uint32: column c of a call draws
+// lowbias32(seed, (base + c) mod 2^32), which is what the reference's
+// int32 index gives once it is cast to uint32, so a row may cross 2^32.
+// One launch covers the whole call whatever its size.
 //
 // The segmented entry replaces the per-leaf calls of the reference's
 // per-layer codec (src/repro/compression/perlayer.py:208, one Pallas call
@@ -197,11 +204,13 @@ __device__ __forceinline__ int stream_span(const T* xr, T* ur, T* er,
   return count;
 }
 
-// The block's total of `count` added once into *dst (by warp shuffles and
-// shared memory).
-__device__ __forceinline__ void block_count_add(int count, int* dst) {
+// The block's total of the threads' counts added once into *dst (by warp
+// shuffles and shared memory, in 64 bits).
+__device__ __forceinline__ void block_count_add(int thread_count,
+                                                unsigned long long* dst) {
+  long long count = thread_count;
   for (int o = 16; o > 0; o >>= 1) count += __shfl_down_sync(0xffffffffu, count, o);
-  __shared__ int warp_counts[kThreads / 32];
+  __shared__ long long warp_counts[kThreads / 32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   if (lane == 0) warp_counts[warp] = count;
@@ -209,14 +218,16 @@ __device__ __forceinline__ void block_count_add(int count, int* dst) {
   if (warp == 0) {
     count = lane < kThreads / 32 ? warp_counts[lane] : 0;
     for (int o = 16; o > 0; o >>= 1) count += __shfl_down_sync(0xffffffffu, count, o);
-    if (lane == 0 && count != 0) atomicAdd(dst, count);
+    if (lane == 0 && count != 0)
+      atomicAdd(dst, static_cast<unsigned long long>(count));
   }
 }
 
 template <typename T, typename P>
 __global__ void __launch_bounds__(kThreads)
     row_pass(const T* __restrict__ x, T* __restrict__ up, T* __restrict__ err,
-             int* __restrict__ counts, int64_t cols, P params) {
+             unsigned long long* __restrict__ counts, int64_t cols,
+             P params) {
   const int r = blockIdx.y;
   const int64_t off = static_cast<int64_t>(r) * cols;
   const int count = stream_span<T>(
@@ -231,7 +242,8 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     segmented_pass(const T* __restrict__ x, T* __restrict__ up,
-                   T* __restrict__ err, int* __restrict__ counts,
+                   T* __restrict__ err,
+                   unsigned long long* __restrict__ counts,
                    const int64_t* __restrict__ tiles, int64_t cols,
                    SegQuantizeParams params) {
   const int r = blockIdx.y;
@@ -260,10 +272,10 @@ int blocks_per_row(int64_t rows, int64_t cols, int vec) {
 }
 
 template <typename P>
-int launch(const void* x, void* up, void* err, int* counts, int64_t rows,
-           int64_t cols, int dtype, P params, void* stream) {
+int launch(const void* x, void* up, void* err, unsigned long long* counts,
+           int64_t rows, int64_t cols, int dtype, P params, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemsetAsync(counts, 0, rows * sizeof(int), s);
+  cudaError_t e = cudaMemsetAsync(counts, 0, rows * sizeof(*counts), s);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (rows == 0 || cols == 0) return static_cast<int>(cudaGetLastError());
   if (dtype == 0) {
@@ -284,13 +296,14 @@ int launch(const void* x, void* up, void* err, int* counts, int64_t rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_segmented(const void* x, void* up, void* err, int* counts,
+int launch_segmented(const void* x, void* up, void* err,
+                     unsigned long long* counts,
                      const int64_t* tiles, int64_t ntiles, int64_t rows,
                      int64_t cols, int dtype, SegQuantizeParams params,
                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e =
-      cudaMemsetAsync(counts, 0, rows * params.leaves * sizeof(int), s);
+      cudaMemsetAsync(counts, 0, rows * params.leaves * sizeof(*counts), s);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (rows == 0 || ntiles == 0) return static_cast<int>(cudaGetLastError());
   const dim3 grid(static_cast<unsigned>(ntiles), static_cast<unsigned>(rows));
@@ -312,16 +325,19 @@ int launch_segmented(const void* x, void* up, void* err, int* counts,
 
 // dtype: 0 = float32, 1 = bfloat16. All pointers are device pointers;
 // x, up and err are (rows, cols) row-major and 16-byte aligned; t, step,
-// levels, seed and counts are (rows,). Returns cudaGetLastError().
+// levels, seed and counts are (rows,); counts are int64. Returns
+// cudaGetLastError().
 extern "C" int sparsify_ef_launch(const void* x, void* up, void* err,
-                                  int* counts, const float* t, int64_t rows,
+                                  unsigned long long* counts, const float* t,
+                                  int64_t rows,
                                   int64_t cols, int dtype, void* stream) {
   return launch(x, up, err, counts, rows, cols, dtype, SparsifyParams{t},
                 stream);
 }
 
 extern "C" int sparsify_quantize_ef_launch(const void* x, void* up, void* err,
-                                           int* counts, const float* t,
+                                           unsigned long long* counts,
+                                           const float* t,
                                            const float* step,
                                            const float* levels,
                                            const int32_t* seed, uint32_t base,
@@ -336,8 +352,9 @@ extern "C" int sparsify_quantize_ef_launch(const void* x, void* up, void* err,
 // covers every column once, no tile crossing a leaf boundary; counts is
 // (rows, leaves).
 extern "C" int sparsify_quantize_ef_segmented_launch(
-    const void* x, void* up, void* err, int* counts, const float* t,
-    const float* step, const float* levels, const int32_t* seed,
+    const void* x, void* up, void* err, unsigned long long* counts,
+    const float* t, const float* step, const float* levels,
+    const int32_t* seed,
     const int64_t* tiles, int64_t ntiles, int64_t leaves, int64_t rows,
     int64_t cols, int dtype, void* stream) {
   return launch_segmented(x, up, err, counts, tiles, ntiles, rows, cols, dtype,

@@ -29,7 +29,7 @@ def sparsify_ef_plain(x: torch.Tensor, thresholds: torch.Tensor):
     """
     mask = x.to(torch.float32).abs() >= thresholds[:, None]
     zero = x.new_zeros(())
-    count = mask.sum(dim=1, dtype=torch.int32).to(torch.float32)
+    count = mask.sum(dim=1, dtype=torch.int64).to(torch.float32)
     return torch.where(mask, x, zero), torch.where(mask, zero, x), count
 
 
@@ -41,7 +41,9 @@ def sparsify_quantize_ef_plain(x: torch.Tensor, thresholds, steps, levels,
     (rows,) int32; base: dither counter offset of column 0.  upload =
     clip(floor(x/step + u), -levels, levels) * step where |x| >= t else 0,
     in x's dtype; error = x - upload (from the rounded upload); count (rows,)
-    f32.  The dither u = dither_u01(seed, base + column).
+    f32.  The dither u = dither_u01(seed, base + column): ``dither_u01``
+    takes the index mod 2^32, as the reference's int32 index wraps once
+    cast to uint32, so base + column may pass 2^32.
     """
     xf = x.to(torch.float32)
     mask = xf.abs() >= thresholds[:, None]
@@ -52,7 +54,7 @@ def sparsify_quantize_ef_plain(x: torch.Tensor, thresholds, steps, levels,
     q = torch.minimum(torch.maximum(torch.floor(xf / step + u), -lv), lv) * step
     upload = torch.where(mask, q, q.new_zeros(())).to(x.dtype)
     error = (xf - upload.to(torch.float32)).to(x.dtype)
-    count = mask.sum(dim=1, dtype=torch.int32).to(torch.float32)
+    count = mask.sum(dim=1, dtype=torch.int64).to(torch.float32)
     return upload, error, count
 
 
@@ -80,7 +82,7 @@ def sparsify_quantize_ef_segmented_plain(x: torch.Tensor, thresholds, steps,
     q = torch.minimum(torch.maximum(torch.floor(xf / step + u), -lv), lv) * step
     upload = torch.where(mask, q, q.new_zeros(())).to(x.dtype)
     error = (xf - upload.to(torch.float32)).to(x.dtype)
-    count = torch.stack([mask[:, a:b].sum(dim=1, dtype=torch.int32)
+    count = torch.stack([mask[:, a:b].sum(dim=1, dtype=torch.int64)
                          for a, b in zip(offsets, offsets[1:])], dim=1)
     return upload, error, count.to(torch.float32)
 

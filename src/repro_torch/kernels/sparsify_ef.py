@@ -15,18 +15,23 @@ levels per (row, leaf) and does every leaf of every row in one launch,
 where the reference's per-layer codec calls its kernel once per leaf and
 per device; its plain version is ``sparsify_quantize_ef_segmented_plain``.
 
-Each wrapper takes CUDA tensors only, checks them, launches on the current
-stream and adds one to ``LAUNCHES[name]``; ``ops.py`` sends CPU tensors to
-the plain versions.  Counts come back as f32 of an exact int32 total,
-which equals the reference's sum of per-leaf f32 counts below 2^24 (s =
-6,573,130 for ResNet-9 is below it).  Above 2^24 the two can differ by an
-f32 ulp of the count (64-128 at s ~ 1e9): the reference adds rounded f32
-partial counts, the port rounds the exact total once.
+Each wrapper takes CUDA tensors only, checks them, launches once on the
+current stream and adds one to ``LAUNCHES[name]``; ``ops.py`` sends CPU
+tensors to the plain versions.
 
-``check_index_range`` holds each call inside the kernels' index types
-before it launches: a row's count is an int32 (so s < 2^31), and the
-dither column ``base + column`` is a uint32 (so base + s <= 2^32).
-Nothing widens or splits a call that is out of range: it raises.
+Index range.  A row's count is an exact int64 total, so a row may hold
+2^31 columns and more (full-width Llama-3.2-3B's s = 3,212,749,824).  The
+dither column is ``(base + column) mod 2^32``, the value the reference's
+int32 index takes once it is cast to uint32, so a call may cross 2^32;
+the plain versions wrap the same way (``compression/quant.py::lowbias32``
+takes its index mod 2^32).
+
+Counts come back as f32 of the exact total, rounded once.  The
+reference sums per-block f32 counts (blocks of 2^18 elements), which is
+exact below 2^24; above it each of its additions can round, and the two
+counts agree within one f32 ulp of the count at a row just over 2^24
+(``tests/test_torch_kernels.py::test_count_above_2_24_within_one_ulp``;
+an ulp is 2 there, 128 near 1e9).
 """
 from __future__ import annotations
 
@@ -38,8 +43,7 @@ import torch
 from repro_torch.kernels import build
 
 __all__ = [
-    "INT32_COLUMNS", "LAUNCHES", "UINT32_COLUMNS", "check_index_range",
-    "library", "reset_launches", "sparsify_ef_cuda",
+    "LAUNCHES", "library", "reset_launches", "sparsify_ef_cuda",
     "sparsify_quantize_ef_cuda", "sparsify_quantize_ef_segmented_cuda",
     "tiles",
 ]
@@ -51,26 +55,6 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _THREADS = 256  # kThreads of the .cu
 TILE_VECS = 8  # 16-byte vectors per thread in a segmented tile
-INT32_COLUMNS = 2**31  # a row's count is an int32: s must stay below
-UINT32_COLUMNS = 2**32  # the dither column base + i is a uint32
-
-
-def check_index_range(cols: int, base: int | None = None) -> None:
-    """Raise ``ValueError`` unless a row of ``cols`` columns fits the
-    kernels' index types: cols < 2^31 (the int32 per-row count) and, for
-    the quantising entries (``base`` given), base + cols <= 2^32 (the
-    uint32 dither column).  Shapes only: it allocates nothing."""
-    cols = int(cols)
-    if cols >= INT32_COLUMNS:
-        raise ValueError(
-            f"s = {cols:,} columns a row reach the sparsify kernels' limit "
-            f"of 2^31 - 1 = {INT32_COLUMNS - 1:,}: a row's count is an "
-            "int32 (ROADMAP queue 2: int64 counts)")
-    if base is not None and int(base) + cols > UINT32_COLUMNS:
-        raise ValueError(
-            f"base {int(base):,} + s {cols:,} passes the quantising "
-            f"kernels' limit of 2^32 = {UINT32_COLUMNS:,}: the dither "
-            "column is a uint32")
 
 
 def reset_launches() -> None:
@@ -148,7 +132,7 @@ def _check_table(name: str, t: torch.Tensor, x: torch.Tensor,
 
 def _outputs(x):
     return (torch.empty_like(x), torch.empty_like(x),
-            torch.empty(x.shape[0], dtype=torch.int32, device=x.device))
+            torch.empty(x.shape[0], dtype=torch.int64, device=x.device))
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -159,7 +143,6 @@ def _raise_on(rc: int, name: str) -> None:
 def sparsify_ef_cuda(x: torch.Tensor, thresholds: torch.Tensor):
     """x (N, s) f32/bf16, thresholds (N,) f32 -> (upload, error, count f32)."""
     _check(x, thresholds=thresholds)
-    check_index_range(x.shape[1])
     lib = library()
     up, err, cnt = _outputs(x)
     with torch.cuda.device(x.device):
@@ -176,9 +159,9 @@ def sparsify_ef_cuda(x: torch.Tensor, thresholds: torch.Tensor):
 def sparsify_quantize_ef_cuda(x: torch.Tensor, thresholds, steps, levels,
                               seeds, base: int = 0):
     """x (N, s); thresholds, steps, levels (N,) f32; seeds (N,) int32;
-    base: dither counter of column 0 -> (upload, error, count f32)."""
+    base: dither counter of column 0 (taken mod 2^32) -> (upload, error,
+    count f32)."""
     _check(x, thresholds=thresholds, steps=steps, levels=levels, seeds=seeds)
-    check_index_range(x.shape[1], base)
     lib = library()
     up, err, cnt = _outputs(x)
     with torch.cuda.device(x.device):
@@ -201,7 +184,6 @@ def sparsify_quantize_ef_segmented_cuda(x: torch.Tensor, thresholds, steps,
     counter is the column."""
     offsets = tuple(int(o) for o in offsets)
     _check(x, seeds=seeds)
-    check_index_range(x.shape[1], 0)
     leaves = len(offsets) - 1
     if (leaves < 1 or offsets[0] != 0 or offsets[-1] != x.shape[1]
             or any(b < a for a, b in zip(offsets, offsets[1:]))):
@@ -213,7 +195,7 @@ def sparsify_quantize_ef_segmented_cuda(x: torch.Tensor, thresholds, steps,
     table = tiles(offsets, x.dtype, x.device)
     lib = library()
     up, err = torch.empty_like(x), torch.empty_like(x)
-    cnt = torch.empty((x.shape[0], leaves), dtype=torch.int32,
+    cnt = torch.empty((x.shape[0], leaves), dtype=torch.int64,
                       device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream

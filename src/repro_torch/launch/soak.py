@@ -16,8 +16,17 @@ The per-upload loop baseline (the fused op at batch = 1, what a naive
 server does) runs alongside; ``speedup_vs_loop`` is the headline number,
 and ``--out-dir`` receives ``BENCH_serve.json``.  Runs on the card unless
 ``--device cpu``.  The gradients come from a ``torch.Generator`` seeded by
-``--seed`` (not the reference's ``jax.random`` draws).  ``--mesh N``
-(N > 1) raises: sharding waits for the distributed step.
+``--seed`` (not the reference's ``jax.random`` draws).
+
+``--mesh N`` splits each batch over N processes, one a card (gloo ranks on
+the CPU with ``--device cpu``), under ``torchrun``:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.soak ... --mesh 4
+
+Every rank generates the same payload stream from ``--seed`` and offers
+its own server its share of each batch (``serve/server.py``); the loop
+baseline runs on each rank's card alone.  Rank 0 prints the summary and
+writes ``BENCH_serve.json``, with the world size in its meta.
 """
 from __future__ import annotations
 
@@ -26,7 +35,8 @@ import time
 
 import numpy as np
 
-__all__ = ["ingest_soak", "make_payloads", "run_soak", "main"]
+__all__ = ["drain_all", "ingest_soak", "make_payloads", "rank_share",
+           "run_soak", "main"]
 
 _CODECS = ("topk", "topk32", "qsgd", "joint", "fixed-kb")
 
@@ -103,10 +113,11 @@ def make_payloads(uploads: int, s: int, max_k: int, *, codec: str = "topk",
     return payloads
 
 
-def _drain_all(server, payloads) -> None:
-    """Producer/consumer loop: offer until backpressure, then step."""
+def drain_all(server, payloads) -> None:
+    """Producer/consumer loop: offer until backpressure, then step, until
+    a step finds no upload (on any rank of a mesh: steps are collective)."""
     i, n = 0, len(payloads)
-    while i < n or len(server.buffer):
+    while True:
         while i < n:
             if server.submit(payloads[i]):
                 i += 1
@@ -114,7 +125,18 @@ def _drain_all(server, payloads) -> None:
                 i += 1  # refused for good: counted, the client re-uploads
             else:
                 break  # deferred: retry the same payload after a step
-        server.step()
+        if not server.step() and i >= n:
+            return
+
+
+def rank_share(payloads, batch: int, mesh) -> list:
+    """The payloads a rank of ``mesh`` offers: its rows of each batch of
+    ``batch`` consecutive uploads (all of them without a mesh)."""
+    if mesh is None:
+        return list(payloads)
+    per = batch // mesh.world_size
+    return [p for j, p in enumerate(payloads)
+            if (j % batch) // per == mesh.rank]
 
 
 def run_soak(*, uploads: int = 10_000, batch: int = 256, s: int = 4096,
@@ -124,15 +146,13 @@ def run_soak(*, uploads: int = 10_000, batch: int = 256, s: int = 4096,
              mode: str = "parity", baseline: bool = True,
              baseline_n: int = 2048, mesh=None, seed: int = 0,
              tracer=None, chunk: int = 512, device="cuda") -> dict:
-    """One soak point; returns throughput numbers + the telemetry snapshot."""
+    """One soak point; returns throughput numbers + the telemetry snapshot.
+    ``mesh``: a ``launch.mesh.ClientMesh`` to split each batch over (the
+    run's device is then its card)."""
     from repro_torch.telemetry.tracing import PhaseTracer
     from repro_torch.utils.device import resolve_device
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharding the soak over a mesh of cards is not ported "
-            "(ROADMAP.md, queue 1 item 5: the distributed step)")
-    device = resolve_device(device)
+    device = resolve_device(device) if mesh is None else mesh.device
     tracer = tracer or PhaseTracer()
     if codec == "qsgd":
         max_k = s  # dense codec: every coordinate rides the wire
@@ -143,7 +163,7 @@ def run_soak(*, uploads: int = 10_000, batch: int = 256, s: int = 4096,
                       staleness_family=staleness_family, alpha=alpha,
                       queue_cap=queue_cap, queue_policy=queue_policy,
                       mode=mode, baseline=baseline, baseline_n=baseline_n,
-                      tracer=tracer, device=device)
+                      tracer=tracer, device=device, mesh=mesh)
     out["codec"] = codec
     return out
 
@@ -152,10 +172,13 @@ def ingest_soak(payloads, *, s: int, max_k: int, batch: int = 256,
                 staleness_family: str = "constant", alpha: float = 1.0,
                 queue_cap: int = 0, queue_policy: str = "defer",
                 mode: str = "parity", baseline: bool = True,
-                baseline_n: int = 2048, tracer=None, device="cuda") -> dict:
+                baseline_n: int = 2048, tracer=None, device="cuda",
+                mesh=None) -> dict:
     """Drive ``payloads`` through a fused ``IngestServer`` of ``batch``
     uploads a step and (``baseline``) the first ``baseline_n`` through a
-    server of one upload a step; returns ``run_soak``'s numbers."""
+    server of one upload a step; returns ``run_soak``'s numbers.  Over a
+    ``mesh`` the fused server is split (each rank offers its share of
+    every batch) and the baseline runs on each rank's card alone."""
     import torch
 
     from repro_torch.core.afl import StalenessWeight
@@ -168,19 +191,21 @@ def ingest_soak(payloads, *, s: int, max_k: int, batch: int = 256,
     w = {"layer0": torch.zeros((s // 2,), device=device),
          "layer1": torch.zeros((s - s // 2,), device=device)}
 
-    def build(b, cap):
+    def build(b, cap, m=None):
         srv = IngestServer(
             w, num_devices=uploads, batch=b, max_k=max_k, staleness=sw,
             queue_capacity=cap, queue_policy=queue_policy, mode=mode,
-            tracer=tracer)
+            tracer=tracer, mesh=m)
         # warm up outside the timed region (ingest is pure: discarded)
         PhaseTracer.fence(srv._ingest(srv.w, srv.pack([]), srv.tstate))
         return srv
 
     with tracer.span("soak.fused", uploads=uploads):
-        server = build(batch, queue_cap or 4 * batch)
+        share = batch if mesh is None else batch // mesh.world_size
+        server = build(batch, queue_cap or 4 * share, mesh)
+        mine = rank_share(payloads, batch, mesh)
         t0 = time.perf_counter()
-        _drain_all(server, payloads)
+        drain_all(server, mine)
         PhaseTracer.fence(server.w)
         fused_wall = time.perf_counter() - t0
     snap = server.snapshot()
@@ -188,6 +213,7 @@ def ingest_soak(payloads, *, s: int, max_k: int, batch: int = 256,
     out = {
         "uploads": uploads, "batch": batch, "s": s, "max_k": max_k,
         "staleness": staleness_family, "mode": mode,
+        "world_size": 1 if mesh is None else mesh.world_size,
         "fused_wall_s": fused_wall, "fused_per_s": done / fused_wall,
         "snapshot": snap, "server": server,
     }
@@ -196,7 +222,7 @@ def ingest_soak(payloads, *, s: int, max_k: int, batch: int = 256,
         with tracer.span("soak.loop_baseline", uploads=nb):
             loop_srv = build(1, max(queue_cap, 4 * batch) or 4 * batch)
             t0 = time.perf_counter()
-            _drain_all(loop_srv, payloads[:nb])
+            drain_all(loop_srv, payloads[:nb])
             PhaseTracer.fence(loop_srv.w)
             loop_wall = time.perf_counter() - t0
         out["loop_per_s"] = nb / loop_wall
@@ -223,8 +249,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--mode", default="parity",
                     choices=("parity", "scatter"))
     ap.add_argument("--mesh", type=int, default=0,
-                    help="shard the batch over N cards (not ported: N > 1 "
-                         "raises)")
+                    help=">1: split each batch over this many processes, one "
+                         "a card, under torchrun --nproc-per-node N")
     ap.add_argument("--no-baseline", action="store_true",
                     help="skip the per-upload loop baseline")
     ap.add_argument("--seed", type=int, default=0)
@@ -236,10 +262,18 @@ def main(argv=None) -> dict:
                     help="cuda (default; raises without CUDA) or cpu")
     args = ap.parse_args(argv)
 
+    mesh = None
     if args.mesh > 1:
-        raise NotImplementedError(
-            "--mesh: sharding the soak over a mesh of cards is not ported "
-            "(ROADMAP.md, queue 1 item 5: the distributed step)")
+        import os
+
+        from repro_torch.launch.mesh import make_mesh
+
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        if world != args.mesh:
+            raise ValueError(
+                f"--mesh {args.mesh} runs under torchrun --nproc-per-node "
+                f"{args.mesh}; this process group has WORLD_SIZE {world}")
+        mesh = make_mesh(device=args.device)
     if args.smoke:
         args.uploads, args.params = min(args.uploads, 1500), 2048
         args.batch, args.max_k = min(args.batch, 128), min(args.max_k, 128)
@@ -248,13 +282,19 @@ def main(argv=None) -> dict:
     from repro_torch.telemetry.tracing import PhaseTracer
 
     tracer = PhaseTracer()
-    res = run_soak(
-        uploads=args.uploads, batch=args.batch, s=args.params,
-        max_k=args.max_k, codec=args.codec,
-        staleness_family=args.staleness, alpha=args.alpha,
-        queue_cap=args.queue_cap, queue_policy=args.queue_policy,
-        mode=args.mode, baseline=not args.no_baseline, seed=args.seed,
-        tracer=tracer, device=args.device)
+    try:
+        res = run_soak(
+            uploads=args.uploads, batch=args.batch, s=args.params,
+            max_k=args.max_k, codec=args.codec,
+            staleness_family=args.staleness, alpha=args.alpha,
+            queue_cap=args.queue_cap, queue_policy=args.queue_policy,
+            mode=args.mode, baseline=not args.no_baseline, mesh=mesh,
+            seed=args.seed, tracer=tracer, device=args.device)
+    finally:
+        if mesh is not None:
+            mesh.close()
+    if mesh is not None and mesh.rank != 0:
+        return res
 
     server = res.pop("server")
     print(server.registry.summary(res["snapshot"]))
@@ -268,7 +308,8 @@ def main(argv=None) -> dict:
     row = f"{name},{res['fused_wall_s'] / max(args.uploads, 1) * 1e6:.1f},{derived}"
     print(row)
     if args.out_dir:
-        export_bench("serve", [row], args.out_dir)
+        export_bench("serve", [row], args.out_dir,
+                     meta={"world_size": res["world_size"]})
     return res
 
 

@@ -16,8 +16,14 @@ contact bit budget is best spent; see repro_torch/compression):
 fixed-kb) and ``--per-layer`` upgrades the joint codec to per-leaf (k_l,
 b_l) budgets.  Runs on the card by default (``--device cuda``, which
 raises when CUDA is absent); ``--device cpu --width 4`` is a small sweep
-on the CPU.  ``--mesh N`` with N > 1 (the reference's seed mesh across
-devices) is not ported yet and raises.
+on the CPU.  ``--mesh N`` spreads each group's seeds over N processes, one
+a card (gloo ranks on the CPU with ``--device cpu``), the reference's seed
+mesh (``launch/mesh.py::make_seed_mesh``); it runs under ``torchrun``:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.sweep ... --mesh 4
+
+Every rank runs its share of each group's seeds and receives all the
+histories; rank 0 alone writes the results, the telemetry and the table.
 
 Every (policy, mobility, speed, dropout) group runs its seeds as ONE
 seed-batched run (repro_torch/experiments: on the card, one captured
@@ -37,6 +43,7 @@ from repro_torch.configs import FLConfig, get_config
 from repro_torch.core import baselines as BL
 from repro_torch.experiments import (DataShard, ExperimentGrid, ResultsStore,
                                      run_seed_batch)
+from repro_torch.launch.mesh import local_device, make_seed_mesh
 from repro_torch.launch.train import build_device_data
 from repro_torch.models.registry import build_model
 from repro_torch.telemetry import (AFL_REGISTRY, DeviceTable, JsonlSink,
@@ -51,9 +58,11 @@ log = get_logger("repro_torch.sweep")
 
 def run_sweep(grid: ExperimentGrid, store: ResultsStore, model, cfg, shard,
               eval_batch, mesh=None, metric: str = "eval", telemetry=None,
-              tracer=None, sink=None) -> str:
+              tracer=None, sink=None, write: bool = True) -> str:
     """Execute every pending cell of ``grid`` into ``store``; returns the
-    comparison table.  The groups run on ``shard``'s device.
+    comparison table.  The groups run on ``shard``'s device, each group's
+    seeds over the seed ``mesh`` when one is given; ``write=False`` (the
+    other ranks of a mesh) saves no cell and emits no event.
 
     ``telemetry`` (a ``repro_torch.telemetry.MetricRegistry`` or
     ``TelemetrySuite``) instruments every group's run; per-group merged
@@ -84,12 +93,13 @@ def run_sweep(grid: ExperimentGrid, store: ResultsStore, model, cfg, shard,
                 device=shard.device,
             )
         wall = time.time() - t0
-        for cell, res in zip(todo, results):
-            store.save(cell, res.history,
-                       meta={"arch": cfg.name, "rounds": grid.rounds,
-                             "wall_s": round(wall / len(todo), 3)})
+        if write:
+            for cell, res in zip(todo, results):
+                store.save(cell, res.history,
+                           meta={"arch": cfg.name, "rounds": grid.rounds,
+                                 "wall_s": round(wall / len(todo), 3)})
         snaps = [r.telemetry for r in results if r.telemetry is not None]
-        if snaps:
+        if snaps and write:
             gsnap = merge_fetched(snaps)
             snapshots.append(gsnap)
             if sink is not None:
@@ -132,8 +142,8 @@ def main(argv=None) -> str:
                     help="joint codec: per-leaf (k_l, b_l) bit budgets "
                          "(repro_torch/compression/perlayer.py)")
     ap.add_argument("--mesh", type=int, default=0,
-                    help=">1: shard the seed axis over this many devices "
-                         "(not ported: raises; ROADMAP.md queue 1 item 5)")
+                    help=">1: shard the seed axis over this many processes, "
+                         "one a card, under torchrun --nproc-per-node N")
     ap.add_argument("--mobility", default="exponential",
                     help="comma-separated mobility models "
                          "(exponential|rwp|gauss_markov|manhattan|hotspot|static)")
@@ -200,12 +210,17 @@ def main(argv=None) -> str:
     ap.add_argument("--out", default="runs/sweep")
     args = ap.parse_args(argv)
 
-    if args.mesh > 1:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the seed mesh across devices is not ported "
-            "(ROADMAP.md, queue 1 item 5: the distributed step); the sweep "
-            "runs every group's seeds on one card without it")
     device = resolve_device(args.device)
+    mesh, rank = None, 0
+    if args.mesh > 1:
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        if world != args.mesh:
+            raise ValueError(
+                f"--mesh {args.mesh} runs under torchrun --nproc-per-node "
+                f"{args.mesh}; this process group has WORLD_SIZE {world}")
+        rank = int(os.environ["RANK"])
+        mesh = make_seed_mesh(args.seeds, device=device)
+        device = local_device(device)
     if args.codec:
         args.policies = CODEC_POLICIES[args.codec]
 
@@ -244,6 +259,7 @@ def main(argv=None) -> str:
     dev, ev = build_device_data(cfg, base, train_n=args.train_n, seed=0)
     shard = DataShard(dev, base.batch_size, seed=0, device=device)
     store = ResultsStore(args.out)
+    write = rank == 0
 
     telemetry = None if args.no_telemetry else AFL_REGISTRY
     if telemetry is not None and (args.perdevice or args.probes):
@@ -257,13 +273,18 @@ def main(argv=None) -> str:
     tracer.start()
     sink = JsonlSink(os.path.join(args.out, "telemetry.jsonl"))
     try:
-        table = run_sweep(grid, store, model, cfg, shard, ev,
-                          telemetry=telemetry, tracer=tracer, sink=sink)
+        table = run_sweep(grid, store, model, cfg, shard, ev, mesh=mesh,
+                          telemetry=telemetry, tracer=tracer, sink=sink,
+                          write=write)
         sink.extend(tracer.events())
-        if sink.events:  # a fully-resumed sweep must not blank the
-            sink.flush()  # previous invocation's telemetry artifact
+        if sink.events and write:  # a fully-resumed sweep must not blank
+            sink.flush()  # the previous invocation's telemetry artifact
     finally:
         tracer.stop()
+        if mesh is not None:
+            mesh.close()
+    if not write:
+        return table
     print(table)
     if args.report:
         report_path = os.path.join(args.out, "report.md")

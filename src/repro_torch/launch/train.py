@@ -93,7 +93,7 @@ def build_device_data(cfg, fl, *, train_n=2000, eval_n=512, seq_len=64,
     else:
         raise NotImplementedError(
             f"federated fine-tuning of family {cfg.family!r} is not ported "
-            "(ROADMAP.md, queue 1 item 3b: the other LLM families; they "
+            "(ROADMAP.md, queue 1 item 1: the other LLM families; they "
             "serve through launch/serve.py)")
     return dev, ev
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models.remat import checkpoint, full_only
 from repro_torch.models.transformer import layer, stack_specs
 from repro_torch.sharding.rules import ParamSpec
 
@@ -99,23 +100,29 @@ def _add_positions(cfg, x, start: int = 0):
 def encode(params, cfg, frames):
     """frames: (B, encoder_seq, d_model) stub embeddings -> encoder output."""
     x = _add_positions(cfg, frames.to(cfg.activation_dtype))
-    for i in range(cfg.encoder_layers):
-        lp = layer(params["enc_layers"], i)
+
+    def body(lp, x):  # each layer under cfg.remat ("full" only)
         h = _ln(lp["ln_attn"], x, cfg.norm_eps)
         q, k, v = L.attn_qkv(lp["attn"], cfg, h)
         attn = L.causal_attention(q, k, v, causal=False)
         x = x + L.attn_out(lp["attn"], attn, x.dtype)
         h = _ln(lp["ln_mlp"], x, cfg.norm_eps)
-        x = x + _gelu_mlp(lp["mlp"], h)
+        return x + _gelu_mlp(lp["mlp"], h)
+
+    policy = full_only(cfg.remat)
+    for i in range(cfg.encoder_layers):
+        x = checkpoint(body, policy, layer(params["enc_layers"], i), x)
     return _ln(params["enc_ln_f"], x, cfg.norm_eps)
 
 
 def _cross_kv(lp, cfg, enc_out):
-    """One decoder layer's cross-attention k, v (B, encoder_seq, KV, D)."""
+    """One decoder layer's cross-attention k, v (B, encoder_seq, KV, D).
+    ``enc_out`` may be a pair (the encoder output for k, for v)."""
     ca = lp["cross_attn"]
-    dt = enc_out.dtype
-    k = torch.einsum("bsd,dhk->bshk", enc_out, ca["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", enc_out, ca["wv"].to(dt))
+    enc_k, enc_v = enc_out if isinstance(enc_out, tuple) else (enc_out,) * 2
+    dt = enc_k.dtype
+    k = torch.einsum("bsd,dhk->bshk", enc_k, ca["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", enc_v, ca["wv"].to(dt))
     if cfg.qkv_bias:
         k = k + ca["bk"].to(dt)
         v = v + ca["bv"].to(dt)
@@ -135,8 +142,8 @@ def _decoder(params, cfg, tokens, enc_out, cache=None):
     written into it."""
     x = _add_positions(cfg, L.embed(params, cfg, tokens))
     s = tokens.shape[1]
-    for i in range(cfg.num_layers):
-        lp = layer(params["dec_layers"], i)
+
+    def block(lp, x, enc_out):
         h = _ln(lp["ln_self"], x, cfg.norm_eps)
         q, k, v = L.attn_qkv(lp["self_attn"], cfg, h)
         attn = L.causal_attention(q, k, v)
@@ -147,12 +154,25 @@ def _decoder(params, cfg, tokens, enc_out, cache=None):
         xatt = L.causal_attention(q2, k2, v2, causal=False)
         x = x + L.attn_out(lp["cross_attn"], xatt, x.dtype)
         h = _ln(lp["ln_mlp"], x, cfg.norm_eps)
-        x = x + _gelu_mlp(lp["mlp"], h)
-        if cache is not None:
-            cache["k"][i, :, :s] = k
-            cache["v"][i, :, :s] = v
-            cache["xk"][i] = k2
-            cache["xv"][i] = v2
+        return x + _gelu_mlp(lp["mlp"], h), k, v, k2, v2
+
+    def body(lp, x, enc_v, enc_k):  # each layer under cfg.remat ("full" only)
+        # enc_out comes in twice, for the cross v and k, so that its
+        # gradient takes a layer's two parts one at a time, in the order
+        # autograd adds them without a checkpoint: the same sums, bit-equal
+        return block(lp, x, (enc_k, enc_v))[0]
+
+    policy = full_only(cfg.remat)
+    for i in range(cfg.num_layers):
+        lp = layer(params["dec_layers"], i)
+        if cache is None:
+            x = checkpoint(body, policy, lp, x, enc_out, enc_out)
+            continue
+        x, k, v, k2, v2 = block(lp, x, enc_out)  # serving: no checkpoint
+        cache["k"][i, :, :s] = k
+        cache["v"][i, :, :s] = v
+        cache["xk"][i] = k2
+        cache["xv"][i] = v2
     return _ln(params["dec_ln_f"], x, cfg.norm_eps)
 
 

@@ -72,10 +72,9 @@ def forward(params, cfg, tokens, *, train=False, **_):
     for i, size in enumerate(segments(cfg)):
         if i > 0:
             x = _shared_attn(params, cfg, x, cos, sin)[0]
-        for j in range(off, off + size):
-            lp = layer(params["layers"], j)
-            h = L.rms_norm(x, lp["ln"], cfg.norm_eps)
-            x = x + M2.mamba_block(lp["mamba"], cfg, h, train=train)[0]
+        # the Mamba2 stack, under cfg.remat as the reference's _mamba_scan
+        x = M2.layer_stack(params["layers"], cfg, x, range(off, off + size),
+                           train)
         off += size
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = x @ params["unembed"]["w"].to(x.dtype)

@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.models.remat import dot
 from repro_torch.sharding.rules import ParamSpec
 
 F32 = torch.float32
@@ -247,9 +248,9 @@ def attn_specs(cfg) -> dict:
 
 
 def attn_qkv(p, cfg, x):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    q = dot(x, p["wq"].to(x.dtype), "bsd,dhk->bshk")
+    k = dot(x, p["wk"].to(x.dtype), "bsd,dhk->bshk")
+    v = dot(x, p["wv"].to(x.dtype), "bsd,dhk->bshk")
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -261,7 +262,7 @@ def attn_qkv(p, cfg, x):
 
 
 def attn_out(p, x_attn, dtype):
-    return torch.einsum("bshk,hkd->bsd", x_attn, p["wo"].to(dtype))
+    return dot(x_attn, p["wo"].to(dtype), "bshk,hkd->bsd")
 
 
 # ---------------------------------------------------------------------------
@@ -285,9 +286,9 @@ def silu_f32(x):
 
 
 def mlp_apply(p, x):
-    g = x @ p["wi_gate"].to(x.dtype)
-    u = x @ p["wi_up"].to(x.dtype)
-    return (silu_f32(g) * u) @ p["wo"].to(x.dtype)
+    g = dot(x, p["wi_gate"].to(x.dtype))
+    u = dot(x, p["wi_up"].to(x.dtype))
+    return dot(silu_f32(g) * u, p["wo"].to(x.dtype))
 
 
 def cross_entropy(logits, labels):

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models.remat import checkpoint, full_only
 from repro_torch.models.transformer import layer, stack_specs
 from repro_torch.sharding.rules import ParamSpec
 
@@ -231,14 +232,24 @@ def forward(params, cfg, tokens, *, train=False):
     """Logits and a zero aux loss; ``train=True`` runs the differentiable
     chunked SSD in place of the kernel."""
     x = L.embed(params, cfg, tokens)
-    for i in range(cfg.num_layers):
-        lp = layer(params["layers"], i)
-        h = L.rms_norm(x, lp["ln"], cfg.norm_eps)
-        y, _ = mamba_block(lp["mamba"], cfg, h, train=train)
-        x = x + y
+    x = layer_stack(params["layers"], cfg, x, range(cfg.num_layers), train)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = x @ params["unembed"]["w"].to(x.dtype)
     return logits, torch.zeros((), dtype=F32, device=x.device)
+
+
+def layer_stack(layers, cfg, x, which, train: bool):
+    """Residual Mamba2 layers ``which`` of the stacked ``layers`` over x,
+    each under ``cfg.remat``'s checkpoint (``"full"`` only, as in the
+    reference; ``models/remat.py``)."""
+    def body(lp, x):
+        h = L.rms_norm(x, lp["ln"], cfg.norm_eps)
+        return x + mamba_block(lp["mamba"], cfg, h, train=train)[0]
+
+    policy = full_only(cfg.remat)
+    for i in which:
+        x = checkpoint(body, policy, layer(layers, i), x)
+    return x
 
 
 def loss_fn(params, cfg, batch):

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models.remat import dot
 from repro_torch.sharding.rules import ParamSpec
 
 F32 = torch.float32
@@ -128,7 +129,7 @@ def moe_apply(p, cfg, x):
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     cap = capacity(g, cfg)
 
-    logits = xg @ p["router"].to(dt)
+    logits = dot(xg, p["router"].to(dt))
     weights, keep, topi, slot, aux = dispatch(logits, cfg)
     # every choice's row in the (E, ng, cap) buffers; a dropped choice
     # points at one spare zero row past them
@@ -148,8 +149,9 @@ def moe_apply(p, cfg, x):
 
     if cfg.num_shared_experts:
         sp = p["shared"]
-        hsh = L.silu_f32(x @ sp["wi_gate"].to(dt)) * (x @ sp["wi_up"].to(dt))
-        ysh = hsh @ sp["wo"].to(dt)
-        sgate = torch.sigmoid((x @ sp["gate"].to(dt)).to(F32)).to(dt)
+        hsh = L.silu_f32(dot(x, sp["wi_gate"].to(dt))) * dot(
+            x, sp["wi_up"].to(dt))
+        ysh = dot(hsh, sp["wo"].to(dt))
+        sgate = torch.sigmoid(dot(x, sp["gate"].to(dt)).to(F32)).to(dt)
         y = y + sgate * ysh
     return y, aux

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models.remat import checkpoint
 from repro_torch.sharding.rules import ParamSpec
 from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
@@ -82,6 +83,18 @@ def _ffn(lp, cfg, h):
     return L.mlp_apply(lp["mlp"], h), None
 
 
+def _block(lp, cfg, x, cos, sin):
+    """One decoder layer: (x, the MoE aux loss or None, its k, v)."""
+    h = L.rms_norm(x, lp["ln_attn"], cfg.norm_eps)
+    q, k, v = L.attn_qkv(lp["attn"], cfg, h)
+    q, k = L.apply_rope(q, k, cos, sin)
+    attn = L.causal_attention(q, k, v, sliding_window=cfg.sliding_window)
+    x = x + L.attn_out(lp["attn"], attn, x.dtype)
+    h2 = L.rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
+    y, a = _ffn(lp, cfg, h2)
+    return x + y, a, k, v
+
+
 def forward(params, cfg, tokens=None, *, embeds=None, positions=None,
             collect_kv=False):
     """Returns (logits, aux_loss), and the stacked (k, v) of every layer,
@@ -89,7 +102,9 @@ def forward(params, cfg, tokens=None, *, embeds=None, positions=None,
 
     ``embeds`` (B, S, d) replaces the token embedding (the VLM's stub
     injection).  ``positions``: (B, S), or (3, B, S) for M-RoPE; 0..S-1
-    by default (on all three streams for M-RoPE).
+    by default (on all three streams for M-RoPE).  Each layer runs under
+    ``cfg.remat``'s checkpoint (``models/remat.py``) unless
+    ``collect_kv``.
     """
     x = (L.embed(params, cfg, tokens) if embeds is None
          else embeds.to(cfg.activation_dtype))
@@ -102,21 +117,22 @@ def forward(params, cfg, tokens=None, *, embeds=None, positions=None,
                               cfg.mrope_sections)
     aux = torch.zeros((), dtype=F32, device=x.device)
     ks, vs = [], []
+
+    def body(lp, x, cos, sin):  # the layer ``cfg.remat`` checkpoints
+        x, a, _, _ = _block(lp, cfg, x, cos, sin)
+        return x if a is None else (x, a)
+
     for i in range(cfg.num_layers):
         lp = layer(params["layers"], i)
-        h = L.rms_norm(x, lp["ln_attn"], cfg.norm_eps)
-        q, k, v = L.attn_qkv(lp["attn"], cfg, h)
-        q, k = L.apply_rope(q, k, cos, sin)
-        attn = L.causal_attention(q, k, v, sliding_window=cfg.sliding_window)
-        x = x + L.attn_out(lp["attn"], attn, x.dtype)
-        h2 = L.rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
-        y, a = _ffn(lp, cfg, h2)
-        x = x + y
-        if a is not None:
-            aux = aux + a
-        if collect_kv:
+        if collect_kv:  # the prefill: serving keeps no checkpoint
+            x, a, k, v = _block(lp, cfg, x, cos, sin)
             ks.append(k)
             vs.append(v)
+        else:
+            out = checkpoint(body, cfg.remat, lp, x, cos, sin)
+            x, a = out if cfg.is_moe else (out, None)
+        if a is not None:
+            aux = aux + a
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = L.unembed(params, cfg, x)
     if collect_kv:

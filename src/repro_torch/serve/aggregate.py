@@ -26,12 +26,21 @@ so that no one address takes every pad's add.
 
 Telemetry rides inside the op: pass a ``serve_registry()`` and its state
 is updated on the device per batch.  An ingest makes no host sync.
+
+Over a mesh (``sharding``, ``core/distributed.py::IngestSharding``) the op
+takes the rank's B/P rows of each batch: the rank's partial sum (its rows
+of the parity block, or its scatter) goes through one ``all_reduce(SUM)``
+before the update, and the rows' header columns are gathered (one
+``all_gather``), so that every rank records the whole batch and ends with
+the same ``w``.  With one rank both collectives change nothing, and the
+op equals the op without a mesh bit for bit.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.compression.wire import decode_values
 from repro_torch.core.afl import StalenessWeight
@@ -70,7 +79,7 @@ def make_fused_ingest(w_template, *, batch: int, max_k: int,
                       num_devices: int,
                       staleness: StalenessWeight = StalenessWeight(),
                       registry: Optional[MetricRegistry] = None,
-                      mode: str = "parity"):
+                      mode: str = "parity", sharding=None):
     """Build the ingest step for a fixed model/batch geometry.
 
     ``w_template`` (a flat tensor or a tree of tensors) fixes the flat size
@@ -80,7 +89,9 @@ def make_fused_ingest(w_template, *, batch: int, max_k: int,
     Returns ``ingest(w, packed, tstate) -> (w_new, tstate')``: ``w`` the
     flat (s,) global model, ``packed`` a ``wire.pack_batch`` dict (tensors
     on ``w``'s device, or host arrays on the CPU) and ``tstate`` the
-    registry state (``{}`` when ``registry`` is None).
+    registry state (``{}`` when ``registry`` is None).  With ``sharding``
+    (an ``IngestSharding``), ``batch`` is the rank's share of a batch and
+    ``packed`` holds the rank's rows.
     """
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
@@ -110,10 +121,19 @@ def make_fused_ingest(w_template, *, batch: int, max_k: int,
             acc.index_add_(0, _targets(coords, 0, s),
                            (vals * mix[:, None]).reshape(-1))
             agg = acc[:s]
+        if sharding is not None:
+            dist.all_reduce(agg, group=sharding.group)
         w_new = w - div(agg, float(num_devices)).to(w.dtype)
         if registry is not None:
+            bits = p["bits"]
+            if sharding is not None:  # the whole batch's header columns
+                cols = torch.stack([mask, dtau, bits.to(torch.float32), mix])
+                parts = [torch.empty_like(cols)
+                         for _ in range(sharding.world_size)]
+                dist.all_gather(parts, cols, group=sharding.group)
+                mask, dtau, bits, mix = torch.cat(parts, dim=1)
             tstate = record_ingest(registry, tstate, mask=mask, dtau=dtau,
-                                   bits=p["bits"], weights=mix)
+                                   bits=bits, weights=mix)
         return w_new, tstate
 
     return ingest

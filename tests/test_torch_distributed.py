@@ -673,7 +673,7 @@ def test_two_ranks_bits_equal_world_one(two_ranks, tag):
 
 
 # ---------------------------------------------------------------------------
-# Refusals and the kernels' index guard
+# Refusals
 # ---------------------------------------------------------------------------
 
 
@@ -686,7 +686,7 @@ def test_uneven_clients_and_model_axis_refused():
     tmodel = t_build_model(t_get_config("resnet9-cifar10").replace(d_model=4))
     with pytest.raises(ValueError, match="do not split evenly"):
         TD.init_state(tmodel, TD.DistConfig(num_clients=3), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5c"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 3\\)"):
         TM.make_client_mesh(4, device="cpu", model=2)
 
 
@@ -726,17 +726,3 @@ def test_missing_card_raises_by_default(monkeypatch):
         TD.init_state(tmodel, dcfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TD.make_afl_train_system(tmodel, tmodel.cfg, dcfg=dcfg)["init_state"]()
-
-
-@pytest.mark.parametrize("cols,base,ok", [
-    (2**31 - 1, None, True), (2**31, None, False), (3_212_749_824, None, False),
-    (1_889_110_016, 0, True), (100, 2**32 - 100, True),
-    (101, 2**32 - 100, False)])
-def test_sparsify_index_guard_on_shapes(cols, base, ok):
-    """int32 counts (s < 2^31) and the uint32 dither column (base + s <=
-    2^32), checked on shapes alone before a launch."""
-    if ok:
-        K.check_index_range(cols, base)
-    else:
-        with pytest.raises(ValueError, match="2\\^3[12]"):
-            K.check_index_range(cols, base)

@@ -42,6 +42,7 @@ from repro_torch.experiments import DataShard  # noqa: E402
 from repro_torch.experiments import ExperimentGrid as TExperimentGrid  # noqa: E402
 from repro_torch.experiments import ResultsStore as TResultsStore  # noqa: E402
 from repro_torch.experiments import mean_ci as t_mean_ci  # noqa: E402
+from repro_torch.launch.mesh import ClientMesh  # noqa: E402
 from repro_torch.experiments import prestack_batches  # noqa: E402
 from repro_torch.experiments import run_afl_scanned  # noqa: E402
 from repro_torch.experiments import run_seed_batch  # noqa: E402
@@ -297,9 +298,15 @@ def test_seed_batch_matches_independent_runs(fed):
         assert res.history == ind.history
         _assert_state_equal(res.state, ind.state)
     assert len({tuple(r.history["uploads"]) for r in batch}) == 3
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        run_seed_batch(tmodel, tmodel.cfg, fl, "mads", shard, ev, seeds=[0],
-                       mesh=object(), device="cpu")
+    # a mesh that does not split the seeds: every rank runs all of them,
+    # with no collective, as the reference runs unsharded
+    mesh = ClientMesh(group=None, rank=1, world_size=2,
+                      device=torch.device("cpu"))
+    (res,) = run_seed_batch(tmodel, tmodel.cfg, fl, "mads-joint", shard, ev,
+                            seeds=[1], rounds=ROUNDS, eval_every=EVERY,
+                            mesh=mesh, device="cpu")
+    assert res.history == batch[1].history
+    _assert_state_equal(res.state, batch[1].state)
 
 
 def test_scan_telemetry_matches_loop(fed):
@@ -411,7 +418,12 @@ def test_sweep_cli_writes_cells_and_resumes(tmp_path, capsys):
     assert ResultsStore(str(out)).table(ref_grid) == table
 
 
-def test_sweep_cli_refuses_a_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+def test_sweep_cli_mesh_needs_its_launched_world(tmp_path, monkeypatch):
+    """``--mesh N`` runs under ``torchrun --nproc-per-node N``: another
+    world size raises before anything runs (tests/test_torch_mesh.py runs
+    it under a launched world of 2)."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         t_sweep.main(["--device", "cpu", "--mesh", "2", "--out",
                       str(tmp_path)])
+    assert not (tmp_path / "results.jsonl").exists()

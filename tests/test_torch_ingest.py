@@ -441,11 +441,23 @@ def test_server_traces_pack_and_ingest_spans():
     assert float(srv.w[1]) == -0.5
 
 
-def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        IngestServer(torch.zeros(4), num_devices=1, batch=1, max_k=1,
-                     mesh=object())
-    with pytest.raises(NotImplementedError, match="item 5"):
+def test_mesh_needs_a_divisible_batch_and_its_launched_world(monkeypatch):
+    """Over a mesh of P ranks the batch must split evenly (the reference's
+    message), and ``--mesh N`` runs under ``torchrun --nproc-per-node N``
+    (tests/test_torch_mesh.py runs both over a launched world of 2)."""
+    from repro_torch.launch.mesh import ClientMesh
+
+    mesh = ClientMesh(group=None, rank=0, world_size=2,
+                      device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="batch=3 not divisible by mesh "
+                                         "size 2"):
+        IngestServer(torch.zeros(4), num_devices=1, batch=3, max_k=1,
+                     mesh=mesh)
+    srv = IngestServer(torch.zeros(4), num_devices=1, batch=4, max_k=1,
+                       mesh=mesh)
+    assert srv.local_batch == 2 and srv.packed["coords"].shape == (2, 1)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         soak.main(["--mesh", "2", "--device", "cpu"])
 
 

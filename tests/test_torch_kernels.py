@@ -176,3 +176,83 @@ def test_cpu_tensor_takes_plain_path_and_counts_nothing():
         K.sparsify_quantize_ef_segmented_cuda(
             x, torch.zeros(2, 1), torch.ones(2, 1), torch.ones(2, 1),
             torch.zeros(2, dtype=torch.int32), (0, 64))
+
+
+# ---------------------------------------------------------------------------
+# Index range: the dither column wraps mod 2^32, counts above 2^24
+# ---------------------------------------------------------------------------
+
+
+def _int32(base: int) -> int:
+    """``base`` mod 2^32 as the signed int32 with the same bits: the index
+    the reference's int32 arithmetic holds after wrapping."""
+    return (base + 2**31) % 2**32 - 2**31
+
+
+@pytest.mark.parametrize("base", [2**31 - 100, 2**31, 2**32 - 100, 2**32,
+                                  3 * 2**32 + 7, 2**40 + 12345])
+def test_plain_dither_column_wraps_like_the_reference(base):
+    """The plain ``sparsify_quantize_ef`` at a ``base`` whose columns pass
+    2^31 or 2^32 equals the reference's jnp oracle (its int32 index wraps,
+    and the uint32 cast reads it mod 2^32) and its own call at base mod
+    2^32: uploads and counts bit-equal, errors within 1e-6."""
+    n = 300
+    x = RNG.normal(0, 1, (2, n)).astype(np.float32)
+    t = torch.tensor([0.0, 0.7])
+    steps = torch.tensor([0.01, 0.05])
+    levels = torch.tensor([127.0, 7.0])
+    seeds = torch.tensor([1234, -5], dtype=torch.int32)
+    up, err, cnt = ops.sparsify_quantize_ef(torch.tensor(x), t, steps, levels,
+                                            seeds, base=base)
+    same = ops.sparsify_quantize_ef(torch.tensor(x), t, steps, levels, seeds,
+                                    base=base % 2**32)
+    for a, b in zip((up, err, cnt), same):
+        assert torch.equal(a, b)
+    for r in range(2):
+        u, e, c = sparsify_quantize_ef_ref(
+            jnp.asarray(x[r]), jnp.float32(t[r]), jnp.float32(steps[r]),
+            jnp.float32(levels[r]), int(seeds[r]), base=_int32(base))
+        np.testing.assert_array_equal(_t(up[r]), _np(u))
+        np.testing.assert_allclose(_t(err[r]), _np(e), atol=1e-6)
+        assert float(cnt[r]) == float(c)
+
+
+def test_column_past_2_32_draws_what_column_0_draws():
+    """At base = 2^32 - 100, column 100 (flat index 2^32) draws the dither
+    of column 0 at base 0, and so quantises the same value alike."""
+    base = 2**32 - 100
+    seed = torch.tensor([77], dtype=torch.int32)
+    u = dither_u01(seed, base + torch.arange(200))
+    assert float(u[100]) == float(dither_u01(seed, torch.tensor([0]))[0])
+    x = torch.tensor(RNG.normal(0, 1, (1, 200)).astype(np.float32))
+    x0 = x[:, 100:101].clone()
+    args = (torch.zeros(1), torch.tensor([0.01]), torch.tensor([127.0]), seed)
+    up = ops.sparsify_quantize_ef(x, *args, base=base)[0]
+    up0 = ops.sparsify_quantize_ef(x0, *args, base=0)[0]
+    assert float(up[0, 100]) == float(up0[0, 0])
+
+
+def test_count_above_2_24_within_one_ulp():
+    """A row just over 2^24 f32 elements with nearly all of them kept: the
+    port's count (the exact int64 total, rounded to f32 once) is within
+    one f32 ulp of the count the reference's Pallas kernel gives (its
+    per-block f32 counts summed in f32), run as the reference's tests run
+    it (interpret mode on the CPU), for both entries."""
+    n = 2**24 + 2**18 + 3
+    x = np.random.default_rng(24).normal(0, 1, n).astype(np.float32)
+    t = np.float32(1e-3)
+    want = int(np.sum(np.abs(x) >= t))
+    assert want > 2**24
+    ulp = float(np.spacing(np.float32(want)))
+    xt = torch.tensor(x)[None]
+    cnt = ops.sparsify_ef(xt, torch.tensor([t]))[2]
+    qcnt = ops.sparsify_quantize_ef(
+        xt, torch.tensor([t]), torch.tensor([0.01]), torch.tensor([127.0]),
+        torch.tensor([5], dtype=torch.int32))[2]
+    assert float(cnt[0]) == float(qcnt[0]) == float(np.float32(want))
+    ref = float(sparsify_ef(jnp.asarray(x), jnp.float32(t))[2])
+    qref = float(sparsify_quantize_ef(jnp.asarray(x), jnp.float32(t),
+                                      jnp.float32(0.01), jnp.float32(127.0),
+                                      5, 0)[2])
+    for r in (ref, qref):
+        assert abs(float(cnt[0]) - r) <= ulp, (float(cnt[0]), r, want, ulp)
