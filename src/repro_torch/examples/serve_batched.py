@@ -23,8 +23,9 @@ ARCHS = ["llama3.2-3b", "mamba2-2.7b", "qwen3-moe-30b-a3b"]
 
 
 def run_arch(name: str, *, batch: int, prompt_len: int, gen: int,
-             window: int = 0, seed: int = 0, device="cpu"):
+             window: int = 0, seed: int = 0, device="cuda"):
     """Serve one reduced arch; returns (tokens, stats)."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     cfg = get_config(name).reduced()
     model = build_model(cfg)

@@ -167,6 +167,8 @@ def main(argv=None) -> str:
     ap.add_argument("--lr", type=float, default=0.02)
     ap.add_argument("--rho", type=float, default=0.5)
     ap.add_argument("--train-n", type=int, default=800)
+    ap.add_argument("--seq-len", type=int, default=64,
+                    help="tokens per sequence (language families)")
     ap.add_argument("--contact-const", type=float, default=40.0)
     ap.add_argument("--intercontact-const", type=float, default=300.0)
     ap.add_argument("--energy", type=float, nargs=2, default=(40.0, 80.0))
@@ -256,7 +258,8 @@ def main(argv=None) -> str:
              "device=%s", grid.size(), len(grid.groups()), args.seeds,
              cfg.name, model.num_params(), device)
 
-    dev, ev = build_device_data(cfg, base, train_n=args.train_n, seed=0)
+    dev, ev = build_device_data(cfg, base, train_n=args.train_n,
+                                seq_len=args.seq_len, seed=0)
     shard = DataShard(dev, base.batch_size, seed=0, device=device)
     store = ResultsStore(args.out)
     write = rank == 0

@@ -21,12 +21,14 @@ arm the heterogeneity layer.  The data are synthetic stand-ins generated
 from the seed: CIFAR-10 for ResNet-9 (``--arch resnet9-cifar10``),
 Argoverse tracks for LaneGCN (``--arch lanegcn-argoverse``, the paper's
 §VI-C experiment), order-1 Markov token streams of ``--seq-len`` tokens
-for the dense and ssm LM families (federated fine-tuning; ``--reduced``
+for the dense, moe, ssm, hybrid and vlm LM families (federated
+fine-tuning; the VLM on text alone, as in the reference; ``--reduced``
 runs the family's reduced variant, as the reference does: the token
 generator's V x V table and N devices' (N, s) state do not fit at full
-width).  A checkpoint of the global model and a JSON metrics
-history land in ``--workdir``, in the reference's formats, with
-``telemetry.jsonl`` beside them: the phase spans and, with
+width).  The audio family is refused: its loss needs encoder frames,
+which these batches do not carry.  A checkpoint of the global model and
+a JSON metrics history land in ``--workdir``, in the reference's formats,
+with ``telemetry.jsonl`` beside them: the phase spans and, with
 ``--telemetry`` (``--perdevice`` and ``--probes`` imply it), the run's
 metric snapshot and the theory-vs-measured probe report
 (``python -m repro_torch.telemetry.report`` renders it).
@@ -83,18 +85,20 @@ def build_device_data(cfg, fl, *, train_n=2000, eval_n=512, seq_len=64,
         chunks = np.array_split(order, fl.num_devices)
         dev = [{k: v[c] for k, v in data.items()} for c in chunks]
         ev = ds.make_split(eval_n, seed=seed + 2)
-    elif cfg.family in ("dense", "ssm"):  # order-1 Markov streams
+    elif cfg.family == "audio":
+        raise NotImplementedError(
+            "federated fine-tuning of the audio family is refused, as it "
+            "fails in the reference: these token batches carry no 'frames' "
+            "(encoder inputs), and the enc-dec loss_fn needs them; the "
+            "distributed round (core/distributed.py) trains it on batches "
+            "that carry them")
+    else:  # the language families: order-1 Markov streams (VLM: text only)
         ds = SyntheticTokens(vocab_size=cfg.vocab_size, seed=seed)
         data = ds.make_split(train_n // 4, seq_len, seed=seed + 1)
         order = np.random.default_rng(seed).permutation(len(data["tokens"]))
         chunks = np.array_split(order, fl.num_devices)
         dev = [{k: v[c] for k, v in data.items()} for c in chunks]
         ev = ds.make_split(eval_n // 4, seq_len, seed=seed + 2)
-    else:
-        raise NotImplementedError(
-            f"federated fine-tuning of family {cfg.family!r} is not ported "
-            "(ROADMAP.md, queue 1 item 1: the other LLM families; they "
-            "serve through launch/serve.py)")
     return dev, ev
 
 

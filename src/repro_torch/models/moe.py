@@ -7,10 +7,13 @@ routed experts with top-k softmax gating.  Tokens are routed in groups of
 token's slot being its rank in token order among the group's tokens that
 chose that expert, and tokens ranked at or past ``cap`` are dropped for
 that expert.  The reference moves tokens to and from the (expert, slot)
-buffers with one-hot einsums; here the same moves are an index copy and a
-gather (an entry of the reference's dispatch tensor is 0 or 1 and each
-slot holds at most one token, so its einsum copies the token exactly), and
-the expert products are one batched matmul per projection.  At decode a
+buffers with one-hot einsums; here the same moves are two gathers (an
+entry of the reference's dispatch tensor is 0 or 1 and each slot holds at
+most one token, so its einsum copies the token exactly), and the expert
+products are one batched matmul per projection.  Every step is out of
+place, so the dispatch runs under ``torch.func.vmap`` (the clients'
+vmapped gradient) with a batching rule for each operator, and has no host
+sync or data-dependent shape (a CUDA graph captures it).  At decode a
 group is the batch: for Qwen3-MoE at batch 4, ``cap`` is 1.
 """
 from __future__ import annotations
@@ -71,7 +74,7 @@ def route(logits, cfg):
     and the chosen experts (..., k) in descending probability."""
     probs = torch.softmax(logits.to(F32), dim=-1)
     _, topi = top_k(probs, cfg.num_experts_per_tok)
-    mask = torch.zeros_like(probs).scatter_(-1, topi, 1.0)
+    mask = torch.scatter(torch.zeros_like(probs), -1, topi, 1.0)
     weights = probs * mask
     weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
     return weights, mask, topi
@@ -132,15 +135,21 @@ def moe_apply(p, cfg, x):
     logits = dot(xg, p["router"].to(dt))
     weights, keep, topi, slot, aux = dispatch(logits, cfg)
     # every choice's row in the (E, ng, cap) buffers; a dropped choice
-    # points at one spare zero row past them
+    # points at one spare row past them
     kept = torch.gather(keep, -1, topi) > 0  # (ng,g,k)
     grp = torch.arange(ng, device=x.device)[:, None, None]
-    rows = torch.where(kept, (topi * ng + grp) * cap + slot, e * ng * cap)
-    buf = torch.zeros((e * ng * cap + 1, d), dtype=dt, device=x.device)
-    buf.index_copy_(0, rows.reshape(-1),
-                    xg[:, :, None, :].expand(ng, g, k, d).reshape(-1, d))
-    ye = _experts(p, cfg, buf[:-1].view(e, ng * cap, d))
-    ye = torch.cat([ye.reshape(-1, d), buf.new_zeros((1, d))])
+    nrow = e * ng * cap
+    rows = torch.where(kept, (topi * ng + grp) * cap + slot, nrow)
+    # the inverse map, each buffer row's token, built out of place: a row
+    # no token holds reads a spare zero token past the ng*g real ones
+    # (the spare buffer row, which every dropped choice writes, is cut)
+    tok = torch.arange(ng * g, device=x.device).reshape(ng, g, 1)
+    src = torch.full((nrow + 1,), ng * g, dtype=torch.long, device=x.device)
+    src = torch.scatter(src, 0, rows.reshape(-1),
+                        tok.expand(ng, g, k).reshape(-1))[:nrow]
+    xz = torch.nn.functional.pad(xg.reshape(-1, d), (0, 0, 0, 1))
+    ye = _experts(p, cfg, xz[src].view(e, ng * cap, d))
+    ye = torch.nn.functional.pad(ye.reshape(-1, d), (0, 0, 0, 1))
     # the combine: gate weights (cast to the activation dtype, as the
     # reference's combine tensor is) times the experts' rows, summed in f32
     w = (torch.gather(weights, -1, topi) * kept).to(dt)
