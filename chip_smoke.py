@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --time-tree DIR   # time another checkout's kernels
     python3 chip_smoke.py --only 19,20      # phases 1, 2 and those named
-                                            # (of 3c, 19-22) alone
+                                            # (of 3c, 19-23) alone
     python3 chip_smoke.py --mesh 4          # the round over 4 cards
 
 Phases, each of which raises on failure (a failed phase exits non-zero):
@@ -235,7 +235,31 @@ Phases, each of which raises on failure (a failed phase exits non-zero):
    ``remat="none"`` for ``mads`` where it fits: launches, every sparsify
    call held as it returns, Zamba2's evals through ``ssd_scan``, uploads,
    a finite loss before and after, w moved, round seconds, peak under 75
-   GiB.
+   GiB;
+23. the (arch x input shape) steps (``launch/steps.py``; run after 22):
+   (a) the dry-run plan (``launch/dryrun.py``) of all 40 pairs at world 1
+   on the meta device: each pair's argument GiB per card, whether they
+   fit 80 GB, its H100 roofline terms (``launch/roofline.py`` over
+   ``launch/calculator.py``) and bottleneck, and the CLI's ``--execute``
+   for InternLM2-1.8B x long_500k; (b) the reference test's six
+   pairs and two more (``STEP_CASES``) through ``build_step`` at full
+   width and the production seq_len, the global batch (and Qwen2-VL-72B's
+   depth) cut only as one card forces, each cut printed with the card's
+   memory at the step's start (allocated, reserved, outside the
+   allocator), on arguments
+   from ``materialize``, the train steps over a single-rank NCCL client
+   mesh (N = 1): run 1 with the counts set to 0 just before and read just
+   after (one ``sparsify_ef`` a train round, ``decode_attn`` a layer of
+   the 32k decodes, ``ssd_scan`` a layer of Mamba2's 32k prefill, nothing
+   else), the first call at each kernel shape held against its plain
+   version as it returns (phase 3's tolerances; ``ssd_scan`` row by row
+   in f64); finite logits, greedy tokens in range, uploads > 0 and w
+   moved; run 2 timed: step seconds, peak GiB, the calculator's bound for
+   the cut shape, bound / measured and model_flops / (seconds x 989
+   TFLOP/s); (c) the kernels at the new shapes: ``sparsify_ef`` at each
+   train step's (1, s) bf16, ``decode_attn`` at (16, 64, 8, 32768, 128)
+   against its plain version and SDPA, ``ssd_scan`` at S = 32768 against
+   its plain version.
 
 ``--mesh P`` runs, on each of P cards (one process a card, a file
 store): world 1 against world P for six policies at ResNet-9 width 4;
@@ -1717,50 +1741,24 @@ def recording_calls():
 
 
 def hold_recorded(tag: str, calls: dict) -> None:
-    """Each recorded call through the CUDA kernel and its plain version on
-    the same inputs, with phase 3's tolerances: the sparsify pair's
-    uploads and counts bit-equal and errors within 1e-6; ``ssd_scan``
-    within 2e-4 (1 + |want|) of the plain version in f64; ``decode_attn``
-    within 2e-5 (f32) or 3e-2 (bf16) (1 + |want|) at the call's own
-    length.  These launches come after the main path's counts were read."""
+    """Each recorded call through the CUDA kernel, its output held against
+    the plain version on the same inputs (``hold_against_plain``: phase
+    3's tolerances).  These launches come after the main path's counts
+    were read."""
     from repro_torch.kernels import decode_attn as DA
-    from repro_torch.kernels import ref as R
     from repro_torch.kernels import sparsify_ef as K
     from repro_torch.kernels import ssd_scan as SSD
 
     for (name, shape), (args, kw) in calls.items():
         if name == "decode_attn":
             got = DA.decode_attn_cuda(*args)
-            want = R.decode_attn_plain(*args)
-            tol = 2e-5 if args[0].dtype == torch.float32 else 3e-2
-            err, excess = _max_excess(got, want, tol)
-            if excess > 0:
-                fail(f"{tag}: decode_attn at {shape} length {args[3]} differs "
-                     f"by {err} from its plain version")
         elif name == "ssd_scan":
-            x, a, b, c = (t.float() for t in args[:4])
-            got = SSD.ssd_scan_cuda(x, a, b, c, args[4])
-            want = R.ssd_scan_plain(*(t.double() for t in (x, a, b, c)),
-                                    args[4])
-            err = 0.0
-            for g, w in zip(got, want):
-                e, excess = _max_excess(g, w, 2e-4)
-                if excess > 0:
-                    fail(f"{tag}: ssd_scan at {shape} differs by {e} from "
-                         f"its plain version")
-                err = max(err, e)
+            got = SSD.ssd_scan_cuda(*(t.float() for t in args[:4]), args[4])
+        elif name == "sparsify_ef":
+            got = K.sparsify_ef_cuda(*args)
         else:
-            if name == "sparsify_ef":
-                got = K.sparsify_ef_cuda(*args)
-                want = R.sparsify_ef_plain(*args)
-            else:
-                got = K.sparsify_quantize_ef_cuda(*args, kw.get("base", 0))
-                want = R.sparsify_quantize_ef_plain(*args, kw.get("base", 0))
-            err = (got[1].float() - want[1].float()).abs().max().item()
-            if not (torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
-                    and err <= 1e-6):
-                fail(f"{tag}: {name} at {shape} differs from its plain "
-                     f"version (error off by {err})")
+            got = K.sparsify_quantize_ef_cuda(*args, kw.get("base", 0))
+        err = hold_against_plain(name, args, kw, got, tag)
         held = dict(name=name, tag=tag, shape=list(shape),
                     dtype=str(args[0].dtype).replace("torch.", ""),
                     max_abs_err=err)
@@ -1771,7 +1769,7 @@ def hold_recorded(tag: str, calls: dict) -> None:
               f"inputs at {shape} {args[0].dtype}"
               + (f" length {args[3]}" if name == "decode_attn" else "")
               + f": max abs err {err}", flush=True)
-        del got, want
+        del got
     calls.clear()
     torch.cuda.empty_cache()
 
@@ -2587,32 +2585,79 @@ def hold_in_blocks(name: str, x, args, kw, out, tag: str) -> float:
     return worst
 
 
+def hold_against_plain(name: str, args, kw, out, tag: str) -> float:
+    """A kernel's output ``out`` on ``args`` against its plain version on
+    the same inputs, with phase 3's tolerances: the sparsify pair through
+    ``hold_in_blocks`` (uploads and counts bit-equal, errors within 1e-6);
+    ``decode_attn`` within 2e-5 (f32) or 3e-2 (bf16) (1 + |want|) at the
+    call's length; ``ssd_scan`` within 2e-4 (1 + |want|) of the plain
+    version in f64, one batch row at a time (its f64 chunk tiles at S =
+    32768 are 5.4 GB a row).  Returns the largest difference."""
+    from repro_torch.kernels import ref as R
+
+    if name.startswith("sparsify"):
+        return hold_in_blocks(name, args[0], args[1:], kw, out, tag)
+    if name == "decode_attn":
+        q, k, v, length = args
+        tol = 2e-5 if q.dtype == torch.float32 else 3e-2
+        err, excess = _max_excess(out, R.decode_attn_plain(q, k, v, length),
+                                  tol)
+        if excess > 0:
+            fail(f"{tag}: decode_attn at {_call_shape(name, args)} length "
+                 f"{length} differs by {err} from its plain version")
+        return err
+    x, a, b, c, chunk = args
+    err = 0.0
+    for i in range(x.shape[0]):
+        want = R.ssd_scan_plain(*(t[i:i + 1].float().double()
+                                  for t in (x, a, b, c)), chunk)
+        for got, w in zip((out[0][i:i + 1], out[1][i:i + 1]), want):
+            e, excess = _max_excess(got, w, 2e-4)
+            if excess > 0:
+                fail(f"{tag}: ssd_scan at {_call_shape(name, args)} row {i} "
+                     f"differs by {e} from its plain version")
+            err = max(err, e)
+        del want
+    return err
+
+
 @contextmanager
-def holding_in_run(tag: str, stats: dict):
-    """Hold every CUDA call the block makes through ``kernels/ops.py`` to
-    ``sparsify_ef`` / ``sparsify_quantize_ef`` against its plain version as
-    it returns, on the run's own inputs and outputs (``hold_in_blocks``;
-    no kernel is launched for it).  Its host seconds go to
-    ``stats["hold_s"]``; ``stats["peak"]`` keeps the run's peak memory
-    without the holding's temporaries (the peak counter is read before and
-    reset after each hold)."""
+def holding(tag: str, stats: dict,
+            names=("sparsify_ef", "sparsify_quantize_ef"),
+            first_per_shape: bool = False):
+    """Hold the CUDA calls the block makes through ``kernels/ops.py`` to
+    the kernels ``names`` (every call, or with ``first_per_shape`` the
+    first at each shape) against their plain versions as they return, on
+    the run's own inputs and outputs (``hold_against_plain``; no kernel
+    is launched for it).  Its host seconds go to ``stats["hold_s"]``;
+    ``stats["peak"]`` keeps the block's peak memory without the holding's
+    temporaries (the peak counter is read before and reset after each
+    hold)."""
     from repro_torch.kernels import ops
 
-    names = ("sparsify_ef", "sparsify_quantize_ef")
     real = {n: getattr(ops, n) for n in names}
+    seen = set()
 
     def spy(name):
-        def call(x, *args, **kw):
-            out = real[name](x, *args, **kw)
-            if not x.is_cuda:
+        def call(*args, **kw):
+            out = real[name](*args, **kw)
+            key = (name, _call_shape(name, args))
+            if not args[0].is_cuda or (first_per_shape and key in seen):
                 return out
+            seen.add(key)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             stats["peak"] = max(stats["peak"], torch.cuda.max_memory_allocated())
-            err = hold_in_blocks(name, x, args, kw, out, tag)
-            HELD.append(dict(name=name, tag=tag, shape=list(x.shape),
-                             dtype=str(x.dtype).replace("torch.", ""),
-                             max_abs_err=err))
+            err = hold_against_plain(name, args, kw, out, tag)
+            held = dict(name=name, tag=tag, shape=list(key[1]),
+                        dtype=str(args[0].dtype).replace("torch.", ""),
+                        max_abs_err=err)
+            if name == "decode_attn":
+                held["length"] = int(args[3])
+            HELD.append(held)
+            print(f"{tag}: {name} matches its plain version on the main "
+                  f"path's inputs at {key[1]} {args[0].dtype}: max abs err "
+                  f"{err}", flush=True)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             stats["hold_s"] += time.perf_counter() - t0
@@ -2708,7 +2753,7 @@ def dist_full_width(K, mesh, policy_name: str, kernel: str, smi: str,
     K.reset_launches()
     tag = (f"dist {policy_name}" if label == DIST_ARCH
            else f"dist {label} {policy_name}")
-    with holding_in_run(tag, stats):
+    with holding(tag, stats):
         state, hist = run_afl_rounds(system["step"], state, provider,
                                      batch_fn, sample_budgets(fl, 0))
         torch.cuda.synchronize()
@@ -2762,20 +2807,22 @@ def dist_full_width(K, mesh, policy_name: str, kernel: str, smi: str,
     return out
 
 
-def dist_kernel_times(K, s: int, card: str) -> dict:
+def dist_kernel_times(K, s: int, card: str, n: int = DIST_N,
+                      names=("sparsify_ef", "sparsify_quantize_ef")) -> dict:
     """Phase 19b: both sparsify kernels timed at the run's shape, (2,
     1,889,110,016) bf16, on random rows (thresholds keeping ~1 % and ~13 %
     of a row); bound: bytes over the HBM rate (x read, upload and error
-    written) against phase 3's operation counts at the f32 rate."""
+    written) against phase 3's operation counts at the f32 rate.  Phase
+    23c: ``sparsify_ef`` alone on one row (``n``, ``names``)."""
     g = torch.Generator(device="cuda").manual_seed(5)
-    x = torch.empty((DIST_N, s), dtype=torch.bfloat16, device="cuda")
+    x = torch.empty((n, s), dtype=torch.bfloat16, device="cuda")
     for c0 in range(0, s, HOLD_BLOCK):
         c1 = min(c0 + HOLD_BLOCK, s)
-        x[:, c0:c1] = torch.randn((DIST_N, c1 - c0), generator=g, device="cuda")
-    t = torch.tensor([2.5, 1.5], device="cuda")
-    steps = torch.tensor([0.01, 0.02], device="cuda")
-    levels = torch.tensor([7.0, 2047.0], device="cuda")
-    seeds = torch.tensor([11, 7930], dtype=torch.int32, device="cuda")
+        x[:, c0:c1] = torch.randn((n, c1 - c0), generator=g, device="cuda")
+    t = torch.tensor([2.5, 1.5], device="cuda")[:n]
+    steps = torch.tensor([0.01, 0.02], device="cuda")[:n]
+    levels = torch.tensor([7.0, 2047.0], device="cuda")[:n]
+    seeds = torch.tensor([11, 7930], dtype=torch.int32, device="cuda")[:n]
     n_el = x.numel()
     calls = {
         "sparsify_ef": (lambda: K.sparsify_ef_cuda(x, t), 4 * n_el),
@@ -2783,12 +2830,13 @@ def dist_kernel_times(K, s: int, card: str) -> dict:
             x, t, steps, levels, seeds, 0), 22 * n_el),
     }
     out = {}
-    for name, (fn, ops) in calls.items():
+    for name in names:
+        fn, ops = calls[name]
         ms = median_ms(fn, runs=9, batch=3)
-        b = bound(3 * 2 * n_el + 5 * 4 * DIST_N, ops, torch.float32)
-        out[name] = dict(ms=ms, shape=[DIST_N, s], dtype="bfloat16", **b,
+        b = bound(3 * 2 * n_el + 5 * 4 * n, ops, torch.float32)
+        out[name] = dict(ms=ms, shape=[n, s], dtype="bfloat16", **b,
                          bound_share=b["bound_ms"] / ms)
-        print(f"{name}: {ms:.4f} ms at ({DIST_N}, {s}) bf16 (bound "
+        print(f"{name}: {ms:.4f} ms at ({n}, {s}) bf16 (bound "
               f"{b['bound_ms']:.4f} ms by {b['bound_by']}) on {card}",
               flush=True)
     del x
@@ -3463,6 +3511,340 @@ def family_phase(K, SSD, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 23: the (arch x input shape) steps, the dry-run plan and the H100
+# roofline (launch/steps.py, dryrun.py, calculator.py, roofline.py)
+# ---------------------------------------------------------------------------
+
+# 23b: (arch, shape, layers kept of the published depth (0: all), global
+# batch on one card, launches the step must make); the reference test's
+# six pairs (tests/test_dryrun_small.py) and two that reach the other
+# kernels, each at its production seq_len and full width
+STEP_CASES = (
+    # N = 1 client (the single-rank mesh); batch 2: the vmapped gradient's
+    # activations at seq 4096 under remat "full" beside four bf16 copies
+    # of 3.2e9 parameters (25.7 GB) and the round's passes
+    ("llama3.2-3b", "train_4k", 0, 2, {"sparsify_ef": 1}),
+    ("whisper-large-v3", "train_4k", 0, 2, {"sparsify_ef": 1}),
+    # batch 2: 28.6 GB of weights and the cache (6.4 GB a batch row),
+    # which the prefill fills layer by layer
+    ("qwen2-moe-a2.7b", "prefill_32k", 0, 2, {}),
+    # the recurrent state is 21.5 GB in f32 at batch 128: no cut
+    ("mamba2-2.7b", "decode_32k", 0, 128, {}),
+    ("zamba2-7b", "long_500k", 0, 1, {}),
+    # 80 layers' caches at batch 128 are 687 GB: 8 layers, batch 16
+    ("qwen2-vl-72b", "decode_32k", 8, 16, {"decode_attn": 8}),
+    ("mamba2-2.7b", "prefill_32k", 0, 4, {"ssd_scan": 64}),
+    # 28 layers' caches at batch 128 are 481 GB: batch 8 (30.1 GB)
+    ("llama3.2-3b", "decode_32k", 0, 8, {"decode_attn": 28}),
+)
+# decode_attn's new shape (Qwen2-VL-72B's GQA: 64 heads over 8, batch 16,
+# a 32k cache), (B, H, KV, S, D); Llama's 32k decode is DECODE_DEEP
+DECODE_VL = (16, 64, 8, 32768, 128)
+SSD_32K = (4, 32768, 80, 64, 128, 256)  # Mamba2-2.7B's prefill_32k, batch 4
+# the kernels whose first call at each shape phase 23b holds
+STEP_KERNELS = ("sparsify_ef", "decode_attn", "ssd_scan")
+
+def plan_all(smi: str) -> dict:
+    """Phase 23a: the dry-run plan of all 40 (arch x shape) pairs at world
+    1 on the meta device (no card): each pair's argument GiB per card,
+    whether they fit 80 GB, its roofline terms and bottleneck.  Returns
+    {"arch x shape": record}."""
+    from repro_torch.configs import ASSIGNED_ARCHS, INPUT_SHAPES, get_config
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.steps import supported
+
+    out = {}
+    for arch in ASSIGNED_ARCHS:
+        for name, shape in INPUT_SHAPES.items():
+            label = f"{arch} x {name}"
+            if not supported(get_config(arch), shape):
+                out[label] = dict(status="skipped")
+                print(f"plan {label}: skipped (no sub-quadratic decode)",
+                      flush=True)
+                continue
+            rec, built = DR.plan(get_config(arch), shape)
+            del built
+            roof = rec["roofline"]
+            out[label] = rec
+            print(f"plan {label} (world 1): arguments "
+                  f"{rec['mem']['argument_gb'] * 1e9 / 2**30:.2f} GiB, fits "
+                  f"{rec['mem']['fits']}, t_compute {roof['t_compute']:.6g} s, "
+                  f"t_memory {roof['t_memory']:.6g} s, t_collective "
+                  f"{roof['t_collective']:.6g} s, bottleneck "
+                  f"{roof['bottleneck']}", flush=True)
+    if len(out) != 40:
+        fail(f"plan: {len(out)} pairs, not 40")
+    too_big = [k for k, r in out.items() if r["status"] == "ok"
+               and not r["mem"]["fits"]]
+    print(f"plan: {len(out)} pairs, {len(too_big)} whose arguments do not "
+          f"fit one card: {too_big} (sizes of a plan, no card used; "
+          f"{smi} is the card they are planned for)", flush=True)
+    return out
+
+
+def execute_on_card(smi: str) -> dict:
+    """Phase 23a: the dry-run CLI with ``--execute`` on the card for one
+    pair whose step fits (InternLM2-1.8B x long_500k: a decode at position
+    524,287 on an 8,192-slot ring): its record ``ok``, with the step's
+    seconds, peak and bound / measured."""
+    from repro_torch.launch import dryrun as DR
+
+    with tempfile.TemporaryDirectory() as d:
+        rec = DR.main(["--arch", "internlm2-1.8b", "--shape", "long_500k",
+                       "--execute", "--out", f"{d}/plan.jsonl"])[0]
+    ex = rec.get("execute", {})
+    if rec["status"] != "ok" or not ex.get("seconds", 0) > 0:
+        fail(f"dryrun --execute: {rec}")
+    print(f"dryrun --execute internlm2-1.8b x long_500k on {smi}: "
+          f"{json.dumps(ex)}", flush=True)
+    return rec
+
+
+def _check_step_out(label: str, kind: str, out, vocab: int, batch: int,
+                    probe=None, first: bool = True) -> dict:
+    """The step's outputs: a train round's w finite on a probe and moved
+    since round 0, and in the ``first`` round (every client in contact,
+    with its energy queue empty) uploads > 0 and bits > 0; a serve step's
+    logits (B, V) finite and their greedy tokens in [0, vocab)."""
+    if kind == "train":
+        state, m = out
+        w = state.w[probe[0]]
+        res = dict(uploads=float(m["uploads"].sum()),
+                   bits=float(m["bits"].sum()), k=float(m["k"].sum()),
+                   w_moved=float((w != probe[1]).float().mean()))
+        if first and not (res["uploads"] > 0 and res["bits"] > 0):
+            fail(f"step {label}: no upload: {res}")
+        if not bool(torch.isfinite(w.float()).all()) or not res["w_moved"] > 0:
+            fail(f"step {label}: w not finite or never moved: {res}")
+        return res
+    logits = out[0]
+    if tuple(logits.shape) != (batch, vocab):
+        fail(f"step {label}: logits {tuple(logits.shape)}, not {(batch, vocab)}")
+    if not bool(torch.isfinite(logits.float()).all()):
+        fail(f"step {label}: logits not finite")
+    tok = logits.float().argmax(-1)
+    if not (0 <= int(tok.min()) and int(tok.max()) < vocab):
+        fail(f"step {label}: greedy tokens outside [0, {vocab})")
+    return dict(tokens=tok[:4].tolist())
+
+
+def card_memory() -> dict:
+    """The card's memory in GiB: allocated and reserved by the caching
+    allocator, and held outside it (the total less the free and the
+    reserved: the CUDA context, cuBLAS and NCCL workspaces, modules)."""
+    free, total = torch.cuda.mem_get_info()
+    reserved = torch.cuda.memory_reserved()
+    return dict(allocated=torch.cuda.memory_allocated() / 2**30,
+                reserved=reserved / 2**30,
+                outside_allocator=(total - free - reserved) / 2**30,
+                free=free / 2**30, total=total / 2**30)
+
+
+def step_case(mods, mesh, arch: str, shape_name: str, layers: int,
+              batch: int, want: dict, smi: str) -> dict:
+    """Phase 23b: one (arch x shape) pair through ``launch/steps.py``'s
+    ``build_step`` at the production seq_len and full width, cut only as
+    printed, on arguments from ``materialize`` (a CUDA generator, seed 0);
+    the train step over the single-rank mesh with ``donate=True``.  Run
+    1 is the main path's: counts set to 0 just before and read just
+    after (exactly ``want``, every other kernel 0), the first call at each
+    kernel shape held as it returns; run 2 (the next round, whose client
+    MADS may keep silent to pay back round 1's energy, or the same serve
+    step again) is timed alone.  Prints the step seconds, peak GiB,
+    the calculator's bound for the cut shape (world 1, model_parallel 1),
+    bound / measured and model_flops / (seconds x 989 TFLOP/s)."""
+    from repro_torch.configs import INPUT_SHAPES, InputShape, get_config
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.calculator import step_analytics
+    from repro_torch.launch.dryrun import active_params
+    from repro_torch.launch.steps import arg_bytes, build_step, materialize
+
+    full = INPUT_SHAPES[shape_name]
+    cfg = get_config(arch)
+    cuts = []
+    if layers:
+        cuts.append(f"layers {cfg.num_layers} -> {layers}")
+        cfg = cfg.replace(num_layers=layers)
+    if batch != full.global_batch:
+        cuts.append(f"global batch {full.global_batch} -> {batch}")
+    shape = InputShape(full.name, full.seq_len, batch, full.kind)
+    train = shape.kind == "train"
+    if train:
+        cuts.append("N = 1 client (the single-rank mesh)")
+    label = f"{arch} x {shape_name}"
+    torch.cuda.empty_cache()
+    mem0 = card_memory()
+    print(f"step {label}: seq_len {shape.seq_len}, cuts: "
+          f"{'; '.join(cuts) or 'none'}; card memory at the start (GiB): "
+          f"{json.dumps(mem0)}", flush=True)
+    t0 = time.perf_counter()
+    built = build_step(cfg, shape, mesh if train else None, donate=True)
+    args = materialize(built, shape, torch.Generator(device="cuda").manual_seed(0),
+                       "cuda", mesh=mesh if train else None)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    model, rcfg = built["model"], built["cfg"]
+    n_params = model.num_params()
+    arg_gib = arg_bytes(args) / 2**30
+    probe = None
+    if train:
+        idx = torch.arange(0, n_params, 997, device="cuda")
+        probe = (idx, args[0].w[idx].clone())
+    runs = []
+    for i in range(2):
+        for mod in mods.values():
+            mod.reset_launches()
+        stats = dict(peak=0, hold_s=0.0, held=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with (holding(label, stats, STEP_KERNELS, first_per_shape=True)
+              if i == 0 else nullcontext()), \
+                (nullcontext() if train else torch.no_grad()):
+            out = built["step"](*args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0 - stats["hold_s"]
+        launches = {k: v for mod in mods.values() for k, v in mod.LAUNCHES.items()}
+        peak = max(stats["peak"], torch.cuda.max_memory_allocated()) / 2**30
+        expect = {k: want.get(k, 0) for k in launches}
+        if launches != expect:
+            fail(f"step {label} run {i + 1}: launches {launches}, not {expect}")
+        if i == 0:
+            main_launches = launches  # the main path's run
+        checked = _check_step_out(label, shape.kind, out, rcfg.vocab_size,
+                                  batch, probe, first=i == 0)
+        if train:  # the next round starts from the new (donated) state
+            args = (out[0],) + tuple(args[1:])
+        del out
+        runs.append(dict(seconds=secs, peak_gib=peak, held=stats["held"],
+                         hold_s=stats["hold_s"], **checked))
+    if runs[0]["held"] != sum(1 for v in want.values() if v):
+        fail(f"step {label}: {runs[0]['held']} kernel shapes held, not "
+             f"{sum(1 for v in want.values() if v)}")
+    tokens = batch * (shape.seq_len if shape.kind != "decode" else 1)
+    mf = RL.model_flops(n_params, tokens, active_params(rcfg, model), train=train)
+    roof = RL.analyze(step_analytics(rcfg, shape, 1, n_params, model_parallel=1),
+                      RL.step_collectives(shape.kind, n_params, 1),
+                      model_flops_total=mf)
+    secs = runs[1]["seconds"]
+    res = dict(arch=arch, shape=shape_name, cut_shape=[shape.name,
+               shape.seq_len, batch, shape.kind], cuts=cuts,
+               layers=rcfg.num_layers, num_params=n_params, setup_s=setup_s,
+               argument_gib=arg_gib, memory_at_start=mem0, runs=runs, launches=main_launches,
+               seconds=secs, peak_gib=max(r["peak_gib"] for r in runs),
+               bound_s=roof.bound_s, bound_by=roof.bottleneck,
+               t_compute=roof.t_compute, t_memory=roof.t_memory,
+               bound_over_measured=roof.bound_s / secs,
+               model_flops=mf, model_flops_share=mf / (secs * RL.PEAK_FLOPS))
+    print(f"step {label} on {smi}: {secs:.6g} s (run 1: "
+          f"{runs[0]['seconds']:.6g} s), peak {res['peak_gib']:.2f} GiB "
+          f"(arguments {arg_gib:.2f}), calculator's bound {roof.bound_s:.6g} s "
+          f"by {roof.bottleneck} at InputShape{tuple(res['cut_shape'])}, "
+          f"bound / measured {res['bound_over_measured']:.4g}, model_flops "
+          f"/ (s x 989e12) {res['model_flops_share']:.4g}, launches "
+          f"{main_launches}; unrounded {json.dumps(res)}", flush=True)
+    del args, built, model, probe
+    torch.cuda.empty_cache()
+    return res
+
+
+def step_kernel_times(K, DA, SSD, R, steps: dict, card: str) -> dict:
+    """Phase 23c: the kernels at the steps' new shapes, by phase 3's
+    method: ``sparsify_ef`` on one random bf16 row of each train step's s
+    (phase 19b's ``dist_kernel_times``); ``decode_attn``
+    at Qwen2-VL's (16, 64, 8, 32768, 128) bf16, length 32768, beside its
+    plain version and SDPA; ``ssd_scan`` at S = 32768 (Mamba2-2.7B's
+    prefill, batch 4) beside its f32 plain version (bound: its 3xTF32
+    operations)."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    out = {"sparsify_ef": {
+        label: dist_kernel_times(K, r["num_params"], card, n=1,
+                                 names=("sparsify_ef",))["sparsify_ef"]
+        for label, r in steps.items() if r["shape"] == "train_4k"}}
+
+    b, h, kv, s, d = DECODE_VL
+    dt = torch.bfloat16
+    q = _randn((b, h, d), gen, dt)
+    k, v = _randn((b, s, kv, d), gen, dt), _randn((b, s, kv, d), gen, dt)
+    mask = torch.ones((1, 1, 1, s), dtype=torch.bool, device="cuda")
+    err, excess = _max_excess(DA.decode_attn_cuda(q, k, v, s),
+                              R.decode_attn_plain(q, k, v, s), 3e-2)
+    if excess > 0:
+        fail(f"decode_attn at {DECODE_VL} differs by {err} from its plain "
+             f"version")
+    res = dict(shape=list(DECODE_VL), dtype="bfloat16", length=s,
+               ms=median_ms(lambda: DA.decode_attn_cuda(q, k, v, s)),
+               plain_ms=median_ms(lambda: R.decode_attn_plain(q, k, v, s),
+                                  runs=9, batch=3),
+               library_ms=median_ms(lambda: torch.nn.functional
+                                    .scaled_dot_product_attention(
+                                        q[:, :, None], k.transpose(1, 2),
+                                        v.transpose(1, 2), attn_mask=mask,
+                                        enable_gqa=True)),
+               max_abs_err=err,
+               **bound(2 * b * s * kv * d * 2 + 2 * b * h * d * 2,
+                       4 * b * h * s * d, dt))
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    out["decode_attn"] = res
+    print(f"decode_attn at (B, H, KV, S, D) = {DECODE_VL} bf16: "
+          f"{json.dumps(res)} on {card}", flush=True)
+    del q, k, v
+
+    b, s, h, p, n, ch = SSD_32K
+    x, a = _randn((b, s, h, p), gen), -_randn((b, s, h), gen).abs() * 0.5
+    bb, cc = _randn((b, s, n), gen), _randn((b, s, n), gen)
+    st_numel = b * h * p * n
+    nbytes = 4 * (2 * x.numel() + a.numel() + 2 * bb.numel() + st_numel)
+    res = dict(shape=list(SSD_32K), dtype="float32",
+               ms=median_ms(lambda: SSD.ssd_scan_cuda(x, a, bb, cc, ch),
+                            runs=9, batch=3),
+               plain_ms=median_ms(lambda: R.ssd_scan_plain(x, a, bb, cc, ch),
+                                  runs=5, batch=1),
+               library_ms=None,
+               **bound(nbytes, 3 * ssd_causal_flops(b, s, h, p, n, ch), "tf32"))
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    out["ssd_scan"] = res
+    print(f"ssd_scan at (B, S, H, P, N, chunk) = {SSD_32K} f32: "
+          f"{json.dumps(res)} on {card}", flush=True)
+    del x, a, bb, cc
+    torch.cuda.empty_cache()
+    return out
+
+
+def steps_phase(mods, K, DA, SSD, R, smi: str) -> dict:
+    """Phase 23: (a) the plan of all 40 pairs, and one pair through the
+    dry-run CLI's ``--execute``; (b) ``STEP_CASES`` through
+    ``build_step`` on the card (the train steps over a single-rank NCCL
+    client mesh); (c) the kernels at the steps' new shapes."""
+    from repro_torch.launch.mesh import make_client_mesh
+
+    t0 = time.perf_counter()
+    plan = plan_all(smi)
+    executed = execute_on_card(smi)
+    base = torch.cuda.memory_allocated() / 2**30
+    mesh = make_client_mesh(1)
+    try:
+        steps = {}
+        for arch, shape, layers, batch, want in STEP_CASES:
+            steps[f"{arch} x {shape}"] = step_case(mods, mesh, arch, shape,
+                                                   layers, batch, want, smi)
+    finally:
+        mesh.close()
+    left = torch.cuda.memory_allocated() / 2**30
+    if left > base + 1:
+        fail(f"steps: {left - base:.2f} GiB still allocated after the steps")
+    times = step_kernel_times(K, DA, SSD, R, steps, smi)
+    print(f"steps phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(plan=plan, executed=executed, steps=steps, times=times)
+
+
+def step_launches(steps: dict, name: str) -> dict:
+    """Phase 23b's launch counts of one kernel, by step, where nonzero."""
+    return {k: r["launches"][name] for k, r in steps["steps"].items()
+            if r["launches"].get(name)}
+
+
+# ---------------------------------------------------------------------------
 # --mesh P: the distributed round over P cards (one process a card)
 # ---------------------------------------------------------------------------
 
@@ -3852,8 +4234,9 @@ def main() -> None:
         return mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     only = (set(sys.argv[2].split(",")) if sys.argv[1:2] == ["--only"]
             else None)
-    if only is not None and not only <= {"3c", "19", "20", "21", "22"}:
-        fail(f"--only takes phases of 3c, 19, 20, 21, 22, not {sys.argv[2]}")
+    if only is not None and not only <= {"3c", "19", "20", "21", "22", "23"}:
+        fail(f"--only takes phases of 3c, 19, 20, 21, 22, 23, not "
+             f"{sys.argv[2]}")
     from repro_torch.kernels import decode_attn as DA
     from repro_torch.kernels import ref as R
     from repro_torch.kernels import sparsify_ef as K
@@ -3881,8 +4264,9 @@ def main() -> None:
                   "19": lambda: dist_phase(K, smi),
                   "20": lambda: mesh_phase(smi),
                   "21": lambda: remat_phase(smi),
-                  "22": lambda: family_phase(K, SSD, smi)}
-        done = {p: phases[p]() for p in ("3c", "19", "20", "21", "22")
+                  "22": lambda: family_phase(K, SSD, smi),
+                  "23": lambda: steps_phase(mods, K, DA, SSD, R, smi)}
+        done = {p: phases[p]() for p in ("3c", "19", "20", "21", "22", "23")
                 if p in only}
         print(json.dumps(dict(phases=sorted(done), held=HELD), default=str))
         return
@@ -3994,6 +4378,11 @@ def main() -> None:
     # the CLI, full-width Qwen3-MoE and Zamba2 in the distributed round
     family = family_phase(K, SSD, smi)
 
+    # 23. the (arch x input shape) steps: the dry-run plan of all 40 pairs,
+    # eight pairs through build_step at full width, their kernels' shapes
+    steps = steps_phase(mods, K, DA, SSD, R, smi)
+    torch.cuda.empty_cache()
+
     # 18. device time by kernel, last (the profiler slows later launches)
     profile_kernels(DA, SSD)
     profiled = {}
@@ -4036,6 +4425,9 @@ def main() -> None:
              launches_family_lm={k: v["launches"]["sparsify_ef"]
                                  for k, v in family["lm"].items()},
              launches_family_dist=family_launches(family, "sparsify_ef"),
+             # phase 23: one round of each train step, one client (1, s)
+             launches_steps=step_launches(steps, "sparsify_ef"),
+             steps_times=steps["times"]["sparsify_ef"],
              **{f"{k}_wide_row": v for k, v in wide["sparsify_ef"].items()},
              **timing["sparsify_ef"]),
         dict(name="sparsify_quantize_ef", route="cuda",
@@ -4076,6 +4468,12 @@ def main() -> None:
              launches=launches_dense["decode_attn"],
              launches_serve={a: l["decode_attn"] for a, (l, _) in others.items()
                              if l["decode_attn"]},
+             # phase 23: one decode step a layer of Qwen2-VL (8 of 80) at
+             # batch 16 and of Llama at batch 8, each on a 32k cache
+             launches_steps=step_launches(steps, "decode_attn"),
+             **{f"{key}_vl_32k": steps["times"]["decode_attn"][key] for key in
+                ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                 "bound_share")},
              **decode["main"],
              **{f"{key}_32k": decode["deep"][key] for key in
                 ("ms", "ms_per_call", "plain_ms", "library_ms", "bound_ms",
@@ -4094,6 +4492,10 @@ def main() -> None:
                                  for k, v in family["lm"].items()
                                  if v["launches"]["ssd_scan"]},
              launches_family_dist_eval=family_launches(family, "ssd_scan"),
+             # phase 23: Mamba2-2.7B's prefill_32k (batch 4), a layer each
+             launches_steps=step_launches(steps, "ssd_scan"),
+             **{f"{key}_32k": steps["times"]["ssd_scan"][key] for key in
+                ("shape", "ms", "plain_ms", "bound_ms", "bound_share")},
              **ssd),
     ]
     for entry in kernels:

@@ -1,5 +1,8 @@
 from repro_torch.configs.base import (
+    ASSIGNED_ARCHS,
+    INPUT_SHAPES,
     FLConfig,
+    InputShape,
     ModelConfig,
     get_config,
     list_configs,
@@ -8,7 +11,10 @@ from repro_torch.configs.base import (
 )
 
 __all__ = [
+    "ASSIGNED_ARCHS",
+    "INPUT_SHAPES",
     "FLConfig",
+    "InputShape",
     "ModelConfig",
     "get_config",
     "list_configs",

@@ -1,6 +1,9 @@
-"""Config system: the model config, the federated config and the registry.
+"""Config system: input shapes, the model config, the federated config
+and the registry.
 
-``FLConfig`` copies ``repro.configs.base.FLConfig`` with the same fields
+``InputShape`` and ``INPUT_SHAPES`` copy the reference's four production
+shapes (same names, values and order), ``ASSIGNED_ARCHS`` its ten
+architectures.  ``FLConfig`` copies ``repro.configs.base.FLConfig`` with the same fields
 and defaults, so a configuration means the same thing in both packages;
 the knobs of layers not ported yet are refused where they would be read.
 ``ModelConfig`` has the reference's model fields and defaults for every
@@ -18,6 +21,26 @@ import torch
 from repro_torch.sharding.rules import torch_dtype
 
 REMAT_POLICIES = ("none", "full", "dots")  # models/remat.py's POLICIES
+
+# ---------------------------------------------------------------------------
+# Input shapes assigned to this paper.
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)
@@ -81,6 +104,13 @@ class ModelConfig:
     @property
     def is_moe(self) -> bool:
         return self.num_experts > 0
+
+    @property
+    def supports_long_context(self) -> bool:
+        """True if long_500k decode is runnable (a sub-quadratic path
+        exists): the recurrent state of ssm and hybrid, the sliding-window
+        ring of dense, MoE and VLM; not the enc-dec audio family."""
+        return self.family != "audio"
 
     @property
     def activation_dtype(self) -> torch.dtype:
@@ -224,6 +254,20 @@ def list_configs():
     if not _REGISTRY:
         load_all()
     return sorted(_REGISTRY)
+
+
+ASSIGNED_ARCHS = (
+    "qwen2-vl-72b",
+    "llama3.2-3b",
+    "internlm2-1.8b",
+    "qwen2-7b",
+    "qwen3-32b",
+    "mamba2-2.7b",
+    "whisper-large-v3",
+    "qwen2-moe-a2.7b",
+    "zamba2-7b",
+    "qwen3-moe-30b-a3b",
+)
 
 
 def load_all() -> None:

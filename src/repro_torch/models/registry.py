@@ -6,6 +6,8 @@ core can vmap them over devices.  Every family of the reference is here:
 the paper's two models (vision: ResNet-9; trajectory: LaneGCN) and the
 LLM families (dense, MoE, ssm, hybrid, audio enc-dec, VLM);
 ``load_params`` carries a reference parameter tree (numpy arrays) over.
+``input_specs`` gives a step's inputs at an ``InputShape`` as meta tensors
+(shapes and dtypes, no memory), the reference's ``ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.sharding.rules import init_params, torch_dtype
 from repro_torch.utils.tree import TreeLayout, tree_flatten, tree_unflatten
 
@@ -121,6 +123,63 @@ def load_params(model: Model, tree, device="cpu") -> dict:
            for s in tree_flatten(model.specs)[1]]
     return tree_unflatten(paths, [_to_tensor(l, d, device)
                                   for l, d in zip(leaves, dts)])
+
+
+# ---------------------------------------------------------------------------
+# Input specs (meta tensors + logical dims) per (arch, input shape)
+# ---------------------------------------------------------------------------
+
+N_IMG_PATCHES = 256  # stub vision patches for VLM train/prefill
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape):
+    """Returns (dict of meta tensors, dict of logical dims) for the step
+    inputs (excluding params and caches), the reference's tree: train and
+    prefill take int32 ``tokens`` (and, for train, ``labels``) of (B, S),
+    the VLM ``min(256, S // 2)`` bf16 ``vision_embeds`` ahead of S - n_img
+    text tokens, the audio family bf16 ``frames`` of (B, encoder_seq,
+    d_model); decode takes ``token`` (B,) and ``pos`` ()."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def meta(shp, dt=torch.int32):
+        return torch.empty(shp, dtype=dt, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "vlm":
+            n_img = min(N_IMG_PATCHES, s // 2)
+            n_txt = s - n_img
+            tree = {
+                "tokens": meta((b, n_txt)),
+                "labels": meta((b, n_txt)),
+                "vision_embeds": meta((b, n_img, cfg.d_model), torch.bfloat16),
+            }
+            dims = {
+                "tokens": ("batch", "seq"),
+                "labels": ("batch", "seq"),
+                "vision_embeds": ("batch", "seq", "embed"),
+            }
+        elif cfg.family == "audio":
+            tree = {
+                "tokens": meta((b, s)),
+                "labels": meta((b, s)),
+                "frames": meta((b, cfg.encoder_seq, cfg.d_model), torch.bfloat16),
+            }
+            dims = {
+                "tokens": ("batch", "seq"),
+                "labels": ("batch", "seq"),
+                "frames": ("batch", "pos", "embed"),
+            }
+        else:
+            tree = {"tokens": meta((b, s)), "labels": meta((b, s))}
+            dims = {"tokens": ("batch", "seq"), "labels": ("batch", "seq")}
+        if shape.kind == "prefill":
+            tree.pop("labels")
+            dims.pop("labels")
+        return tree, dims
+
+    # decode: one new token against a seq_len-deep cache
+    return {"token": meta((b,)), "pos": meta(())}, {"token": ("batch",),
+                                                    "pos": ()}
 
 
 def demo_batch(cfg: ModelConfig, batch: int, seq: int,

@@ -96,15 +96,17 @@ def _block(lp, cfg, x, cos, sin):
 
 
 def forward(params, cfg, tokens=None, *, embeds=None, positions=None,
-            collect_kv=False):
-    """Returns (logits, aux_loss), and the stacked (k, v) of every layer,
-    each (L, B, S, KV, D), too if ``collect_kv``.
+            cache=None):
+    """Returns (logits, aux_loss).
 
     ``embeds`` (B, S, d) replaces the token embedding (the VLM's stub
     injection).  ``positions``: (B, S), or (3, B, S) for M-RoPE; 0..S-1
     by default (on all three streams for M-RoPE).  Each layer runs under
-    ``cfg.remat``'s checkpoint (``models/remat.py``) unless
-    ``collect_kv``.
+    ``cfg.remat``'s checkpoint (``models/remat.py``) unless ``cache``.
+    With ``cache`` (``init_cache``'s, at least S slots: the prefill) each
+    layer's k and v go into its first S slots as the layer returns, so no
+    layer's k and v outlive it, and the logits are the last position's
+    alone, (B, 1, V).
     """
     x = (L.embed(params, cfg, tokens) if embeds is None
          else embeds.to(cfg.activation_dtype))
@@ -116,7 +118,6 @@ def forward(params, cfg, tokens=None, *, embeds=None, positions=None,
     cos, sin = L.rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta,
                               cfg.mrope_sections)
     aux = torch.zeros((), dtype=F32, device=x.device)
-    ks, vs = [], []
 
     def body(lp, x, cos, sin):  # the layer ``cfg.remat`` checkpoints
         x, a, _, _ = _block(lp, cfg, x, cos, sin)
@@ -124,20 +125,31 @@ def forward(params, cfg, tokens=None, *, embeds=None, positions=None,
 
     for i in range(cfg.num_layers):
         lp = layer(params["layers"], i)
-        if collect_kv:  # the prefill: serving keeps no checkpoint
+        if cache is not None:  # the prefill: serving keeps no checkpoint
             x, a, k, v = _block(lp, cfg, x, cos, sin)
-            ks.append(k)
-            vs.append(v)
+            _write_kv(cache, cfg, i, k, v)
         else:
             out = checkpoint(body, cfg.remat, lp, x, cos, sin)
             x, a = out if cfg.is_moe else (out, None)
         if a is not None:
             aux = aux + a
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = L.unembed(params, cfg, x)
-    if collect_kv:
-        return logits, aux, (torch.stack(ks), torch.stack(vs))
-    return logits, aux
+    if cache is not None:
+        x = x[:, -1:]
+    return L.unembed(params, cfg, x), aux
+
+
+def _write_kv(cache, cfg, i: int, k, v):
+    """Layer i's k and v (B, S, KV, D) into the cache's first S slots,
+    quantised for an int8 cache."""
+    s = k.shape[1]
+    if cfg.kv_cache_dtype == "int8":
+        k, k_scale = L.quantize_kv(k)
+        v, v_scale = L.quantize_kv(v)
+        cache["k_scale"][i, :, :s] = k_scale
+        cache["v_scale"][i, :, :s] = v_scale
+    cache["k"][i, :, :s] = k
+    cache["v"][i, :, :s] = v
 
 
 def loss_fn(params, cfg, batch):
@@ -174,25 +186,19 @@ def prefill(params, cfg, tokens, *, embeds=None, positions=None,
     """Run the prompt, return (last-token logits, filled cache).
 
     The cache is allocated once at ``max_seq`` slots, (L, B, max_seq, KV,
-    D), and ``decode_step`` writes it in place; ``length`` is a Python int.
-    An int8 cache holds the quantised k and v and their scales.
+    D), filled layer by layer by ``forward``, and ``decode_step`` writes
+    it in place; ``length`` is a Python int.  An int8 cache holds the
+    quantised k and v and their scales.
     """
-    logits, _, (ks, vs) = forward(params, cfg, tokens, embeds=embeds,
-                                  positions=positions, collect_kv=True)
-    b, s = (tokens.shape if embeds is None else embeds.shape[:2])
+    src = tokens if embeds is None else embeds
+    b, s = src.shape[:2]
     max_seq = max_seq or s
     if max_seq < s:
         raise ValueError(f"max_seq {max_seq} < prompt length {s}")
-    device = logits.device
-    cache = init_cache(cfg, b, max_seq, device)
-    if cfg.kv_cache_dtype == "int8":
-        ks, k_scale = L.quantize_kv(ks)
-        vs, v_scale = L.quantize_kv(vs)
-        cache["k_scale"][:, :, :s] = k_scale
-        cache["v_scale"][:, :, :s] = v_scale
-    cache["k"][:, :, :s] = ks
-    cache["v"][:, :, :s] = vs
-    cache["pos"][:, :s] = torch.arange(s, dtype=torch.int32, device=device)
+    cache = init_cache(cfg, b, max_seq, src.device)
+    logits, _ = forward(params, cfg, tokens, embeds=embeds,
+                        positions=positions, cache=cache)
+    cache["pos"][:, :s] = torch.arange(s, dtype=torch.int32, device=src.device)
     cache["length"] = s
     return logits[:, -1], cache
 

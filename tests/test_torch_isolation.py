@@ -2,7 +2,8 @@
 
 An AST scan of every module of ``src/repro_torch`` and of ``chip_smoke.py``
 finds no import of ``jax`` or ``repro``, and importing the training,
-serving and soak CLIs in a fresh interpreter leaves ``jax`` and ``repro``
+serving, soak and dry-run CLIs, the steps and ``optim`` in a fresh
+interpreter leaves ``jax`` and ``repro``
 out of ``sys.modules``.
 """
 import ast
@@ -60,6 +61,11 @@ def test_serve_cli_import_leaves_jax_out():
 def test_soak_cli_import_leaves_jax_out():
     _import_leaves_jax_out("repro_torch.launch.soak, repro_torch.serve, "
                            "repro_torch.compression.wire")
+
+
+def test_steps_dryrun_optim_import_leaves_jax_out():
+    _import_leaves_jax_out("repro_torch.launch.dryrun, "
+                           "repro_torch.launch.steps, repro_torch.optim")
 
 
 def test_distributed_import_leaves_jax_out():
