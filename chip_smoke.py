@@ -4,8 +4,10 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --time-tree DIR   # time another checkout's kernels
     python3 chip_smoke.py --only 19,20      # phases 1, 2 and those named
-                                            # (of 3c, 19-23) alone
+                                            # (of 3c, 19-24) alone
     python3 chip_smoke.py --mesh 4          # the round over 4 cards
+    python3 chip_smoke.py --mesh 4 --only 24  # phases 24b-d alone
+    python3 chip_smoke.py --mesh 4 --only 24cd  # phases 24c-d alone
 
 Phases, each of which raises on failure (a failed phase exits non-zero):
 
@@ -259,7 +261,17 @@ Phases, each of which raises on failure (a failed phase exits non-zero):
    TFLOP/s); (c) the kernels at the new shapes: ``sparsify_ef`` at each
    train step's (1, s) bf16, ``decode_attn`` at (16, 64, 8, 32768, 128)
    against its plain version and SDPA, ``ssd_scan`` at S = 32768 against
-   its plain version.
+   its plain version;
+24. the model axis (``sharding/rules.py``, ``sharding/collectives.py``,
+   the tensor-parallel layers, the round on blocks; run after 23): (a)
+   the dry-run plan of every pair on the meta device at a model axis of
+   1, 2, 4 and 8 (world = M): how many pairs' arguments fit one card, GB
+   a card (the families with no model axis yet from the rules alone),
+   the leaves a layer gathers; phase 19's full-width InternLM2 ``mads``
+   rounds again through a (1, 1) NCCL mesh made with a model axis of 1
+   and the rules passed explicitly: bits, k, b and the final w bit-equal
+   to phase 19's, one ``sparsify_ef`` a round, each held as it returns.
+   The four-card phases 24b-d run under ``--mesh 4`` (below).
 
 ``--mesh P`` runs, on each of P cards (one process a card, a file
 store): world 1 against world P for six policies at ResNet-9 width 4;
@@ -269,7 +281,17 @@ and the four batched on its card: every history bit-equal, seed-rounds/s
 of both); the ingest mesh at s = 6,573,130, batch 64, 1,024 ``topk``
 uploads (w bit-equal on every rank; on rank 0 one card's server: counts
 and bins equal, w within 1e-6 of its largest entry at 97 % of the
-coordinates and 1e-4 everywhere; uploads/s of both).
+coordinates and 1e-4 everywhere; uploads/s of both).  At P = 4 it then
+runs phases 24b-d (``--only 24``: those alone): (b) full-width
+InternLM2-1.8B on a (data 2, model 2) mesh, N = 2 bf16 clients, 4
+``mads`` rounds against rank 0's one-card rounds (``axis_internlm2``),
+the sampled threshold and count on one x exact; (c) Qwen3-32B x
+train_4k through ``build_step`` on (1, 4), batch 2, remat full, cut to
+the deepest depth whose peak stays under 75 GiB a card
+(``axis_train_step``); (d) Qwen2-VL-72B at all 80 layers served over
+(1, 4) through ``launch/serve.py`` (batch 4, prompt 2048, 32 tokens,
+every ``decode_attn`` call held) after 8 layers against one card, and
+its decode_32k at batch 8 (``axis_serve``).
 
 The last three lines are the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -283,6 +305,7 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -1696,6 +1719,7 @@ def ingest_against_afl_round(smi: str, policies=INGEST_POLICIES,
 # main-path calls of phases 15-16, held against the plain versions: one
 # entry per (kernel, tag, shape), read into the kernels line
 HELD = []
+KEPT = {}  # host copies one phase keeps for a later one
 
 
 def _call_shape(name: str, args) -> tuple:
@@ -2676,7 +2700,7 @@ def holding(tag: str, stats: dict,
 
 
 def dist_full_width(K, mesh, policy_name: str, kernel: str, smi: str,
-                    cfg=None, SSD=None) -> dict:
+                    cfg=None, SSD=None, keep: str = "", rules=None) -> dict:
     """Phase 19a: ``make_afl_train_system`` on the single-rank NCCL mesh at
     full-width InternLM2-1.8B (bf16 weights and client states), N = 2,
     global batch 4 (2 a client), seq 512, 4 rounds through
@@ -2687,7 +2711,9 @@ def dist_full_width(K, mesh, policy_name: str, kernel: str, smi: str,
     round seconds leave the holding out.  ``cfg`` replaces InternLM2
     (phase 22); with ``SSD`` the two evals' ``ssd_scan`` launches are
     counted (one a Mamba2 layer of a hybrid each) and the first held
-    against its plain version."""
+    against its plain version.  ``keep``: the final w goes to the host as
+    ``KEPT[keep]`` (phase 24a holds it bit for bit); ``rules``: the
+    placement's rules (``core/distributed.py::placement``)."""
     from repro_torch.configs import FLConfig, get_config
     from repro_torch.core import baselines as BL
     from repro_torch.core import mads as M
@@ -2717,7 +2743,8 @@ def dist_full_width(K, mesh, policy_name: str, kernel: str, smi: str,
     t0 = time.perf_counter()
     system = make_afl_train_system(
         model, cfg, mesh, dcfg=dcfg, controller=policy.controller,
-        compressor=policy.compressor, staleness=policy.staleness, donate=True)
+        compressor=policy.compressor, staleness=policy.staleness, donate=True,
+        rules=rules)
     state = system["init_state"](0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -2801,6 +2828,8 @@ def dist_full_width(K, mesh, policy_name: str, kernel: str, smi: str,
     print(f"dist {label} (full width, s = {s:,}, bf16 states, N = "
           f"{DIST_N}, batch {DIST_BATCH}, seq {DIST_SEQ}) {policy_name} on "
           f"{smi}: {json.dumps(out)}", flush=True)
+    if keep:
+        KEPT[keep] = state.w.cpu()
     del state, hist, system, batches, w0, probe, model
     torch.cuda.empty_cache()
     hold_recorded(f"dist {label} eval", evals)
@@ -2992,8 +3021,11 @@ def dist_phase(K, smi: str) -> dict:
     base = torch.cuda.memory_allocated() / 2**30
     mesh = make_client_mesh(DIST_N)
     try:
-        runs = {policy: dist_full_width(K, mesh, policy, kernel, smi)
+        runs = {policy: dist_full_width(K, mesh, policy, kernel, smi,
+                                        keep=f"dist {policy} w")
                 for policy, kernel in DIST_RUNS}
+        KEPT.pop("dist mads-joint w")
+        KEPT["dist mads"] = runs["mads"]  # phase 24a holds its rounds
         left = torch.cuda.memory_allocated() / 2**30
         if left > base + 1:
             fail(f"dist: {left - base:.2f} GiB still allocated after the "
@@ -3845,6 +3877,795 @@ def step_launches(steps: dict, name: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 24: the model axis (sharding/rules.py, sharding/collectives.py,
+# the tensor-parallel layers, the round on blocks)
+# ---------------------------------------------------------------------------
+
+AXIS_PLAN_M = (1, 2, 4, 8)  # 24a: the plan's model axes (world = M)
+AXIS_TRAIN = ("qwen3-32b", 2, (16, 24))  # 24c: arch, batch, calibration depths
+# 24c: bytes a rank's parameter holds at the round's sparsify pass: w and
+# the client's w_n, g_n, e_n, its gradient, x, upload and error, in bf16
+AXIS_PASS_BYTES = 16
+AXIS_PEAK_GIB = 75.0  # 24c: the deepest cut whose peak stays under this
+AXIS_SERVE = ("qwen2-vl-72b", 4, 2048, 8, 8)  # 24d: arch, batch, prompt,
+# the depth compared with one card, decode_32k's batch (a cut from 128)
+AXIS_REDUCED = False  # the reduced configs (a rehearsal over gloo only)
+
+
+def axis_cfg(arch: str, layers: int = 0):
+    """A config of phase 24: full width (reduced in a rehearsal), cut to
+    ``layers`` when given."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if AXIS_REDUCED:
+        cfg = cfg.reduced()
+    return cfg.replace(num_layers=layers) if layers else cfg
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _reset_peak(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak_gib(dev) -> float:
+    return (torch.cuda.max_memory_allocated(dev) / 2**30
+            if dev.type == "cuda" else 0.0)
+
+
+def _free(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def axis_plan(smi: str) -> dict:
+    """Phase 24a: the dry-run plan (``launch/dryrun.py``) of every pair on
+    the meta device at a model axis of 1, 2, 4 and 8 (world = M): how many
+    pairs' arguments fit one card, each pair's GB per card (the families
+    with no model axis yet from the rules alone) and the leaves a layer
+    gathers."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import ASSIGNED_ARCHS, INPUT_SHAPES
+    from repro_torch.launch import dryrun as DR
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for m in AXIS_PLAN_M:
+            recs = {}
+            for arch in ASSIGNED_ARCHS:
+                for shape in INPUT_SHAPES:
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        rec = DR.run_one(arch, shape, out_path=f"{d}/p.jsonl",
+                                         world=m, model=m)
+                    recs[f"{arch} x {shape}"] = rec
+            sized = {k: r for k, r in recs.items() if "mem" in r}
+            errors = [k for k, r in recs.items() if r["status"] == "error"]
+            if errors or len(sized) != 39:
+                fail(f"plan at model {m}: {len(sized)} pairs sized, errors "
+                     f"{errors}")
+            fits = sorted(k for k, r in sized.items() if r["mem"]["fits"])
+            out[m] = dict(
+                fit=len(fits), sized=len(sized),
+                not_ported=sum(r["status"] == "not_ported"
+                               for r in sized.values()),
+                gb={k: round(r["mem"]["argument_gb"], 3)
+                    for k, r in sized.items()},
+                gathered={k.split(" x ")[0]: r["gathered"]
+                          for k, r in sized.items() if r.get("gathered")},
+                fits=fits)
+            print(f"plan at model {m} (world {m}, sizes only; {smi} is the "
+                  f"card they are planned for): {len(fits)} of {len(sized)} "
+                  f"pairs fit one card ({out[m]['not_ported']} sized from the "
+                  f"rules alone); {json.dumps(out[m])}", flush=True)
+    return out
+
+
+def axis_phase(K, smi: str) -> dict:
+    """Phase 24a: the plan at M = 1, 2, 4, 8, then phase 19's full-width
+    InternLM2 ``mads`` run again through a (1, 1) NCCL mesh made with a
+    model axis of 1 and the rules passed explicitly: bits, k and the final
+    w bit-equal to phase 19's."""
+    from repro_torch.launch.mesh import make_client_mesh
+    from repro_torch.sharding.rules import RULES_TRAIN_CLIENT
+
+    t0 = time.perf_counter()
+    plan = axis_plan(smi)
+    if "dist mads w" not in KEPT:  # phase 19 did not run (--only)
+        mesh = make_client_mesh(DIST_N)
+        try:
+            KEPT["dist mads"] = dist_full_width(K, mesh, "mads", "sparsify_ef",
+                                                smi, keep="dist mads w")
+        finally:
+            mesh.close()
+    mesh = make_client_mesh(DIST_N, model=1, family="dense")
+    try:
+        if (mesh.axis_sizes, mesh.coords) != ({"data": 1, "model": 1},
+                                              {"data": 0, "model": 0}):
+            fail(f"axis: a (1, 1) mesh is {mesh.axis_sizes} {mesh.coords}")
+        run = dist_full_width(K, mesh, "mads", "sparsify_ef", smi,
+                              keep="axis mads w", rules=RULES_TRAIN_CLIENT)
+    finally:
+        mesh.close()
+    base = KEPT.pop("dist mads")
+    same = dict(w=bool(torch.equal(KEPT.pop("dist mads w"),
+                                   KEPT.pop("axis mads w"))),
+                **{k: run[k] == base[k] for k in ("k", "bits", "b")})
+    if not all(same.values()):
+        fail(f"axis: the (1, 1) mesh's round differs from phase 19's: {same}")
+    print(f"axis (1, 1) mesh: InternLM2 mads bit-equal to phase 19 "
+          f"({json.dumps(same)}); phase 24a {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return dict(plan=plan, round=run, bit_equal=same)
+
+
+def _axis_loss(model, cfg, w, layout, batch, axis) -> float:
+    kw = {} if axis is None else {"model_axis": axis}
+    with torch.no_grad():
+        return float(model.loss_fn(layout.unflatten(w), cfg, batch, **kw))
+
+
+def axis_rounds(K, mesh, dev, tag: str) -> dict:
+    """Phase 24b's rounds: full-width InternLM2-1.8B, bf16 weights and
+    states, N = 2 clients, global batch 4, seq 512, 4 ``mads`` rounds with
+    both clients in contact in round 2, ``donate=True``; over ``mesh`` or,
+    without one, on this card alone.  Every ``sparsify_ef`` call held as
+    it returns; launches, uploads, k, bits, loss before and after, round
+    seconds (each ends at a barrier over a mesh), peak GiB; the final w."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import FLConfig
+    from repro_torch.core import baselines as BL
+    from repro_torch.core.distributed import (DistConfig, init_state,
+                                              make_afl_train_system,
+                                              run_afl_rounds)
+    from repro_torch.core.runner import sample_budgets
+    from repro_torch.models.registry import build_model, demo_batch
+
+    cfg = axis_cfg(DIST_ARCH)
+    model = build_model(cfg)
+    s = model.num_params()
+    fl = FLConfig(num_devices=DIST_N, rounds=DIST_ROUNDS,
+                  mean_intercontact=20.0, sparsifier="sampled", seed=0)
+    policy = BL.ALL["mads"](s, fl)
+    dcfg = DistConfig(num_clients=DIST_N, learning_rate=fl.learning_rate,
+                      rounds=DIST_ROUNDS, sample_size=fl.sample_size)
+    rng = np.random.default_rng(0)
+    batches = [{k: torch.as_tensor(v).to(dev) for k, v in
+                demo_batch(cfg, DIST_BATCH, DIST_SEQ, rng).items()}
+               for _ in range(DIST_ROUNDS + 1)]
+    _reset_peak(dev)
+    system = make_afl_train_system(model, cfg, mesh, dcfg=dcfg,
+                                   controller=policy.controller,
+                                   staleness=policy.staleness, donate=True)
+    state = init_state(model, dcfg, 0, mesh=mesh, device=dev)
+    pl = system["placement"]
+    axis = pl.model_axis
+    loss0 = _axis_loss(model, cfg, state.w, pl.layout, batches[-1], axis)
+    stats = dict(peak=0, hold_s=0.0, held=0)
+    marks = []
+
+    def batch_fn(r):
+        _sync(dev)
+        if mesh is not None:
+            dist.barrier()
+        marks.append((time.perf_counter(), stats["hold_s"]))
+        return batches[r]
+
+    K.reset_launches()
+    with holding(tag, stats):
+        state, hist = run_afl_rounds(system["step"], state,
+                                     dist_provider(fl, "mads", DIST_ROUNDS),
+                                     batch_fn, sample_budgets(fl, 0))
+        _sync(dev)
+        if mesh is not None:
+            dist.barrier()
+        marks.append((time.perf_counter(), stats["hold_s"]))
+    out = dict(
+        s=s, s_card=pl.layout.size, launches=dict(K.LAUNCHES),
+        held=stats["held"], peak_gib=max(stats["peak"] / 2**30,
+                                         _peak_gib(dev)),
+        round_s=[(t1 - t0) - (h1 - h0)
+                 for (t0, h0), (t1, h1) in zip(marks, marks[1:])],
+        uploads=[m["uploads"].tolist() for m in hist],
+        k=[m["k"].tolist() for m in hist],
+        bits=[m["bits"].tolist() for m in hist],
+        x_norm2=[m["x_norm2"].tolist() for m in hist],
+        loss_before=loss0,
+        loss=_axis_loss(model, cfg, state.w, pl.layout, batches[-1], axis))
+    want = DIST_ROUNDS if dev.type == "cuda" else 0
+    if out["launches"].get("sparsify_ef") != want or out["held"] != want:
+        fail(f"{tag}: sparsify_ef launched {out['launches']}, held "
+             f"{out['held']}, not {want}")
+    if not (sum(map(sum, out["uploads"])) > 0 and math.isfinite(out["loss"])
+            and math.isfinite(loss0)):
+        fail(f"{tag}: no upload or a loss not finite: {out}")
+    w = state.w
+    del state, hist, system, batches
+    _free(dev)
+    return out, w, model
+
+
+def axis_same_x(K, mesh, dev) -> dict:
+    """Phase 24b(i): one random bf16 x (2, s) at full-width InternLM2 (the
+    same on every rank, from one seed): the sampled threshold from the
+    rank's blocks (its part of the strided sample, gathered over
+    ``model``) bit-equal to the whole x's, and the count of the rank's
+    ``sparsify_ef`` call on its blocks, all-reduced, equal to the whole
+    x's; the call held against its plain version."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core import sparsify as SP
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model, local_params
+    from repro_torch.utils.tree import tree_unflatten
+
+    model = build_model(axis_cfg(DIST_ARCH))
+    s = model.num_params()
+    sample = 65536
+    pl = D.placement(model, mesh, sample)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    x = torch.randn(DIST_N, s, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k = torch.tensor([s / 400.0, s / 7.0], device=dev)
+    t_whole = SP.tree_threshold(x, model.layout, k, method="sampled",
+                                sample=sample)
+    c_whole = ops.sparsify_ef(x, t_whole)[2]
+    blocks = tree_unflatten(model.layout.paths, list(pl.blocks))
+    xb = pl.layout.flatten(local_params(model, model.layout.unflatten(x),
+                                        blocks, lead=1), lead=1)
+    del x
+    stats = dict(peak=0, hold_s=0.0, held=0)
+    with holding("axis same x", stats, ("sparsify_ef",)):
+        t_blocks = D.block_threshold(xb, model, pl, k, sample)
+        c_blocks = D.block_sparsify(xb, model, pl, k, sample)[2]
+    out = dict(threshold=t_whole.tolist(), count=c_whole.tolist(),
+               threshold_bit_equal=bool(torch.equal(t_blocks, t_whole)),
+               count_equal=bool(torch.equal(c_blocks, c_whole)),
+               held=stats["held"], s_card=pl.layout.size)
+    if not (out["threshold_bit_equal"] and out["count_equal"]):
+        fail(f"axis same x: {out}, blocks {t_blocks.tolist()} "
+             f"{c_blocks.tolist()}")
+    del xb
+    _free(dev)
+    return out
+
+
+def axis_f32_round1(dev) -> list:
+    """Round 1's |x|^2 of each client of ``axis_rounds`` (x = eta g from
+    round 0's state) with the weights, the arithmetic and x in f32, one
+    client at a time on this card (``remat="full"``)."""
+    from repro_torch.configs import FLConfig
+    from repro_torch.core.afl import device_grads
+    from repro_torch.models.registry import build_model, demo_batch
+
+    cfg = axis_cfg(DIST_ARCH)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    w = model.layout.flatten(params).float()
+    del params
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32", remat="full")
+    m32 = build_model(cfg32)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in demo_batch(
+        cfg, DIST_BATCH, DIST_SEQ, np.random.default_rng(0)).items()}
+    eta = FLConfig().learning_rate
+    per = DIST_BATCH // DIST_N
+    out = []
+    for c in range(DIST_N):
+        g = device_grads(m32, w[None], {k: v[c * per:(c + 1) * per][None]
+                                        for k, v in batch.items()})
+        out.append(float((eta * g).square().sum()))
+        del g
+        _free(dev)
+    del w, batch
+    _free(dev)
+    return out
+
+
+def axis_internlm2(K, mesh, dev, store: Path) -> dict:
+    """Phase 24b: full-width InternLM2-1.8B on the (data 2, model 2) mesh.
+    (i) ``axis_same_x``; (ii) rank 0 runs ``axis_rounds`` on its card
+    alone (world 1, N = 2) and writes w and the rounds' numbers; (iii)
+    every rank runs the same rounds over the mesh, one client a data rank
+    on its blocks.  The tensor-parallel sums round in bf16 where one
+    card's product rounds once, and bf16 gradients of these random
+    weights sit far from f32's (at reduced size 30-90 % a leaf, the mesh's
+    and one card's as far from each other): the exact checks are (i)'s;
+    round 1's |x|^2 a client (from one state: the gradient's norm) is
+    printed beside f32's (``axis_f32_round1``) for both.  Held: the loss
+    at the start within 1e-2 of one card's; the same uploads; k within 2 %
+    a client-round where both upload in rounds 1 and 2 (one that uploads
+    on one side only is counted; from round 3 MADS's energy queue carries
+    a round's difference in k into its next choices, so rounds 3-4 are
+    printed); after the four rounds w within one bf16 step (2^-8 of the
+    larger magnitude) at 90 % of the coordinates or more and within 2^-5
+    of the largest entry everywhere: bounds against a wrong block, as the
+    rounds drift apart.  The f32 standard of the CPU tests
+    (k within 2, w within 1e-6 of the largest entry) lies below bf16's
+    resolution; its distances are printed beside."""
+    import torch.distributed as dist
+
+    from repro_torch.models.registry import local_params
+    from repro_torch.utils.tree import tree_unflatten
+
+    same_x = axis_same_x(K, mesh, dev)
+    if mesh.rank == 0:
+        f32 = axis_f32_round1(dev)
+        one, w, _ = axis_rounds(K, None, dev, "axis world 1")
+        one["x_norm2_f32"] = f32
+        torch.save(w.cpu(), store / "axis_w1.pt")
+        (store / "axis_one.json").write_text(json.dumps(one))
+        del w
+        _free(dev)
+    dist.barrier()
+    one = json.loads((store / "axis_one.json").read_text())
+    got, w, model = axis_rounds(K, mesh, dev, "axis (2, 2)")
+    from repro_torch.core.distributed import placement
+
+    pl = placement(model, mesh)
+    whole = torch.load(store / "axis_w1.pt", mmap=True)
+    want = pl.layout.flatten(local_params(
+        model, model.layout.unflatten(whole),
+        tree_unflatten(model.layout.paths, list(pl.blocks)))).to(dev)
+    del whole
+    wf, vf = w.float(), want.float()
+    diff = (wf - vf).abs()
+    step = torch.maximum(wf.abs(), vf.abs()) * 2.0**-8
+    big = float(vf.abs().max())
+    # rounds 1-2: MADS's energy queue carries a client-round's bf16
+    # difference in k into the next rounds' choices (PERF.md, PR 24)
+    both = [(a, b) for ra, rb in zip(got["k"][:2], one["k"][:2])
+            for a, b in zip(ra, rb) if a > 0 and b > 0]
+    f32 = one["x_norm2_f32"]
+    hold = dict(
+        loss_before_rel=abs(got["loss_before"] - one["loss_before"])
+        / abs(one["loss_before"]),
+        # round 1's |x|^2 a client from f32's: the mesh's, and one card's
+        x_norm2_round1_off=[abs(a - c) / c for a, c in
+                            zip(got["x_norm2"][0], f32)],
+        x_norm2_round1_off_one_card=[abs(b - c) / c for b, c in
+                                     zip(one["x_norm2"][0], f32)],
+        uploads_equal=got["uploads"] == one["uploads"],
+        # a client-round that uploads on one side only (MADS's choice at
+        # |x|^2 rounded otherwise) is counted, not held
+        k_one_side_only=sum((a > 0) != (b > 0) for ra, rb in
+                            zip(got["k"], one["k"]) for a, b in zip(ra, rb)),
+        k_rel_max=max([abs(a - b) / max(a, b) for a, b in both],
+                      default=0.0),
+        k_rel_rounds=[[abs(a - b) / max(a, b, 1.0) for a, b in zip(ra, rb)]
+                      for ra, rb in zip(got["k"], one["k"])],
+        k_abs_max=max(abs(a - b) for ra, rb in zip(got["k"], one["k"])
+                      for a, b in zip(ra, rb)),
+        w_bit_equal_share=float((diff == 0).float().mean()),
+        w_beyond_bf16_step_share=float((diff > step).float().mean()),
+        w_off_max=float(diff.max()) / big,
+        w_beyond_1e6_share=float((diff > 1e-6 * big).float().mean()))
+    del wf, vf, diff, step, w, want
+    _free(dev)
+    ok = (hold["uploads_equal"] and hold["loss_before_rel"] <= 1e-2
+          and len(both) > 0 and hold["k_rel_max"] <= 0.02
+          and hold["w_beyond_bf16_step_share"] <= 0.1
+          and hold["w_off_max"] <= 2.0**-5)
+    out = dict(same_x=same_x, world_1=one, mesh=got, hold=hold, ok=ok)
+    return out
+
+
+def axis_train_step(mods, mesh, dev) -> dict:
+    """Phase 24c: Qwen3-32B x train_4k through ``build_step`` on the (1,
+    4) mesh: full width, N = 1, batch 2, ``remat="full"``, bf16; the depth
+    cut to the deepest whose peak stays 3 GiB under 75 GiB a card: the
+    larger of two calibration rounds' peaks (16 and 24 layers; the largest
+    over the ranks) on their line and the sparsify pass's
+    ``AXIS_PASS_BYTES`` a parameter of the rank's (the peak once the
+    state outgrows the backward's activations).  Round 1 counted (one ``sparsify_ef``
+    on the rank's (1, s_r) blocks, held as it returns); round 2 timed:
+    step seconds, peak GiB, the calculator's bound at ``model_parallel=4``
+    over 4 cards; in round 1 uploads > 0 and the error memory moved (it
+    was zero), w's moved coordinates counted (every coordinate of every
+    rank's blocks compared with a host copy), w finite."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import INPUT_SHAPES, InputShape
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.calculator import step_analytics
+    from repro_torch.launch.dryrun import active_params
+    from repro_torch.launch.steps import build_step, materialize
+
+    arch, batch, depths = AXIS_TRAIN
+    full = INPUT_SHAPES["train_4k"]
+    shape = InputShape(full.name, full.seq_len, batch, full.kind)
+
+    def one(layers: int, rounds: int) -> dict:
+        cfg = axis_cfg(arch, layers)
+        built = build_step(cfg, shape, mesh, donate=True)
+        _free(dev)
+        t0 = time.perf_counter()
+        args = materialize(built, shape,
+                           torch.Generator(device=dev).manual_seed(0), dev,
+                           mesh=mesh)
+        _sync(dev)
+        setup_s = time.perf_counter() - t0
+        runs = []
+        for i in range(rounds):
+            for mod in mods.values():
+                mod.reset_launches()
+            stats = dict(peak=0, hold_s=0.0, held=0)
+            # the round may move a few hundred of billions of coordinates:
+            # every one is compared with this copy
+            w0 = args[0].w.to("cpu", copy=True)
+            _sync(dev)
+            dist.barrier()
+            _reset_peak(dev)
+            t0 = time.perf_counter()
+            with holding(f"axis {arch} x train_4k", stats, STEP_KERNELS) \
+                    if i == 0 else nullcontext():
+                out = built["step"](*args)
+            _sync(dev)
+            dist.barrier()
+            secs = time.perf_counter() - t0 - stats["hold_s"]
+            launches = {k: v for mod in mods.values()
+                        for k, v in mod.LAUNCHES.items()}
+            state, m = out
+            # over every rank's blocks (a check on one rank alone would
+            # leave the others waiting in the next collective)
+            moved = torch.zeros(4, dtype=torch.float64, device=dev)
+            for c in range(0, w0.numel(), HOLD_BLOCK):
+                blk = state.w[c:c + HOLD_BLOCK]
+                moved[0] += (blk != w0[c:c + HOLD_BLOCK].to(dev)).sum()
+                moved[2] += (~torch.isfinite(blk.float())).sum()
+                moved[3] += (state.e_n[:, c:c + HOLD_BLOCK] != 0).sum()
+            moved[1] = w0.numel()
+            dist.all_reduce(moved)
+            checked = dict(uploads=float(m["uploads"].sum()),
+                           bits=float(m["bits"].sum()), k=float(m["k"].sum()),
+                           w_moved=int(moved[0]),
+                           w_moved_share=float(moved[0] / moved[1]),
+                           e_n_nonzero=int(moved[3]),
+                           finite=bool(moved[2] == 0))
+            # round 1 (its error memory was zero): the round uploaded and
+            # kept the rest in the error memory; w moves where an upload
+            # exceeds half a bf16 step of its coordinate (at 35 layers
+            # MADS may upload a few dozen coordinates that do not)
+            if (i == 0 and not (checked["uploads"] > 0 and checked["bits"] > 0
+                                and checked["e_n_nonzero"] > 0)) \
+                    or not checked["finite"]:
+                fail(f"axis {arch} x train_4k: {checked}")
+            args = (state,) + tuple(args[1:])
+            del state, m, w0
+            del out
+            runs.append(dict(seconds=secs, launches=launches,
+                             held=stats["held"],
+                             peak_gib=max(stats["peak"] / 2**30,
+                                          _peak_gib(dev)), **checked))
+        res = dict(layers=built["cfg"].num_layers,
+                   num_params=built["model"].num_params(),
+                   s_card=args[0].w.numel(), setup_s=setup_s, runs=runs,
+                   peak_gib=max(r["peak_gib"] for r in runs))
+        peak = torch.tensor([res["peak_gib"]], device=dev)
+        dist.all_reduce(peak, op=dist.ReduceOp.MAX)
+        res["peak_gib_max_over_ranks"] = float(peak)
+        del args, built
+        _free(dev)
+        return res
+
+    def s_card(layers: int) -> int:  # the rank's parameters at a depth
+        built = build_step(axis_cfg(arch, layers), shape, mesh)
+        return built["system"]["placement"].layout.size
+
+    lo, hi = depths
+    cal = {}
+    for d in depths:
+        cal[d] = one(d, 1)
+        print("AXIS " + json.dumps({"rank": mesh.rank, "calibration": d,
+                                    "peak_gib": cal[d]["peak_gib"],
+                                    "seconds": cal[d]["runs"][0]["seconds"]}),
+              flush=True)
+    per_layer = (cal[hi]["peak_gib_max_over_ranks"]
+                 - cal[lo]["peak_gib_max_over_ranks"]) / (hi - lo)
+    top = axis_cfg(arch).num_layers
+    # the deepest cut whose peak, the larger of the calibrations' line (the
+    # backward's, at their depths) and the sparsify pass's bytes (which
+    # grow faster and set it deeper down), stays 3 GiB under the limit
+    over = max(0.0, cal[hi]["peak_gib_max_over_ranks"]
+               - AXIS_PASS_BYTES * s_card(hi) / 2**30)
+
+    def predicted(layers: int) -> float:
+        line = cal[hi]["peak_gib_max_over_ranks"] + per_layer * (layers - hi)
+        return max(line, AXIS_PASS_BYTES * s_card(layers) / 2**30
+                   + min(over, 2.5))
+
+    layers = hi
+    while layers < top and predicted(layers + 1) <= AXIS_PEAK_GIB - 3.0:
+        layers += 1
+    print("AXIS " + json.dumps({"rank": mesh.rank, "layers": layers,
+                                "per_layer_gib": per_layer,
+                                "predicted_peak_gib": predicted(layers)}),
+          flush=True)
+    res = one(layers, 2)
+    want = 1 if dev.type == "cuda" else 0
+    main = res["runs"][0]
+    if main["launches"].get("sparsify_ef") != want or main["held"] != want \
+            or sum(main["launches"].values()) != want:
+        fail(f"axis train step: launches {main['launches']}, held "
+             f"{main['held']}")
+    if dev.type == "cuda" and not res["peak_gib_max_over_ranks"] <= AXIS_PEAK_GIB:
+        fail(f"axis train step: peak {res['peak_gib_max_over_ranks']:.2f} "
+             f"GiB over {AXIS_PEAK_GIB}")
+    cfg = axis_cfg(arch, layers)
+    from repro_torch.models.registry import build_model
+
+    model = build_model(cfg.replace(remat="full"))
+    n = model.num_params()
+    tokens = batch * shape.seq_len
+    coll = RL.step_collectives("train", n, mesh.world_size, 1, model=4,
+                               cfg=cfg.replace(remat="full"), tokens=tokens,
+                               params_per_card=res["s_card"])
+    roof = RL.analyze(step_analytics(cfg, shape, mesh.world_size, n,
+                                     model_parallel=mesh.model), coll,
+                      model_flops_total=RL.model_flops(
+                          n, tokens, active_params(cfg, model), train=True))
+    secs = res["runs"][1]["seconds"]
+    res.update(calibration={d: dict(peak_gib=c["peak_gib_max_over_ranks"],
+                                    seconds=c["runs"][0]["seconds"])
+                            for d, c in cal.items()},
+               per_layer_gib=per_layer, seconds=secs, bound_s=roof.bound_s,
+               bound_by=roof.bottleneck, t_compute=roof.t_compute,
+               t_memory=roof.t_memory, t_collective=roof.t_collective,
+               bound_over_measured=roof.bound_s / secs,
+               cut=f"layers {top} -> {layers}; global batch 256 -> {batch}; "
+                   f"N = 1 client")
+    return res
+
+
+def _recording(model, axis):
+    """``model`` whose decode steps record their logits, and the model
+    axis's collectives counted over the prefill and over the decode."""
+    import dataclasses
+
+    log = dict(logits=[], prefill={}, decode={})
+
+    def prefill(*a, **kw):
+        before = dict(axis.counts) if axis is not None else {}
+        out = model.prefill(*a, **kw)
+        if axis is not None:
+            log["prefill"] = {k: (v[0] - before.get(k, (0, 0))[0],
+                                  v[1] - before.get(k, (0, 0))[1])
+                              for k, v in axis.counts.items()}
+        return out
+
+    def decode_step(*a, **kw):
+        before = dict(axis.counts) if axis is not None else {}
+        logits, cache = model.decode_step(*a, **kw)
+        log["logits"].append(logits.float().cpu())
+        if axis is not None:
+            log["decode"] = {k: (v[0] - before.get(k, (0, 0))[0],
+                                 v[1] - before.get(k, (0, 0))[1])
+                             for k, v in axis.counts.items()}
+        return logits, cache
+
+    return dataclasses.replace(model, prefill=prefill,
+                               decode_step=decode_step), log
+
+
+def axis_serve(mods, mesh, dev, store: Path) -> dict:
+    """Phase 24d: Qwen2-VL-72B served over the (1, 4) mesh through
+    ``launch/serve.py::serve`` (random bf16 weights from seed 0, each rank
+    drawing the same values and keeping its ``RULES_SERVE`` blocks; its
+    KV cache holds its kv heads).  (i) At 8 layers, rank 0 serves alone on
+    its card first: the mesh's prefill and decode logits within 3e-2 of
+    the largest of one card's (``decode_attn``'s bf16 tolerance), and the
+    same greedy tokens wherever one card's top two logits are further
+    apart than the two runs' logits (a nearer pair is a tie in bf16); (ii)
+    all 80 layers (33.9 GiB of weights a card), batch 4, prompt 2048, 32
+    greedy tokens: run 1 with every ``decode_attn`` call held against its
+    plain version (80 x 32 launches), run 2 timed: prefill s, decode s,
+    tok/s, peak GiB, collectives a decode step; (iii) decode_32k at batch
+    8 (a cut from 128: a 20 GiB cache a card) through ``build_step``:
+    run 1 counted and held (80 launches), run 2 timed, beside the
+    calculator's bound at ``model_parallel=4``."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import INPUT_SHAPES, InputShape
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch import serve as S
+    from repro_torch.launch.calculator import step_analytics
+    from repro_torch.launch.steps import build_step, materialize
+    from repro_torch.models.registry import build_model
+    from repro_torch.sharding.rules import RULES_SERVE
+
+    arch, batch, prompt, short, batch32 = AXIS_SERVE
+    axis = mesh.model_axis()
+    out = {}
+    gen = GEN
+
+    def prompts(cfg):
+        return torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (batch, prompt)).astype(np.int32)).to(dev)
+
+    # (i) 8 layers: one card against the mesh
+    cfg8 = axis_cfg(arch, short)
+    model8 = build_model(cfg8)
+    if mesh.rank == 0:
+        params = model8.init(torch.Generator(device=dev).manual_seed(0), dev)
+        rec, log = _recording(model8, None)
+        with torch.no_grad():
+            toks, st = S.serve(cfg8, rec, params, prompts(cfg8), gen)
+        torch.save(dict(tokens=toks.cpu(), prefill=st["prefill_logits"]
+                        .float().cpu(), logits=log["logits"]),
+                   store / "axis_serve1.pt")
+        del params, toks, st, log
+        _free(dev)
+    dist.barrier()
+    one = torch.load(store / "axis_serve1.pt")
+    blocks = model8.blocks(RULES_SERVE, mesh.axis_sizes, mesh.coords)
+    params = model8.init(torch.Generator(device=dev).manual_seed(0), dev,
+                         blocks=blocks)
+    rec, log = _recording(model8, axis)
+    with torch.no_grad():
+        toks, st = S.serve(cfg8, rec, params, prompts(cfg8), gen,
+                           model_axis=axis)
+    del params
+    _free(dev)
+    want = [one["prefill"]] + one["logits"]  # the logits token j came from
+    got = [st["prefill_logits"].float().cpu()] + log["logits"]
+    toks = toks.cpu()
+    errs, tie = [], None
+    for j in range(gen):
+        gap = float((got[j] - want[j]).abs().max())
+        errs.append(gap / float(want[j].abs().max()))
+        differ = toks[:, j] != one["tokens"][:, j]
+        if bool(differ.any()):  # later steps read other tokens
+            top2 = want[j].topk(2, dim=-1).values
+            tie = dict(step=j, margin=float((top2[:, 0] - top2[:, 1])[differ]
+                                            .max()), gap=gap)
+            break
+    out["short"] = dict(layers=short, logits_off_max=max(errs),
+                        tokens_equal=tie is None, first_tie=tie)
+    if not (max(errs) <= 3e-2 and (tie is None
+                                   or tie["margin"] <= 2 * tie["gap"])):
+        fail(f"axis serve, {short} layers: the mesh against one card: "
+             f"{out['short']}")
+
+    # (ii) every layer
+    cfg = axis_cfg(arch)
+    model = build_model(cfg)
+    blocks = model.blocks(RULES_SERVE, mesh.axis_sizes, mesh.coords)
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev,
+                        blocks=blocks)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    weights_gib = sum(t.numel() * t.element_size()
+                      for t in _leaves(params)) / 2**30
+    runs = []
+    for i in range(2):
+        for mod in mods.values():
+            mod.reset_launches()
+        stats = dict(peak=0, hold_s=0.0, held=0)
+        rec, log = _recording(model, axis)
+        dist.barrier()
+        with (holding(f"axis {arch} serve", stats, ("decode_attn",))
+              if i == 0 else nullcontext()), torch.no_grad():
+            toks, st = S.serve(cfg, rec, params, prompts(cfg), gen,
+                               model_axis=axis)
+        launches = {k: v for mod in mods.values()
+                    for k, v in mod.LAUNCHES.items()}
+        runs.append(dict(prefill_s=st["prefill_s"], decode_s=st["decode_s"],
+                         tok_per_s=st["tok_per_s"], launches=launches,
+                         held=stats["held"], hold_s=stats["hold_s"],
+                         collectives_prefill=log["prefill"],
+                         collectives_decode_step=log["decode"],
+                         tokens_in_range=bool(0 <= int(toks.min())
+                                              and int(toks.max())
+                                              < cfg.vocab_size),
+                         finite=bool(torch.isfinite(
+                             st["prefill_logits"].float()).all())))
+        del toks, st, log
+    want = cfg.num_layers * gen if dev.type == "cuda" else 0
+    if not (runs[0]["launches"].get("decode_attn") == want
+            and runs[0]["held"] == want
+            and all(r["tokens_in_range"] and r["finite"] for r in runs)):
+        fail(f"axis serve: {runs[0]}")
+    out["full"] = dict(layers=cfg.num_layers, weights_gib_card=weights_gib,
+                       init_s=init_s, peak_gib=_peak_gib(dev), runs=runs)
+    del params
+    _free(dev)
+
+    # (iii) decode_32k at batch 8
+    full = INPUT_SHAPES["decode_32k"]
+    shape = InputShape(full.name, full.seq_len, batch32, full.kind)
+    built = build_step(cfg, shape, mesh)
+    args = materialize(built, shape, torch.Generator(device=dev).manual_seed(0),
+                       dev, mesh=mesh)
+    cache_gib = sum(t.numel() * t.element_size() for k, t in args[1].items()
+                    if isinstance(t, torch.Tensor)) / 2**30
+    steps = []
+    for i in range(2):
+        for mod in mods.values():
+            mod.reset_launches()
+        stats = dict(peak=0, hold_s=0.0, held=0)
+        _sync(dev)
+        dist.barrier()
+        _reset_peak(dev)
+        t0 = time.perf_counter()
+        with (holding(f"axis {arch} x decode_32k", stats, ("decode_attn",))
+              if i == 0 else nullcontext()), torch.no_grad():
+            logits, _ = built["step"](*args)
+        _sync(dev)
+        secs = time.perf_counter() - t0 - stats["hold_s"]
+        steps.append(dict(seconds=secs, held=stats["held"],
+                          launches={k: v for mod in mods.values()
+                                    for k, v in mod.LAUNCHES.items()},
+                          peak_gib=_peak_gib(dev),
+                          **_check_step_out("axis decode_32k", "decode",
+                                            (logits,), cfg.vocab_size,
+                                            batch32)))
+    want = cfg.num_layers if dev.type == "cuda" else 0
+    if not (steps[0]["launches"].get("decode_attn") == want
+            and steps[0]["held"] == want):
+        fail(f"axis decode_32k: {steps[0]}")
+    n = model.num_params()
+    roof = RL.analyze(
+        step_analytics(cfg, shape, mesh.model, n, model_parallel=mesh.model),
+        RL.step_collectives("decode", n, mesh.model, model=mesh.model,
+                            cfg=cfg, tokens=batch32),
+        model_flops_total=RL.model_flops(n, batch32))
+    out["decode_32k"] = dict(cut=f"global batch {full.global_batch} -> "
+                             f"{batch32}", cache_gib_card=cache_gib,
+                             runs=steps, seconds=steps[1]["seconds"],
+                             bound_s=roof.bound_s, bound_by=roof.bottleneck,
+                             bound_over_measured=roof.bound_s
+                             / steps[1]["seconds"])
+    del args, built, logits
+    _free(dev)
+    return out
+
+
+def _leaves(tree):
+    from repro_torch.utils.tree import tree_flatten
+
+    return tree_flatten(tree)[1]
+
+
+def axis_mesh(mods, K, store: Path, device="cuda",
+              phases: str = "bcd") -> dict:
+    """Phases 24b-d on four ranks (``--mesh 4``; ``phases`` of "bcd"): a
+    (2, 2) mesh for the InternLM2 round, a (1, 4) one for the Qwen3-32B
+    step and the Qwen2-VL-72B serve; each rank's numbers."""
+    from repro_torch.launch.mesh import make_client_mesh
+
+    out = {}
+    if "b" in phases:
+        mesh22 = make_client_mesh(DIST_N, model=2, family="dense",
+                                  device=device)
+        t0 = time.perf_counter()
+        out["internlm2"] = axis_internlm2(K, mesh22, mesh22.device, store)
+        out["internlm2"]["phase_s"] = time.perf_counter() - t0
+        print("AXIS " + json.dumps({"rank": mesh22.rank,
+                                    "internlm2": out["internlm2"]}),
+              flush=True)
+    mesh14 = make_client_mesh(1, model=4, family="dense", device=device)
+    dev = mesh14.device
+    t0 = time.perf_counter()
+    out["train_step"] = axis_train_step(mods, mesh14, dev)
+    out["train_step"]["phase_s"] = time.perf_counter() - t0
+    print("AXIS " + json.dumps({"rank": mesh14.rank,
+                                "train_step": out["train_step"]}), flush=True)
+    t0 = time.perf_counter()
+    out["serve"] = axis_serve(mods, mesh14, dev, store)
+    out["serve"]["phase_s"] = time.perf_counter() - t0
+    print("AXIS " + json.dumps({"rank": mesh14.rank, "serve": out["serve"]}),
+          flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # --mesh P: the distributed round over P cards (one process a card)
 # ---------------------------------------------------------------------------
 
@@ -4104,10 +4925,15 @@ def mesh_ingest(mesh) -> dict:
     return out
 
 
-def mesh_rank(rank: int, world: int, store_path: str) -> None:
-    """``--mesh-rank r P STORE``: one rank of ``--mesh P``, on card r."""
+def mesh_rank(rank: int, world: int, store_path: str,
+              only: str = "") -> None:
+    """``--mesh-rank r P STORE [ONLY]``: one rank of ``--mesh P``, on card
+    r; ``ONLY`` "24": phases 24b-d alone."""
     import torch.distributed as dist
 
+    from repro_torch.kernels import decode_attn as DA
+    from repro_torch.kernels import sparsify_ef as K
+    from repro_torch.kernels import ssd_scan as SSD
     from repro_torch.launch.mesh import make_client_mesh
 
     mesh = make_client_mesh(2 * world, store=dist.FileStore(store_path, world),
@@ -4117,15 +4943,50 @@ def mesh_rank(rank: int, world: int, store_path: str) -> None:
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     try:
-        out = dict(rank=mesh.rank, card=str(mesh.device),
-                   parity=mesh_parity(mesh), full=mesh_full_width(mesh),
-                   seeds=mesh_seeds(mesh), ingest=mesh_ingest(mesh))
-    finally:
-        mesh.close()
+        out = dict(rank=mesh.rank, card=str(mesh.device))
+        if not only:
+            out.update(parity=mesh_parity(mesh), full=mesh_full_width(mesh),
+                       seeds=mesh_seeds(mesh), ingest=mesh_ingest(mesh))
+        if world == 4:
+            out["axis"] = axis_mesh({"sparsify_ef": K, "decode_attn": DA,
+                                     "ssd_scan": SSD}, K,
+                                    Path(store_path).parent,
+                                    phases="cd" if only == "24cd" else "bcd")
+    except BaseException:  # end at once: the other ranks see it, not a hang
+        import traceback
+
+        traceback.print_exc(file=sys.stdout)
+        sys.stdout.flush()
+        os._exit(1)
+    mesh.close()
     print("MESH_RANK " + json.dumps(out), flush=True)
 
 
-def mesh_main(world: int) -> None:
+def check_axis_rank(o: dict) -> None:
+    """Phases 24b-d's checks of one rank's results (``axis_mesh``), and
+    their numbers in one line."""
+    a = o["axis"]
+    if "internlm2" in a:
+        if not a["internlm2"]["ok"]:
+            fail(f"mesh rank {o['rank']} axis InternLM2: "
+                 f"{a['internlm2']['hold']}")
+        print(f"axis rank {o['rank']}: InternLM2 (2, 2) round s "
+              f"{a['internlm2']['mesh']['round_s']}, peak "
+              f"{a['internlm2']['mesh']['peak_gib']:.2f} GiB, hold "
+              f"{json.dumps(a['internlm2']['hold'])}", flush=True)
+    t, v = a["train_step"], a["serve"]
+    print(f"axis rank {o['rank']}: Qwen3-32B x train_4k on "
+          f"(1, 4) at {t['layers']} layers: {t['seconds']:.6g} s, peak "
+          f"{t['peak_gib']:.2f} GiB, bound {t['bound_s']:.6g} s "
+          f"({t['bound_by']}); Qwen2-VL-72B 80 layers: prefill "
+          f"{v['full']['runs'][1]['prefill_s']:.4g} s, decode "
+          f"{v['full']['runs'][1]['decode_s']:.4g} s, "
+          f"{v['full']['runs'][1]['tok_per_s']:.4g} tok/s, peak "
+          f"{v['full']['peak_gib']:.2f} GiB; decode_32k batch 8 "
+          f"{v['decode_32k']['seconds']:.6g} s", flush=True)
+
+
+def mesh_main(world: int, only: str = "") -> None:
     """``--mesh P``: the distributed round over P cards, one process a
     card on a file store.  Each rank runs ``mesh_parity`` (world 1 on its
     own card against world P: bits histories equal; w and its rows of
@@ -4134,7 +4995,9 @@ def mesh_main(world: int) -> None:
     round on every rank, uploads > 0, a finite loss, the same w on every
     rank, peak GiB, round seconds).  Prints one JSON line of every
     rank's results, then fails if any check does."""
+    from repro_torch.kernels import decode_attn as DA
     from repro_torch.kernels import sparsify_ef as K
+    from repro_torch.kernels import ssd_scan as SSD
 
     if torch.cuda.device_count() < world:
         fail(f"--mesh {world} needs {world} cards, found "
@@ -4143,27 +5006,53 @@ def mesh_main(world: int) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"mesh of {world}: {smi.splitlines()}", flush=True)
-    build_kernels({"sparsify_ef": K})
+    build_kernels({"sparsify_ef": K, "decode_attn": DA, "ssd_scan": SSD})
     store = Path(tempfile.mkdtemp(prefix="mesh_store_")) / "store"
+    # each rank writes to a file (a pipe read rank by rank would fill and
+    # stall a rank inside a collective); the first rank to fail ends all
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    logs = [out_dir / f"mesh{world}_rank{r}.out" for r in range(world)]
+    # expandable segments: 24c cuts its depth from measured peaks, and a
+    # fragmented cache (15 GiB reserved but free in PR 24's call 10) would
+    # run out of memory below them
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
     procs = [subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--mesh-rank", str(r),
-         str(world), str(store)], stdout=subprocess.PIPE, text=True)
+         str(world), str(store), only], stdout=open(logs[r], "w"), text=True,
+        env=env)
         for r in range(world)]
-    outs = []
+    t_end = time.perf_counter() + 1200
     try:
-        for p in procs:
-            text = p.communicate(timeout=1200)[0]
-            if p.returncode != 0:
-                fail(f"a mesh rank exited with {p.returncode}")
-            outs.append(json.loads([line for line in text.splitlines()
-                                    if line.startswith("MESH_RANK ")][-1][10:]))
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if bad or time.perf_counter() > t_end:
+                for r, log in enumerate(logs):
+                    tail = log.read_text().splitlines()[-12:]
+                    print(f"mesh rank {r} (exit {procs[r].poll()}), its last "
+                          f"lines:\n" + "\n".join(t[:2000] for t in tail),
+                          flush=True)
+                fail(f"mesh ranks {bad} failed" if bad else
+                     "the mesh ranks ran past 1200 s")
+            time.sleep(1)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-    print(json.dumps({"mesh": world, "card": smi.splitlines()[0],
-                      "ranks": outs}), flush=True)
+    outs = [json.loads([line for line in log.read_text().splitlines()
+                        if line.startswith("MESH_RANK ")][-1][10:])
+            for log in logs]
+    record = json.dumps({"mesh": world, "card": smi.splitlines()[0],
+                         "ranks": outs})
+    (out_dir / f"mesh{world}.json").write_text(record)
+    if not only:  # the model axis's numbers are in the file
+        print(record, flush=True)
     for o in outs:
+        if "axis" in o:
+            check_axis_rank(o)
+    for o in outs:
+        if only:
+            continue
         for tag, p in o["parity"].items():
             # the all-reduce adds in another order than one rank's
             # contraction, and where a quantised code sits that close to a
@@ -4229,13 +5118,18 @@ def main() -> None:
     if sys.argv[1:2] == ["--time-tree"]:
         return time_tree(sys.argv[2])
     if sys.argv[1:2] == ["--mesh"]:
-        return mesh_main(int(sys.argv[2]))
+        only = sys.argv[4] if sys.argv[3:4] == ["--only"] else ""
+        if only not in ("", "24", "24cd"):
+            fail(f"--mesh takes --only 24 or 24cd, not {only}")
+        return mesh_main(int(sys.argv[2]), only)
     if sys.argv[1:2] == ["--mesh-rank"]:
-        return mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                         *sys.argv[5:6])
     only = (set(sys.argv[2].split(",")) if sys.argv[1:2] == ["--only"]
             else None)
-    if only is not None and not only <= {"3c", "19", "20", "21", "22", "23"}:
-        fail(f"--only takes phases of 3c, 19, 20, 21, 22, 23, not "
+    if only is not None and not only <= {"3c", "19", "20", "21", "22", "23",
+                                         "24"}:
+        fail(f"--only takes phases of 3c, 19, 20, 21, 22, 23, 24, not "
              f"{sys.argv[2]}")
     from repro_torch.kernels import decode_attn as DA
     from repro_torch.kernels import ref as R
@@ -4265,8 +5159,10 @@ def main() -> None:
                   "20": lambda: mesh_phase(smi),
                   "21": lambda: remat_phase(smi),
                   "22": lambda: family_phase(K, SSD, smi),
-                  "23": lambda: steps_phase(mods, K, DA, SSD, R, smi)}
-        done = {p: phases[p]() for p in ("3c", "19", "20", "21", "22", "23")
+                  "23": lambda: steps_phase(mods, K, DA, SSD, R, smi),
+                  "24": lambda: axis_phase(K, smi)}
+        done = {p: phases[p]() for p in ("3c", "19", "20", "21", "22", "23",
+                                         "24")
                 if p in only}
         print(json.dumps(dict(phases=sorted(done), held=HELD), default=str))
         return
@@ -4383,6 +5279,11 @@ def main() -> None:
     steps = steps_phase(mods, K, DA, SSD, R, smi)
     torch.cuda.empty_cache()
 
+    # 24. the model axis: the plan at M = 1, 2, 4, 8 and phase 19's round
+    # through a (1, 1) mesh (the four-card phases run under --mesh 4)
+    axis = axis_phase(K, smi)
+    torch.cuda.empty_cache()
+
     # 18. device time by kernel, last (the profiler slows later launches)
     profile_kernels(DA, SSD)
     profiled = {}
@@ -4428,6 +5329,8 @@ def main() -> None:
              # phase 23: one round of each train step, one client (1, s)
              launches_steps=step_launches(steps, "sparsify_ef"),
              steps_times=steps["times"]["sparsify_ef"],
+             # phase 24a: phase 19's mads rounds through a (1, 1) mesh
+             launches_axis=axis["round"]["launches"]["sparsify_ef"],
              **{f"{k}_wide_row": v for k, v in wide["sparsify_ef"].items()},
              **timing["sparsify_ef"]),
         dict(name="sparsify_quantize_ef", route="cuda",

@@ -162,12 +162,17 @@ def afl_init(model, fl, seed: int, device="cpu", params=None) -> AflState:
     )
 
 
-def device_grads(model, w_n, batch):
-    """Per-device gradients (N, s) of the loss at the stacked models w_n."""
-    layout = model.layout
+def device_grads(model, w_n, batch, *, layout=None, model_axis=None):
+    """Per-device gradients (N, s) of the loss at the stacked models w_n.
+
+    ``layout``: w_n's (a rank's blocks, ``Model.block_layout``; the
+    model's by default); ``model_axis``: the tensor-parallel axis the loss
+    runs over (``sharding/collectives.py``)."""
+    layout = layout or model.layout
+    kw = {} if model_axis is None else {"model_axis": model_axis}
 
     def loss(p, b):
-        return model.loss_fn(p, model.cfg, b)
+        return model.loss_fn(p, model.cfg, b, **kw)
 
     grads = torch.func.vmap(torch.func.grad(loss))(layout.unflatten(w_n), batch)
     return layout.flatten(grads, lead=1)

@@ -4,19 +4,21 @@
 The reference's step is one pjit program whose client-stacked state is
 sharded over the mesh's ``data`` axis.  Here each rank of a
 ``launch.mesh.ClientMesh`` (a ``torch.distributed`` process group: NCCL on
-the card, gloo on the CPU) holds its own N/P clients' rows:
+the card, gloo on the CPU) holds its own N/D clients' rows (D the size of
+the mesh's data axis):
 
-* the client buffers ``w_n``, ``g_n``, ``e_n`` are flat (N/P, s) in
+* the client buffers ``w_n``, ``g_n``, ``e_n`` are flat (N/D, s) in
   ``DistConfig.state_dtype``, leaves in flatten order (``model.layout``),
-  and ``kappa``, ``q``, ``energy`` are the rank's (N/P,) rows; the global
-  model ``w`` is (s,) in the model's param dtype, the same on every rank;
+  and ``kappa``, ``q``, ``energy`` are the rank's (N/D,) rows; the global
+  model ``w`` is (s,) in the model's param dtype, the same on every rank
+  of a data group (over a model axis, s is the rank's blocks', below);
 * a round takes the GLOBAL batch and (N,) contact inputs, as the
   reference's step, and uses the rank's rows of them;
 * thresholds are per client row, so the upload stage needs nothing from
   other ranks; the MES aggregation is the rank's ``mix @ upload`` in
   ``upload_dtype`` plus one ``all_reduce(SUM)``, then ``/ N`` and the cast,
   so every rank ends the round holding the same ``w``;
-* the round's (N/P,) metrics are gathered into the reference's (N,) dict
+* the round's (N/D,) metrics are gathered into the reference's (N,) dict
   (one ``all_gather``), so telemetry records the same state on every rank.
 
 Without a mesh the step is the single-host round, with no collective.
@@ -26,16 +28,40 @@ threshold (the ``sparsify_ef`` kernel on the card), a codec goes through
 gradients are ``core/afl.py::device_grads`` (one vmapped call over the
 rank's clients), so at f32 the step equals ``afl_round`` bit for bit.
 
-Memory at a model's full width: each pass over (N/P, s) that computes in
+Memory at a model's full width: each pass over (N/D, s) that computes in
 ``accum_dtype`` or ``upload_dtype`` runs ``CHUNK`` columns at a time, so
 no f32 copy of a bf16 client buffer is made.  ``donate=True`` writes the
 new state into the old state's buffers (the port's counterpart of
 ``jax.jit(step, donate_argnums=0)``): the caller must not read the old
 state after the call.
 
-``abstract_state`` gives meta tensors (shapes and dtypes, no memory).  A
-``model`` axis (tensor-parallel parameters, the reference's
-``state_shardings``) is not ported: ``make_client_mesh(model=)`` raises.
+``abstract_state`` gives meta tensors (shapes and dtypes, no memory).
+
+The ``model`` axis (a (data, model) mesh, ``make_client_mesh(model=M)``;
+dense and VLM families).  ``placement`` applies the rules
+(``RULES_TRAIN`` with the client axis on ``data``, the reference's
+``state_shardings``) leaf by leaf: each rank's flat buffers, ``w`` (s_r,)
+and ``w_n`` / ``g_n`` / ``e_n`` (N/D, s_r), concatenate its blocks in
+flatten order, and the round runs on them:
+
+* the gradient on the blocks, the loss tensor-parallel over the rank's
+  ``model`` group (``models/layers.py``);
+* ``x_norm2`` and ``e_norm2`` as partial sums over the leaves the rank
+  owns (its blocks; a leaf every rank holds whole is owned by model index
+  0), all-reduced over ``model``;
+* the sampled threshold from the reference's per-leaf strided sample:
+  each rank takes the sampled coordinates that fall in its blocks, the
+  parts are all-gathered over ``model``, and as the threshold is read off
+  the sorted sample it is bit-equal to the unsharded one given the same x;
+* ``sparsify_ef`` on the rank's flat blocks, the int64 counts (less those
+  of leaves it does not own) all-reduced over ``model``;
+* the aggregation over ``data`` only, the metrics gathered over ``data``.
+
+Under ``RULES_TRAIN_DP`` (``launch/steps.py``'s ``dp_client``) the
+parameters stay whole, each client's batch is split over ``model``, and
+the gradient is all-reduced over ``model`` once.  A codec on a model axis
+raises (``launch/mesh.py::CODEC_AXIS_ITEM``).  With a model axis of 1 the
+blocks are the whole leaves and the round is the one above.
 ``ingest_shardings`` is the serve path's split of a packed upload batch
 over a mesh (``serve/server.py``).
 """
@@ -50,12 +76,17 @@ from repro_torch.compression import quant as Q
 from repro_torch.compression.base import Compressor
 from repro_torch.core import mads as M
 from repro_torch.core import sparsify as SP
-from repro_torch.core.afl import compress_uploads, device_grads, sq_norms
+from repro_torch.core.afl import compress_uploads, device_grads
 from repro_torch.core.mads import MadsController
-from repro_torch.launch.mesh import ClientMesh, mesh_num_clients
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import (CODEC_AXIS_ITEM, ClientMesh,
+                                     mesh_num_clients, require_model_axis)
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding import rules as R
 from repro_torch.sharding.rules import torch_dtype
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.fmath import div
+from repro_torch.utils.tree import TreeLayout, tree_flatten, tree_unflatten
 
 CHUNK = 1 << 26  # columns a pass computes in f32 at a time (512 MB at N = 2)
 METRIC_KEYS = ("k", "success", "power", "energy", "theta", "uploads",
@@ -65,12 +96,12 @@ METRIC_KEYS = ("k", "success", "power", "energy", "theta", "uploads",
 @dataclasses.dataclass
 class DistAflState:
     w: torch.Tensor  # (s,) global model, flat, the model's param dtype
-    w_n: torch.Tensor  # (N/P, s) client models, state_dtype
-    g_n: torch.Tensor  # (N/P, s) cumulative gradients (eta-scaled)
-    e_n: torch.Tensor  # (N/P, s) error memory
-    kappa: torch.Tensor  # (N/P,) int32
-    q: torch.Tensor  # (N/P,) f32
-    energy: torch.Tensor  # (N/P,) f32
+    w_n: torch.Tensor  # (N/D, s) client models, state_dtype
+    g_n: torch.Tensor  # (N/D, s) cumulative gradients (eta-scaled)
+    e_n: torch.Tensor  # (N/D, s) error memory
+    kappa: torch.Tensor  # (N/D,) int32
+    q: torch.Tensor  # (N/D,) f32
+    energy: torch.Tensor  # (N/D,) f32
     rnd: int
     # the reference's ``ckey``: draws the codecs' (N,) dither seeds, seeded
     # seed + 0x5EED as afl_init's, so both engines draw the same seeds
@@ -87,6 +118,119 @@ class DistConfig:
     state_dtype: str = "bfloat16"  # dtype of w_n/g_n/e_n client states
     upload_dtype: str = "float32"  # accumulation dtype of the MES reduce
     accum_dtype: str = "float32"  # local g_n/w_n update arithmetic
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Placement:
+    """A rank's part of the model under the rules: each leaf's per-dim
+    ``blocks`` (slices of the whole leaf), their flat ``layout``, whether
+    it ``owned`` each leaf's values (``placement``), its ``model_axis``,
+    every model index's sample size, and ``dp`` (whole parameters, each
+    client's batch split over ``model``)."""
+
+    blocks: tuple
+    layout: TreeLayout
+    owned: tuple
+    model_axis: object
+    sample_sizes: tuple
+    dp: bool
+
+
+def placement(model, mesh: ClientMesh | None, sample: int = 65536,
+              rules=None) -> Placement:
+    """The rank's ``Placement`` under ``rules`` (``RULES_TRAIN`` with the
+    client axis on (pod, data) by default).  A leaf is owned where the
+    rank holds a block of it, or where every rank holds it whole and the
+    rank is model index 0."""
+    rules = rules or R.RULES_TRAIN_CLIENT
+    sizes = {"data": 1, "model": 1} if mesh is None else mesh.axis_sizes
+    if sizes["model"] > 1:
+        require_model_axis(model.cfg.family, sizes["model"])
+    coords = {"data": 0, "model": 0} if mesh is None else mesh.coords
+    specs = tree_flatten(model.param_pspecs(rules, sizes))[1]
+
+    def of(m):
+        blocks = tree_flatten(model.blocks(rules, sizes, dict(coords,
+                                                               model=m)))[1]
+        owned = [m == 0 or any(e is not None for e in sp) for sp in specs]
+        return blocks, owned
+
+    blocks, owned = of(coords["model"])
+    dp = sizes["model"] > 1 and any(
+        cand and "model" in cand for cand in rules.get("batch", []))
+    return Placement(
+        blocks=tuple(blocks),
+        layout=TreeLayout(model.layout.paths, tuple(
+            tuple(b.stop - b.start for b in bl) for bl in blocks)),
+        owned=tuple(owned),
+        model_axis=None if mesh is None else mesh.model_axis(),
+        sample_sizes=tuple(SP.block_sample_size(model.layout, *of(m), sample)
+                           for m in range(sizes["model"])),
+        dp=dp)
+
+
+def state_shardings(model, mesh, dcfg: DistConfig, rules=None) -> DistAflState:
+    """The state's placement under ``rules`` (the reference's
+    ``state_shardings``): ``w`` by the rules leaf by leaf, the client
+    stacks with ``client`` prepended, the rest replicated (spec ())."""
+    rules = rules or R.RULES_TRAIN_CLIENT
+    axes = model.param_axes()
+    shapes = R.shapes_tree(model.specs)
+    paths, leaves = tree_flatten(shapes)
+    cl_shapes = tree_unflatten(paths, [
+        torch.empty((dcfg.num_clients,) + tuple(t.shape), dtype=t.dtype,
+                    device="meta") for t in leaves])
+    w_sh = R.sharding_tree(axes, shapes, rules, mesh)
+    cl_sh = R.sharding_tree(R.prepend_axis(axes, "client"), cl_shapes, rules,
+                            mesh)
+    rep = R.TreeSharding((), R.axis_sizes(mesh))
+    return DistAflState(w=w_sh, w_n=cl_sh, g_n=cl_sh, e_n=cl_sh, kappa=rep,
+                        q=rep, energy=rep, rnd=rep, gen=rep)
+
+
+def owned_sq_norms(x, pl: Placement) -> torch.Tensor:
+    """Per-row squared L2 norm of the rank's owned leaves, summed leaf by
+    leaf in flatten order and all-reduced over ``model`` (with one rank,
+    ``core/afl.py::sq_norms``)."""
+    out = sum(l.to(torch.float32).square().sum(dim=tuple(range(1, l.dim())))
+              for l, own in zip(pl.layout.leaves(x), pl.owned) if own)
+    if isinstance(out, int):  # no owned leaf
+        out = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    return C.all_reduce_(out, pl.model_axis)
+
+
+def block_threshold(x, model, pl: Placement, k, sample: int) -> torch.Tensor:
+    """``core/sparsify.py::tree_threshold``'s sampled threshold from the
+    rank's blocks: every model index's part of the sample, gathered."""
+    part = SP.sample_abs_blocks(x, model.layout, pl.layout, pl.blocks,
+                                pl.owned, sample)
+    if pl.model_axis is not None:
+        width = max(pl.sample_sizes)
+        pad = part.new_zeros((part.shape[0], width))
+        pad[:, :part.shape[1]] = part
+        got = C.all_gather_(pad, pl.model_axis, 0).view(
+            len(pl.sample_sizes), part.shape[0], width)
+        part = torch.cat([got[m, :, :n] for m, n in
+                          enumerate(pl.sample_sizes)], dim=1)
+    return SP.threshold_from_sample(part, model.layout.size, k)
+
+
+def block_sparsify(x, model, pl: Placement, k, sample: int):
+    """(upload, error, k_actual) of the rank's blocks at the sampled
+    threshold, through the ``sparsify_ef`` kernel; the count of the
+    coordinates that pass in the whole model."""
+    t = block_threshold(x, model, pl, k, sample)
+    upload, error, count = ops.sparsify_ef(x, t.contiguous())
+    if pl.model_axis is None:
+        return upload, error, count
+    count = count.to(torch.int64)
+    for l, own in zip(pl.layout.leaves(x), pl.owned):
+        if not own:  # another rank counts it
+            count -= (l.to(torch.float32).abs() >= t.view(
+                (-1,) + (1,) * (l.dim() - 1))).flatten(1).sum(
+                    dim=1, dtype=torch.int64)
+    return upload, error, C.all_reduce_(count, pl.model_axis).to(
+        torch.float32)
 
 
 def _rows(dcfg: DistConfig, mesh: ClientMesh | None) -> slice:
@@ -112,7 +256,7 @@ def client_state_shardings(state: DistAflState,
     """Each field's part on this rank: ``None`` for a field every rank
     holds whole (``w``, ``rnd``, ``gen``), the rank's ``slice`` of the
     client axis for the client-stacked ones (the reference's P("data"))."""
-    cl = mesh.rows(state.w_n.shape[0] * mesh.world_size)
+    cl = mesh.rows(state.w_n.shape[0] * mesh.data_size)
     return DistAflState(w=None, w_n=cl, g_n=cl, e_n=cl, kappa=cl, q=cl,
                         energy=cl, rnd=None, gen=None)
 
@@ -146,10 +290,10 @@ def telemetry_shardings(telemetry, mesh: ClientMesh, num_clients: int):
 
 
 def abstract_state(model, dcfg: DistConfig,
-                   mesh: ClientMesh | None = None) -> DistAflState:
+                   mesh: ClientMesh | None = None, rules=None) -> DistAflState:
     """The state's shapes and dtypes as meta tensors (no memory): the
-    rank's rows under ``mesh``, all N without."""
-    s = model.num_params()
+    rank's rows and blocks under ``mesh``, all N without."""
+    s = placement(model, mesh, dcfg.sample_size, rules).layout.size
     n = _rows(dcfg, mesh).stop - _rows(dcfg, mesh).start
     sdt = torch_dtype(dcfg.state_dtype)
     meta = dict(device="meta")
@@ -165,16 +309,24 @@ def abstract_state(model, dcfg: DistConfig,
 
 def init_state(model, dcfg: DistConfig, seed: int = 0, *,
                mesh: ClientMesh | None = None, device=None,
-               params=None) -> DistAflState:
-    """Round-0 state of the rank's clients.  ``params`` (a tree of
-    tensors) overrides the seeded initialisation (tests pass the
-    reference's weights); the seeded one draws on the state's device."""
+               params=None, rules=None) -> DistAflState:
+    """Round-0 state of the rank's clients, on its blocks.  ``params`` (a
+    tree of tensors, whole or the rank's blocks) overrides the seeded
+    initialisation (tests pass the reference's weights); the seeded one
+    draws on the state's device and keeps the rank's blocks only."""
+    from repro_torch.models.registry import local_params
+
     dev = _device(mesh, device)
     rows = _rows(dcfg, mesh)
     n = rows.stop - rows.start
+    pl = placement(model, mesh, dcfg.sample_size, rules)
+    blocks = tree_unflatten(model.layout.paths, list(pl.blocks))
     if params is None:
-        params = model.init(torch.Generator(device=dev).manual_seed(seed), dev)
-    w = model.layout.flatten(params).to(dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(seed), dev,
+                            blocks=blocks)
+    elif TreeLayout.of(params).shapes != pl.layout.shapes:  # whole leaves
+        params = local_params(model, params, blocks)
+    w = pl.layout.flatten(params).to(dev)
     del params
     s = w.numel()
     sdt = torch_dtype(dcfg.state_dtype)
@@ -193,7 +345,7 @@ def init_state(model, dcfg: DistConfig, seed: int = 0, *,
 
 
 def _split_clients(batch: dict, n: int, rows: slice) -> dict:
-    """(B, ...) -> the rank's (N/P, B/N, ...) on every leaf."""
+    """(B, ...) -> the rank's (N/D, B/N, ...) on every leaf."""
     out = {}
     for k, x in batch.items():
         if x.shape[0] % n:
@@ -204,13 +356,13 @@ def _split_clients(batch: dict, n: int, rows: slice) -> dict:
 
 
 def _gather(metrics: dict, mesh: ClientMesh | None) -> dict:
-    """The rank's (N/P,) metrics as the federation's (N,), in one
-    ``all_gather``."""
+    """The rank's (N/D,) metrics as the federation's (N,), in one
+    ``all_gather`` over ``data``."""
     if mesh is None:
         return metrics
     local = torch.stack([metrics[k] for k in METRIC_KEYS])
-    parts = [torch.empty_like(local) for _ in range(mesh.world_size)]
-    dist.all_gather(parts, local, group=mesh.group)
+    parts = [torch.empty_like(local) for _ in range(mesh.data_size)]
+    dist.all_gather(parts, local, group=mesh.data)
     full = torch.cat(parts, dim=1)
     return {k: full[i] for i, k in enumerate(METRIC_KEYS)}
 
@@ -219,7 +371,8 @@ def make_afl_train_step(model, cfg, dcfg: DistConfig,
                         controller: MadsController,
                         compressor: Compressor | None = None,
                         telemetry=None, staleness=None, *,
-                        mesh: ClientMesh | None = None, donate: bool = False):
+                        mesh: ClientMesh | None = None, donate: bool = False,
+                        rules=None):
     """The distributed AFL round: ``step(state, batch, zeta, tau, h2,
     budgets[, tstate], seeds=None)``.
 
@@ -232,25 +385,49 @@ def make_afl_train_step(model, cfg, dcfg: DistConfig,
     the step then takes and returns its state.  ``staleness``: the
     ``alpha * s(delta_tau)`` mixing weight.  ``mesh``: the client mesh
     (None: one process, no collective).  ``donate``: write the new state
-    into the old one's buffers.
+    into the old one's buffers.  ``rules``: the parameters' placement over
+    the mesh's model axis (``placement``).
     """
     if cfg is not None and cfg != model.cfg:
         model = dataclasses.replace(model, cfg=cfg)
     n = dcfg.num_clients
     rows = _rows(dcfg, mesh)
+    pl = placement(model, mesh, dcfg.sample_size, rules)
+    ma = pl.model_axis
+    if ma is not None and compressor is not None:
+        raise NotImplementedError(
+            f"a codec on a model axis of {ma.size} is not ported "
+            f"({CODEC_AXIS_ITEM})")
     eta = dcfg.learning_rate
     sw = None if (staleness is None or staleness.is_identity) else staleness
     at = torch_dtype(dcfg.accum_dtype)
     sdt = torch_dtype(dcfg.state_dtype)
     udt = torch_dtype(dcfg.upload_dtype)
-    layout = model.layout
+    layout = pl.layout
+
+    def grads_of(w_n, batch):
+        """The rank's clients' gradients on its blocks."""
+        cl = _split_clients(batch, n, rows)
+        if not pl.dp:
+            return device_grads(model, w_n, cl, layout=layout, model_axis=ma)
+        # dp_client: each client's batch split over model, one all-reduce;
+        # a batch that does not divide runs whole on every rank (the rules
+        # leave it unsharded)
+        rows_per = next(iter(cl.values())).shape[1]
+        if rows_per % ma.size:
+            return device_grads(model, w_n, cl, layout=layout)
+        part = {k: v.chunk(ma.size, dim=1)[ma.rank] for k, v in cl.items()}
+        g = device_grads(model, w_n, part, layout=layout)
+        for c in _columns(g.shape[1]):
+            acc = g[:, c].to(torch.float32)
+            g[:, c] = div(C.all_reduce_(acc, ma), float(ma.size)).to(g.dtype)
+        return g
 
     def step(state: DistAflState, batch, zeta, tau, h2, budgets,
              tstate=None, *, seeds=None):
         r = state.rnd + 1
         theta = (r - state.kappa).to(torch.float32)
-        grads = device_grads(model, state.w_n,
-                             _split_clients(batch, n, rows))
+        grads = grads_of(state.w_n, batch)
         s = grads.shape[1]
         cols = _columns(s)
 
@@ -259,7 +436,7 @@ def make_afl_train_step(model, cfg, dcfg: DistConfig,
             g_new[:, c] = (state.g_n[:, c].to(at)
                            + eta * grads[:, c].to(at)).to(sdt)
         x = state.e_n + g_new
-        x_norm2 = sq_norms(x, layout)
+        x_norm2 = owned_sq_norms(x, pl)
 
         zf = zeta[rows].to(torch.float32)
         tau_l, h2_l = tau[rows], h2[rows]
@@ -284,8 +461,8 @@ def make_afl_train_step(model, cfg, dcfg: DistConfig,
             bits = cstats["bits"] * okf
             b_used = cstats["b"] * okf
         else:
-            upload, e_after, k_actual = SP.sparsify_tree(
-                x, layout, k, method="sampled", sample=dcfg.sample_size)
+            upload, e_after, k_actual = block_sparsify(x, model, pl, k,
+                                                       dcfg.sample_size)
             del x
             bits = SP.bits_for_k(k_actual, controller.s, controller.u) * okf
             b_used = torch.full_like(k_actual, float(controller.u)) * okf
@@ -298,7 +475,7 @@ def make_afl_train_step(model, cfg, dcfg: DistConfig,
         for c in cols:
             agg = mixu @ upload[:, c].to(udt)
             if mesh is not None:
-                dist.all_reduce(agg, group=mesh.group)
+                dist.all_reduce(agg, group=mesh.data)
             w_new[c] = (state.w[c].to(udt) - div(agg, float(n))).to(w_new.dtype)
         del upload
 
@@ -324,7 +501,7 @@ def make_afl_train_step(model, cfg, dcfg: DistConfig,
             "theta": theta,
             "uploads": okf,
             "x_norm2": x_norm2,
-            "e_norm2": sq_norms(e_n_new, layout),
+            "e_norm2": owned_sq_norms(e_n_new, pl),
             "bits": bits,  # realised payload (<= tau*A budget; eq. 7c)
             "b": b_used,  # value bit-width on the wire (u, or the codec's b*)
         }, mesh)
@@ -411,18 +588,21 @@ def make_afl_train_system(model, cfg, mesh: ClientMesh | None = None,
                           controller: MadsController | None = None,
                           compressor: Compressor | None = None,
                           telemetry=None, staleness=None, *,
-                          donate: bool = False) -> dict:
+                          donate: bool = False, rules=None) -> dict:
     """The step and the state's layout over the mesh, the reference's
     bundle: ``step``, ``dcfg``, ``controller``, ``compressor``,
-    ``telemetry``, the rank's ``state_shardings`` / ``scalar_sharding`` /
-    ``telemetry_sharding``, and ``abstract_state()`` / ``init_state(seed,
-    params=None)``.  Without a mesh, N defaults to one client."""
+    ``telemetry``, the rank's ``state_shardings`` (its row slices) /
+    ``scalar_sharding`` / ``telemetry_sharding``, ``state_specs`` (the
+    rules' specs, ``state_shardings``), ``placement``, and
+    ``abstract_state()`` / ``init_state(seed, params=None)``.  Without a
+    mesh, N defaults to one client."""
     dcfg = dcfg or DistConfig(
         num_clients=1 if mesh is None else mesh_num_clients(mesh))
     controller = controller or MadsController(s=model.num_params())
     step = make_afl_train_step(model, cfg, dcfg, controller,
                                compressor=compressor, telemetry=telemetry,
-                               staleness=staleness, mesh=mesh, donate=donate)
+                               staleness=staleness, mesh=mesh, donate=donate,
+                               rules=rules)
     rows = _rows(dcfg, mesh)
     return {
         "step": step,
@@ -436,7 +616,11 @@ def make_afl_train_system(model, cfg, mesh: ClientMesh | None = None,
         "scalar_sharding": None,
         "telemetry_sharding": (None if mesh is None else telemetry_shardings(
             telemetry, mesh, dcfg.num_clients)),
-        "abstract_state": lambda: abstract_state(model, dcfg, mesh),
+        "state_specs": state_shardings(
+            model, {"data": 1, "model": 1} if mesh is None
+            else mesh.axis_sizes, dcfg, rules),
+        "placement": placement(model, mesh, dcfg.sample_size, rules),
+        "abstract_state": lambda: abstract_state(model, dcfg, mesh, rules),
         "init_state": lambda seed=0, params=None: init_state(
-            model, dcfg, seed, mesh=mesh, params=params),
+            model, dcfg, seed, mesh=mesh, params=params, rules=rules),
     }

@@ -65,15 +65,13 @@ def threshold_for_k(x_abs: torch.Tensor, k, *, method: str = "exact",
     return torch.where(k < 1.0, torch.inf, _pick(srt, idx))
 
 
-def _strided_sample(leaf: torch.Tensor, m: int) -> torch.Tensor:
-    """~m-element |x| sample per row of ``leaf`` (N, *shape) by a
-    rectangular strided slice — the reference's ``_strided_sample`` under
-    its device vmap, stride for stride: leading dims are strided first,
-    largest first, the last dim last."""
-    n, shape = leaf.shape[0], tuple(leaf.shape[1:])
+def _strides(shape: tuple, m: int):
+    """The reference's per-dim strides for a ~m-element sample of a leaf
+    of ``shape``: leading dims first, largest first, the last dim last;
+    None where the whole leaf is the sample."""
     size = math.prod(shape)
     if size <= m or not shape:
-        return leaf.to(torch.float32).abs().reshape(n, -1)
+        return None
     strides = [1] * len(shape)
     red = size / m
     order = sorted(range(len(shape)),
@@ -84,6 +82,17 @@ def _strided_sample(leaf: torch.Tensor, m: int) -> torch.Tensor:
         st = int(min(shape[i], max(1, round(red))))
         strides[i] = st
         red /= st
+    return strides
+
+
+def _strided_sample(leaf: torch.Tensor, m: int) -> torch.Tensor:
+    """~m-element |x| sample per row of ``leaf`` (N, *shape) by a
+    rectangular strided slice — the reference's ``_strided_sample`` under
+    its device vmap, stride for stride."""
+    n, shape = leaf.shape[0], tuple(leaf.shape[1:])
+    strides = _strides(shape, m)
+    if strides is None:
+        return leaf.to(torch.float32).abs().reshape(n, -1)
     block = leaf[(slice(None),) + tuple(slice(None, None, st) for st in strides)]
     return block.to(torch.float32).abs().reshape(n, -1)
 
@@ -96,20 +105,71 @@ def sample_abs(x: torch.Tensor, layout, sample: int) -> torch.Tensor:
                       for l, m in zip(layout.leaves(x), m_per)], dim=1)
 
 
+def _block_sample_slices(shape, block, sample: int, s: int):
+    """The slices of a leaf's block (per-dim ``block`` slices of the whole
+    leaf ``shape``) that the whole leaf's strided sample takes: on each
+    dim the sampled coordinates 0, st, 2 st, ... that fall in the block."""
+    strides = _strides(tuple(shape), max(int(sample * math.prod(shape) / s),
+                                         16))
+    if strides is None:
+        return tuple(slice(None) for _ in shape)
+    return tuple(slice((-b.start) % st, None, st)
+                 for b, st in zip(block, strides))
+
+
+def block_sample_size(full_layout, blocks: list, owned: list,
+                      sample: int) -> int:
+    """The number of coordinates ``sample_abs_blocks`` takes from a rank's
+    blocks."""
+    s = full_layout.size
+    total = 0
+    for shape, block, own in zip(full_layout.shapes, blocks, owned):
+        if own:
+            sl = _block_sample_slices(shape, block, sample, s)
+            total += math.prod(len(range(b.stop - b.start)[q])
+                               for b, q in zip(block, sl))
+    return total
+
+
+def sample_abs_blocks(x: torch.Tensor, full_layout, block_layout,
+                      blocks: list, owned: list, sample: int) -> torch.Tensor:
+    """A rank's part of ``sample_abs``'s sample: x (N, s_r) its flat
+    blocks, ``blocks`` each leaf's per-dim slices of the whole leaf,
+    ``owned`` whether its values count here (a leaf every rank holds
+    whole counts on one of them).  The ranks' parts together hold the
+    whole sample's values, so its sorted values are the whole sample's."""
+    s = full_layout.size
+    parts = []
+    for shape, block, own, leaf in zip(full_layout.shapes, blocks, owned,
+                                       block_layout.leaves(x)):
+        if own:
+            sl = _block_sample_slices(shape, block, sample, s)
+            parts.append(leaf[(slice(None),) + sl].to(torch.float32).abs()
+                         .reshape(x.shape[0], -1))
+    if not parts:
+        return x.new_zeros((x.shape[0], 0), dtype=torch.float32)
+    return torch.cat(parts, dim=1)
+
+
+def threshold_from_sample(flat: torch.Tensor, s: int, k) -> torch.Tensor:
+    """Per-row threshold at which ~k of s coordinates pass, from the
+    (N, m) |x| sample ``flat`` (``tree_threshold``'s sampled method)."""
+    kf = torch.as_tensor(k, dtype=torch.float32, device=flat.device)
+    frac = torch.clamp(div(kf, float(s)), 0.0, 1.0)
+    srt = torch.sort(flat, dim=-1, descending=True).values
+    m = flat.shape[-1]
+    idx = torch.clamp(torch.floor(frac * m).to(torch.int32) - 1, 0, m - 1)
+    return torch.where(kf < 1.0, torch.inf, _pick(srt, idx))
+
+
 def tree_threshold(x: torch.Tensor, layout, k, *, method: str = "exact",
                    sample: int = 65536) -> torch.Tensor:
     """GLOBAL |x| threshold per device across all leaves such that ~k pass
     (the paper treats x_n as one flat vector).  x (N, s), k (N,)."""
     if method == "exact":
         return threshold_for_k(x.to(torch.float32).abs(), k, method="exact")
-    s = layout.size
-    flat = sample_abs(x, layout, sample)
-    kf = torch.as_tensor(k, dtype=torch.float32, device=x.device)
-    frac = torch.clamp(div(kf, float(s)), 0.0, 1.0)
-    srt = torch.sort(flat, dim=-1, descending=True).values
-    m = flat.shape[-1]
-    idx = torch.clamp(torch.floor(frac * m).to(torch.int32) - 1, 0, m - 1)
-    return torch.where(kf < 1.0, torch.inf, _pick(srt, idx))
+    return threshold_from_sample(sample_abs(x, layout, sample), layout.size,
+                                 k)
 
 
 def sparsify_tree(x: torch.Tensor, layout, k, *, method: str = "exact",

@@ -7,9 +7,8 @@ The dry-run plan (``launch/dryrun.py``) and ``chip_smoke.py`` read these
 FLOPs and HBM bytes for the roofline terms (``launch/roofline.py``) and
 for a step's bound.  ``step_analytics`` defaults the model-parallel
 degree ``mp`` to the reference's production mesh (16 at a world of 256
-or more, else half the world); the port has no ``model`` axis yet
-(ROADMAP queue 1 item 3: each card holds whole parameters), so its
-callers pass ``model_parallel=1``.
+or more, else half the world); the port's callers pass their mesh's
+model axis (``launch/dryrun.py --model M``: ``model_parallel=M``).
 
 Formulas (documented napkin math):
 * dense/moe/vlm attention layer fwd FLOPs per token (context c):

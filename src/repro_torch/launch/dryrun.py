@@ -5,26 +5,35 @@ Usage:
   python -m repro_torch.launch.dryrun --all               # plan, no card
   python -m repro_torch.launch.dryrun --arch qwen2-7b --shape train_4k
   python -m repro_torch.launch.dryrun --all --world 4     # four cards
+  python -m repro_torch.launch.dryrun --all --world 4 --model 4  # model axis
   python -m repro_torch.launch.dryrun --arch llama3.2-3b --shape decode_32k \\
       --execute                                          # run it on the card
+  torchrun --nproc-per-node 4 -m repro_torch.launch.dryrun --arch qwen3-32b \\
+      --shape decode_32k --world 4 --model 4 --execute   # on four cards
 
 The reference lowers and compiles each step for a TPU mesh and reads XLA's
 ``memory_analysis``.  Here the plan builds each step (``launch/steps.py``)
-on the ``meta`` device, with no card: the arguments' bytes per card at a
-world of ``--world`` cards and whether they fit one card's 80 GB, the
-calculator's FLOPs and HBM bytes (``launch/calculator.py``, at
-``model_parallel=1``: the port has no ``model`` axis), the H100 roofline
-terms and bottleneck (``launch/roofline.py``) and ``model_flops``.  A
-train step's card holds its rank's clients (one a card) and the global
-batch; a serve step runs whole on one card at the global batch, whatever
-the world.  ``--execute`` (the counterpart of compile +
-``memory_analysis``) runs each planned step whose arguments fit, once, on
-``--device`` (the card by default; a missing card raises) from random
-arguments (``steps.materialize``, seeded by ``--seed``) and adds the
-step's seconds, the peak GiB, the temporaries (peak - arguments) and the
-roofline bound over the measured seconds.  Each pair is one JSON line
-appended to ``--out``, with the reference's ``status`` values (``ok``,
-``skipped``, ``error``).
+on the ``meta`` device, with no card, as rank 0 of a (data, model) mesh of
+``--world`` / ``--model`` by ``--model`` cards: the arguments' bytes per
+card under the rules (``sharding/rules.py``) and whether they fit one
+card's 80 GB, the leaves a layer gathers over ``model``
+(``models/layers.py::gathered_leaves``), the calculator's FLOPs and HBM
+bytes (``launch/calculator.py`` at ``model_parallel=--model``), the
+collectives (``launch/roofline.py::step_collectives``), the H100 roofline
+terms and bottleneck and ``model_flops``.  A train step's card holds its
+blocks of its data rank's clients (one client a data rank) and the global
+batch; a serve step runs over the model axis alone (a mesh of data 1, on
+``--model`` cards) at the global batch, whatever the world.
+``--execute`` (the counterpart of compile + ``memory_analysis``) runs
+each planned step whose arguments fit, once, on ``--device`` (the card by
+default; a missing card raises) from random arguments
+(``steps.materialize``, seeded by ``--seed``) and adds the step's
+seconds, the peak GiB, the temporaries (peak - arguments) and the
+roofline bound over the measured seconds; with ``--world`` above 1 it
+runs under ``torchrun`` (one process a card, ``WORLD_SIZE`` the world) on
+a mesh from ``make_client_mesh``, and rank 0 writes.  Each pair is one
+JSON line appended to ``--out``, with the reference's ``status`` values
+(``ok``, ``skipped``, ``error``).
 
 The reference's ``XLA_FLAGS`` header (512 simulated host devices) and its
 production meshes (``--multi-pod``, ``--both-meshes``) and ``--dump-hlo``
@@ -34,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import time
 import traceback
@@ -43,9 +53,12 @@ import torch
 from repro_torch.configs import ASSIGNED_ARCHS, INPUT_SHAPES, get_config
 from repro_torch.launch import roofline as RL
 from repro_torch.launch.calculator import step_analytics
-from repro_torch.launch.mesh import ClientMesh
+from repro_torch.launch.mesh import ClientMesh, make_client_mesh
 from repro_torch.launch.steps import (arg_bytes, build_step, materialize,
                                       supported)
+from repro_torch.models.layers import gathered_leaves
+from repro_torch.sharding import rules as R
+from repro_torch.utils.tree import tree_flatten
 from repro_torch.utils.device import resolve_device
 
 
@@ -61,53 +74,111 @@ def active_params(cfg, model) -> int:
     return total - cfg.num_layers * (routed_all - routed_active)
 
 
-def plan_mesh(world: int) -> ClientMesh:
-    """Rank 0's view of a ``world``-rank client mesh for planning: no
-    process group, and its steps are only built, never run."""
+def plan_mesh(world: int, model: int = 1) -> ClientMesh:
+    """Rank 0's view of a (world / model, model) client mesh for planning:
+    no process group, and its steps are only built, never run."""
     return ClientMesh(group=None, rank=0, world_size=world,
-                      device=torch.device("meta"))
+                      device=torch.device("meta"), model=model)
 
 
-def plan(cfg0, shape, *, world: int = 1, variant: str = "default",
-         dist_overrides: dict | None = None) -> tuple:
+def plan(cfg0, shape, *, world: int = 1, model: int = 1,
+         variant: str = "default", dist_overrides: dict | None = None,
+         mesh: ClientMesh | None = None) -> tuple:
     """(record, built) of one supported pair: the step built on the meta
-    device and its numbers (see the module's docstring)."""
-    # world 1: one process, no group (the step that --execute runs)
-    mesh = plan_mesh(world) if shape.kind == "train" and world > 1 else None
+    device and its numbers (see the module's docstring).  ``mesh``: the
+    mesh to build over (``plan_mesh``'s by default)."""
+    if world % model:
+        raise ValueError(f"a world of {world} has no model axis of {model}")
+    cards = world if shape.kind == "train" else model
+    if mesh is None and cards > 1:  # world 1: one process, no group
+        mesh = plan_mesh(cards, model)
     built = build_step(cfg0, shape, mesh, dist_overrides=dist_overrides,
                        variant=variant)
-    cfg, model = built["cfg"], built["model"]
-    n_params = model.num_params()
-    act = active_params(cfg, model)
+    cfg, mdl = built["cfg"], built["model"]
+    n_params = mdl.num_params()
+    act = active_params(cfg, mdl)
     tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
                                    else 1)
     mf = RL.model_flops(n_params, tokens, act, train=shape.kind == "train")
-    analytic = step_analytics(cfg, shape, world, n_params, model_parallel=1)
+    mp = 1 if variant == "dp_client" else model
+    analytic = step_analytics(cfg, shape, cards, n_params, model_parallel=mp)
     dcfg = built["system"]["dcfg"] if shape.kind == "train" else None
+    s_r = built["system"]["placement"].layout.size if dcfg else 0
+    per_rank = tokens if dcfg is None else tokens // dcfg.num_clients
     coll = RL.step_collectives(
-        shape.kind, n_params, world, dcfg.num_clients if dcfg else 0,
-        dcfg.upload_dtype if dcfg else "float32")
+        shape.kind, n_params, cards, dcfg.num_clients if dcfg else 0,
+        dcfg.upload_dtype if dcfg else "float32",
+        model=1 if variant == "dp_client" else model, cfg=cfg,
+        tokens=per_rank, params_per_card=s_r,
+        sample=dcfg.sample_size if dcfg else 0)
     roof = RL.analyze(analytic, coll, model_flops_total=mf)
     args_b = arg_bytes(built["args"])
-    rec = dict(status="ok", world=world, num_params=n_params,
-               active_params=act,
+    rec = dict(status="ok", world=world, model=model, cards=cards,
+               num_params=n_params, active_params=act,
                mem=dict(argument_gb=args_b / 1e9,
                         fits=args_b <= RL.CARD_BYTES),
+               gathered=[name for name, _, _ in gathered_leaves(cfg, mp)]
+               if cfg.family in ("dense", "vlm") else [],
                roofline=roof.as_dict())
     return rec, built
 
 
-def execute(built: dict, shape, rec: dict, device, seed: int) -> None:
-    """Run a planned step once on ``device`` from random arguments; adds
-    its seconds, peak and temporaries, and the bound over the seconds."""
-    dev = resolve_device(device)
+def _factor(spec: tuple, sizes: dict) -> int:
+    """How many blocks a spec cuts a tensor into."""
+    out = 1
+    for e in spec:
+        for a in ((e,) if isinstance(e, str) else (e or ())):
+            out *= sizes[a]
+    return out
+
+
+def rules_bytes(cfg0, shape, *, world: int, model: int) -> int:
+    """A card's argument bytes under the rules, from the specs alone: for
+    the families whose steps have no model axis yet, what a card would
+    hold once they do (the step built whole on one card, each leaf cut by
+    its spec)."""
+    built = build_step(cfg0, shape, None)
+    cfg, mdl = built["cfg"], built["model"]
+    cards = world if shape.kind == "train" else model
+    sizes = {"data": cards // model, "model": model}
+    if shape.kind == "train":
+        state, batch = built["args"][:2]
+        rules = R.RULES_TRAIN_CLIENT
+        s_r = sum(math.prod(sp.shape) // _factor(p, sizes) for sp, p in zip(
+            tree_flatten(mdl.specs)[1],
+            tree_flatten(mdl.param_pspecs(rules, sizes))[1]))
+        n = state.w_n.shape[0]
+        return (s_r * state.w.element_size()
+                + 3 * n * s_r * state.w_n.element_size()
+                + arg_bytes(batch) + 3 * arg_bytes(state.q))
+    params = built["args"][0]
+    p_specs = mdl.param_pspecs(R.RULES_SERVE, sizes)
+    out = sum(arg_bytes(t) // _factor(p, sizes) for t, p in zip(
+        tree_flatten(params)[1], tree_flatten(p_specs)[1]))
+    if shape.kind == "decode":
+        cache = built["args"][1]
+        axes = mdl.cache_axes(cfg)
+        for k, t in cache.items():
+            out += arg_bytes(t) // (_factor(R.logical_to_pspec(
+                tuple(axes[k]), tuple(t.shape), R.RULES_SERVE, sizes), sizes)
+                if isinstance(t, torch.Tensor) else 1)
+    return out + arg_bytes(built["args"][1 if shape.kind == "prefill"
+                                        else 2:])
+
+
+def execute(built: dict, shape, rec: dict, device, seed: int,
+            mesh: ClientMesh | None = None) -> None:
+    """Run a planned step once on ``device`` (``mesh``'s, over a mesh)
+    from random arguments; adds its seconds, peak and temporaries, and the
+    bound over the seconds."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     cuda = dev.type == "cuda"
     if cuda:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    args = materialize(built, shape, gen, dev)
+    args = materialize(built, shape, gen, dev, mesh)
     if cuda:
         torch.cuda.synchronize(dev)
         arg_gib = (torch.cuda.memory_allocated(dev) - base) / 2**30
@@ -128,26 +199,34 @@ def execute(built: dict, shape, rec: dict, device, seed: int) -> None:
 
 
 def run_one(arch: str, shape_name: str, *, out_path: str, world: int = 1,
-            tag: str = "baseline", variant: str = "default",
+            model: int = 1, tag: str = "baseline", variant: str = "default",
             dist_overrides: dict | None = None,
             cfg_overrides: dict | None = None, run: bool = False,
-            device: str = "cuda", seed: int = 0) -> dict:
+            device: str = "cuda", seed: int = 0,
+            mesh: ClientMesh | None = None) -> dict:
+    """Plan (and with ``run`` execute) one pair and append its record to
+    ``out_path``; ``mesh`` (under torchrun) is the run's mesh, whose rank
+    0 alone writes."""
     shape = INPUT_SHAPES[shape_name]
     cfg0 = get_config(arch)
     if cfg_overrides:
         cfg0 = cfg0.replace(**cfg_overrides)
-    rec = {"arch": arch, "shape": shape_name, "world": world, "tag": tag,
-           "variant": variant, "time": time.strftime("%Y-%m-%d %H:%M:%S")}
+    rec = {"arch": arch, "shape": shape_name, "world": world, "model": model,
+           "tag": tag, "variant": variant,
+           "time": time.strftime("%Y-%m-%d %H:%M:%S")}
+    writer = mesh is None or mesh.rank == 0
     if not supported(cfg0, shape):
         rec.update(status="skipped",
                    reason="long_500k unsupported (the enc-dec audio family "
                           "has no sub-quadratic decode)")
-        _append(out_path, rec)
-        print(json.dumps(rec), flush=True)
+        if writer:
+            _append(out_path, rec)
+            print(json.dumps(rec), flush=True)
         return rec
     try:
-        planned, built = plan(cfg0, shape, world=world, variant=variant,
-                              dist_overrides=dist_overrides)
+        planned, built = plan(cfg0, shape, world=world, model=model,
+                              variant=variant, dist_overrides=dist_overrides,
+                              mesh=mesh)
         rec.update(planned)
         roof = rec["roofline"]
         if run:
@@ -155,19 +234,34 @@ def run_one(arch: str, shape_name: str, *, out_path: str, world: int = 1,
                 rec["execute"] = dict(run=False, reason="arguments exceed "
                                       "one card's memory")
             else:
-                execute(built, shape, rec, device, seed)
+                execute(built, shape, rec, device, seed, mesh)
         del built
-        print(f"[dryrun] {arch} x {shape_name} (world {world}, {tag}): OK "
-              f"arg={rec['mem']['argument_gb']:.2f}GB "
+        if not writer:
+            return rec
+        print(f"[dryrun] {arch} x {shape_name} (world {world}, model "
+              f"{model}, {tag}): OK arg={rec['mem']['argument_gb']:.2f}GB "
               f"fits={rec['mem']['fits']} flops/dev={roof['flops']:.3e} "
               f"hbm/dev={roof['hbm_bytes']:.3e} "
               f"coll/dev={roof['coll_bytes']:.3e} "
               f"bottleneck={roof['bottleneck']}"
               + (f" execute={json.dumps(rec['execute'])}"
                  if "execute" in rec else ""), flush=True)
-    except (RuntimeError, ValueError, TypeError, NotImplementedError) as e:
+    except NotImplementedError as e:  # a family with no model axis yet
+        b = rules_bytes(cfg0, shape, world=world, model=model)
+        rec.update(status="not_ported", reason=str(e),
+                   cards=world if shape.kind == "train" else model,
+                   mem=dict(argument_gb=b / 1e9, fits=b <= RL.CARD_BYTES,
+                            from_rules=True))
+        if not writer:
+            return rec
+        print(f"[dryrun] {arch} x {shape_name} (world {world}, model "
+              f"{model}): not ported; under the rules "
+              f"arg={b / 1e9:.2f}GB fits={b <= RL.CARD_BYTES}", flush=True)
+    except (RuntimeError, ValueError, TypeError) as e:
         rec.update(status="error", error=f"{type(e).__name__}: {e}",
                    trace=traceback.format_exc()[-2000:])
+        if not writer:
+            return rec
         print(f"[dryrun] {arch} x {shape_name}: FAIL {type(e).__name__}: {e}",
               flush=True)
     _append(out_path, rec)
@@ -186,7 +280,9 @@ def main(argv=None) -> list:
     ap.add_argument("--shape", default=None, choices=list(INPUT_SHAPES))
     ap.add_argument("--all", action="store_true", help="sweep all arch x shape")
     ap.add_argument("--world", type=int, default=1,
-                    help="cards of the plan (train: one client a card)")
+                    help="cards of the plan (train: one client a data rank)")
+    ap.add_argument("--model", type=int, default=1,
+                    help="the mesh's model axis (tensor-parallel cards)")
     ap.add_argument("--out", default="runs/dryrun.jsonl")
     ap.add_argument("--tag", default="baseline")
     ap.add_argument("--variant", default="default", choices=["default", "dp_client"])
@@ -200,10 +296,17 @@ def main(argv=None) -> list:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    mesh = None
     if args.execute:
-        if args.world != 1:
-            ap.error("--execute runs on one card: --world must be 1")
         resolve_device(args.device)  # a card asked for and absent raises
+        if args.world > 1:
+            if int(os.environ.get("WORLD_SIZE", 1)) != args.world:
+                ap.error(f"--execute over {args.world} cards runs under "
+                         f"torchrun with WORLD_SIZE={args.world}")
+            fam = get_config(args.arch).family if args.arch else "dense"
+            mesh = make_client_mesh(args.world // args.model,
+                                    device=args.device, model=args.model,
+                                    family=fam)
 
     dist_overrides = {}
     if args.upload_dtype:
@@ -222,12 +325,16 @@ def main(argv=None) -> list:
     shapes = [args.shape] if args.shape else list(INPUT_SHAPES)
     if args.all:
         archs, shapes = list(ASSIGNED_ARCHS), list(INPUT_SHAPES)
-    return [run_one(a, s, out_path=args.out, world=args.world, tag=args.tag,
-                    variant=args.variant,
-                    dist_overrides=dist_overrides or None,
-                    cfg_overrides=cfg_overrides or None, run=args.execute,
-                    device=args.device, seed=args.seed)
-            for a in archs for s in shapes]
+    try:
+        return [run_one(a, s, out_path=args.out, world=args.world,
+                        model=args.model, tag=args.tag, variant=args.variant,
+                        dist_overrides=dist_overrides or None,
+                        cfg_overrides=cfg_overrides or None, run=args.execute,
+                        device=args.device, seed=args.seed, mesh=mesh)
+                for a in archs for s in shapes]
+    finally:
+        if mesh is not None:
+            mesh.close()
 
 
 if __name__ == "__main__":

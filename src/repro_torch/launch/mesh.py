@@ -6,10 +6,14 @@ with ``core/distributed.py::mesh_num_clients``).
 The reference's mesh is one program over many TPU devices, with ``data``
 (clients) and ``model`` (tensor-parallel parameters) axes.  Here there is
 one process per card: a ``ClientMesh`` is the process group, this
-process's rank and the group's size, and the device the rank runs on.  The
-``data`` axis is the group (rank r holds clients [r N/P, (r + 1) N/P));
-a ``model`` axis larger than 1 is not ported (ROADMAP queue 1 item 3)
-and raises.  The seed mesh is a ``ClientMesh`` whose rows are seeds
+process's rank and the group's size, and the device the rank runs on.  A
+(data, model) mesh of D x M ranks places rank r at (r // M, r % M),
+row-major as the reference's ``Mesh(devs.reshape(data, model))``: its
+``model`` group is the M consecutive ranks of its row, its ``data`` group
+the D ranks that share its model index, and rank r holds clients
+[d N/D, (d + 1) N/D) of its data index d.  The model axis is ported for
+the dense and VLM families (``require_model_axis`` refuses the others,
+naming their ROADMAP items).  The seed mesh is a ``ClientMesh`` whose rows are seeds
 (``experiments/batch.py``); the ingest server splits each packed batch
 over a ``ClientMesh`` made by ``make_mesh`` (``serve/server.py``).
 
@@ -37,29 +41,89 @@ import torch.distributed as dist
 
 from repro_torch.utils.device import resolve_device
 
-MODEL_AXIS_ITEM = "ROADMAP queue 1 item 3"
 TIMEOUT = datetime.timedelta(seconds=300)  # a collective waiting longer fails
+# the families with a model axis, and the ROADMAP item of each other one
+MODEL_AXIS_FAMILIES = ("dense", "vlm")
+MODEL_AXIS_ITEMS = {
+    "moe": "ROADMAP queue 1 item 4 (the model axis for moe)",
+    "ssm": "ROADMAP queue 1 item 5 (the model axis for ssm and hybrid)",
+    "hybrid": "ROADMAP queue 1 item 5 (the model axis for ssm and hybrid)",
+    "audio": "ROADMAP queue 1 item 6 (the model axis for audio)",
+    "vision": "ROADMAP queue 1 item 6 (the model axis for audio)",
+    "trajectory": "ROADMAP queue 1 item 6 (the model axis for audio)",
+}
+CODEC_AXIS_ITEM = "ROADMAP queue 1 item 7 (codecs on the model axis)"
+SERVE_DATA_ITEM = ("ROADMAP queue 1 item 8 (serve steps with data > 1, the "
+                   "sequence-parallel long_500k cache)")
+
+
+def require_model_axis(family: str, model: int) -> None:
+    """Raise ``NotImplementedError`` for a model axis of ``model`` > 1 on
+    a family that has none, naming its ROADMAP item."""
+    if model > 1 and family not in MODEL_AXIS_FAMILIES:
+        raise NotImplementedError(
+            f"a model axis of {model} for the {family} family is not ported "
+            f"({MODEL_AXIS_ITEMS.get(family, MODEL_AXIS_ITEMS['audio'])})")
 
 
 @dataclasses.dataclass(eq=False)
 class ClientMesh:
-    """One rank's view of the client mesh."""
+    """One rank's view of the client mesh: the whole group, and for a
+    model axis of ``model`` > 1 its ``model`` and ``data`` groups."""
 
     group: object  # torch.distributed.ProcessGroup
     rank: int
     world_size: int
     device: torch.device
     owns_group: bool = False  # made the default group: ``close`` ends it
+    model: int = 1
+    model_group: object = None  # None: the model axis is 1
+    data_group: object = None  # None: the whole group
+
+    @property
+    def data_size(self) -> int:
+        return self.world_size // self.model
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.model
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.model
+
+    @property
+    def axis_sizes(self) -> dict:
+        """The (data, model) axes' sizes, the rules' view of the mesh."""
+        return {"data": self.data_size, "model": self.model}
+
+    @property
+    def coords(self) -> dict:
+        return {"data": self.data_rank, "model": self.model_rank}
+
+    @property
+    def data(self):
+        """The group of the ranks that share this rank's model index."""
+        return self.group if self.data_group is None else self.data_group
+
+    def model_axis(self):
+        """This rank's ``sharding.collectives.ModelAxis`` (None for a model
+        axis of 1)."""
+        from repro_torch.sharding.collectives import ModelAxis
+
+        if self.model == 1:
+            return None
+        return ModelAxis(self.model_group, self.model_rank, self.model)
 
     def rows(self, num_clients: int) -> slice:
-        """The rank's clients: rows [r N/P, (r + 1) N/P) of the client
-        axis."""
-        if num_clients % self.world_size:
+        """The rank's clients: rows [d N/D, (d + 1) N/D) of the client
+        axis, d its index on ``data`` (of D)."""
+        if num_clients % self.data_size:
             raise ValueError(
                 f"{num_clients} clients do not split evenly over "
-                f"{self.world_size} ranks")
-        per = num_clients // self.world_size
-        return slice(self.rank * per, (self.rank + 1) * per)
+                f"{self.data_size} ranks of the data axis")
+        per = num_clients // self.data_size
+        return slice(self.data_rank * per, (self.data_rank + 1) * per)
 
     def close(self) -> None:
         """End the process group if this mesh made it."""
@@ -71,7 +135,7 @@ class ClientMesh:
 def mesh_num_clients(mesh: ClientMesh) -> int:
     """Clients the mesh's data axis carries at one client a rank (the
     reference's ``data`` x ``pod`` size)."""
-    return mesh.world_size
+    return mesh.data_size
 
 
 def _launched() -> bool:
@@ -136,25 +200,48 @@ def make_mesh(*, device="cuda", store=None, rank: int | None = None,
 
 
 def make_client_mesh(num_clients: int, *, device="cuda", model: int = 1,
-                     store=None, rank: int | None = None,
+                     family: str | None = None, store=None,
+                     rank: int | None = None,
                      world_size: int | None = None) -> ClientMesh:
     """The client mesh for a federation of ``num_clients``: ``make_mesh``'s
-    group, whose rank r holds clients [r N/P, (r + 1) N/P).  Raises
-    ``ValueError`` when ``num_clients`` does not split evenly over the
-    ranks and ``NotImplementedError`` for ``model`` > 1.
+    group as a (data, model) mesh of (P / ``model``, ``model``), whose
+    rank at data index d holds clients [d N/D, (d + 1) N/D).  A model axis
+    above 1 needs the model's ``family`` and raises
+    ``NotImplementedError`` for one that has none (``require_model_axis``).
+    Raises ``ValueError`` when the ranks do not divide into rows of
+    ``model`` or ``num_clients`` does not split evenly over ``data``.
     """
-    if model != 1:
-        raise NotImplementedError(
-            f"a model axis of {model}: tensor-parallel parameter sharding "
-            f"is not ported ({MODEL_AXIS_ITEM})")
+    if model < 1:
+        raise ValueError(f"a model axis of {model}")
+    if model > 1:
+        if family is None:
+            raise ValueError("a model axis needs the model's family")
+        require_model_axis(family, model)
     mesh = make_mesh(device=device, store=store, rank=rank,
                      world_size=world_size)
     try:
+        if mesh.world_size % model:
+            raise ValueError(f"{mesh.world_size} ranks do not divide into "
+                             f"rows of a model axis of {model}")
+        if model > 1:
+            mesh = _with_model_axis(mesh, model)
         mesh.rows(num_clients)
     except ValueError:
         mesh.close()
         raise
     return mesh
+
+
+def _with_model_axis(mesh: ClientMesh, model: int) -> ClientMesh:
+    """``mesh`` as (P / model, model): every rank makes every group, in
+    one order (``new_group`` is collective)."""
+    p = mesh.world_size
+    rows = [dist.new_group(list(range(d * model, (d + 1) * model)))
+            for d in range(p // model)]
+    cols = [dist.new_group(list(range(m, p, model))) for m in range(model)]
+    return dataclasses.replace(mesh, model=model,
+                               model_group=rows[mesh.rank // model],
+                               data_group=cols[mesh.rank % model])
 
 
 def make_seed_mesh(num_seeds: int, *, device="cuda", store=None,

@@ -9,7 +9,8 @@ Terms (per card, seconds):
 FLOPs and HBM bytes are the analytic calculator's (``launch/calculator.py``,
 as the reference's terms are).  The collective bytes are those of the
 collectives the port's step issues, counted from ``core/distributed.py``
-(``step_collectives``) with the reference's ring factors:
+and, over a model axis, from ``models/layers.py`` (``step_collectives``)
+with the reference's ring factors:
   all-reduce       2 (g-1)/g * result_bytes
   all-gather         (g-1)/g * result_bytes (result = gathered tensor)
 
@@ -54,25 +55,73 @@ class CollectiveStats:
 
 def step_collectives(kind: str, num_params: int, world: int,
                      num_clients: int = 0,
-                     upload_dtype: str = "float32") -> CollectiveStats:
-    """The collectives one rank of the port's step issues.
+                     upload_dtype: str = "float32", *, model: int = 1,
+                     cfg=None, tokens: int = 0, sample: int = 65536,
+                     params_per_card: int = 0) -> CollectiveStats:
+    """The collectives one rank of the port's step issues, on a (world /
+    model, model) mesh.
 
-    Train (``core/distributed.py::make_afl_train_step`` over a mesh of
-    ``world`` ranks): the MES aggregation's ``all_reduce`` of the (s,)
-    sum in ``upload_dtype``, one per column block of ``CHUNK``, and one
-    ``all_gather`` of the round's (len(METRIC_KEYS), N/P) f32 metrics into
-    (len(METRIC_KEYS), N).  Serve steps run whole on one card and issue
-    none; nor does a world of 1."""
-    if kind != "train" or world <= 1:
-        return CollectiveStats({}, {})
-    n = num_clients or world
-    s = num_params
-    ub = torch_dtype(upload_dtype).itemsize
-    reduce = ring_bytes("all-reduce", s * ub, world)
-    gather = ring_bytes("all-gather", len(METRIC_KEYS) * n * 4, world)
-    return CollectiveStats({"all-reduce": reduce, "all-gather": gather},
-                           {"all-reduce": math.ceil(s / CHUNK),
-                            "all-gather": 1})
+    Train, over ``data`` (``core/distributed.py::make_afl_train_step``):
+    the MES aggregation's ``all_reduce`` of the rank's (s_r,) sum in
+    ``upload_dtype``, one per column block of ``CHUNK``, and one
+    ``all_gather`` of the round's (len(METRIC_KEYS), N/D) f32 metrics.
+
+    Over ``model`` (``model`` > 1; ``tokens`` the rank's tokens a step):
+    the tensor-parallel layers' all-reduces of (tokens, d_model)
+    activations (a layer's attention and MLP outputs where they split,
+    the vocab-parallel embedding), the all-gathers of the leaves a layer
+    gathers (``models/layers.py::gathered_leaves``) and, in training, each
+    region's gradient all-reduce and the gathered leaves' gradients ("sum"),
+    with the forward counted again under a ``remat`` checkpoint; the
+    round's norm and count all-reduces and its threshold sample's
+    all-gather.  A world of 1 issues none."""
+    from repro_torch.models.layers import gathered_leaves, head_plan
+    from repro_torch.sharding.collectives import ModelAxis
+
+    by, cnt = {}, {}
+
+    def add(k, b, n=1):  # n collectives of b bytes each
+        by[k] = by.get(k, 0.0) + (b if n == 1 else b * n)
+        cnt[k] = cnt.get(k, 0) + n
+
+    data = world // model
+    s_r = params_per_card or num_params
+    if kind == "train" and data > 1:
+        n = num_clients or data
+        by["all-reduce"] = ring_bytes("all-reduce", s_r * torch_dtype(
+            upload_dtype).itemsize, data)
+        cnt["all-reduce"] = math.ceil(s_r / CHUNK)
+        add("all-gather", ring_bytes("all-gather", len(METRIC_KEYS) * n * 4,
+                                     data))
+    if model > 1 and cfg is not None:
+        ab = torch_dtype(cfg.dtype).itemsize
+        pb = torch_dtype(cfg.param_dtype).itemsize
+        act = ring_bytes("all-reduce", tokens * cfg.d_model * ab, model)
+        split = (int(head_plan(cfg, ModelAxis(None, 0, model)).split)
+                 + int(cfg.d_ff % model == 0))
+        vocab = int(cfg.vocab_size % model == 0)
+        fwd = 1 + int(kind == "train" and cfg.remat != "none")
+        gl = gathered_leaves(cfg, model)
+        add("all-reduce", act, cfg.num_layers * split * fwd + vocab)
+        for _, shape, grad in gl:
+            b = math.prod(shape) * pb
+            add("all-gather", ring_bytes("all-gather", b, model),
+                cfg.num_layers * fwd)
+            if kind == "train" and grad == "sum":
+                add("all-reduce", ring_bytes("all-reduce", b, model),
+                    cfg.num_layers)
+        if vocab:  # the loss's log-sum-exps and label logits
+            add("all-gather", ring_bytes("all-gather", tokens * 4 * model,
+                                         model))
+            add("all-reduce", ring_bytes("all-reduce", tokens * 4, model))
+        if kind == "train":
+            # the regions' gradient all-reduces, the unembedding's too
+            add("all-reduce", act, cfg.num_layers * split + vocab)
+            n = max((num_clients or data) // data, 1)
+            add("all-reduce", ring_bytes("all-reduce", n * 8, model), 3)
+            add("all-gather", ring_bytes("all-gather", n * sample * 4,
+                                         model))
+    return CollectiveStats(by, cnt)
 
 
 def model_flops(num_params: int, tokens: int, active_params: int | None = None,

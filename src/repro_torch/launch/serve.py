@@ -7,6 +7,8 @@ Examples:
       --batch 4 --prompt-len 4096 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \
       --reduced --device cpu
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --arch qwen2-vl-72b --model 4 --batch 4 --prompt-len 2048 --gen 32
 
 Serves every LLM family: dense, MoE, ssm, hybrid, audio (enc-dec) and VLM
 (text-only prompts).  Runs on the card by default (``--device cuda``,
@@ -17,7 +19,11 @@ prompt is a multiple of the SSD chunk.  ``--device cpu`` runs the same
 path on the kernels' plain versions.  Weights are random, drawn from
 ``--seed`` by a ``torch.Generator`` on the run's device; prompts (and the
 audio family's stub encoder frames) are the reference's numpy draws.
-Sampling is greedy.
+Sampling is greedy.  ``--model M`` serves the dense and VLM families
+over a model axis of M cards (``sharding/rules.py``'s ``RULES_SERVE``:
+each rank draws and keeps its blocks of the weights, and its KV cache
+holds its kv heads), under ``torchrun`` with ``WORLD_SIZE`` M; rank 0
+prints.
 """
 from __future__ import annotations
 
@@ -40,11 +46,12 @@ def _sync(device: torch.device) -> None:
 
 
 def serve(cfg, model, params, prompts, gen: int, window: int = 0,
-          frames=None):
+          frames=None, model_axis=None):
     """Greedy generation: returns (tokens (B, gen) int32, stats dict).
 
     ``frames``: the encoder features of the audio family, passed through
-    to ``model.prefill``.  stats: ``prefill_s`` and ``decode_s`` (host
+    to ``model.prefill``.  ``model_axis``: the rank's model axis
+    (``params`` then its blocks; every rank gets the same tokens).  stats: ``prefill_s`` and ``decode_s`` (host
     clock around work that ends in a synchronise on the card),
     ``tok_per_s`` (B * gen / decode_s) and ``prefill_logits`` (B, vocab),
     the logits of each prompt's last token.
@@ -54,6 +61,8 @@ def serve(cfg, model, params, prompts, gen: int, window: int = 0,
     b, plen = prompts.shape
     max_seq = window or (plen + gen)
     fkw = {} if frames is None else {"frames": frames}
+    mkw = {} if model_axis is None else {"model_axis": model_axis}
+    fkw.update(mkw)
     device = prompts.device
     _sync(device)
     t0 = time.perf_counter()
@@ -71,7 +80,8 @@ def serve(cfg, model, params, prompts, gen: int, window: int = 0,
     t0 = time.perf_counter()
     for i in range(gen):
         out.append(tok)
-        logits, cache = model.decode_step(params, cfg, cache, tok, plen + i)
+        logits, cache = model.decode_step(params, cfg, cache, tok, plen + i,
+                                          **mkw)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
     _sync(device)
     t_decode = time.perf_counter() - t0
@@ -95,6 +105,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without CUDA) or cpu")
+    ap.add_argument("--model", type=int, default=1,
+                    help="the model axis: cards under torchrun")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -104,8 +116,21 @@ def main(argv=None):
     if cfg.family in ("vision", "trajectory"):
         raise SystemExit("serve is for autoregressive archs")
     model = build_model(cfg)
+    mesh = blocks = axis = None
+    if args.model > 1:
+        from repro_torch.launch.mesh import make_client_mesh
+        from repro_torch.sharding.rules import RULES_SERVE
+
+        mesh = make_client_mesh(1, device=args.device, model=args.model,
+                                family=cfg.family)
+        if mesh.data_size != 1:
+            mesh.close()
+            raise SystemExit(f"--model {args.model} serves on {args.model} "
+                             f"ranks, not {mesh.world_size}")
+        device, axis = mesh.device, mesh.model_axis()
+        blocks = model.blocks(RULES_SERVE, mesh.axis_sizes, mesh.coords)
     params = model.init(torch.Generator(device=device).manual_seed(args.seed),
-                        device)
+                        device, blocks=blocks)
     rng = np.random.default_rng(args.seed)
     prompts = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
@@ -118,12 +143,17 @@ def main(argv=None):
         frames = torch.from_numpy(rng.normal(
             0, 0.02, (args.batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
         ).to(device)
-    toks, stats = serve(cfg, model, params, prompts, args.gen, args.window,
-                        frames=frames)
-    log.info("generated %s tokens; prefill=%.2fs decode=%.2fs (%.1f tok/s)",
-             tuple(toks.shape), stats["prefill_s"], stats["decode_s"],
-             stats["tok_per_s"])
-    print(toks[:2].cpu().numpy())
+    try:
+        toks, stats = serve(cfg, model, params, prompts, args.gen,
+                            args.window, frames=frames, model_axis=axis)
+    finally:
+        if mesh is not None:
+            mesh.close()
+    if mesh is None or mesh.rank == 0:
+        log.info("generated %s tokens; prefill=%.2fs decode=%.2fs (%.1f "
+                 "tok/s)", tuple(toks.shape), stats["prefill_s"],
+                 stats["decode_s"], stats["tok_per_s"])
+        print(toks[:2].cpu().numpy())
     return cfg, toks, stats
 
 

@@ -12,15 +12,20 @@ their placements:
                   window for full-attention archs; native recurrent state for
                   SSM/hybrid).  Skipped for whisper (``supported``).
 
-``args`` are meta tensors (shapes and dtypes, no memory), as the
-reference's are ``ShapeDtypeStruct``s; the Python ints the port keeps on
-the host (the train state's ``rnd``, a transformer cache's ``length``)
-stand where the reference holds an int32 scalar.  ``materialize`` turns
-``args`` into real tensors on a device.  ``in_shardings`` holds the port's
-placements, one process a card: for train, the system's row slices of the
-client-stacked state (``None``: whole on every rank, as the global batch
-and the (N,) contact inputs are, of which each rank reads its clients'
-rows); for serve, ``None`` everywhere (one card holds the whole step).
+``args`` are meta tensors (shapes and dtypes, no memory) of one rank's
+part, as the reference's are ``ShapeDtypeStruct``s; the Python ints the
+port keeps on the host (the train state's ``rnd``, a transformer cache's
+``length``) stand where the reference holds an int32 scalar.
+``materialize`` turns ``args`` into real tensors on a device.
+``in_shardings`` holds the rules' specs (``sharding/rules.py``): for
+train, ``RULES_TRAIN`` with the client axis on data (``variant=
+"dp_client"``: ``RULES_TRAIN_DP``) on the state (``core/distributed.py::
+state_shardings``) and the batch; for serve, ``RULES_SERVE`` on the
+parameters, the batch and the cache.  Over a (data, model) mesh each rank
+holds the blocks its coordinates select: a train step's state and a serve
+step's parameters and KV cache (``models/layers.py`` computes on them).
+A serve step runs on a mesh of data 1 (its model axis across the cards);
+data above 1 raises (``launch/mesh.py::SERVE_DATA_ITEM``).
 """
 from __future__ import annotations
 
@@ -30,8 +35,10 @@ import torch
 
 from repro_torch.configs.base import FLConfig, InputShape, ModelConfig
 from repro_torch.core import distributed as D
-from repro_torch.launch.mesh import ClientMesh, mesh_num_clients
+from repro_torch.launch.mesh import (SERVE_DATA_ITEM, ClientMesh,
+                                     mesh_num_clients, require_model_axis)
 from repro_torch.models.registry import Model, build_model, input_specs
+from repro_torch.sharding import rules as R
 from repro_torch.sharding.rules import torch_dtype
 from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
@@ -69,55 +76,113 @@ def cache_max_seq(cfg: ModelConfig, shape: InputShape) -> int:
 
 WARN_VARIANTS = ("default", "dp_client")
 
-# dp_client: the reference's rules RULES_TRAIN_DP replicate the parameters,
-# keep clients on (pod, data) and data-parallel each client's sequences
-# over its `model` axis, against "default"'s tensor-parallel parameters
-# over `model`.  The port has no `model` axis yet (ROADMAP queue 1 item 3:
-# every rank holds whole parameters and whole clients), so both variants
-# build the same step; the logical-axis rules come with that item.
+# dp_client: replicate the parameters, keep clients on (pod, data) and
+# data-parallel each client's sequences over its `model` axis, against
+# "default"'s tensor-parallel parameters over `model` (the reference's
+# rules): no per-layer collective, one gradient all-reduce over `model`
+RULES_TRAIN_DP = {
+    "client": [("pod", "data"), ("data",)],
+    "batch": [("pod", "data", "model"), ("data", "model")],
+    **{k: [None] for k in (
+        "layers", "vocab", "embed", "heads", "kv_heads", "head_dim", "mlp",
+        "experts", "expert_mlp", "ssm_heads", "ssm_state", "ssm_inner",
+        "conv", "seq", "pos",
+    )},
+}
+
+ONE = {"data": 1, "model": 1}  # the mesh of one process
+ORIGIN = {"data": 0, "model": 0}  # its one rank's coordinates
 
 
-def meta_params(model: Model) -> dict:
-    """The parameter tree as meta tensors, each leaf in its spec's dtype
-    (``param_dtype`` unless the spec names one)."""
+def _sizes(mesh: ClientMesh | None) -> dict:
+    return ONE if mesh is None else mesh.axis_sizes
+
+
+def _input_shardings(dims_tree: dict, shapes: dict, rules, mesh) -> dict:
+    """The rules' spec of each step input."""
+    return {k: R.logical_to_pspec(tuple(dims_tree[k]), tuple(shapes[k].shape),
+                                  rules, _sizes(mesh)) for k in shapes}
+
+
+def _param_shardings(model: Model, rules, mesh) -> dict:
+    return model.param_pspecs(rules, _sizes(mesh))
+
+
+def _cache_shardings(model: Model, cfg, cache: dict, rules, mesh) -> dict:
+    """The rules' spec of each cache leaf (of the whole cache ``cache``);
+    the host int ``length`` has spec ()."""
+    axes = model.cache_axes(cfg)
+    return {k: (R.logical_to_pspec(tuple(axes[k]), tuple(t.shape), rules,
+                                   _sizes(mesh))
+                if isinstance(t, torch.Tensor) else ())
+            for k, t in cache.items()}
+
+
+def meta_params(model: Model, blocks: dict | None = None) -> dict:
+    """The parameter tree (a rank's ``blocks`` of it) as meta tensors,
+    each leaf in its spec's dtype (``param_dtype`` unless the spec names
+    one)."""
     dt = torch_dtype(model.cfg.param_dtype)
     paths, specs = tree_flatten(model.specs)
+    shapes = ([s.shape for s in specs] if blocks is None else
+              [tuple(b.stop - b.start for b in bl)
+               for bl in tree_flatten(blocks)[1]])
     return tree_unflatten(paths, [
-        torch.empty(s.shape, dtype=torch_dtype(s.dtype) if s.dtype else dt,
-                    device="meta") for s in specs])
+        torch.empty(shp, dtype=torch_dtype(s.dtype) if s.dtype else dt,
+                    device="meta") for s, shp in zip(specs, shapes)])
 
 
 def build_step(arch_cfg: ModelConfig, shape: InputShape,
                mesh: ClientMesh | None = None, *,
                dist_overrides: dict | None = None,
                variant: str = "default", donate: bool = False):
-    """Returns dict(step, args, in_shardings, model, cfg[, system]).
+    """Returns dict(step, args, in_shardings, model, cfg, model_axis,
+    blocks[, system]).
 
-    ``mesh``: the client mesh of a train step (N = its world size, one
-    client a rank, as the reference's ``mesh_num_clients``); None is one
-    process with one client.  Serve steps run on one card and ignore it.
-    ``dist_overrides``: ``DistConfig`` fields (``upload_dtype``,
-    ``accum_dtype``, ``state_dtype``, ...).  ``donate``: the train step
-    writes the new state into the old one's buffers (the counterpart of
-    ``jax.jit(step, donate_argnums=0)``)."""
+    ``mesh``: a (data, model) client mesh (N = its data size, one client a
+    data rank, as the reference's ``mesh_num_clients``); None is one
+    process with one client.  A serve step runs over the mesh's model axis
+    and needs data 1.  ``dist_overrides``: ``DistConfig`` fields
+    (``upload_dtype``, ``accum_dtype``, ``state_dtype``, ...).
+    ``donate``: the train step writes the new state into the old one's
+    buffers (the counterpart of ``jax.jit(step, donate_argnums=0)``)."""
     if variant not in WARN_VARIANTS:
         raise ValueError(f"variant {variant!r} not in {WARN_VARIANTS}")
     cfg = resolve_cfg(arch_cfg, shape)
     model = build_model(cfg)
-    tree, _ = input_specs(cfg, shape)
+    tree, dims = input_specs(cfg, shape)
+    sizes = _sizes(mesh)
+    require_model_axis(cfg.family, sizes["model"])
+    ma = None if mesh is None else mesh.model_axis()
 
     if shape.kind == "train":
+        rules = RULES_TRAIN_DP if variant == "dp_client" else \
+            R.RULES_TRAIN_CLIENT
         n = 1 if mesh is None else mesh_num_clients(mesh)
         dcfg = D.DistConfig(num_clients=n, **(dist_overrides or {}))
-        sys_ = D.make_afl_train_system(model, cfg, mesh, dcfg, donate=donate)
+        sys_ = D.make_afl_train_system(model, cfg, mesh, dcfg, donate=donate,
+                                       rules=rules)
         scal = torch.empty(n, dtype=torch.float32, device="meta")
         args = (sys_["abstract_state"](), tree, scal, scal, scal, scal)
-        in_sh = (sys_["state_shardings"], {k: None for k in tree},
-                 None, None, None, None)
+        in_sh = (sys_["state_specs"], _input_shardings(dims, tree, rules, mesh),
+                 (), (), (), ())
         return dict(step=sys_["step"], args=args, in_shardings=in_sh,
-                    model=model, cfg=cfg, system=sys_)
+                    model=model, cfg=cfg, system=sys_, model_axis=ma,
+                    blocks=tree_unflatten(model.layout.paths,
+                                          list(sys_["placement"].blocks)))
 
-    params = meta_params(model)
+    if sizes["data"] > 1:
+        raise NotImplementedError(
+            f"a serve step over a data axis of {sizes['data']} is not "
+            f"ported ({SERVE_DATA_ITEM})")
+    rules = R.RULES_SERVE
+    blocks = model.blocks(rules, sizes,
+                          ORIGIN if mesh is None else mesh.coords)
+    params = meta_params(model, blocks)
+    p_sh = _param_shardings(model, rules, mesh)
+    b_sh = _input_shardings(dims, tree, rules, mesh)
+    kw = {} if ma is None else {"model_axis": ma}
+    out = dict(model=model, cfg=cfg, model_axis=ma, blocks=blocks)
     if shape.kind == "prefill":
         if cfg.family == "vlm":
             from repro_torch.models import layers as L
@@ -125,14 +190,15 @@ def build_step(arch_cfg: ModelConfig, shape: InputShape,
             from repro_torch.models import vlm as V
 
             def step(params, batch):
-                text = L.embed(params, cfg, batch["tokens"])
+                text = L.embed(params, cfg, batch["tokens"], ma)
                 x = torch.cat([batch["vision_embeds"].to(cfg.activation_dtype),
                                text], dim=1)
                 bsz, n_img = batch["vision_embeds"].shape[:2]
                 grid = int(max(n_img, 1) ** 0.5) or 1
                 pos = V.mrope_positions(bsz, n_img, batch["tokens"].shape[1],
                                         grid, x.device)
-                return T.prefill(params, cfg, None, embeds=x, positions=pos)
+                return T.prefill(params, cfg, None, embeds=x, positions=pos,
+                                 model_axis=ma)
 
         elif cfg.family == "audio":
             def step(params, batch):
@@ -141,23 +207,24 @@ def build_step(arch_cfg: ModelConfig, shape: InputShape,
 
         else:
             def step(params, batch):
-                return model.prefill(params, cfg, batch["tokens"])
+                return model.prefill(params, cfg, batch["tokens"], **kw)
 
-        return dict(step=step, args=(params, tree),
-                    in_shardings=(None, {k: None for k in tree}),
-                    model=model, cfg=cfg)
+        return dict(out, step=step, args=(params, tree),
+                    in_shardings=(p_sh, b_sh))
 
     # decode
-    cache = model.init_cache(cfg, shape.global_batch, cache_max_seq(cfg, shape),
-                             device="meta")
+    max_seq = cache_max_seq(cfg, shape)
+    cache = model.init_cache(cfg, shape.global_batch, max_seq, device="meta",
+                             **kw)
+    c_sh = _cache_shardings(model, cfg, model.init_cache(
+        cfg, shape.global_batch, max_seq, device="meta"), rules, mesh)
 
     def step(params, cache, token, pos):
-        return model.decode_step(params, cfg, cache, token, int(pos))
+        return model.decode_step(params, cfg, cache, token, int(pos), **kw)
 
     args = (params, cache, tree["token"], tree["pos"])
-    return dict(step=step, args=args,
-                in_shardings=(None, {k: None for k in cache}, None, None),
-                model=model, cfg=cfg)
+    return dict(out, step=step, args=args,
+                in_shardings=(p_sh, c_sh, b_sh["token"], ()))
 
 
 def _filled(t: torch.Tensor, gen: torch.Generator, scale: float = 1.0):
@@ -206,7 +273,7 @@ def materialize(built: dict, shape: InputShape, gen: torch.Generator,
 
     cfg, model = built["cfg"], built["model"]
     device = torch.device(device)
-    params = model.init(gen, device)
+    params = model.init(gen, device, blocks=built["blocks"])
     if shape.kind == "train":
         sys_ = built["system"]
         dcfg = sys_["dcfg"]
@@ -229,7 +296,9 @@ def materialize(built: dict, shape: InputShape, gen: torch.Generator,
         return params, _batch(built["args"][1], cfg, gen, device)
     _, cache, token, _ = built["args"]
     b = token.shape[0]
-    cache = model.init_cache(cfg, b, cache_max_seq(cfg, shape), device)
+    ma = built["model_axis"]
+    cache = model.init_cache(cfg, b, cache_max_seq(cfg, shape), device,
+                             **({} if ma is None else {"model_axis": ma}))
     pos = shape.seq_len - 1
     for key, t in cache.items():
         if key == "pos":

@@ -129,6 +129,16 @@ def _cross_kv(lp, cfg, enc_out):
     return k, v
 
 
+def cache_axes(cfg) -> dict:
+    """The self- and cross-attention caches' logical dims (the
+    reference's)."""
+    kv = ("layers", "batch", "seq", "kv_heads", "head_dim")
+    return {"k": kv, "v": kv,
+            "xk": ("layers", "batch", "pos", "kv_heads", "head_dim"),
+            "xv": ("layers", "batch", "pos", "kv_heads", "head_dim"),
+            "pos": ("batch", "seq")}
+
+
 def precompute_cross_kv(params, cfg, enc_out):
     """Every decoder layer's cross k, v, stacked (L, B, encoder_seq, KV, D)."""
     kvs = [_cross_kv(layer(params["dec_layers"], i), cfg, enc_out)

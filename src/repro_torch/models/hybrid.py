@@ -96,6 +96,16 @@ def init_cache(cfg, batch: int, max_seq: int, device="cpu"):
     return c
 
 
+def cache_axes(cfg) -> dict:
+    """The recurrent and shared-attention cache's logical dims (the
+    reference's)."""
+    ax = M2.cache_axes(cfg)
+    ax["attn_k"] = ("layers", "batch", "seq", "kv_heads", "head_dim")
+    ax["attn_v"] = ("layers", "batch", "seq", "kv_heads", "head_dim")
+    ax["pos"] = ("batch", "seq")
+    return ax
+
+
 def prefill(params, cfg, tokens, *, max_seq=None, **_):
     """Run the prompt: returns (last logits, recurrent + shared-attn cache),
     the cache allocated once at ``max_seq`` attention slots."""

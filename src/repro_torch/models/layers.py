@@ -13,11 +13,38 @@ Conventions, as in the reference:
 * the int8 KV cache (``quantize_kv``, ``decode_attention_q``) is plain
   torch, as the reference's is plain ``jnp`` outside any kernel.
 
-Not in this package: the reference's mesh-only ``_replicate`` (a sharding
-constraint, the identity outside a mesh).
+Tensor parallelism over a ``model`` axis (``model_axis``, a
+``sharding.collectives.ModelAxis``; None, or an axis of one, runs the
+functions as they are).  Each rank holds its block of every leaf, cut by
+the rules (``sharding/rules.py``), and the layers compute on blocks:
+
+* ``embed``: vocab-parallel (rows outside the rank's range give zero,
+  then an all-reduce);
+* ``attn_qkv``: column-parallel over the rank's heads, which run whole
+  GQA groups (``head_plan``); ``attn_out``: row-parallel, then an
+  all-reduce;
+* ``mlp_apply``: ``wi_gate`` and ``wi_up`` column-parallel on ``mlp``,
+  ``wo`` row-parallel, then an all-reduce;
+* ``unembed`` and ``cross_entropy``: vocab-parallel (each rank's
+  log-sum-exp over its block, the blocks' combined; the label's logit from
+  the rank that holds it), the same loss; a tied embedding alike.
+
+Where the rules shard a dim the layer cannot split its work on, the layer
+gathers that leaf over ``model`` before use, and its gradient returns to
+the block: ``q_norm`` / ``k_norm`` (``head_dim``), and ``wk``, ``wv``,
+``bk``, ``bv`` when the kv heads do not divide over the axis (they fall
+back to ``head_dim``: the rank gathers them and keeps the kv heads its q
+heads read).  When the q heads do not divide (24 or 28 heads on 16), the
+attention runs whole on every rank from gathered leaves; an ``mlp`` or
+vocab that does not divide is held whole by the rules and runs whole.
+
+The reference's ``_replicate`` (``repro/models/layers.py:211-225``) is a
+GSPMD hint, a sharding constraint on an activation inside one program;
+with explicit blocks and collectives it has no counterpart.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Tuple
 
@@ -25,6 +52,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.remat import dot
+from repro_torch.sharding import collectives as C
 from repro_torch.sharding.rules import ParamSpec
 
 F32 = torch.float32
@@ -247,7 +275,98 @@ def attn_specs(cfg) -> dict:
     return sp
 
 
-def attn_qkv(p, cfg, x):
+def _split(axis) -> bool:
+    return axis is not None and axis.size > 1
+
+
+def whole(w, shape, axis, grad: str):
+    """Leaf ``w`` whole: gathered over ``axis`` along the dim its block
+    is cut on (the one where its shape and ``shape`` differ), or itself
+    when it is not cut.  ``grad`` as ``collectives.gather``'s."""
+    if tuple(w.shape) == tuple(shape):
+        return w
+    dim = next(i for i, (a, b) in enumerate(zip(w.shape, shape)) if a != b)
+    return C.gather(w, axis, dim, grad)
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadPlan:
+    """How a rank of the model axis splits the attention: ``split``, it
+    runs its block of hl q heads (else every head); ``kv`` the global kv
+    head of each of its kv slots (its q head j reads slot j // (hl //
+    len(kv))); ``kv_block``, those are its block of ``wk`` and ``wv``
+    (else it gathers them and keeps these heads)."""
+
+    split: bool
+    kv: Tuple[int, ...]
+    kv_block: bool
+
+
+def head_plan(cfg, axis) -> HeadPlan:
+    """The rank's heads.  Its q heads are its block when they divide over
+    the axis (as the rules shard ``heads``); their kv heads, each once when
+    every one serves the same number of them, else one a q head (a group
+    cut by a block boundary)."""
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    if not _split(axis) or h % axis.size:
+        return HeadPlan(False, tuple(range(kv)), True)
+    hl = h // axis.size
+    h0 = axis.rank * hl
+    of = [j // (h // kv) for j in range(h0, h0 + hl)]
+    uniq = sorted(set(of))
+    even = all(of.count(u) == hl // len(uniq) for u in uniq)
+    return HeadPlan(True, tuple(uniq) if even else tuple(of),
+                    kv % axis.size == 0)
+
+
+def gathered_leaves(cfg, m: int) -> tuple:
+    """The attention leaves of a layer that a rank of a model axis of
+    ``m`` gathers before use (``attn_qkv``, ``attn_out``): (name, whole
+    shape, the gradient's return: "sum" or "slice") each."""
+    from repro_torch.sharding.collectives import ModelAxis
+    from repro_torch.sharding.rules import RULES_TRAIN, logical_to_pspec
+
+    if m == 1:
+        return ()
+    plan = head_plan(cfg, ModelAxis(None, 0, m))
+    out = []
+    for name, sp in sorted(attn_specs(cfg).items()):
+        if not logical_to_pspec(sp.dims, sp.shape, RULES_TRAIN, {"model": m}):
+            continue  # whole on every rank
+        if not plan.split:
+            out.append((name, sp.shape, "slice"))
+        elif name in ("q_norm", "k_norm") or (
+                name in ("wk", "wv", "bk", "bv") and not plan.kv_block):
+            out.append((name, sp.shape, "sum"))
+    return tuple(out)
+
+
+def attn_qkv(p, cfg, x, model_axis=None):
+    """q (B, S, hl, D), k and v (B, S, len(kv), D) of the rank's heads
+    (``head_plan``; all of them without a model axis)."""
+    p = dict(p)
+    if _split(model_axis):
+        hd = cfg.resolved_head_dim
+        d, h, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+        plan = head_plan(cfg, model_axis)
+        full = {"wq": (d, h, hd), "wk": (d, kv, hd), "wv": (d, kv, hd),
+                "bq": (h, hd), "bk": (kv, hd), "bv": (kv, hd),
+                "q_norm": (hd,), "k_norm": (hd,)}
+        if not plan.split:  # every rank runs every head
+            for key in full:
+                if key in p:
+                    p[key] = whole(p[key], full[key], model_axis, "slice")
+        else:
+            x = C.copy_to(x, model_axis)
+            if not plan.kv_block:  # (a host list to the card waits for it)
+                idx = torch.tensor(plan.kv, device=x.device)
+                for key, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
+                    if key in p:
+                        p[key] = whole(p[key], full[key], model_axis,
+                                       "sum").index_select(dim, idx)
+            for key in ("q_norm", "k_norm"):
+                if key in p:
+                    p[key] = whole(p[key], full[key], model_axis, "sum")
     q = dot(x, p["wq"].to(x.dtype), "bsd,dhk->bshk")
     k = dot(x, p["wk"].to(x.dtype), "bsd,dhk->bshk")
     v = dot(x, p["wv"].to(x.dtype), "bsd,dhk->bshk")
@@ -261,8 +380,17 @@ def attn_qkv(p, cfg, x):
     return q, k, v
 
 
-def attn_out(p, x_attn, dtype):
-    return dot(x_attn, p["wo"].to(dtype), "bshk,hkd->bsd")
+def attn_out(p, x_attn, dtype, cfg=None, model_axis=None):
+    """The output projection: row-parallel over the rank's heads, then an
+    all-reduce; with every head on the rank, ``wo`` whole."""
+    if not _split(model_axis):
+        return dot(x_attn, p["wo"].to(dtype), "bshk,hkd->bsd")
+    if head_plan(cfg, model_axis).split:
+        return C.reduce_from(dot(x_attn, p["wo"].to(dtype), "bshk,hkd->bsd"),
+                             model_axis)
+    wo = whole(p["wo"], (cfg.num_heads, cfg.resolved_head_dim, cfg.d_model),
+               model_axis, "slice")
+    return dot(x_attn, wo.to(dtype), "bshk,hkd->bsd")
 
 
 # ---------------------------------------------------------------------------
@@ -285,17 +413,35 @@ def silu_f32(x):
     return torch.nn.functional.silu(x.to(F32)).to(x.dtype)
 
 
-def mlp_apply(p, x):
+def mlp_apply(p, x, model_axis=None, d_ff: int = 0):
+    """SwiGLU; over a model axis whose rank holds its ``mlp`` block of the
+    ``d_ff`` hidden units, column- then row-parallel and an all-reduce."""
+    split = _split(model_axis) and p["wi_gate"].shape[1] != d_ff
+    if split:
+        x = C.copy_to(x, model_axis)
     g = dot(x, p["wi_gate"].to(x.dtype))
     u = dot(x, p["wi_up"].to(x.dtype))
-    return dot(silu_f32(g) * u, p["wo"].to(x.dtype))
+    y = dot(silu_f32(g) * u, p["wo"].to(x.dtype))
+    return C.reduce_from(y, model_axis) if split else y
 
 
-def cross_entropy(logits, labels):
-    """Mean next-token cross-entropy over all positions, in f32."""
+def cross_entropy(logits, labels, cfg=None, model_axis=None):
+    """Mean next-token cross-entropy over all positions, in f32.  Over a
+    model axis ``logits`` are the rank's vocabulary block
+    (``unembed``'s): the blocks' log-sum-exps are gathered and combined,
+    and the label's logit comes from the rank that holds it."""
     lf = logits.to(F32)
-    lse = torch.logsumexp(lf, dim=-1)
-    label_logit = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    if not _split(model_axis) or lf.shape[-1] == cfg.vocab_size:
+        lse = torch.logsumexp(lf, dim=-1)
+        label_logit = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+        return torch.mean(lse - label_logit)
+    vl = lf.shape[-1]
+    lse_r = torch.logsumexp(lf, dim=-1, keepdim=True)
+    lse = torch.logsumexp(C.gather(lse_r, model_axis, -1, "slice"), dim=-1)
+    idx = labels.long() - model_axis.rank * vl
+    ok = (idx >= 0) & (idx < vl)
+    pick = torch.gather(lf, -1, idx.clamp(0, vl - 1)[..., None])[..., 0]
+    label_logit = C.reduce_from(torch.where(ok, pick, 0.0), model_axis)
     return torch.mean(lse - label_logit)
 
 
@@ -303,12 +449,37 @@ def embed_specs(cfg) -> dict:
     return {"tok": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"), init="small")}
 
 
-def embed(params, cfg, tokens):
-    return params["embed"]["tok"][tokens.long()].to(cfg.activation_dtype)
+def embed(params, cfg, tokens, model_axis=None):
+    """Token embeddings; vocab-parallel over a model axis (the rank's rows
+    give their embeddings, the others zero, then an all-reduce)."""
+    tok = params["embed"]["tok"]
+    vl = tok.shape[0]
+    if not _split(model_axis) or vl == cfg.vocab_size:
+        return tok[tokens.long()].to(cfg.activation_dtype)
+    idx = tokens.long() - model_axis.rank * vl
+    ok = (idx >= 0) & (idx < vl)
+    x = tok[idx.clamp(0, vl - 1)].to(cfg.activation_dtype)
+    x = torch.where(ok[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                  device=x.device))
+    return C.reduce_from(x, model_axis)
 
 
-def unembed(params, cfg, x):
-    """Project to vocab logits (tied or untied)."""
+def unembed(params, cfg, x, model_axis=None):
+    """Project to vocab logits (tied or untied): over a model axis, the
+    rank's vocabulary block of them (``gather_vocab`` puts them
+    together)."""
+    w = (params["embed"]["tok"] if cfg.tie_embeddings
+         else params["unembed"]["w"])
+    vl = w.shape[0] if cfg.tie_embeddings else w.shape[1]
+    if _split(model_axis) and vl != cfg.vocab_size:
+        x = C.copy_to(x, model_axis)
     if cfg.tie_embeddings:
-        return x @ params["embed"]["tok"].to(x.dtype).T
-    return x @ params["unembed"]["w"].to(x.dtype)
+        return x @ w.to(x.dtype).T
+    return x @ w.to(x.dtype)
+
+
+def gather_vocab(logits, cfg, model_axis=None):
+    """Every vocabulary block of ``unembed``'s logits, put together."""
+    if not _split(model_axis) or logits.shape[-1] == cfg.vocab_size:
+        return logits
+    return C.gather(logits, model_axis, logits.dim() - 1, "slice")

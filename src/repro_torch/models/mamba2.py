@@ -274,6 +274,16 @@ def init_cache(cfg, batch: int, max_seq: int = 0, device="cpu"):
 CONV_KEYS = (("conv_x", "x"), ("conv_B", "B"), ("conv_C", "C"))
 
 
+def cache_axes(cfg) -> dict:
+    """The recurrent cache's logical dims (the reference's)."""
+    return {
+        "conv_x": ("layers", "batch", "conv", "ssm_inner"),
+        "conv_B": ("layers", "batch", "conv", "ssm_state"),
+        "conv_C": ("layers", "batch", "conv", "ssm_state"),
+        "ssm": ("layers", "batch", "ssm_heads", "head_dim", "ssm_state"),
+    }
+
+
 def prefill(params, cfg, tokens):
     """Run the prompt, return (last-token logits, recurrent cache)."""
     x = L.embed(params, cfg, tokens)

@@ -5,7 +5,10 @@ nothing — params and caches are explicit dicts of tensors — so the AFL
 core can vmap them over devices.  Every family of the reference is here:
 the paper's two models (vision: ResNet-9; trajectory: LaneGCN) and the
 LLM families (dense, MoE, ssm, hybrid, audio enc-dec, VLM);
-``load_params`` carries a reference parameter tree (numpy arrays) over.
+``load_params`` carries a reference parameter tree (numpy arrays) over,
+and ``local_params`` cuts a rank's blocks out of a tree.
+``param_axes`` and ``cache_axes`` give the logical dims that the sharding
+rules (``sharding/rules.py``) place.
 ``input_specs`` gives a step's inputs at an ``InputShape`` as meta tensors
 (shapes and dtypes, no memory), the reference's ``ShapeDtypeStruct``s.
 """
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.sharding import rules as R
 from repro_torch.sharding.rules import init_params, torch_dtype
 from repro_torch.utils.tree import TreeLayout, tree_flatten, tree_unflatten
 
@@ -33,11 +37,28 @@ class Model:
     decode_step: Optional[Callable] = None  # (params, cfg, cache, token, pos)
     prefill: Optional[Callable] = None
     init_cache: Optional[Callable] = None  # (cfg, batch, max_seq, device)
+    cache_axes: Optional[Callable] = None  # (cfg) -> logical dims tree
     encode: Optional[Callable] = None  # enc-dec only
 
-    def init(self, gen: torch.Generator, device="cpu") -> dict:
+    def init(self, gen: torch.Generator, device="cpu", blocks=None) -> dict:
+        """Parameters drawn from ``gen``; ``blocks`` (``self.blocks``'s)
+        keeps a rank's block of each leaf, from the same draws."""
         return init_params(self.specs, gen, torch_dtype(self.cfg.param_dtype),
-                           device)
+                           device, blocks)
+
+    def param_axes(self) -> dict:
+        return R.axes_tree(self.specs)
+
+    def param_pspecs(self, rules, mesh) -> dict:
+        """Each leaf's spec under ``rules`` on ``mesh``."""
+        return R.pspec_tree(self.param_axes(), R.shapes_tree(self.specs),
+                            rules, mesh)
+
+    def blocks(self, rules, mesh, coords: dict) -> dict:
+        """The per-dim slices of each leaf that the rank at ``coords``
+        holds."""
+        return R.block_tree(self.param_pspecs(rules, mesh),
+                            R.shapes_tree(self.specs), mesh, coords)
 
     @functools.cached_property
     def layout(self) -> TreeLayout:
@@ -46,6 +67,19 @@ class Model:
 
     def num_params(self) -> int:
         return sum(math.prod(s.shape) for s in tree_flatten(self.specs)[1])
+
+
+def _transformer_cache_axes(cfg) -> dict:
+    ax = {
+        "k": ("layers", "batch", "seq", "kv_heads", "head_dim"),
+        "v": ("layers", "batch", "seq", "kv_heads", "head_dim"),
+        "pos": ("batch", "seq"),
+        "length": (),
+    }
+    if cfg.kv_cache_dtype == "int8":
+        ax["k_scale"] = ("layers", "batch", "seq", "kv_heads")
+        ax["v_scale"] = ("layers", "batch", "seq", "kv_heads")
+    return ax
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -62,31 +96,34 @@ def build_model(cfg: ModelConfig) -> Model:
 
         return Model(cfg, T.param_specs(cfg), T.loss_fn, T.forward,
                      decode_step=T.decode_step, prefill=T.prefill,
-                     init_cache=T.init_cache)
+                     init_cache=T.init_cache,
+                     cache_axes=_transformer_cache_axes)
     if cfg.family == "vlm":
         from repro_torch.models import vlm as V
 
         return Model(cfg, V.param_specs(cfg), V.loss_fn, V.forward,
                      decode_step=V.decode_step, prefill=V.prefill,
-                     init_cache=V.init_cache)
+                     init_cache=V.init_cache,
+                     cache_axes=_transformer_cache_axes)
     if cfg.family == "ssm":
         from repro_torch.models import mamba2 as M
 
         return Model(cfg, M.param_specs(cfg), M.loss_fn, M.forward,
                      decode_step=M.decode_step, prefill=M.prefill,
-                     init_cache=M.init_cache)
+                     init_cache=M.init_cache, cache_axes=M.cache_axes)
     if cfg.family == "hybrid":
         from repro_torch.models import hybrid as H
 
         return Model(cfg, H.param_specs(cfg), H.loss_fn, H.forward,
                      decode_step=H.decode_step, prefill=H.prefill,
-                     init_cache=H.init_cache)
+                     init_cache=H.init_cache, cache_axes=H.cache_axes)
     if cfg.family == "audio":
         from repro_torch.models import encdec as E
 
         return Model(cfg, E.param_specs(cfg), E.loss_fn, E.forward,
                      decode_step=E.decode_step, prefill=E.prefill,
-                     init_cache=E.init_cache, encode=E.encode)
+                     init_cache=E.init_cache, cache_axes=E.cache_axes,
+                     encode=E.encode)
     raise ValueError(f"unknown family {cfg.family!r}")
 
 
@@ -123,6 +160,18 @@ def load_params(model: Model, tree, device="cpu") -> dict:
            for s in tree_flatten(model.specs)[1]]
     return tree_unflatten(paths, [_to_tensor(l, d, device)
                                   for l, d in zip(leaves, dts)])
+
+
+def local_params(model: Model, params: dict, blocks: dict,
+                 lead: int = 0) -> dict:
+    """A rank's blocks of a whole parameter tree whose leaves carry
+    ``lead`` leading dims (``Model.blocks``'s slices; copies, so the
+    whole tree can be freed)."""
+    paths, leaves = tree_flatten(params)
+    bl = tree_flatten(blocks)[1]
+    pre = (slice(None),) * lead
+    return tree_unflatten(paths, [l[pre + b].clone()
+                                  for l, b in zip(leaves, bl)])
 
 
 # ---------------------------------------------------------------------------

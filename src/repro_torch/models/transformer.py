@@ -16,6 +16,16 @@ Decode supports the plain KV cache, through the ``decode_attn`` kernel;
 the ring-buffer sliding-window cache (``cfg.sliding_window > 0``) and the
 int8 cache (``cfg.kv_cache_dtype == "int8"``) go through plain einsum
 paths, as in the reference.
+
+``model_axis`` (a ``sharding.collectives.ModelAxis``, an explicit
+argument of every entry point): the dense blocks run tensor-parallel on
+the rank's parameter blocks (``models/layers.py``).  ``forward`` then
+returns the rank's vocabulary block of the logits, ``loss_fn`` the whole
+loss, ``prefill`` and ``decode_step`` the whole logits; the KV cache
+holds the kv heads of the rank's q heads (``layers.head_plan``: its
+block of them when they divide over the axis), and each decode step runs
+``decode_attn`` on the rank's (B, H/M, KV/M, S, D).  The MoE blocks have
+no model axis yet (``launch/mesh.py::require_model_axis``).
 """
 from __future__ import annotations
 
@@ -76,27 +86,31 @@ def param_specs(cfg) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _ffn(lp, cfg, h):
+def _ffn(lp, cfg, h, model_axis=None):
     """The block's feed-forward half: (y, aux loss)."""
     if cfg.is_moe:
+        if model_axis is not None and model_axis.size > 1:
+            from repro_torch.launch.mesh import require_model_axis
+
+            require_model_axis(cfg.family, model_axis.size)
         return MOE.moe_apply(lp["moe"], cfg, h)
-    return L.mlp_apply(lp["mlp"], h), None
+    return L.mlp_apply(lp["mlp"], h, model_axis, cfg.d_ff), None
 
 
-def _block(lp, cfg, x, cos, sin):
+def _block(lp, cfg, x, cos, sin, model_axis=None):
     """One decoder layer: (x, the MoE aux loss or None, its k, v)."""
     h = L.rms_norm(x, lp["ln_attn"], cfg.norm_eps)
-    q, k, v = L.attn_qkv(lp["attn"], cfg, h)
+    q, k, v = L.attn_qkv(lp["attn"], cfg, h, model_axis)
     q, k = L.apply_rope(q, k, cos, sin)
     attn = L.causal_attention(q, k, v, sliding_window=cfg.sliding_window)
-    x = x + L.attn_out(lp["attn"], attn, x.dtype)
+    x = x + L.attn_out(lp["attn"], attn, x.dtype, cfg, model_axis)
     h2 = L.rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
-    y, a = _ffn(lp, cfg, h2)
+    y, a = _ffn(lp, cfg, h2, model_axis)
     return x + y, a, k, v
 
 
 def forward(params, cfg, tokens=None, *, embeds=None, positions=None,
-            cache=None):
+            cache=None, model_axis=None):
     """Returns (logits, aux_loss).
 
     ``embeds`` (B, S, d) replaces the token embedding (the VLM's stub
@@ -106,9 +120,10 @@ def forward(params, cfg, tokens=None, *, embeds=None, positions=None,
     With ``cache`` (``init_cache``'s, at least S slots: the prefill) each
     layer's k and v go into its first S slots as the layer returns, so no
     layer's k and v outlive it, and the logits are the last position's
-    alone, (B, 1, V).
+    alone, (B, 1, V).  Over ``model_axis`` the logits are the rank's
+    vocabulary block.
     """
-    x = (L.embed(params, cfg, tokens) if embeds is None
+    x = (L.embed(params, cfg, tokens, model_axis) if embeds is None
          else embeds.to(cfg.activation_dtype))
     b, s, _ = x.shape
     if positions is None:
@@ -120,13 +135,13 @@ def forward(params, cfg, tokens=None, *, embeds=None, positions=None,
     aux = torch.zeros((), dtype=F32, device=x.device)
 
     def body(lp, x, cos, sin):  # the layer ``cfg.remat`` checkpoints
-        x, a, _, _ = _block(lp, cfg, x, cos, sin)
+        x, a, _, _ = _block(lp, cfg, x, cos, sin, model_axis)
         return x if a is None else (x, a)
 
     for i in range(cfg.num_layers):
         lp = layer(params["layers"], i)
         if cache is not None:  # the prefill: serving keeps no checkpoint
-            x, a, k, v = _block(lp, cfg, x, cos, sin)
+            x, a, k, v = _block(lp, cfg, x, cos, sin, model_axis)
             _write_kv(cache, cfg, i, k, v)
         else:
             out = checkpoint(body, cfg.remat, lp, x, cos, sin)
@@ -136,7 +151,7 @@ def forward(params, cfg, tokens=None, *, embeds=None, positions=None,
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     if cache is not None:
         x = x[:, -1:]
-    return L.unembed(params, cfg, x), aux
+    return L.unembed(params, cfg, x, model_axis), aux
 
 
 def _write_kv(cache, cfg, i: int, k, v):
@@ -152,11 +167,12 @@ def _write_kv(cache, cfg, i: int, k, v):
     cache["v"][i, :, :s] = v
 
 
-def loss_fn(params, cfg, batch):
+def loss_fn(params, cfg, batch, model_axis=None):
     """Mean next-token cross-entropy + the MoE aux loss. batch:
     tokens/labels (B, S)."""
-    logits, aux = forward(params, cfg, batch["tokens"])
-    return L.cross_entropy(logits, batch["labels"]) + cfg.router_aux_loss * aux
+    logits, aux = forward(params, cfg, batch["tokens"], model_axis=model_axis)
+    return (L.cross_entropy(logits, batch["labels"], cfg, model_axis)
+            + cfg.router_aux_loss * aux)
 
 
 # ---------------------------------------------------------------------------
@@ -164,8 +180,11 @@ def loss_fn(params, cfg, batch):
 # ---------------------------------------------------------------------------
 
 
-def init_cache(cfg, batch: int, max_seq: int, device="cpu"):
-    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+def init_cache(cfg, batch: int, max_seq: int, device="cpu", model_axis=None):
+    """The KV cache (L, B, max_seq, KV, D): over ``model_axis`` the kv
+    heads of the rank's q heads (``layers.head_plan``)."""
+    kv = len(L.head_plan(cfg, model_axis).kv)
+    shape = (cfg.num_layers, batch, max_seq, kv, cfg.resolved_head_dim)
     cache = {
         "pos": torch.full((batch, max_seq), -1, dtype=torch.int32, device=device),
         "length": 0,
@@ -182,7 +201,7 @@ def init_cache(cfg, batch: int, max_seq: int, device="cpu"):
 
 
 def prefill(params, cfg, tokens, *, embeds=None, positions=None,
-            max_seq: Optional[int] = None):
+            max_seq: Optional[int] = None, model_axis=None):
     """Run the prompt, return (last-token logits, filled cache).
 
     The cache is allocated once at ``max_seq`` slots, (L, B, max_seq, KV,
@@ -195,15 +214,16 @@ def prefill(params, cfg, tokens, *, embeds=None, positions=None,
     max_seq = max_seq or s
     if max_seq < s:
         raise ValueError(f"max_seq {max_seq} < prompt length {s}")
-    cache = init_cache(cfg, b, max_seq, src.device)
+    cache = init_cache(cfg, b, max_seq, src.device, model_axis)
     logits, _ = forward(params, cfg, tokens, embeds=embeds,
-                        positions=positions, cache=cache)
+                        positions=positions, cache=cache,
+                        model_axis=model_axis)
     cache["pos"][:, :s] = torch.arange(s, dtype=torch.int32, device=src.device)
     cache["length"] = s
-    return logits[:, -1], cache
+    return L.gather_vocab(logits[:, -1], cfg, model_axis), cache
 
 
-def decode_step(params, cfg, cache, token, pos: int):
+def decode_step(params, cfg, cache, token, pos: int, model_axis=None):
     """One decode step. token: (B,) int; pos: the absolute position, a
     Python int, so that the slot and ``length`` need no copy from the card.
 
@@ -215,7 +235,7 @@ def decode_step(params, cfg, cache, token, pos: int):
     attends through the plain ``decode_attention_q``, as the reference.
     """
     pos = int(pos)
-    x = L.embed(params, cfg, token)[:, None, :]  # (B,1,d)
+    x = L.embed(params, cfg, token, model_axis)[:, None, :]  # (B,1,d)
     b = x.shape[0]
     window = cfg.sliding_window
     s_cache = cache["k"].shape[2]
@@ -233,7 +253,7 @@ def decode_step(params, cfg, cache, token, pos: int):
         lp = layer(params["layers"], i)
         kc, vc = cache["k"][i], cache["v"][i]
         h = L.rms_norm(x, lp["ln_attn"], cfg.norm_eps)
-        q, k, v = L.attn_qkv(lp["attn"], cfg, h)
+        q, k, v = L.attn_qkv(lp["attn"], cfg, h, model_axis)
         q, k = L.apply_rope(q, k, cos, sin)
         if quant:
             ksc, vsc = cache["k_scale"][i], cache["v_scale"][i]
@@ -245,10 +265,12 @@ def decode_step(params, cfg, cache, token, pos: int):
             kc[:, slot] = k[:, 0].to(kc.dtype)
             vc[:, slot] = v[:, 0].to(vc.dtype)
             attn = L.decode_attention(q[:, 0], kc, vc, length, window_pos=wpos)
-        x = x + L.attn_out(lp["attn"], attn[:, None], x.dtype)
+        x = x + L.attn_out(lp["attn"], attn[:, None], x.dtype, cfg,
+                           model_axis)
         h2 = L.rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
-        x = x + _ffn(lp, cfg, h2)[0]
+        x = x + _ffn(lp, cfg, h2, model_axis)[0]
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = L.unembed(params, cfg, x)[:, 0]
+    logits = L.gather_vocab(L.unembed(params, cfg, x, model_axis)[:, 0], cfg,
+                            model_axis)
     cache["length"] = length
     return logits, cache

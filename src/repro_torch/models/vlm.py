@@ -35,22 +35,29 @@ def mrope_positions(batch: int, n_img: int, n_text: int, grid: int,
     return pos[:, None, :].expand(3, batch, n_img + n_text)
 
 
-def forward(params, cfg, tokens, *, vision_embeds=None, positions=None, **kw):
+def forward(params, cfg, tokens, *, vision_embeds=None, positions=None,
+            model_axis=None, **kw):
+    """The transformer's forward with the vision embeddings spliced in
+    front (``model_axis`` as there)."""
     if vision_embeds is None:
-        return T.forward(params, cfg, tokens, positions=positions, **kw)
-    text = L.embed(params, cfg, tokens)
+        return T.forward(params, cfg, tokens, positions=positions,
+                         model_axis=model_axis, **kw)
+    text = L.embed(params, cfg, tokens, model_axis)
     x = torch.cat([vision_embeds.to(cfg.activation_dtype), text], dim=1)
     b, n_img = vision_embeds.shape[:2]
     grid = int(max(n_img, 1) ** 0.5) or 1
     if positions is None:
         positions = mrope_positions(b, n_img, tokens.shape[1], grid, x.device)
-    return T.forward(params, cfg, embeds=x, positions=positions, **kw)
+    return T.forward(params, cfg, embeds=x, positions=positions,
+                     model_axis=model_axis, **kw)
 
 
-def loss_fn(params, cfg, batch):
+def loss_fn(params, cfg, batch, model_axis=None):
     """Cross-entropy on the text positions only (vision positions unlabeled)."""
     logits, aux = forward(params, cfg, batch["tokens"],
-                          vision_embeds=batch.get("vision_embeds"))
+                          vision_embeds=batch.get("vision_embeds"),
+                          model_axis=model_axis)
     n_img = batch["vision_embeds"].shape[1] if "vision_embeds" in batch else 0
-    return (L.cross_entropy(logits[:, n_img:], batch["labels"])
+    return (L.cross_entropy(logits[:, n_img:], batch["labels"], cfg,
+                            model_axis)
             + cfg.router_aux_loss * aux)

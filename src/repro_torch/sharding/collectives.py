@@ -1,0 +1,169 @@
+"""The ``model`` axis's collectives, differentiable and batchable.
+
+A rank of a ``(data, model)`` mesh holds its block of every parameter leaf
+(``sharding/rules.py``) and computes on blocks; these are the named
+collectives over its ``model`` group that make the blocks compute the
+unsharded function (Megatron-LM's tensor parallelism):
+
+* ``copy_to`` (Megatron's f): the identity forward, an all-reduce of the
+  gradient backward; it starts a column-parallel region, whose input every
+  rank holds whole and whose gradient each rank has only a part of;
+* ``reduce_from`` (g): an all-reduce forward, the identity backward; it
+  ends a row-parallel region, whose partial sums add up to the output;
+* ``gather``: the blocks of a leaf put together along ``dim``, for a leaf
+  that the rules shard on a dim the layer cannot split its work on; the
+  gradient returns to the block, summed over the ranks (``grad="sum"``:
+  each rank used the leaf for its own part of the work) or as it is
+  (``grad="slice"``: every rank did the whole work).
+
+``all_reduce_`` and ``all_gather_`` are the same collectives outside the
+gradient (the distributed round's norms, counts and threshold samples).
+Each is a ``torch.autograd.Function`` with ``setup_context`` and a
+``vmap`` rule, so that it works under ``torch.func.vmap(torch.func.grad)``
+(the training gradient over a rank's clients, ``core/afl.py::
+device_grads``) and inside ``models/remat.py``'s checkpoint: c10d's
+collectives have no batching rule of their own, and the rule runs one
+collective over every client's values at once (an all-reduce is
+elementwise; the ranks hold the same number of clients).  NCCL on the
+card, gloo on the CPU.  ``ModelAxis.counts`` counts each kind of
+collective and its bytes, so the plan's numbers can be read off a run.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.distributed as dist
+
+
+@dataclasses.dataclass(eq=False)
+class ModelAxis:
+    """One rank's view of the ``model`` axis: its group, its index on the
+    axis and the axis's size."""
+
+    group: object
+    rank: int
+    size: int
+    counts: dict = dataclasses.field(default_factory=dict)
+
+    def count(self, kind: str, t: torch.Tensor) -> None:
+        n, b = self.counts.get(kind, (0, 0))
+        self.counts[kind] = (n + 1, b + t.numel() * t.element_size())
+
+
+def _all_reduce(x: torch.Tensor, axis: ModelAxis, op=dist.ReduceOp.SUM):
+    y = x.contiguous().clone()
+    axis.count("all-reduce", y)
+    dist.all_reduce(y, op=op, group=axis.group)
+    return y
+
+
+def _all_gather(x: torch.Tensor, axis: ModelAxis, dim: int):
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(axis.size)]
+    axis.count("all-gather", x)
+    dist.all_gather(parts, x, group=axis.group)
+    return torch.cat(parts, dim=dim)
+
+
+def _block(x: torch.Tensor, axis: ModelAxis, dim: int):
+    per = x.shape[dim] // axis.size
+    return x.narrow(dim, axis.rank * per, per)
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(x, axis):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.axis = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _Reduce.apply(g, ctx.axis), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, axis):
+        return _Copy.apply(x, axis), in_dims[0]
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(x, axis):
+        return _all_reduce(x, axis)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.axis = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _Copy.apply(g, ctx.axis), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, axis):
+        return _Reduce.apply(x, axis), in_dims[0]
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(x, axis, dim, grad):
+        return _all_gather(x, axis, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.axis, ctx.dim, ctx.grad = inputs
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.grad == "sum":
+            g = _Reduce.apply(g, ctx.axis)
+        return _block(g, ctx.axis, ctx.dim), None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, axis, dim, grad):
+        bd = in_dims[0]
+        if bd is None:
+            return _Gather.apply(x, axis, dim, grad), None
+        x = x.movedim(bd, 0)
+        return _Gather.apply(x, axis, dim % (x.dim() - 1) + 1, grad), 0
+
+
+def copy_to(x: torch.Tensor, axis: ModelAxis | None) -> torch.Tensor:
+    """Megatron's f: the identity forward, all-reduce backward."""
+    return x if axis is None or axis.size == 1 else _Copy.apply(x, axis)
+
+
+def reduce_from(x: torch.Tensor, axis: ModelAxis | None) -> torch.Tensor:
+    """Megatron's g: all-reduce forward, the identity backward."""
+    return x if axis is None or axis.size == 1 else _Reduce.apply(x, axis)
+
+
+def gather(x: torch.Tensor, axis: ModelAxis | None, dim: int,
+           grad: str = "sum") -> torch.Tensor:
+    """Every rank's block of a leaf, put together along ``dim``."""
+    if grad not in ("sum", "slice"):
+        raise ValueError(f"grad {grad!r} is 'sum' or 'slice'")
+    if axis is None or axis.size == 1:
+        return x
+    return _Gather.apply(x, axis, dim, grad)
+
+
+def all_reduce_(x: torch.Tensor, axis: ModelAxis | None,
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` all-reduced over the axis in place, outside the gradient."""
+    if axis is not None and axis.size > 1:
+        axis.count("all-reduce", x)
+        dist.all_reduce(x, op=op, group=axis.group)
+    return x
+
+
+def all_gather_(x: torch.Tensor, axis: ModelAxis | None,
+                dim: int) -> torch.Tensor:
+    """Every rank's ``x`` put together along ``dim``, outside the
+    gradient."""
+    if axis is None or axis.size == 1:
+        return x
+    return _all_gather(x, axis, dim)
