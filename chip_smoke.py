@@ -4,10 +4,13 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --time-tree DIR   # time another checkout's kernels
     python3 chip_smoke.py --only 19,20      # phases 1, 2 and those named
-                                            # (of 3c, 19-24) alone
+                                            # (of 3c, 19-25) alone
     python3 chip_smoke.py --mesh 4          # the round over 4 cards
     python3 chip_smoke.py --mesh 4 --only 24  # phases 24b-d alone
     python3 chip_smoke.py --mesh 4 --only 24cd  # phases 24c-d alone
+    python3 chip_smoke.py --mesh 4 --only 25  # phases 25b-e alone
+    python3 chip_smoke.py --mesh 4 --only 25de  # phases 25d-e alone
+    python3 chip_smoke.py --mesh 4 --only 25f  # 25e's f32 rounds alone
 
 Phases, each of which raises on failure (a failed phase exits non-zero):
 
@@ -271,7 +274,17 @@ Phases, each of which raises on failure (a failed phase exits non-zero):
    rounds again through a (1, 1) NCCL mesh made with a model axis of 1
    and the rules passed explicitly: bits, k, b and the final w bit-equal
    to phase 19's, one ``sparsify_ef`` a round, each held as it returns.
-   The four-card phases 24b-d run under ``--mesh 4`` (below).
+   The four-card phases 24b-d run under ``--mesh 4`` (below);
+25. the model axis for the MoE, ssm and hybrid families (``models/moe.py``
+   on the rank's experts, ``mamba2.py`` / ``hybrid.py`` on its SSD heads;
+   run after 24): (a) the plan at M = 1, 2, 4, 8 with their pairs built
+   (24a's when it ran), its counts beside 24a's; phase 22b's full-width
+   Qwen3-MoE (2 layers) and Zamba2 (12 layers) ``mads`` rounds again
+   through a (1, 1) mesh, w, k, bits and b bit-equal to 22b's; the
+   kernels at the (1, 4) serves' per-rank shapes, held and timed
+   (``decode_attn`` at (4, 8, 1, 2080, 128) and (8, 4, 4, 2080, 128),
+   ``ssd_scan`` at (4, 4096, 20, 64) N 128 and (4, 4096, 28, 64) N 64).
+   The four-card phases 25b-e run under ``--mesh 4 --only 25`` (below).
 
 ``--mesh P`` runs, on each of P cards (one process a card, a file
 store): world 1 against world P for six policies at ResNet-9 width 4;
@@ -291,7 +304,22 @@ the deepest depth whose peak stays under 75 GiB a card
 (``axis_train_step``); (d) Qwen2-VL-72B at all 80 layers served over
 (1, 4) through ``launch/serve.py`` (batch 4, prompt 2048, 32 tokens,
 every ``decode_attn`` call held) after 8 layers against one card, and
-its decode_32k at batch 8 (``axis_serve``).
+its decode_32k at batch 8 (``axis_serve``).  ``--mesh 4 --only 25``
+runs phases 25b-e instead (``family_axis_mesh``; "25" and some of "bcde"
+for those): (b) Qwen3-MoE-30B-A3B (48 layers, batch 4) and
+Qwen2-MoE-A2.7B (24 layers, batch 8) served over (1, 4), prompt 2048, 32
+tokens: at 2 layers in f32 against one card (logits within 1e-4 x max(1,
+the largest), the same tokens and routing), at full depth in bf16
+against one card (the share of routing choices that differ, where the
+greedy tokens first differ and one card's margin there), every
+``decode_attn`` call held, the routing checked alike over the ranks
+every layer; 24d's Qwen2-VL-72B decode again; (c) Mamba2-2.7B (64
+layers) and Zamba2-7B (81) over (1, 4), batch 4, prompt 4096, every
+``ssd_scan`` call held against the f64 plain version; (d) Qwen3-MoE x
+train (batch 2, seq 512) on (1, 4) cut as 24c; (e) Zamba2 on (2, 2):
+12 layers against one card as 24b, then the deepest depth that fits
+(``axis_train_step``; the round's collectives over ``model`` equal to the
+plan's count there, as in 24c).
 
 The last three lines are the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -3491,9 +3519,11 @@ def family_dist(K, SSD, mesh, smi: str) -> dict:
     for arch, layers in FAMILY_DIST:
         cfg = get_config(arch).replace(num_layers=layers)
         for policy, kernel in DIST_RUNS:
+            # the full mads run's final w: phase 25a holds it bit for bit
             out[f"{arch} full {policy}"] = dist_full_width(
                 K, mesh, policy, kernel, smi, cfg=cfg.replace(remat="full"),
-                SSD=SSD)
+                SSD=SSD, keep=f"family {arch} w" if policy == "mads" else "")
+        KEPT[f"family {arch}"] = out[f"{arch} full mads"]
         msg = None
         try:
             out[f"{arch} none mads"] = dist_full_width(
@@ -3960,6 +3990,7 @@ def axis_plan(smi: str) -> dict:
                 gathered={k.split(" x ")[0]: r["gathered"]
                           for k, r in sized.items() if r.get("gathered")},
                 fits=fits)
+            KEPT.setdefault("axis plan", {})[m] = out[m]
             print(f"plan at model {m} (world {m}, sizes only; {smi} is the "
                   f"card they are planned for): {len(fits)} of {len(sized)} "
                   f"pairs fit one card ({out[m]['not_ported']} sized from the "
@@ -4011,9 +4042,11 @@ def _axis_loss(model, cfg, w, layout, batch, axis) -> float:
         return float(model.loss_fn(layout.unflatten(w), cfg, batch, **kw))
 
 
-def axis_rounds(K, mesh, dev, tag: str) -> dict:
+def axis_rounds(K, mesh, dev, tag: str, cfg=None, cond: bool = False) -> dict:
     """Phase 24b's rounds: full-width InternLM2-1.8B, bf16 weights and
-    states, N = 2 clients, global batch 4, seq 512, 4 ``mads`` rounds with
+    states (``cfg``'s ``param_dtype`` for both; with ``cond`` the drawn
+    weights ``conditioned``), N = 2 clients, global
+    batch 4, seq 512, 4 ``mads`` rounds with
     both clients in contact in round 2, ``donate=True``; over ``mesh`` or,
     without one, on this card alone.  Every ``sparsify_ef`` call held as
     it returns; launches, uploads, k, bits, loss before and after, round
@@ -4028,14 +4061,15 @@ def axis_rounds(K, mesh, dev, tag: str) -> dict:
     from repro_torch.core.runner import sample_budgets
     from repro_torch.models.registry import build_model, demo_batch
 
-    cfg = axis_cfg(DIST_ARCH)
+    cfg = cfg or axis_cfg(DIST_ARCH)
     model = build_model(cfg)
     s = model.num_params()
     fl = FLConfig(num_devices=DIST_N, rounds=DIST_ROUNDS,
                   mean_intercontact=20.0, sparsifier="sampled", seed=0)
     policy = BL.ALL["mads"](s, fl)
     dcfg = DistConfig(num_clients=DIST_N, learning_rate=fl.learning_rate,
-                      rounds=DIST_ROUNDS, sample_size=fl.sample_size)
+                      rounds=DIST_ROUNDS, sample_size=fl.sample_size,
+                      state_dtype=cfg.param_dtype)
     rng = np.random.default_rng(0)
     batches = [{k: torch.as_tensor(v).to(dev) for k, v in
                 demo_batch(cfg, DIST_BATCH, DIST_SEQ, rng).items()}
@@ -4046,6 +4080,9 @@ def axis_rounds(K, mesh, dev, tag: str) -> dict:
                                    staleness=policy.staleness, donate=True)
     state = init_state(model, dcfg, 0, mesh=mesh, device=dev)
     pl = system["placement"]
+    if cond:  # the flat buffers' leaf views, scaled in place
+        for flat in (state.w[None], state.w_n):
+            conditioned(model, pl.layout.unflatten(flat))
     axis = pl.model_axis
     loss0 = _axis_loss(model, cfg, state.w, pl.layout, batches[-1], axis)
     stats = dict(peak=0, hold_s=0.0, held=0)
@@ -4092,7 +4129,7 @@ def axis_rounds(K, mesh, dev, tag: str) -> dict:
     return out, w, model
 
 
-def axis_same_x(K, mesh, dev) -> dict:
+def axis_same_x(K, mesh, dev, cfg=None) -> dict:
     """Phase 24b(i): one random bf16 x (2, s) at full-width InternLM2 (the
     same on every rank, from one seed): the sampled threshold from the
     rank's blocks (its part of the strided sample, gathered over
@@ -4105,7 +4142,7 @@ def axis_same_x(K, mesh, dev) -> dict:
     from repro_torch.models.registry import build_model, local_params
     from repro_torch.utils.tree import tree_unflatten
 
-    model = build_model(axis_cfg(DIST_ARCH))
+    model = build_model(cfg or axis_cfg(DIST_ARCH))
     s = model.num_params()
     sample = 65536
     pl = D.placement(model, mesh, sample)
@@ -4136,7 +4173,7 @@ def axis_same_x(K, mesh, dev) -> dict:
     return out
 
 
-def axis_f32_round1(dev) -> list:
+def axis_f32_round1(dev, cfg=None) -> list:
     """Round 1's |x|^2 of each client of ``axis_rounds`` (x = eta g from
     round 0's state) with the weights, the arithmetic and x in f32, one
     client at a time on this card (``remat="full"``)."""
@@ -4144,7 +4181,7 @@ def axis_f32_round1(dev) -> list:
     from repro_torch.core.afl import device_grads
     from repro_torch.models.registry import build_model, demo_batch
 
-    cfg = axis_cfg(DIST_ARCH)
+    cfg = cfg or axis_cfg(DIST_ARCH)
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
     w = model.layout.flatten(params).float()
@@ -4167,7 +4204,7 @@ def axis_f32_round1(dev) -> list:
     return out
 
 
-def axis_internlm2(K, mesh, dev, store: Path) -> dict:
+def axis_internlm2(K, mesh, dev, store: Path, cfg=None) -> dict:
     """Phase 24b: full-width InternLM2-1.8B on the (data 2, model 2) mesh.
     (i) ``axis_same_x``; (ii) rank 0 runs ``axis_rounds`` on its card
     alone (world 1, N = 2) and writes w and the rounds' numbers; (iii)
@@ -4193,10 +4230,11 @@ def axis_internlm2(K, mesh, dev, store: Path) -> dict:
     from repro_torch.models.registry import local_params
     from repro_torch.utils.tree import tree_unflatten
 
-    same_x = axis_same_x(K, mesh, dev)
+    same_x = axis_same_x(K, mesh, dev, cfg)
+    name = (cfg or axis_cfg(DIST_ARCH)).name
     if mesh.rank == 0:
-        f32 = axis_f32_round1(dev)
-        one, w, _ = axis_rounds(K, None, dev, "axis world 1")
+        f32 = axis_f32_round1(dev, cfg)
+        one, w, _ = axis_rounds(K, None, dev, f"axis {name} world 1", cfg)
         one["x_norm2_f32"] = f32
         torch.save(w.cpu(), store / "axis_w1.pt")
         (store / "axis_one.json").write_text(json.dumps(one))
@@ -4204,37 +4242,59 @@ def axis_internlm2(K, mesh, dev, store: Path) -> dict:
         _free(dev)
     dist.barrier()
     one = json.loads((store / "axis_one.json").read_text())
-    got, w, model = axis_rounds(K, mesh, dev, "axis (2, 2)")
+    got, w, model = axis_rounds(K, mesh, dev, f"axis {name} (2, 2)", cfg)
+    hold = _rounds_hold(got, one, w, model, mesh, store / "axis_w1.pt", 2)
+    f32 = one["x_norm2_f32"]
+    hold.update(
+        # round 1's |x|^2 a client from f32's: the mesh's, and one card's
+        x_norm2_round1_off=[abs(a - c) / c for a, c in
+                            zip(got["x_norm2"][0], f32)],
+        x_norm2_round1_off_one_card=[abs(b - c) / c for b, c in
+                                     zip(one["x_norm2"][0], f32)])
+    del w
+    _free(dev)
+    out = dict(same_x=same_x, world_1=one, mesh=got, hold=hold,
+               ok=hold["ok"])
+    return out
+
+
+def _rounds_hold(got: dict, one: dict, w, model, mesh, w1_path: Path,
+                 rounds: int) -> dict:
+    """24b's hold of the mesh's rounds ``got`` (its final blocks ``w``)
+    against rank 0's world-1 rounds ``one`` (their final w at
+    ``w1_path``): the loss at the start within 1e-2; the same uploads; k
+    within 2 % a client-round where both upload in the first ``rounds``
+    (a client-round that uploads on one side only is counted; past them
+    the numbers are printed); w within one bf16 step (2^-8 of the larger
+    magnitude) at 90 % of the coordinates or more and within 2^-5 of the
+    largest entry everywhere; ``ok`` whether all hold.  The CPU tests'
+    standard (k within 2, w within 1e-6 of the largest entry) is printed
+    beside."""
     from repro_torch.core.distributed import placement
+    from repro_torch.models.registry import local_params
+    from repro_torch.utils.tree import tree_unflatten
 
     pl = placement(model, mesh)
-    whole = torch.load(store / "axis_w1.pt", mmap=True)
+    whole = torch.load(w1_path, mmap=True)
     want = pl.layout.flatten(local_params(
         model, model.layout.unflatten(whole),
-        tree_unflatten(model.layout.paths, list(pl.blocks)))).to(dev)
+        tree_unflatten(model.layout.paths, list(pl.blocks)))).to(w.device)
     del whole
     wf, vf = w.float(), want.float()
     diff = (wf - vf).abs()
     step = torch.maximum(wf.abs(), vf.abs()) * 2.0**-8
     big = float(vf.abs().max())
-    # rounds 1-2: MADS's energy queue carries a client-round's bf16
-    # difference in k into the next rounds' choices (PERF.md, PR 24)
-    both = [(a, b) for ra, rb in zip(got["k"][:2], one["k"][:2])
+    both = [(a, b) for ra, rb in zip(got["k"][:rounds], one["k"][:rounds])
             for a, b in zip(ra, rb) if a > 0 and b > 0]
-    f32 = one["x_norm2_f32"]
     hold = dict(
         loss_before_rel=abs(got["loss_before"] - one["loss_before"])
         / abs(one["loss_before"]),
-        # round 1's |x|^2 a client from f32's: the mesh's, and one card's
-        x_norm2_round1_off=[abs(a - c) / c for a, c in
-                            zip(got["x_norm2"][0], f32)],
-        x_norm2_round1_off_one_card=[abs(b - c) / c for b, c in
-                                     zip(one["x_norm2"][0], f32)],
         uploads_equal=got["uploads"] == one["uploads"],
         # a client-round that uploads on one side only (MADS's choice at
         # |x|^2 rounded otherwise) is counted, not held
         k_one_side_only=sum((a > 0) != (b > 0) for ra, rb in
                             zip(got["k"], one["k"]) for a, b in zip(ra, rb)),
+        k_held_rounds=rounds,
         k_rel_max=max([abs(a - b) / max(a, b) for a, b in both],
                       default=0.0),
         k_rel_rounds=[[abs(a - b) / max(a, b, 1.0) for a, b in zip(ra, rb)]
@@ -4245,17 +4305,44 @@ def axis_internlm2(K, mesh, dev, store: Path) -> dict:
         w_beyond_bf16_step_share=float((diff > step).float().mean()),
         w_off_max=float(diff.max()) / big,
         w_beyond_1e6_share=float((diff > 1e-6 * big).float().mean()))
-    del wf, vf, diff, step, w, want
+    del wf, vf, diff, step, want
+    hold["ok"] = (hold["uploads_equal"] and hold["loss_before_rel"] <= 1e-2
+                  and len(both) > 0 and hold["k_rel_max"] <= 0.02
+                  and hold["w_beyond_bf16_step_share"] <= 0.1
+                  and hold["w_off_max"] <= 2.0**-5)
+    return hold
+
+
+def axis_rounds_f32(K, mesh, dev, store: Path, cfg) -> dict:
+    """25e's second witness: ``axis_rounds`` of ``cfg`` with the weights,
+    the arithmetic and the client states in f32 and the weights
+    ``conditioned``, rank 0 alone on its card (world 1) first, then over
+    the mesh, held by ``_rounds_hold`` with k held in every round.  As
+    drawn, Zamba2's f32 rounds are ill-conditioned: their k parted 4.6 %
+    from one card's in round 2 at 12 layers of full width (PERF.md
+    §6)."""
+    import torch.distributed as dist
+
+    cfg = cfg.replace(dtype="float32", param_dtype="float32")
+    if mesh.rank == 0:
+        one, w, _ = axis_rounds(K, None, dev, f"axis {cfg.name} f32 world 1",
+                                cfg, cond=True)
+        torch.save(w.cpu(), store / "axis_w1_f32.pt")
+        (store / "axis_one_f32.json").write_text(json.dumps(one))
+        del w
+        _free(dev)
+    dist.barrier()
+    one = json.loads((store / "axis_one_f32.json").read_text())
+    got, w, model = axis_rounds(K, mesh, dev, f"axis {cfg.name} f32 (2, 2)",
+                                cfg, cond=True)
+    hold = _rounds_hold(got, one, w, model, mesh, store / "axis_w1_f32.pt",
+                        DIST_ROUNDS)
+    del w
     _free(dev)
-    ok = (hold["uploads_equal"] and hold["loss_before_rel"] <= 1e-2
-          and len(both) > 0 and hold["k_rel_max"] <= 0.02
-          and hold["w_beyond_bf16_step_share"] <= 0.1
-          and hold["w_off_max"] <= 2.0**-5)
-    out = dict(same_x=same_x, world_1=one, mesh=got, hold=hold, ok=ok)
-    return out
+    return dict(world_1=one, mesh=got, hold=hold, ok=hold["ok"])
 
 
-def axis_train_step(mods, mesh, dev) -> dict:
+def axis_train_step(mods, mesh, dev, train=AXIS_TRAIN) -> dict:
     """Phase 24c: Qwen3-32B x train_4k through ``build_step`` on the (1,
     4) mesh: full width, N = 1, batch 2, ``remat="full"``, bf16; the depth
     cut to the deepest whose peak stays 3 GiB under 75 GiB a card: the
@@ -4276,9 +4363,10 @@ def axis_train_step(mods, mesh, dev) -> dict:
     from repro_torch.launch.dryrun import active_params
     from repro_torch.launch.steps import build_step, materialize
 
-    arch, batch, depths = AXIS_TRAIN
+    arch, batch, depths, *seq = train
     full = INPUT_SHAPES["train_4k"]
-    shape = InputShape(full.name, full.seq_len, batch, full.kind)
+    shape = InputShape(full.name, seq[0] if seq else full.seq_len, batch,
+                       full.kind)
 
     def one(layers: int, rounds: int) -> dict:
         cfg = axis_cfg(arch, layers)
@@ -4301,6 +4389,8 @@ def axis_train_step(mods, mesh, dev) -> dict:
             _sync(dev)
             dist.barrier()
             _reset_peak(dev)
+            axis = built["model_axis"]
+            axis.counts.clear()
             t0 = time.perf_counter()
             with holding(f"axis {arch} x train_4k", stats, STEP_KERNELS) \
                     if i == 0 else nullcontext():
@@ -4308,6 +4398,15 @@ def axis_train_step(mods, mesh, dev) -> dict:
             _sync(dev)
             dist.barrier()
             secs = time.perf_counter() - t0 - stats["hold_s"]
+            # the round's collectives over model, as the plan counts them
+            counts = {k: v[0] for k, v in axis.counts.items()}
+            want_counts = RL.step_collectives(
+                "train", 0, mesh.model, 1, model=mesh.model,
+                cfg=built["cfg"], tokens=batch * shape.seq_len
+                // mesh.data_size).count_by_kind
+            if counts != want_counts:
+                fail(f"axis {arch} x train_4k: collectives over model "
+                     f"{counts}, the plan's {want_counts}")
             launches = {k: v for mod in mods.values()
                         for k, v in mod.LAUNCHES.items()}
             state, m = out
@@ -4339,7 +4438,7 @@ def axis_train_step(mods, mesh, dev) -> dict:
             del state, m, w0
             del out
             runs.append(dict(seconds=secs, launches=launches,
-                             held=stats["held"],
+                             held=stats["held"], axis_counts=counts,
                              peak_gib=max(stats["peak"] / 2**30,
                                           _peak_gib(dev)), **checked))
         res = dict(layers=built["cfg"].num_layers,
@@ -4402,8 +4501,10 @@ def axis_train_step(mods, mesh, dev) -> dict:
     model = build_model(cfg.replace(remat="full"))
     n = model.num_params()
     tokens = batch * shape.seq_len
-    coll = RL.step_collectives("train", n, mesh.world_size, 1, model=4,
-                               cfg=cfg.replace(remat="full"), tokens=tokens,
+    coll = RL.step_collectives("train", n, mesh.world_size, mesh.data_size,
+                               model=mesh.model,
+                               cfg=cfg.replace(remat="full"),
+                               tokens=tokens // mesh.data_size,
                                params_per_card=res["s_card"])
     roof = RL.analyze(step_analytics(cfg, shape, mesh.world_size, n,
                                      model_parallel=mesh.model), coll,
@@ -4663,6 +4764,762 @@ def axis_mesh(mods, K, store: Path, device="cuda",
     print("AXIS " + json.dumps({"rank": mesh14.rank, "serve": out["serve"]}),
           flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 25: the model axis for the MoE, ssm and hybrid families
+# (models/moe.py on the rank's experts, models/mamba2.py and hybrid.py on
+# the rank's SSD heads)
+# ---------------------------------------------------------------------------
+
+PLAN_24A = {1: 24, 2: 27, 4: 30, 8: 33}  # 24a's pairs that fit (PERF.md)
+# 25a: the kernels at the new per-rank shapes on (1, 4): decode_attn's
+# (B, H, KV, S, D) of Qwen3-MoE and Qwen2-MoE (a prompt of 2048 and 32
+# tokens), ssd_scan's (B, S, H, P, N, chunk) of Mamba2-2.7B and Zamba2-7B
+AXIS_DECODES = ((4, 8, 1, 2080, 128), (8, 4, 4, 2080, 128))
+AXIS_SCANS = ((4, 4096, 20, 64, 128, 256), (4, 4096, 28, 64, 64, 256))
+# 25b-c: (arch, batch, prompt, whether one card serves it alone at full
+# depth first, for the routing's and the tokens' comparison)
+FAMILY_SERVES = (("qwen3-moe-30b-a3b", 4, 2048, True),
+                 ("qwen2-moe-a2.7b", 8, 2048, True),
+                 ("mamba2-2.7b", 4, 4096, False),
+                 ("zamba2-7b", 4, 4096, False))
+FAMILY_SHORT = 2  # 25b-c: layers of the f32 mesh-against-one-card check
+# its bound on the logits, x max(1, the largest): the CPU tests' standard
+FAMILY_F32_TOL = 1e-4
+FAMILY_SHORT_PROMPT = 512  # its prompt (a multiple of the SSD chunk)
+# 25d: as AXIS_TRAIN, and the sequence length (train_4k's cut to 512)
+FAMILY_TRAIN = ("qwen3-moe-30b-a3b", 2, (16, 24), 512)
+# 25e: Zamba2 on (2, 2): the depth one card holds two bf16 clients at
+# (phase 22b's), and the full-depth step's calibration depths
+FAMILY_HYBRID = ("zamba2-7b", 12, 2, (24, 48))
+
+
+def axis_kernel_times(DA, SSD, R, card: str) -> dict:
+    """Phase 25a: ``decode_attn`` and ``ssd_scan`` at the per-rank shapes
+    of the (1, 4) serves (``AXIS_DECODES``, ``AXIS_SCANS``), each held
+    against its plain version (phase 3's tolerances; ``ssd_scan`` row by
+    row against the f64 plain version) and timed by phase 3's method beside
+    the plain version (and SDPA)."""
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    out = {"decode_attn": [], "ssd_scan": []}
+    dt = torch.bfloat16
+    for b, h, kv, s, d in AXIS_DECODES:
+        q = _randn((b, h, d), gen, dt)
+        k, v = _randn((b, s, kv, d), gen, dt), _randn((b, s, kv, d), gen, dt)
+        mask = torch.ones((1, 1, 1, s), dtype=torch.bool, device="cuda")
+        err = hold_against_plain("decode_attn", (q, k, v, s), {},
+                                 DA.decode_attn_cuda(q, k, v, s),
+                                 "axis shapes")
+        res = dict(shape=[b, h, kv, s, d], dtype="bfloat16", length=s,
+                   ms=median_ms(lambda: DA.decode_attn_cuda(q, k, v, s)),
+                   plain_ms=median_ms(lambda: R.decode_attn_plain(q, k, v, s)),
+                   library_ms=median_ms(lambda: torch.nn.functional
+                                        .scaled_dot_product_attention(
+                                            q[:, :, None], k.transpose(1, 2),
+                                            v.transpose(1, 2), attn_mask=mask,
+                                            enable_gqa=True)),
+                   max_abs_err=err,
+                   **bound(2 * b * s * kv * d * 2 + 2 * b * h * d * 2,
+                           4 * b * h * s * d, dt))
+        res["bound_share"] = res["bound_ms"] / res["ms"]
+        out["decode_attn"].append(res)
+        print(f"decode_attn at a rank's (B, H, KV, S, D) = {(b, h, kv, s, d)} "
+              f"bf16: {json.dumps(res)} on {card}", flush=True)
+        del q, k, v
+    for b, s, h, p, n, ch in AXIS_SCANS:
+        x, a = _randn((b, s, h, p), gen), -_randn((b, s, h), gen).abs() * 0.5
+        bb, cc = _randn((b, s, n), gen), _randn((b, s, n), gen)
+        err = hold_against_plain("ssd_scan", (x, a, bb, cc, ch), {},
+                                 SSD.ssd_scan_cuda(x, a, bb, cc, ch),
+                                 "axis shapes")
+        nbytes = 4 * (2 * x.numel() + a.numel() + 2 * bb.numel()
+                      + b * h * p * n)
+        res = dict(shape=[b, s, h, p, n, ch], dtype="float32",
+                   ms=median_ms(lambda: SSD.ssd_scan_cuda(x, a, bb, cc, ch)),
+                   plain_ms=median_ms(lambda: R.ssd_scan_plain(x, a, bb, cc,
+                                                               ch),
+                                      runs=9, batch=3),
+                   library_ms=None, max_abs_err=err,
+                   **bound(nbytes, 3 * ssd_causal_flops(b, s, h, p, n, ch),
+                           "tf32"))
+        res["bound_share"] = res["bound_ms"] / res["ms"]
+        out["ssd_scan"].append(res)
+        print(f"ssd_scan at a rank's (B, S, H, P, N, chunk) = "
+              f"{(b, s, h, p, n, ch)} f32: {json.dumps(res)} on {card}",
+              flush=True)
+        del x, a, bb, cc
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_axis_phase(K, DA, SSD, R, smi: str) -> dict:
+    """Phase 25a: the plan at M = 1, 2, 4, 8 with the MoE, ssm and hybrid
+    pairs built on the meta device (phase 24a's, when it ran), its counts
+    beside 24a's; phase 22b's full-width Qwen3-MoE (2 layers) and Zamba2
+    (12 layers) ``mads`` rounds again through a (1, 1) NCCL mesh, w, k,
+    bits and b bit-equal to 22b's; the kernels at the (1, 4) serves'
+    per-rank shapes (``axis_kernel_times``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_client_mesh
+    from repro_torch.sharding.rules import RULES_TRAIN_CLIENT
+
+    t0 = time.perf_counter()
+    plan = KEPT.get("axis plan") or axis_plan(smi)
+    for m, rec in plan.items():
+        if m > 1 and rec["not_ported"] != 3:  # whisper's three pairs
+            fail(f"plan at model {m}: {rec['not_ported']} pairs not ported")
+    print("plan: pairs that fit one card at M = 1, 2, 4, 8: "
+          + ", ".join(f"{plan[m]['fit']} (24a: {PLAN_24A[m]})"
+                      for m in AXIS_PLAN_M), flush=True)
+    rounds = {}
+    for arch, layers in FAMILY_DIST:
+        cfg = get_config(arch).replace(num_layers=layers, remat="full")
+        key = f"family {arch} w"
+        if key not in KEPT:  # phase 22 did not run (--only)
+            mesh = make_client_mesh(DIST_N)
+            try:
+                KEPT[f"family {arch}"] = dist_full_width(
+                    K, mesh, "mads", "sparsify_ef", smi, cfg=cfg, SSD=SSD,
+                    keep=key)
+            finally:
+                mesh.close()
+        mesh = make_client_mesh(DIST_N, model=1, family=cfg.family)
+        try:
+            run = dist_full_width(K, mesh, "mads", "sparsify_ef", smi,
+                                  cfg=cfg, SSD=SSD, keep="family axis w",
+                                  rules=RULES_TRAIN_CLIENT)
+        finally:
+            mesh.close()
+        base = KEPT.pop(f"family {arch}")
+        same = dict(w=bool(torch.equal(KEPT.pop(key),
+                                       KEPT.pop("family axis w"))),
+                    **{k: run[k] == base[k] for k in ("k", "bits", "b")})
+        if not all(same.values()):
+            fail(f"family axis: {arch}'s (1, 1) mesh round differs from "
+                 f"phase 22b's: {same}")
+        rounds[arch] = dict(run=run, bit_equal=same)
+        print(f"family axis (1, 1) mesh: {arch} ({layers} layers) mads "
+              f"bit-equal to phase 22b ({json.dumps(same)})", flush=True)
+        torch.cuda.empty_cache()
+    times = axis_kernel_times(DA, SSD, R, smi)
+    print(f"phase 25a {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(plan={m: {k: r[k] for k in ("fit", "sized", "not_ported")}
+                      for m, r in plan.items()}, rounds=rounds, times=times)
+
+
+@contextmanager
+def routes_recorded(log: list):
+    """Every MoE layer's chosen experts (``dispatch``'s ``topi``, on the
+    host) appended to ``log`` while the block runs."""
+    from repro_torch.models import moe as MOE
+
+    real = MOE.dispatch
+
+    def spy(logits, cfg):
+        out = real(logits, cfg)
+        log.append(out[2].to(torch.int16).cpu())
+        return out
+
+    MOE.dispatch = spy
+    try:
+        yield log
+    finally:
+        MOE.dispatch = real
+
+
+def _last(t):
+    """A (B, S, ...) activation's last position, f32 on the host."""
+    return (t[:, -1] if t.dim() == 3 else t).float().cpu()
+
+
+@contextmanager
+def probed(log: list):
+    """The serve run's modules recorded in call order, as (name, tensor)
+    pairs in ``log``: each attention's ``decode_attention`` output (the
+    rank's heads) with its scores' smallest gap between a row's top two,
+    their largest magnitude and the kernel's distance from its plain
+    version on the same inputs, its ``attn_out`` output, each MoE
+    layer's input and
+    output and, at decode, its kept choices' gate weights
+    (``dispatch``), each Mamba2 block's output, and the hidden state the
+    unembedding reads (the last call of a step), each at the last
+    position.  The step-by-step comparison of the mesh with one card
+    (``_explain_steps``) reads it."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.models import moe as MOE
+
+    real = dict(attn=L.decode_attention, out=L.attn_out, moe=MOE.moe_apply,
+                route=MOE.dispatch, mamba=M2.mamba_block, unembed=L.unembed)
+
+    def attn(q, k, v, length, **kw):
+        from repro_torch.kernels import ref as R
+
+        y = real["attn"](q, k, v, length, **kw)
+        log.append(("decode_attn", y.float().cpu()))
+        # its scores' smallest gap between a row's top two and largest
+        # magnitude, and where the kernel ran, its output's largest
+        # difference from its plain version's on these inputs (another
+        # summation order) over the plain version's largest entry
+        b, h, d = q.shape
+        sc = torch.einsum("bkgd,bskd->bkgs", q.float().reshape(
+            b, k.shape[2], h // k.shape[2], d), k[:, :length].float()) / d**.5
+        top = sc.topk(2, dim=-1).values
+        off = -1.0
+        if kw.get("window_pos") is None:
+            want = R.decode_attn_plain(q, k, v, length).float()
+            off = float((y.float() - want).abs().max() / want.abs().max())
+        log.append(("attn_stats", torch.tensor(
+            [float((top[..., 0] - top[..., 1]).min()),
+             float(sc.abs().max()), off])))
+        return y
+
+    def out(*a, **kw):
+        y = real["out"](*a, **kw)
+        log.append(("attn_out", _last(y)))
+        return y
+
+    def moe(p, cfg, x, *a, **kw):
+        log.append(("moe_in", _last(x)))
+        y = real["moe"](p, cfg, x, *a, **kw)
+        log.append(("moe_out", _last(y[0])))
+        return y
+
+    def route(logits, cfg):
+        r = real["route"](logits, cfg)
+        if logits.shape[1] <= 8:  # decode: the kept choices' weights
+            weights, keep, topi = r[0], r[1], r[2]
+            log.append(("gate_w", (torch.gather(weights, -1, topi)
+                                   * torch.gather(keep, -1, topi)).cpu()))
+        return r
+
+    def mamba(*a, **kw):
+        y = real["mamba"](*a, **kw)
+        log.append(("mamba_out", _last(y[0])))
+        return y
+
+    def unembed(params, cfg, x, *a, **kw):
+        log.append(("hidden", _last(x)))
+        return real["unembed"](params, cfg, x, *a, **kw)
+
+    L.decode_attention, L.attn_out, L.unembed = attn, out, unembed
+    MOE.moe_apply, MOE.dispatch, M2.mamba_block = moe, route, mamba
+    try:
+        yield log
+    finally:
+        L.decode_attention, L.attn_out = real["attn"], real["out"]
+        L.unembed, MOE.moe_apply = real["unembed"], real["moe"]
+        MOE.dispatch, M2.mamba_block = real["route"], real["mamba"]
+
+
+def _explain_steps(got: list, want: list, offs: list, rank: int,
+                   least: float = 1e-5) -> list:
+    """The mesh's probe (``probed``) against one card's, step by step: for
+    each step whose logits are more than ``least`` x max(1, the largest)
+    apart, every recorded module's distance (the largest difference over
+    the larger of one card's largest entry and 1e-30; a
+    ``decode_attn`` against one card's heads of this rank) in call order,
+    and the first module whose distance passes 10x every earlier one's of
+    the step and ``least`` (where the gap enters), and each attention's
+    smallest top-two score gap, largest score and kernel-to-plain
+    distance on this rank (scores in the thousands multiply a rounding
+    of q or k by as much: another summation order, the mesh's or the
+    plain version's, moves the output as far)."""
+    if len(got) != len(want) or [n for n, _ in got] != [n for n, _ in want]:
+        return [dict(error=f"probes differ: {len(got)} against {len(want)} "
+                           f"records")]
+    steps, cur, gaps = [], [], []
+    for (name, g), (_, w) in zip(got, want):
+        if name == "attn_stats":  # the rank's own numbers, not a distance
+            gaps.append(g.tolist())
+            continue
+        if name == "decode_attn" and g.shape[1] != w.shape[1]:
+            hl = g.shape[1]
+            w = w[:, rank * hl:(rank + 1) * hl]
+        d = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        cur.append((name, d))
+        if name == "hidden":
+            steps.append((cur, gaps))
+            cur, gaps = [], []
+    out = []
+    for j, ((recs, gaps), off) in enumerate(zip(steps, offs)):
+        if off <= least:
+            continue
+        first, seen = None, 0.0
+        for i, (name, d) in enumerate(recs):
+            if first is None and d > least and d > 10 * seen:
+                first = f"{name} #{i}"
+            seen = max(seen, d)
+        out.append(dict(step=j, logits_off=off, enters_at=first,
+                        modules=[[n, float(f"{d:.3g}")] for n, d in recs]))
+        if gaps:  # each attention's top-two gap, scores, kernel's offset
+            out[-1]["attn_top2_gap_score_max_kernel_off"] = [
+                [float(f"{x:.3g}") for x in g] for g in gaps]
+    return out
+
+
+def _choices_differ(got: list, want: list) -> list:
+    """Each layer's share of (token, choice) routings that differ: the
+    chosen experts of a token that the other run did not choose, over
+    its k choices."""
+    out = []
+    for a, b in zip(got, want):
+        miss = (a[..., :, None] != b[..., None, :]).all(dim=-1)
+        out.append(float(miss.float().mean()))
+    return out
+
+
+def _first_tie(got: list, want: list, toks, want_toks) -> dict | None:
+    """Where the mesh's greedy tokens first differ from one card's: the
+    step, one card's margin between its top two logits there and the two
+    runs' largest logit difference (a margin under it is a tie)."""
+    for j in range(toks.shape[1]):
+        differ = toks[:, j] != want_toks[:, j]
+        if bool(differ.any()):
+            top2 = want[j].topk(2, dim=-1).values
+            return dict(step=j, margin=float((top2[:, 0] - top2[:, 1])
+                                             [differ].max()),
+                        gap=float((got[j] - want[j]).abs().max()))
+    return None
+
+
+def _serve_once(cfg, model, params, prompts, axis, routes=None, stats=None,
+                hold=None, check=False, probe=None) -> dict:
+    """One ``launch/serve.py::serve`` run: tokens, the logits token j came
+    from, stats, collectives a decode step; ``hold`` kernel names held as
+    they return, ``check`` the MoE routing checked over the ranks,
+    ``probe`` a list the modules' outputs go to (``probed``)."""
+    from repro_torch.launch import serve as S
+
+    rec, log = _recording(model, axis)
+    if axis is not None:
+        axis.checks = {} if check else None
+    try:
+        with (holding(f"axis {cfg.name} serve", stats, hold) if hold
+              else nullcontext()), \
+                (routes_recorded(routes) if routes is not None
+                 else nullcontext()), \
+                (probed(probe) if probe is not None else nullcontext()), \
+                torch.no_grad():
+            toks, st = S.serve(cfg, rec, params, prompts, GEN,
+                               model_axis=axis)
+        checked = ((axis.checks or {}).get("routing", 0) if axis is not None
+                   else 0)
+    finally:
+        if axis is not None:
+            axis.checks = None
+    return dict(tokens=toks.cpu(), logits=[st["prefill_logits"].float().cpu()]
+                + log["logits"], stats=st, decode=log["decode"],
+                prefill=log["prefill"], routing_checks=checked)
+
+
+def conditioned(model, params: dict) -> dict:
+    """``params`` (whole, or a rank's blocks of the same draws) with each
+    stacked ``normal`` leaf scaled, in place, to the deviation of one
+    layer's leaf: 1/sqrt(its dim 1) where the reference's rule, which
+    takes a leaf's dim 0 as its fan-in, gives a stacked leaf 1/sqrt(the
+    layer count).  As drawn, Qwen2-MoE's attention (no q/k norm) has
+    scores in the thousands at 2 of 24 layers (PERF.md §6): a softmax
+    that is nearly one-hot multiplies the f32 rounding of q and k by the
+    scores' size; conditioned, the scores are O(1)."""
+    from repro_torch.utils.tree import tree_flatten
+
+    for sp, t in zip(tree_flatten(model.specs)[1], tree_flatten(params)[1]):
+        if (sp.init == "normal" and sp.dims[:1] == ("layers",)
+                and len(sp.shape) >= 3 and t.is_floating_point()):
+            t.mul_((sp.shape[0] / sp.shape[1]) ** 0.5)
+    return params
+
+
+def _family_short(mesh, dev, store: Path, cfg, model, axis, kernel: str,
+                  cond: bool) -> dict:
+    """25b-c(i) at ``cfg`` (f32, short), the weights as drawn or
+    ``conditioned``: rank 0 alone on its card twice (its own spread from
+    run to run), then the mesh twice, the first run of each with its
+    modules probed (``probed``; every ``decode_attn`` call beside its
+    plain version) and, conditioned, every ``kernel`` call held against
+    its plain version; every step past 1e-5 taken apart module by module
+    (``_explain_steps``).  ``ok``: the routing checked over the ranks
+    every layer and, conditioned, the kernel calls held, the greedy
+    tokens and an MoE's routing equal and every logit within
+    ``FAMILY_F32_TOL`` x max(1, the largest) of one card's.  As drawn the
+    inputs are too ill-conditioned for phase 3's f32 tolerance
+    (``conditioned``), so there the kernel's distance from its plain
+    version is printed, not held."""
+    import torch.distributed as dist
+
+    from repro_torch.sharding.rules import RULES_SERVE
+
+    moe = kernel == "decode_attn"
+    short = cfg.num_layers
+    tag = "cond" if cond else "drawn"
+    hold = (kernel,) if cond else None
+    pr = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, FAMILY_SHORT_PROMPT)).astype(np.int32)).to(dev)
+
+    def init(blocks):
+        p = model.init(torch.Generator(device=dev).manual_seed(0), dev,
+                       blocks=blocks)
+        return conditioned(model, p) if cond else p
+
+    def spread(a, b):
+        return max(float((x - y).abs().max()) / max(1.0, float(y.abs().max()))
+                   for x, y in zip(a["logits"], b["logits"]))
+
+    path = store / f"family_{cfg.name}_{tag}.pt"
+    if mesh.rank == 0:
+        params = init(None)
+        routes, probe, held = [], [], dict(peak=0, hold_s=0.0, held=0)
+        one = _serve_once(cfg, model, params, pr, None, routes=routes,
+                          stats=held, hold=hold, probe=probe)
+        again = _serve_once(cfg, model, params, pr, None)
+        torch.save(dict(tokens=one["tokens"], logits=one["logits"],
+                        routes=routes, spread=spread(again, one),
+                        probe=probe, held=held["held"]), path)
+        del params, one, again, routes, probe
+    dist.barrier()
+    params = init(model.blocks(RULES_SERVE, mesh.axis_sizes, mesh.coords))
+    routes, probe, held = [], [], dict(peak=0, hold_s=0.0, held=0)
+    got = _serve_once(cfg, model, params, pr, axis, routes=routes, check=moe,
+                      stats=held, hold=hold, probe=probe)
+    again = _serve_once(cfg, model, params, pr, axis)
+    one = torch.load(path)
+    del params
+    _free(dev)
+    offs = [float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+            for g, w in zip(got["logits"], one["logits"])]
+    want_held = (short * GEN if moe else short) \
+        if dev.type == "cuda" and cond else 0
+    out = dict(layers=short, prompt=FAMILY_SHORT_PROMPT, conditioned=cond,
+               logits_off_max=max(offs), logits_off_steps=offs,
+               one_card_run_to_run=one["spread"],
+               mesh_run_to_run=spread(again, got),
+               logits_largest=float(one["logits"][0].abs().max()),
+               tokens_equal=bool(torch.equal(got["tokens"], one["tokens"])),
+               routing_checks=got["routing_checks"],
+               held=dict(one_card=one["held"], mesh=held["held"],
+                         want=want_held),
+               steps_explained=_explain_steps(probe, one["probe"], offs,
+                                              mesh.rank))
+    if moe:
+        out["routes_equal"] = len(routes) == len(one["routes"]) and all(
+            torch.equal(a, b) for a, b in zip(routes, one["routes"]))
+    del got, again, probe, one
+    # a miss here is reported at the end of the run (``check_family_rank``)
+    # and the run goes on, so that one call reads every phase
+    out["ok"] = ((not moe or out["routing_checks"] == short * (1 + GEN))
+                 and (not cond or (out["held"]["mesh"] == want_held
+                                   and out["held"]["one_card"] == want_held
+                                   and out["logits_off_max"] <= FAMILY_F32_TOL
+                                   and out["tokens_equal"]
+                                   and out.get("routes_equal", True))))
+    return out
+
+
+def family_serve(mods, mesh, dev, store: Path, arch: str, batch: int,
+                 prompt: int, alone: bool) -> dict:
+    """Phases 25b-c for one arch on the (1, 4) mesh, through
+    ``launch/serve.py::serve``, random weights from seed 0 (each rank
+    keeps its ``RULES_SERVE`` blocks of the same draws).  (i) f32 at
+    ``FAMILY_SHORT`` layers (the hybrid's ``attn_every`` + 1), a prompt of
+    ``FAMILY_SHORT_PROMPT``: rank 0
+    alone on its card first (twice: its own spread), then the mesh
+    (twice), the first run of each with every ``decode_attn`` /
+    ``ssd_scan`` call held against its plain version and its modules
+    probed: every logit within ``FAMILY_F32_TOL`` x max(1, the largest)
+    of one card's, the same greedy tokens, an MoE's routing (every
+    layer's chosen experts) equal, and each step past 1e-5 taken apart
+    module by module (``_explain_steps``); (ii) with ``alone``,
+    bf16 at full depth on rank 0's card alone; (iii) bf16 at full depth
+    on the mesh, batch ``batch``, prompt ``prompt``, 32 tokens: run 1
+    with every ``decode_attn`` / ``ssd_scan`` call held against its plain
+    version and the MoE routing checked over the ranks every layer
+    (``ModelAxis.checks``), against (ii): the share of routing choices
+    that differ and where the greedy tokens first differ, with one
+    card's margin there; run 2 timed: prefill s, decode s, tok/s, peak
+    GiB, collectives a decode step."""
+    import torch.distributed as dist
+
+    from repro_torch.models.registry import build_model
+    from repro_torch.sharding.rules import RULES_SERVE
+
+    axis = mesh.model_axis()
+    moe = "moe" in arch
+    kernel = "decode_attn" if moe else "ssd_scan"
+
+    def prompts(cfg, b, n):
+        return torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (b, n)).astype(np.int32)).to(dev)
+
+    def init(model, whole: bool):
+        blocks = None if whole else model.blocks(
+            RULES_SERVE, mesh.axis_sizes, mesh.coords)
+        return model.init(torch.Generator(device=dev).manual_seed(0), dev,
+                          blocks=blocks)
+
+    out = {}
+    # (i) f32, short (the hybrid one segment past its first, so that the
+    # shared attention runs): as drawn (explained, not bounded), then
+    # conditioned (held to FAMILY_F32_TOL)
+    every = axis_cfg(arch).attn_every
+    short = every + 1 if every else FAMILY_SHORT
+    cfg = axis_cfg(arch, short).replace(dtype="float32",
+                                        param_dtype="float32")
+    model = build_model(cfg)
+    for cond in (False, True):
+        key = "short" if cond else "short_as_drawn"
+        out[key] = _family_short(mesh, dev, store, cfg, model, axis,
+                                 kernel, cond)
+        print(f"family serve {arch} f32, {short} layers, "
+              f"{'conditioned' if cond else 'as drawn'}, the mesh against "
+              f"one card: {json.dumps(out[key])}", flush=True)
+
+    # (ii) bf16, full depth, one card alone
+    cfg = axis_cfg(arch)
+    model = build_model(cfg)
+    pr = prompts(cfg, batch, prompt)
+    if alone:
+        if mesh.rank == 0:
+            params = init(model, True)
+            routes = []
+            one = _serve_once(cfg, model, params, pr, None, routes=routes)
+            torch.save(dict(tokens=one["tokens"], logits=one["logits"],
+                            routes=routes), store / f"family_{arch}_one.pt")
+            del params, one, routes
+            _free(dev)
+        dist.barrier()
+    # (iii) bf16, full depth, the mesh
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    params = init(model, False)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    weights_gib = sum(t.numel() * t.element_size()
+                      for t in _leaves(params)) / 2**30
+    runs = []
+    for i in range(2):
+        for mod in mods.values():
+            mod.reset_launches()
+        stats = dict(peak=0, hold_s=0.0, held=0)
+        routes = [] if i == 0 and alone else None
+        dist.barrier()
+        r = _serve_once(cfg, model, params, pr, axis, routes=routes,
+                        stats=stats, hold=(kernel,) if i == 0 else None,
+                        check=moe and i == 0)
+        st, toks = r["stats"], r["tokens"]
+        run = dict(prefill_s=st["prefill_s"], decode_s=st["decode_s"],
+                   tok_per_s=st["tok_per_s"], hold_s=stats["hold_s"],
+                   held=stats["held"], routing_checks=r["routing_checks"],
+                   launches={k: v for mod in mods.values()
+                             for k, v in mod.LAUNCHES.items()},
+                   collectives_prefill=r["prefill"],
+                   collectives_decode_step=r["decode"],
+                   tokens_in_range=bool(0 <= int(toks.min())
+                                        and int(toks.max()) < cfg.vocab_size),
+                   finite=all(bool(torch.isfinite(x).all())
+                              for x in r["logits"]))
+        if i == 0 and alone:
+            one = torch.load(store / f"family_{arch}_one.pt")
+            # the prefill's layers (the decodes read other tokens once the
+            # greedy tokens part)
+            layers = _choices_differ(routes[:cfg.num_layers],
+                                     one["routes"][:cfg.num_layers])
+            run["against_one_card"] = dict(
+                routing_choices_differ=sum(layers) / len(layers),
+                routing_choices_differ_by_layer=layers,
+                logits_off_max=max(float((g - w).abs().max())
+                                   / float(w.abs().max()) for g, w in
+                                   zip(r["logits"], one["logits"])),
+                first_differing_token=_first_tie(r["logits"], one["logits"],
+                                                 toks, one["tokens"]))
+            del one
+        runs.append(run)
+        del r, routes
+    want = (cfg.num_layers * GEN if moe else cfg.num_layers) \
+        if dev.type == "cuda" else 0
+    r0 = runs[0]
+    if not (r0["launches"].get(kernel) == want and r0["held"] == want
+            and all(r["tokens_in_range"] and r["finite"] for r in runs)
+            and (not moe or r0["routing_checks"]
+                 == cfg.num_layers * (1 + GEN))):
+        fail(f"family serve {arch}: {r0}")
+    out["full"] = dict(layers=cfg.num_layers, batch=batch, prompt=prompt,
+                       weights_gib_card=weights_gib, init_s=init_s,
+                       peak_gib=_peak_gib(dev), runs=runs)
+    print(f"family serve {arch} on (1, 4), {cfg.num_layers} layers: "
+          f"{json.dumps(out['full'])}", flush=True)
+    del params
+    _free(dev)
+    return out
+
+
+def family_hybrid_train(mods, K, mesh, dev, store: Path) -> dict:
+    """Phase 25e: Zamba2-7B on the (2, 2) mesh, one bf16 client a data
+    rank, ``remat="full"``, ``mads``.  At ``FAMILY_HYBRID``'s depth one
+    card holds (12 layers, phase 22b's): the sampled threshold and the
+    count on one x exact, and the rounds against rank 0's one-card rounds
+    (``axis_internlm2``): in bf16 the uploads and the loss at the start
+    held and 24b's numbers printed, in f32 (``axis_rounds_f32``) held to
+    24b's k and w bounds in every round; then through
+    ``build_step`` at the deepest depth whose peak stays under 75 GiB a
+    card, all 81 layers where they fit (``axis_train_step``: one
+    ``sparsify_ef`` a round a rank, held; the round's collectives over
+    ``model`` as the plan counts them)."""
+    arch, short, batch, depths = FAMILY_HYBRID
+    cfg = axis_cfg(arch, short).replace(remat="full")
+    t0 = time.perf_counter()
+    out = dict(short=axis_internlm2(K, mesh, dev, store, cfg))
+    out["short"]["phase_s"] = time.perf_counter() - t0
+    # bf16: Zamba2's bf16 gradients of these random weights sit 5-24 %
+    # from f32's in |x|^2 on one card, so MADS's k and then w part from
+    # one card's past 24b's bounds (PERF.md §6): 24b's numbers printed,
+    # the uploads and the loss at the start held; f32 (the second
+    # witness): 24b's k and w bounds, k in every round
+    h = out["short"]["hold"]
+    if not (h["uploads_equal"] and h["loss_before_rel"] <= 1e-2):
+        fail(f"family {arch} (2, 2) bf16 rounds against one card: {h}")
+    t0 = time.perf_counter()
+    out["f32"] = axis_rounds_f32(K, mesh, dev, store, cfg)
+    out["f32"]["phase_s"] = time.perf_counter() - t0
+    if not out["f32"]["ok"]:
+        fail(f"family {arch} (2, 2) f32 rounds against one card: "
+             f"{out['f32']['hold']}")
+    _free(dev)
+    out["step"] = axis_train_step(mods, mesh, dev, (arch, batch, depths))
+    return out
+
+
+def family_axis_mesh(mods, K, store: Path, device="cuda",
+                     phases: str = "bcde") -> dict:
+    """Phases 25b-e on four ranks (``--mesh 4 --only 25``; ``phases`` of
+    "bcde", or "f": 25e's f32 rounds alone): the (1, 4) serves of the four archs (b: MoE, c: ssm and
+    hybrid) and Qwen2-VL-72B's 80-layer decode again (24d(ii), its run 2
+    timed), the Qwen3-MoE train step on (1, 4) (d), Zamba2's rounds on
+    (2, 2) (e); each rank's numbers."""
+    from repro_torch.launch.mesh import make_client_mesh
+
+    out = {}
+    mesh14 = make_client_mesh(1, model=4, family="moe", device=device)
+    dev = mesh14.device
+    for arch, batch, prompt, alone in FAMILY_SERVES:
+        if ("b" in phases and "moe" in arch) or (
+                "c" in phases and "moe" not in arch):
+            t0 = time.perf_counter()
+            out[arch] = family_serve(mods, mesh14, dev, store, arch, batch,
+                                     prompt, alone)
+            out[arch]["phase_s"] = time.perf_counter() - t0
+    if "b" in phases:
+        t0 = time.perf_counter()
+        out["vl_decode"] = vl_decode_again(mods, mesh14, dev)
+        out["vl_decode"]["phase_s"] = time.perf_counter() - t0
+    if "d" in phases:
+        t0 = time.perf_counter()
+        out["train_step"] = axis_train_step(mods, mesh14, dev, FAMILY_TRAIN)
+        out["train_step"]["phase_s"] = time.perf_counter() - t0
+        print("AXIS " + json.dumps({"rank": mesh14.rank,
+                                    "train_step": out["train_step"]}),
+              flush=True)
+    if "f" in phases and "e" not in phases:  # 25e's f32 rounds alone
+        mesh22 = make_client_mesh(DIST_N, model=2, family="hybrid",
+                                  device=device)
+        arch, short = FAMILY_HYBRID[:2]
+        t0 = time.perf_counter()
+        out["hybrid_f32"] = axis_rounds_f32(
+            K, mesh22, mesh22.device, store,
+            axis_cfg(arch, short).replace(remat="full"))
+        out["hybrid_f32"]["phase_s"] = time.perf_counter() - t0
+    if "e" in phases:
+        mesh22 = make_client_mesh(DIST_N, model=2, family="hybrid",
+                                  device=device)
+        t0 = time.perf_counter()
+        out["hybrid"] = family_hybrid_train(mods, K, mesh22, mesh22.device,
+                                            store)
+        out["hybrid"]["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def vl_decode_again(mods, mesh, dev) -> dict:
+    """24d(ii)'s Qwen2-VL-72B at all 80 layers on (1, 4) (batch 4, prompt
+    2048, 32 tokens) once the attention reads its kv-head index only
+    where it needs one: run 1 warm, run 2 timed (no hold)."""
+    from repro_torch.launch import serve as S
+    from repro_torch.models.registry import build_model
+    from repro_torch.sharding.rules import RULES_SERVE
+
+    arch, batch, prompt = AXIS_SERVE[:3]
+    cfg = axis_cfg(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev,
+                        blocks=model.blocks(RULES_SERVE, mesh.axis_sizes,
+                                            mesh.coords))
+    pr = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, prompt)).astype(np.int32)).to(dev)
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            toks, st = S.serve(cfg, model, params, pr, GEN,
+                               model_axis=mesh.model_axis())
+        runs.append(dict(prefill_s=st["prefill_s"], decode_s=st["decode_s"],
+                         tok_per_s=st["tok_per_s"]))
+    if not (0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size):
+        fail(f"Qwen2-VL decode again: tokens out of range")
+    del params, toks, st
+    _free(dev)
+    out = dict(layers=cfg.num_layers, batch=batch, prompt=prompt, runs=runs,
+               decode_s=runs[1]["decode_s"], tok_per_s=runs[1]["tok_per_s"])
+    print(f"Qwen2-VL-72B decode again on (1, 4): {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def check_family_rank(o: dict) -> None:
+    """Phases 25b-e's numbers of one rank, one line each."""
+    a = o["family"]
+    for arch, *_ in FAMILY_SERVES:
+        for key in ("short_as_drawn", "short"):
+            if arch in a and not a[arch][key]["ok"]:
+                fail(f"family serve {arch} f32 ({key}): the mesh against "
+                     f"one card on rank {o['rank']}: {a[arch][key]}")
+        if arch in a:
+            f = a[arch]["full"]
+            r = f["runs"][1]
+            print(f"family rank {o['rank']}: {arch} on (1, 4), "
+                  f"{f['layers']} layers: weights {f['weights_gib_card']:.2f} "
+                  f"GiB, peak {f['peak_gib']:.2f} GiB, prefill "
+                  f"{r['prefill_s']:.4g} s, decode {r['decode_s']:.4g} s, "
+                  f"{r['tok_per_s']:.4g} tok/s; one card: "
+                  f"{json.dumps(f['runs'][0].get('against_one_card'))}",
+                  flush=True)
+    if "vl_decode" in a:
+        print(f"family rank {o['rank']}: Qwen2-VL-72B 80 layers decode "
+              f"{a['vl_decode']['decode_s']:.4g} s "
+              f"({a['vl_decode']['tok_per_s']:.4g} tok/s)", flush=True)
+    if "train_step" in a:
+        t = a["train_step"]
+        print(f"family rank {o['rank']}: {FAMILY_TRAIN[0]} x train_4k on "
+              f"(1, 4) at {t['layers']} layers: {t['seconds']:.6g} s, peak "
+              f"{t['peak_gib_max_over_ranks']:.2f} GiB", flush=True)
+    if "hybrid_f32" in a:
+        h = a["hybrid_f32"]
+        if not h["ok"]:
+            fail(f"family {FAMILY_HYBRID[0]} (2, 2) f32 rounds against one "
+                 f"card on rank {o['rank']}: {h['hold']}")
+        print(f"family rank {o['rank']}: {FAMILY_HYBRID[0]} on (2, 2), f32 "
+              f"rounds: round s {h['mesh']['round_s']}, peak "
+              f"{h['mesh']['peak_gib']:.2f} GiB (one card "
+              f"{h['world_1']['peak_gib']:.2f}), hold "
+              f"{json.dumps(h['hold'])}", flush=True)
+    if "hybrid" in a:
+        h = a["hybrid"]
+        print(f"family rank {o['rank']}: {FAMILY_HYBRID[0]} on (2, 2): "
+              f"{FAMILY_HYBRID[1]} layers round s "
+              f"{h['short']['mesh']['round_s']}, bf16 hold "
+              f"{json.dumps(h['short']['hold'])}, f32 round s "
+              f"{h['f32']['mesh']['round_s']}, f32 hold "
+              f"{json.dumps(h['f32']['hold'])}; {h['step']['layers']} "
+              f"layers {h['step']['seconds']:.6g} s a round, peak "
+              f"{h['step']['peak_gib_max_over_ranks']:.2f} GiB", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -4928,7 +5785,8 @@ def mesh_ingest(mesh) -> dict:
 def mesh_rank(rank: int, world: int, store_path: str,
               only: str = "") -> None:
     """``--mesh-rank r P STORE [ONLY]``: one rank of ``--mesh P``, on card
-    r; ``ONLY`` "24": phases 24b-d alone."""
+    r; ``ONLY`` "24": phases 24b-d alone ("24cd": 24c-d); "25": phases
+    25b-e ("25" and some of "bcde": those)."""
     import torch.distributed as dist
 
     from repro_torch.kernels import decode_attn as DA
@@ -4942,15 +5800,17 @@ def mesh_rank(rank: int, world: int, store_path: str,
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
+    mods = {"sparsify_ef": K, "decode_attn": DA, "ssd_scan": SSD}
     try:
         out = dict(rank=mesh.rank, card=str(mesh.device))
         if not only:
             out.update(parity=mesh_parity(mesh), full=mesh_full_width(mesh),
                        seeds=mesh_seeds(mesh), ingest=mesh_ingest(mesh))
-        if world == 4:
-            out["axis"] = axis_mesh({"sparsify_ef": K, "decode_attn": DA,
-                                     "ssd_scan": SSD}, K,
-                                    Path(store_path).parent,
+        if only.startswith("25"):
+            out["family"] = family_axis_mesh(mods, K, Path(store_path).parent,
+                                             phases=only[2:] or "bcde")
+        elif world == 4:
+            out["axis"] = axis_mesh(mods, K, Path(store_path).parent,
                                     phases="cd" if only == "24cd" else "bcd")
     except BaseException:  # end at once: the other ranks see it, not a hang
         import traceback
@@ -5050,6 +5910,8 @@ def mesh_main(world: int, only: str = "") -> None:
     for o in outs:
         if "axis" in o:
             check_axis_rank(o)
+        if "family" in o:
+            check_family_rank(o)
     for o in outs:
         if only:
             continue
@@ -5119,8 +5981,10 @@ def main() -> None:
         return time_tree(sys.argv[2])
     if sys.argv[1:2] == ["--mesh"]:
         only = sys.argv[4] if sys.argv[3:4] == ["--only"] else ""
-        if only not in ("", "24", "24cd"):
-            fail(f"--mesh takes --only 24 or 24cd, not {only}")
+        if only not in ("", "24", "24cd") and not (
+                only.startswith("25") and set(only[2:]) <= set("bcdef")):
+            fail(f"--mesh takes --only 24, 24cd or 25 (25 and some of "
+                 f"bcde, or 25f: 25e's f32 rounds alone), not {only}")
         return mesh_main(int(sys.argv[2]), only)
     if sys.argv[1:2] == ["--mesh-rank"]:
         return mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
@@ -5128,8 +5992,8 @@ def main() -> None:
     only = (set(sys.argv[2].split(",")) if sys.argv[1:2] == ["--only"]
             else None)
     if only is not None and not only <= {"3c", "19", "20", "21", "22", "23",
-                                         "24"}:
-        fail(f"--only takes phases of 3c, 19, 20, 21, 22, 23, 24, not "
+                                         "24", "25"}:
+        fail(f"--only takes phases of 3c, 19, 20, 21, 22, 23, 24, 25, not "
              f"{sys.argv[2]}")
     from repro_torch.kernels import decode_attn as DA
     from repro_torch.kernels import ref as R
@@ -5160,9 +6024,10 @@ def main() -> None:
                   "21": lambda: remat_phase(smi),
                   "22": lambda: family_phase(K, SSD, smi),
                   "23": lambda: steps_phase(mods, K, DA, SSD, R, smi),
-                  "24": lambda: axis_phase(K, smi)}
+                  "24": lambda: axis_phase(K, smi),
+                  "25": lambda: family_axis_phase(K, DA, SSD, R, smi)}
         done = {p: phases[p]() for p in ("3c", "19", "20", "21", "22", "23",
-                                         "24")
+                                         "24", "25")
                 if p in only}
         print(json.dumps(dict(phases=sorted(done), held=HELD), default=str))
         return
@@ -5284,6 +6149,13 @@ def main() -> None:
     axis = axis_phase(K, smi)
     torch.cuda.empty_cache()
 
+    # 25. the model axis for the MoE, ssm and hybrid families: the plan
+    # with their pairs built, phase 22b's rounds through a (1, 1) mesh, the
+    # kernels at the (1, 4) serves' per-rank shapes (the four-card phases
+    # run under --mesh 4 --only 25)
+    family_axis = family_axis_phase(K, DA, SSD, R, smi)
+    torch.cuda.empty_cache()
+
     # 18. device time by kernel, last (the profiler slows later launches)
     profile_kernels(DA, SSD)
     profiled = {}
@@ -5331,6 +6203,10 @@ def main() -> None:
              steps_times=steps["times"]["sparsify_ef"],
              # phase 24a: phase 19's mads rounds through a (1, 1) mesh
              launches_axis=axis["round"]["launches"]["sparsify_ef"],
+             # phase 25a: phase 22b's mads rounds through a (1, 1) mesh
+             launches_family_axis={
+                 a: r["run"]["launches"]["sparsify_ef"]
+                 for a, r in family_axis["rounds"].items()},
              **{f"{k}_wide_row": v for k, v in wide["sparsify_ef"].items()},
              **timing["sparsify_ef"]),
         dict(name="sparsify_quantize_ef", route="cuda",
@@ -5377,6 +6253,9 @@ def main() -> None:
              **{f"{key}_vl_32k": steps["times"]["decode_attn"][key] for key in
                 ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
                  "bound_share")},
+             # phase 25a: held and timed at the (1, 4) MoE serves' per-rank
+             # shapes (Qwen3-MoE, Qwen2-MoE)
+             axis_rank_shapes=family_axis["times"]["decode_attn"],
              **decode["main"],
              **{f"{key}_32k": decode["deep"][key] for key in
                 ("ms", "ms_per_call", "plain_ms", "library_ms", "bound_ms",
@@ -5399,6 +6278,9 @@ def main() -> None:
              launches_steps=step_launches(steps, "ssd_scan"),
              **{f"{key}_32k": steps["times"]["ssd_scan"][key] for key in
                 ("shape", "ms", "plain_ms", "bound_ms", "bound_share")},
+             # phase 25a: held and timed at the (1, 4) serves' per-rank
+             # shapes (Mamba2-2.7B, Zamba2-7B)
+             axis_rank_shapes=family_axis["times"]["ssd_scan"],
              **ssd),
     ]
     for entry in kernels:

@@ -38,14 +38,19 @@ state after the call.
 ``abstract_state`` gives meta tensors (shapes and dtypes, no memory).
 
 The ``model`` axis (a (data, model) mesh, ``make_client_mesh(model=M)``;
-dense and VLM families).  ``placement`` applies the rules
+dense, VLM, MoE, ssm and hybrid families).  ``placement`` applies the rules
 (``RULES_TRAIN`` with the client axis on ``data``, the reference's
 ``state_shardings``) leaf by leaf: each rank's flat buffers, ``w`` (s_r,)
 and ``w_n`` / ``g_n`` / ``e_n`` (N/D, s_r), concatenate its blocks in
 flatten order, and the round runs on them:
 
 * the gradient on the blocks, the loss tensor-parallel over the rank's
-  ``model`` group (``models/layers.py``);
+  ``model`` group (``models/layers.py``, ``moe.py``, ``mamba2.py``,
+  ``hybrid.py``); a whole leaf that a rank's own part of the work reads
+  (Mamba2's ``wB`` / ``wC`` / ``conv_B`` / ``conv_C``, the MoE shared
+  ``gate``) enters through ``copy_to``, so its gradient is the sum over
+  the ranks, the same on each, as the replicated leaves' (norms, a
+  gathered router) is;
 * ``x_norm2`` and ``e_norm2`` as partial sums over the leaves the rank
   owns (its blocks; a leaf every rank holds whole is owned by model index
   0), all-reduced over ``model``;
@@ -59,7 +64,9 @@ flatten order, and the round runs on them:
 
 Under ``RULES_TRAIN_DP`` (``launch/steps.py``'s ``dp_client``) the
 parameters stay whole, each client's batch is split over ``model``, and
-the gradient is all-reduced over ``model`` once.  A codec on a model axis
+the gradient is all-reduced over ``model`` once (an MoE client's batch
+runs whole on every rank: its routing's capacity and load-balance loss
+are functions of the whole batch).  A codec on a model axis
 raises (``launch/mesh.py::CODEC_AXIS_ITEM``).  With a model axis of 1 the
 blocks are the whole leaves and the round is the one above.
 ``ingest_shardings`` is the serve path's split of a packed upload batch
@@ -412,9 +419,10 @@ def make_afl_train_step(model, cfg, dcfg: DistConfig,
             return device_grads(model, w_n, cl, layout=layout, model_axis=ma)
         # dp_client: each client's batch split over model, one all-reduce;
         # a batch that does not divide runs whole on every rank (the rules
-        # leave it unsharded)
+        # leave it unsharded), and so does an MoE client's (its capacity
+        # and load-balance loss are functions of its whole batch)
         rows_per = next(iter(cl.values())).shape[1]
-        if rows_per % ma.size:
+        if rows_per % ma.size or model.cfg.is_moe:
             return device_grads(model, w_n, cl, layout=layout)
         part = {k: v.chunk(ma.size, dim=1)[ma.rank] for k, v in cl.items()}
         g = device_grads(model, w_n, part, layout=layout)

@@ -17,7 +17,7 @@ on the ``meta`` device, with no card, as rank 0 of a (data, model) mesh of
 ``--world`` / ``--model`` by ``--model`` cards: the arguments' bytes per
 card under the rules (``sharding/rules.py``) and whether they fit one
 card's 80 GB, the leaves a layer gathers over ``model``
-(``models/layers.py::gathered_leaves``), the calculator's FLOPs and HBM
+(``launch/roofline.py::gathers``), the calculator's FLOPs and HBM
 bytes (``launch/calculator.py`` at ``model_parallel=--model``), the
 collectives (``launch/roofline.py::step_collectives``), the H100 roofline
 terms and bottleneck and ``model_flops``.  A train step's card holds its
@@ -56,7 +56,6 @@ from repro_torch.launch.calculator import step_analytics
 from repro_torch.launch.mesh import ClientMesh, make_client_mesh
 from repro_torch.launch.steps import (arg_bytes, build_step, materialize,
                                       supported)
-from repro_torch.models.layers import gathered_leaves
 from repro_torch.sharding import rules as R
 from repro_torch.utils.tree import tree_flatten
 from repro_torch.utils.device import resolve_device
@@ -101,24 +100,33 @@ def plan(cfg0, shape, *, world: int = 1, model: int = 1,
                                    else 1)
     mf = RL.model_flops(n_params, tokens, act, train=shape.kind == "train")
     mp = 1 if variant == "dp_client" else model
-    analytic = step_analytics(cfg, shape, cards, n_params, model_parallel=mp)
     dcfg = built["system"]["dcfg"] if shape.kind == "train" else None
     s_r = built["system"]["placement"].layout.size if dcfg else 0
     per_rank = tokens if dcfg is None else tokens // dcfg.num_clients
+    # dp_client splits a client's batch over model, except an MoE
+    # client's or one that does not divide, which runs whole on every
+    # rank of its model group (core/distributed.py): a rank's work is then
+    # that of a mesh of cards / model ranks
+    dp = variant == "dp_client" and dcfg is not None and model > 1
+    whole = dp and (cfg.is_moe
+                    or shape.global_batch // dcfg.num_clients % model > 0)
+    computed = per_rank // model if dp and not whole else per_rank
+    analytic = step_analytics(cfg, shape, cards // model if whole else cards,
+                              n_params, model_parallel=mp)
     coll = RL.step_collectives(
         shape.kind, n_params, cards, dcfg.num_clients if dcfg else 0,
         dcfg.upload_dtype if dcfg else "float32",
         model=1 if variant == "dp_client" else model, cfg=cfg,
         tokens=per_rank, params_per_card=s_r,
-        sample=dcfg.sample_size if dcfg else 0)
+        sample=dcfg.sample_size if dcfg else 0, batch=shape.global_batch)
     roof = RL.analyze(analytic, coll, model_flops_total=mf)
     args_b = arg_bytes(built["args"])
     rec = dict(status="ok", world=world, model=model, cards=cards,
                num_params=n_params, active_params=act,
+               tokens_per_rank=computed,
                mem=dict(argument_gb=args_b / 1e9,
                         fits=args_b <= RL.CARD_BYTES),
-               gathered=[name for name, _, _ in gathered_leaves(cfg, mp)]
-               if cfg.family in ("dense", "vlm") else [],
+               gathered=sorted({g[0] for g in RL.gathers(cfg, mp)}),
                roofline=roof.as_dict())
     return rec, built
 
@@ -240,13 +248,15 @@ def run_one(arch: str, shape_name: str, *, out_path: str, world: int = 1,
             return rec
         print(f"[dryrun] {arch} x {shape_name} (world {world}, model "
               f"{model}, {tag}): OK arg={rec['mem']['argument_gb']:.2f}GB "
-              f"fits={rec['mem']['fits']} flops/dev={roof['flops']:.3e} "
+              f"fits={rec['mem']['fits']} "
+              f"tokens/rank={rec['tokens_per_rank']} "
+              f"flops/dev={roof['flops']:.3e} "
               f"hbm/dev={roof['hbm_bytes']:.3e} "
               f"coll/dev={roof['coll_bytes']:.3e} "
               f"bottleneck={roof['bottleneck']}"
               + (f" execute={json.dumps(rec['execute'])}"
                  if "execute" in rec else ""), flush=True)
-    except NotImplementedError as e:  # a family with no model axis yet
+    except NotImplementedError as e:  # the audio family: no model axis yet
         b = rules_bytes(cfg0, shape, world=world, model=model)
         rec.update(status="not_ported", reason=str(e),
                    cards=world if shape.kind == "train" else model,
@@ -255,7 +265,7 @@ def run_one(arch: str, shape_name: str, *, out_path: str, world: int = 1,
         if not writer:
             return rec
         print(f"[dryrun] {arch} x {shape_name} (world {world}, model "
-              f"{model}): not ported; under the rules "
+              f"{model}): {e}; under the rules "
               f"arg={b / 1e9:.2f}GB fits={b <= RL.CARD_BYTES}", flush=True)
     except (RuntimeError, ValueError, TypeError) as e:
         rec.update(status="error", error=f"{type(e).__name__}: {e}",

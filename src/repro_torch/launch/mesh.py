@@ -12,8 +12,8 @@ row-major as the reference's ``Mesh(devs.reshape(data, model))``: its
 ``model`` group is the M consecutive ranks of its row, its ``data`` group
 the D ranks that share its model index, and rank r holds clients
 [d N/D, (d + 1) N/D) of its data index d.  The model axis is ported for
-the dense and VLM families (``require_model_axis`` refuses the others,
-naming their ROADMAP items).  The seed mesh is a ``ClientMesh`` whose rows are seeds
+the dense, VLM, MoE, ssm and hybrid families (``require_model_axis``
+refuses the others, naming their ROADMAP item).  The seed mesh is a ``ClientMesh`` whose rows are seeds
 (``experiments/batch.py``); the ingest server splits each packed batch
 over a ``ClientMesh`` made by ``make_mesh`` (``serve/server.py``).
 
@@ -43,15 +43,10 @@ from repro_torch.utils.device import resolve_device
 
 TIMEOUT = datetime.timedelta(seconds=300)  # a collective waiting longer fails
 # the families with a model axis, and the ROADMAP item of each other one
-MODEL_AXIS_FAMILIES = ("dense", "vlm")
-MODEL_AXIS_ITEMS = {
-    "moe": "ROADMAP queue 1 item 4 (the model axis for moe)",
-    "ssm": "ROADMAP queue 1 item 5 (the model axis for ssm and hybrid)",
-    "hybrid": "ROADMAP queue 1 item 5 (the model axis for ssm and hybrid)",
-    "audio": "ROADMAP queue 1 item 6 (the model axis for audio)",
-    "vision": "ROADMAP queue 1 item 6 (the model axis for audio)",
-    "trajectory": "ROADMAP queue 1 item 6 (the model axis for audio)",
-}
+MODEL_AXIS_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+_ITEM_6 = ("ROADMAP queue 1 item 6 (the model axis for audio and the vision "
+           "CNNs)")
+MODEL_AXIS_ITEMS = {"audio": _ITEM_6, "vision": _ITEM_6, "trajectory": _ITEM_6}
 CODEC_AXIS_ITEM = "ROADMAP queue 1 item 7 (codecs on the model axis)"
 SERVE_DATA_ITEM = ("ROADMAP queue 1 item 8 (serve steps with data > 1, the "
                    "sequence-parallel long_500k cache)")
@@ -79,6 +74,7 @@ class ClientMesh:
     model: int = 1
     model_group: object = None  # None: the model axis is 1
     data_group: object = None  # None: the whole group
+    _axis: object = dataclasses.field(default=None, init=False, repr=False)
 
     @property
     def data_size(self) -> int:
@@ -108,12 +104,15 @@ class ClientMesh:
 
     def model_axis(self):
         """This rank's ``sharding.collectives.ModelAxis`` (None for a model
-        axis of 1)."""
+        axis of 1): one a mesh, so that its ``counts`` are the run's."""
         from repro_torch.sharding.collectives import ModelAxis
 
         if self.model == 1:
             return None
-        return ModelAxis(self.model_group, self.model_rank, self.model)
+        if self._axis is None:
+            self._axis = ModelAxis(self.model_group, self.model_rank,
+                                   self.model)
+        return self._axis
 
     def rows(self, num_clients: int) -> slice:
         """The rank's clients: rows [d N/D, (d + 1) N/D) of the client

@@ -9,7 +9,8 @@ Terms (per card, seconds):
 FLOPs and HBM bytes are the analytic calculator's (``launch/calculator.py``,
 as the reference's terms are).  The collective bytes are those of the
 collectives the port's step issues, counted from ``core/distributed.py``
-and, over a model axis, from ``models/layers.py`` (``step_collectives``)
+and, over a model axis, from the models' tensor-parallel layers
+(``axis_collectives``, ``step_collectives``)
 with the reference's ring factors:
   all-reduce       2 (g-1)/g * result_bytes
   all-gather         (g-1)/g * result_bytes (result = gathered tensor)
@@ -53,11 +54,151 @@ class CollectiveStats:
         return sum(self.bytes_by_kind.values())
 
 
+def gathers(cfg, m: int) -> tuple:
+    """The leaves a rank of a model axis of ``m`` gathers before use, and
+    where: (name, whole shape, the gradient's return ("sum" or "slice"),
+    gathers a forward pass, site) each, the site "layer" (a transformer
+    layer's attention leaves, ``models/layers.py::gathered_leaves``, and
+    the MoE router where the experts split, ``models/moe.py``), "shared"
+    (the hybrid's shared attention block, at each invocation) or "mamba"
+    (every cut leaf of a Mamba2 block whose heads do not divide,
+    ``models/mamba2.py``)."""
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.models.layers import gathered_leaves
+    from repro_torch.sharding.collectives import ModelAxis
+    from repro_torch.sharding.rules import RULES_TRAIN, logical_to_pspec
+
+    if m == 1 or cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
+        return ()
+    out = []
+    if cfg.num_heads:
+        hyb = cfg.family == "hybrid"
+        out += [(name, shape, grad,
+                 _hybrid_invocations(cfg) if hyb else cfg.num_layers,
+                 "shared" if hyb else "layer")
+                for name, shape, grad in gathered_leaves(cfg, m)]
+    if cfg.is_moe and cfg.num_experts % m == 0:
+        out.append(("router", (cfg.d_model, cfg.num_experts), "slice",
+                    cfg.num_layers, "layer"))
+    if cfg.family in ("ssm", "hybrid") and not M2.ssm_split(
+            cfg, ModelAxis(None, 0, m)):
+        for name, sp in sorted(M2.mamba_specs(cfg).items()):
+            if logical_to_pspec(sp.dims, sp.shape, RULES_TRAIN,
+                                {"model": m}):
+                out.append((name, sp.shape, "slice", cfg.num_layers, "mamba"))
+    return tuple(out)
+
+
+def _hybrid_invocations(cfg) -> int:
+    """The hybrid's shared attention block's invocations a forward."""
+    from repro_torch.models.hybrid import segments
+
+    return len(segments(cfg)) - 1
+
+
+def axis_collectives(kind: str, cfg, m: int, tokens: int,
+                     clients: int = 1, batch: int = 0) -> list:
+    """The collectives over a model axis of ``m`` that one rank's step of
+    ``kind`` issues through the model (``sharding/collectives.py``; each
+    under the clients' ``vmap`` is one call): (kind, result bytes,
+    count) each.  ``tokens``: the rank's tokens a step (all its
+    ``clients``); ``batch``: the sequences whose logits a serve step
+    gathers (``tokens`` by default).  Forward: a split region's all-reduce (attention, MLP,
+    MoE layer, Mamba2 block and its norm's sum of squares), the gathers
+    (``gathers``), the vocab-parallel embedding's all-reduce, and in
+    serving the logits' gather, in training the loss's gather and
+    all-reduce; under a ``remat`` checkpoint a layer's forward twice.
+    Backward (training): each ``copy_to``'s all-reduce (a region's input,
+    the whole leaves a rank's own work reads, the MoE gate weights, the
+    norm's sum of squares) and each "sum" gather's."""
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.layers import head_plan
+    from repro_torch.sharding.collectives import ModelAxis
+
+    if m == 1 or cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
+        return []
+    train = kind == "train"
+    ab = torch_dtype(cfg.dtype).itemsize
+    pb = torch_dtype(cfg.param_dtype).itemsize
+    axis = ModelAxis(None, 0, m)
+    act = tokens * cfg.d_model * ab
+    nl = cfg.num_layers
+    ev = []
+
+    def add(k, b, n):
+        if n:
+            ev.append((k, b, n))
+
+    # the layers' own forward and backward collectives
+    if cfg.family in ("ssm", "hybrid"):
+        mfwd = 1 + int(train and cfg.remat == "full")
+        if M2.ssm_split(cfg, axis):
+            add("all-reduce", act, nl * mfwd)  # wo's partial sums
+            add("all-reduce", tokens * 4, nl * mfwd)  # the norm's squares
+            if train:
+                add("all-reduce", act, nl)  # x's copy_to
+                add("all-reduce", tokens * 4, nl)  # the squares' copy_to
+                specs = M2.mamba_specs(cfg)
+                for name in M2.WHOLE:  # each whole leaf's copy_to
+                    add("all-reduce",
+                        clients * math.prod(specs[name].shape) * pb, nl)
+    if cfg.num_heads:
+        n_attn = nl if cfg.family != "hybrid" else _hybrid_invocations(cfg)
+        afwd = 1 + int(train and cfg.remat != "none"
+                       and cfg.family != "hybrid")
+        if head_plan(cfg, axis).split:
+            add("all-reduce", act, n_attn * afwd)
+            if train:
+                add("all-reduce", act, n_attn)
+        if cfg.family in ("dense", "vlm") and cfg.d_ff % m == 0:
+            add("all-reduce", act, nl * afwd)
+            if train:
+                add("all-reduce", act, nl)
+    if cfg.is_moe:
+        f = cfg.moe_d_ff or cfg.d_ff
+        e, k = cfg.num_experts, cfg.num_experts_per_tok
+        routed = e % m == 0 or f % m == 0
+        shared = cfg.num_shared_experts and cfg.num_shared_experts * f % m == 0
+        fwd = 1 + int(train and cfg.remat != "none")
+        if routed or shared:
+            add("all-reduce", act, nl * fwd)  # the layer's one reduce_from
+            if train:
+                add("all-reduce", act, nl)  # x's copy_to
+        if train and routed:
+            per = tokens // clients
+            g = max(min(MOE.GROUP, per), 1)
+            rows = -(-per // g) * g
+            add("all-reduce", clients * rows * k * 4, nl)  # gate weights
+            if e % m and cfg.expert_dtype == "int8":
+                add("all-reduce", clients * e * 4, 3 * nl)  # the scales
+        if train and shared:
+            add("all-reduce", clients * cfg.d_model * pb, nl)  # shared gate
+    for _, shape, grad, n, site in gathers(cfg, m):
+        fwd = {"layer": 1 + int(train and cfg.remat != "none"), "shared": 1,
+               "mamba": 1 + int(train and cfg.remat == "full")}[site]
+        b = clients * math.prod(shape) * pb
+        add("all-gather", b, n * fwd)
+        if train and grad == "sum":
+            add("all-reduce", b, n)
+    # the vocab-parallel ends
+    if cfg.vocab_size % m == 0:
+        add("all-reduce", act, 1)  # the embedding
+        if train:
+            add("all-gather", tokens * 4 * m, 1)  # the blocks' lse
+            add("all-reduce", tokens * 4, 1)  # the label logits
+            add("all-reduce", act, 1)  # the unembedding's copy_to
+        else:
+            add("all-gather", (batch or tokens) * cfg.vocab_size * ab, 1)
+    return ev
+
+
 def step_collectives(kind: str, num_params: int, world: int,
                      num_clients: int = 0,
                      upload_dtype: str = "float32", *, model: int = 1,
                      cfg=None, tokens: int = 0, sample: int = 65536,
-                     params_per_card: int = 0) -> CollectiveStats:
+                     params_per_card: int = 0,
+                     batch: int = 0) -> CollectiveStats:
     """The collectives one rank of the port's step issues, on a (world /
     model, model) mesh.
 
@@ -66,18 +207,11 @@ def step_collectives(kind: str, num_params: int, world: int,
     ``upload_dtype``, one per column block of ``CHUNK``, and one
     ``all_gather`` of the round's (len(METRIC_KEYS), N/D) f32 metrics.
 
-    Over ``model`` (``model`` > 1; ``tokens`` the rank's tokens a step):
-    the tensor-parallel layers' all-reduces of (tokens, d_model)
-    activations (a layer's attention and MLP outputs where they split,
-    the vocab-parallel embedding), the all-gathers of the leaves a layer
-    gathers (``models/layers.py::gathered_leaves``) and, in training, each
-    region's gradient all-reduce and the gathered leaves' gradients ("sum"),
-    with the forward counted again under a ``remat`` checkpoint; the
-    round's norm and count all-reduces and its threshold sample's
-    all-gather.  A world of 1 issues none."""
-    from repro_torch.models.layers import gathered_leaves, head_plan
-    from repro_torch.sharding.collectives import ModelAxis
-
+    Over ``model`` (``model`` > 1; ``tokens`` the rank's tokens a step,
+    ``batch`` a serve step's sequences): the model's
+    (``axis_collectives``) and, in training, the round's norm and count
+    all-reduces and its threshold sample's all-gather.  A world of 1
+    issues none."""
     by, cnt = {}, {}
 
     def add(k, b, n=1):  # n collectives of b bytes each
@@ -94,30 +228,10 @@ def step_collectives(kind: str, num_params: int, world: int,
         add("all-gather", ring_bytes("all-gather", len(METRIC_KEYS) * n * 4,
                                      data))
     if model > 1 and cfg is not None:
-        ab = torch_dtype(cfg.dtype).itemsize
-        pb = torch_dtype(cfg.param_dtype).itemsize
-        act = ring_bytes("all-reduce", tokens * cfg.d_model * ab, model)
-        split = (int(head_plan(cfg, ModelAxis(None, 0, model)).split)
-                 + int(cfg.d_ff % model == 0))
-        vocab = int(cfg.vocab_size % model == 0)
-        fwd = 1 + int(kind == "train" and cfg.remat != "none")
-        gl = gathered_leaves(cfg, model)
-        add("all-reduce", act, cfg.num_layers * split * fwd + vocab)
-        for _, shape, grad in gl:
-            b = math.prod(shape) * pb
-            add("all-gather", ring_bytes("all-gather", b, model),
-                cfg.num_layers * fwd)
-            if kind == "train" and grad == "sum":
-                add("all-reduce", ring_bytes("all-reduce", b, model),
-                    cfg.num_layers)
-        if vocab:  # the loss's log-sum-exps and label logits
-            add("all-gather", ring_bytes("all-gather", tokens * 4 * model,
-                                         model))
-            add("all-reduce", ring_bytes("all-reduce", tokens * 4, model))
+        n = max((num_clients or data) // data, 1)
+        for k, b, c in axis_collectives(kind, cfg, model, tokens, n, batch):
+            add(k, ring_bytes(k, b, model), c)
         if kind == "train":
-            # the regions' gradient all-reduces, the unembedding's too
-            add("all-reduce", act, cfg.num_layers * split + vocab)
-            n = max((num_clients or data) // data, 1)
             add("all-reduce", ring_bytes("all-reduce", n * 8, model), 3)
             add("all-gather", ring_bytes("all-gather", n * sample * 4,
                                          model))

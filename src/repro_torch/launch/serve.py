@@ -19,10 +19,10 @@ prompt is a multiple of the SSD chunk.  ``--device cpu`` runs the same
 path on the kernels' plain versions.  Weights are random, drawn from
 ``--seed`` by a ``torch.Generator`` on the run's device; prompts (and the
 audio family's stub encoder frames) are the reference's numpy draws.
-Sampling is greedy.  ``--model M`` serves the dense and VLM families
-over a model axis of M cards (``sharding/rules.py``'s ``RULES_SERVE``:
-each rank draws and keeps its blocks of the weights, and its KV cache
-holds its kv heads), under ``torchrun`` with ``WORLD_SIZE`` M; rank 0
+Sampling is greedy.  ``--model M`` serves the dense, VLM, MoE, ssm and
+hybrid families over a model axis of M cards (``sharding/rules.py``'s ``RULES_SERVE``:
+each rank draws and keeps its blocks of the weights; its KV cache holds
+its kv heads, its recurrent cache its SSD heads), under ``torchrun`` with ``WORLD_SIZE`` M; rank 0
 prints.
 """
 from __future__ import annotations

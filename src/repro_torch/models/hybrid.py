@@ -10,6 +10,12 @@ segments(cfg)) - 1`` of them: 13 for Zamba2-7B's 81 layers) while the
 weights stay shared.  The Mamba2 layers are ``mamba2.mamba_block``: a
 prefill whose length is a multiple of ``ssm_chunk`` goes through the
 ``ssd_scan`` kernel.
+
+Over a ``model`` axis (``model_axis``) the Mamba2 layers run on the
+rank's heads (``models/mamba2.py``) and the shared block on its
+attention heads through ``layers.attn_qkv`` / ``attn_out``, as the
+dense family's (``layers.head_plan``); its cache slots hold the kv heads
+of the rank's q heads.
 """
 from __future__ import annotations
 
@@ -48,14 +54,14 @@ def param_specs(cfg) -> dict:
     }
 
 
-def _shared_attn(params, cfg, x, cos, sin):
+def _shared_attn(params, cfg, x, cos, sin, model_axis=None):
     """The shared block over a whole sequence: (x + attn, k, v)."""
     sp = params["shared_attn"]
     h = L.rms_norm(x, sp["ln"], cfg.norm_eps)
-    q, k, v = L.attn_qkv(sp["attn"], cfg, h)
+    q, k, v = L.attn_qkv(sp["attn"], cfg, h, model_axis)
     q, k = L.apply_rope(q, k, cos, sin)
     attn = L.causal_attention(q, k, v)
-    return x + L.attn_out(sp["attn"], attn, x.dtype), k, v
+    return x + L.attn_out(sp["attn"], attn, x.dtype, cfg, model_axis), k, v
 
 
 def _cos_sin(cfg, b: int, s: int, device):
@@ -63,33 +69,39 @@ def _cos_sin(cfg, b: int, s: int, device):
     return L.rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
 
-def forward(params, cfg, tokens, *, train=False, **_):
+def forward(params, cfg, tokens, *, train=False, model_axis=None, **_):
     """Logits and a zero aux loss; ``train=True`` runs the Mamba2 layers'
-    differentiable chunked SSD in place of the kernel."""
-    x = L.embed(params, cfg, tokens)
+    differentiable chunked SSD in place of the kernel.  Over
+    ``model_axis`` the logits are the rank's vocabulary block."""
+    x = L.embed(params, cfg, tokens, model_axis)
     cos, sin = _cos_sin(cfg, *tokens.shape, x.device)
     off = 0
     for i, size in enumerate(segments(cfg)):
         if i > 0:
-            x = _shared_attn(params, cfg, x, cos, sin)[0]
+            x = _shared_attn(params, cfg, x, cos, sin, model_axis)[0]
         # the Mamba2 stack, under cfg.remat as the reference's _mamba_scan
         x = M2.layer_stack(params["layers"], cfg, x, range(off, off + size),
-                           train)
+                           train, model_axis)
         off += size
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = x @ params["unembed"]["w"].to(x.dtype)
+    logits = L.unembed(params, cfg, x, model_axis)
     return logits, torch.zeros((), dtype=F32, device=x.device)
 
 
-def loss_fn(params, cfg, batch):
-    logits, _ = forward(params, cfg, batch["tokens"], train=True)
-    return L.cross_entropy(logits, batch["labels"])
+def loss_fn(params, cfg, batch, model_axis=None):
+    logits, _ = forward(params, cfg, batch["tokens"], train=True,
+                        model_axis=model_axis)
+    return L.cross_entropy(logits, batch["labels"], cfg, model_axis)
 
 
-def init_cache(cfg, batch: int, max_seq: int, device="cpu"):
+def init_cache(cfg, batch: int, max_seq: int, device="cpu", model_axis=None):
+    """The Mamba2 cache and the shared block's (invocations, B, max_seq,
+    KV, D) slots: over ``model_axis`` the rank's blocks and the kv heads
+    of its q heads (``layers.head_plan``)."""
     na = len(segments(cfg)) - 1
-    shape = (na, batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
-    c = M2.init_cache(cfg, batch, device=device)
+    kv = len(L.head_plan(cfg, model_axis).kv)
+    shape = (na, batch, max_seq, kv, cfg.resolved_head_dim)
+    c = M2.init_cache(cfg, batch, device=device, model_axis=model_axis)
     c["attn_k"] = torch.zeros(shape, dtype=cfg.activation_dtype, device=device)
     c["attn_v"] = torch.zeros(shape, dtype=cfg.activation_dtype, device=device)
     c["pos"] = torch.full((batch, max_seq), -1, dtype=torch.int32, device=device)
@@ -106,38 +118,40 @@ def cache_axes(cfg) -> dict:
     return ax
 
 
-def prefill(params, cfg, tokens, *, max_seq=None, **_):
+def prefill(params, cfg, tokens, *, max_seq=None, model_axis=None, **_):
     """Run the prompt: returns (last logits, recurrent + shared-attn cache),
     the cache allocated once at ``max_seq`` attention slots."""
-    x = L.embed(params, cfg, tokens)
+    x = L.embed(params, cfg, tokens, model_axis)
     b, s = tokens.shape
     max_seq = max_seq or s
     if max_seq < s:
         raise ValueError(f"max_seq {max_seq} < prompt length {s}")
-    cache = init_cache(cfg, b, max_seq, x.device)
+    cache = init_cache(cfg, b, max_seq, x.device, model_axis)
     cos, sin = _cos_sin(cfg, b, s, x.device)
     off = 0
     for i, size in enumerate(segments(cfg)):
         if i > 0:
-            x, k, v = _shared_attn(params, cfg, x, cos, sin)
+            x, k, v = _shared_attn(params, cfg, x, cos, sin, model_axis)
             cache["attn_k"][i - 1, :, :s] = k
             cache["attn_v"][i - 1, :, :s] = v
         for j in range(off, off + size):
             lp = layer(params["layers"], j)
             h = L.rms_norm(x, lp["ln"], cfg.norm_eps)
-            y, conv, ssm = M2.mamba_block(lp["mamba"], cfg, h, collect_cache=True)
+            y, conv, ssm = M2.mamba_block(lp["mamba"], cfg, h,
+                                          collect_cache=True,
+                                          model_axis=model_axis)
             x = x + y
             for key, short in M2.CONV_KEYS:
                 cache[key][j] = conv[short]
             cache["ssm"][j] = ssm
         off += size
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = x[:, -1] @ params["unembed"]["w"].to(x.dtype)
+    logits = L.unembed(params, cfg, x[:, -1], model_axis)
     cache["pos"][:, :s] = torch.arange(s, dtype=torch.int32, device=x.device)
-    return logits, cache
+    return L.gather_vocab(logits, cfg, model_axis), cache
 
 
-def decode_step(params, cfg, cache, token, pos: int):
+def decode_step(params, cfg, cache, token, pos: int, model_axis=None):
     """One step; the cache is updated IN PLACE and returned (the reference
     returns new arrays; the values are the same).
 
@@ -149,7 +163,7 @@ def decode_step(params, cfg, cache, token, pos: int):
     reaches the kernel.
     """
     pos = int(pos)
-    x = L.embed(params, cfg, token)[:, None, :]
+    x = L.embed(params, cfg, token, model_axis)[:, None, :]
     b = x.shape[0]
     s_cache = cache["attn_k"].shape[2]
     posb = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
@@ -163,24 +177,26 @@ def decode_step(params, cfg, cache, token, pos: int):
         if i > 0:
             ak, av = cache["attn_k"][i - 1], cache["attn_v"][i - 1]
             h = L.rms_norm(x, sp["ln"], cfg.norm_eps)
-            q, k, v = L.attn_qkv(sp["attn"], cfg, h)
+            q, k, v = L.attn_qkv(sp["attn"], cfg, h, model_axis)
             q, k = L.apply_rope(q, k, cos, sin)
             ak[:, slot] = k[:, 0].to(ak.dtype)
             av[:, slot] = v[:, 0].to(av.dtype)
             attn = L.decode_attention(q[:, 0], ak, av, length,
                                       window_pos=cache["pos"])
-            x = x + L.attn_out(sp["attn"], attn[:, None], x.dtype)
+            x = x + L.attn_out(sp["attn"], attn[:, None], x.dtype, cfg,
+                               model_axis)
         for j in range(off, off + size):
             lp = layer(params["layers"], j)
             h = L.rms_norm(x, lp["ln"], cfg.norm_eps)
             conv = {short: cache[key][j] for key, short in M2.CONV_KEYS}
             y, new_conv, new_ssm = M2.mamba_block(
-                lp["mamba"], cfg, h, conv_state=conv, ssm_state=cache["ssm"][j])
+                lp["mamba"], cfg, h, conv_state=conv,
+                ssm_state=cache["ssm"][j], model_axis=model_axis)
             x = x + y
             for key, short in M2.CONV_KEYS:
                 cache[key][j] = new_conv[short]
             cache["ssm"][j] = new_ssm
         off += size
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = (x @ params["unembed"]["w"].to(x.dtype))[:, 0]
-    return logits, cache
+    logits = L.unembed(params, cfg, x, model_axis)[:, 0]
+    return L.gather_vocab(logits, cfg, model_axis), cache

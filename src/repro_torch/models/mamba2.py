@@ -14,6 +14,24 @@ backward, in the reference as here.
 
 Projections are separate tensors (wz/wx/wB/wC/wdt), as in the reference's
 tree.
+
+Over a ``model`` axis (``model_axis``) a rank runs its block of the SSD
+heads (``ssm_split``: H % M == 0, so its ``ssm_inner`` block is whole
+heads of ``HEAD_P``): ``wz``, ``wx``, ``conv_x``, ``norm`` and ``wo``
+(``ssm_inner``) and ``wdt``, ``dt_bias``, ``a_log``, ``d_skip``
+(``ssm_heads``) are its blocks, ``wB``, ``wC``, ``conv_B``, ``conv_C``
+(``ssm_state``) whole.  x enters through ``copy_to``, and so do the whole
+leaves (each rank's heads read all of B and C, so their gradients are
+partial sums); the SSD (``ops.ssd_scan`` in a prefill, ``ssd_chunked`` in
+training, ``ssd_decode_step``) runs on the rank's H/M heads; the gated
+RMSNorm's sum of squares over the whole ``d_inner`` is all-reduced both
+ways (``copy_to(reduce_from(.))``: every rank's block reads the total);
+``wo`` is row-parallel, then one all-reduce.  Where the heads do not
+divide (Mamba2's 80 on 32) every rank gathers the leaves and runs every
+head, as ``layers.head_plan`` does for attention: no head is cut in two.
+The recurrent cache is the rank's blocks (``conv_x`` on ``ssm_inner``,
+``ssm`` on ``ssm_heads``, ``conv_B`` / ``conv_C`` whole), and the
+embedding and unembedding are vocab-parallel (``models/layers.py``).
 """
 from __future__ import annotations
 
@@ -23,6 +41,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.remat import checkpoint, full_only
 from repro_torch.models.transformer import layer, stack_specs
+from repro_torch.sharding import collectives as C
 from repro_torch.sharding.rules import ParamSpec
 
 F32 = torch.float32
@@ -54,6 +73,11 @@ def mamba_specs(cfg) -> dict:
         "norm": ParamSpec((d_inner,), ("ssm_inner",), init="ones"),
         "wo": ParamSpec((d_inner, d), ("ssm_inner", "embed")),
     }
+
+
+# the leaves a rank's SSD heads read whole (``ssm_state``), each through
+# ``copy_to``: their gradient is summed over the axis
+WHOLE = ("wB", "wC", "conv_B", "conv_C")
 
 
 def _causal_conv(x, w, state=None):
@@ -146,28 +170,64 @@ def softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
+def ssm_split(cfg, axis) -> bool:
+    """Whether a rank of ``axis`` runs its block of the SSD heads (they
+    divide over the axis), else every head (none without an axis)."""
+    return L._split(axis) and dims(cfg)[1] % axis.size == 0
+
+
+def _whole_leaves(p, cfg, axis) -> dict:
+    """Every leaf of a block whole (gathered where the rules cut it; the
+    gradient returns to the block as it is: every rank ran every head)."""
+    full = {k: sp.shape for k, sp in mamba_specs(cfg).items()}
+    return {k: L.whole(v, full[k], axis, "slice") for k, v in p.items()}
+
+
+def _gated_norm(y, z, scale, eps: float, d_inner: int, axis=None):
+    """Mamba2's gated RMSNorm, norm(y * silu(z)) over the whole
+    ``d_inner``: over ``axis`` the rank's block of it, its sum of squares
+    all-reduced both ways."""
+    g = y * L.silu_f32(z)
+    if axis is None:
+        return L.rms_norm(g, scale, eps)
+    gf = g.to(F32)
+    ss = torch.sum(torch.square(gf), dim=-1, keepdim=True)
+    var = C.copy_to(C.reduce_from(ss, axis), axis) / d_inner
+    return (gf * torch.rsqrt(var + eps) * scale.to(F32)).to(g.dtype)
+
+
 def mamba_block(p, cfg, x, conv_state=None, ssm_state=None, collect_cache=False,
-                train=False):
+                train=False, model_axis=None):
     """Full Mamba2 block. x: (B,S,d).
 
     Training (``train=True``: the chunked formula, differentiable):
     states None -> returns (y, final_ssm_state).
     Prefill (collect_cache): returns (y, conv_tails, final_ssm_state).
     Decode (S==1): pass states -> returns (y, new_conv, new_ssm).
+    Over ``model_axis`` on the rank's heads (the module's docstring); the
+    states are the rank's blocks.
     """
     d_inner, h, pdim, n = dims(cfg)
+    ax = model_axis if ssm_split(cfg, model_axis) else None
+    if L._split(model_axis) and ax is None:  # every head on every rank
+        p = _whole_leaves(p, cfg, model_axis)
+    hl = h // ax.size if ax is not None else h
     dt_ = x.dtype
+    x = C.copy_to(x, ax)
+    p = dict(p, **{k: C.copy_to(p[k], ax) for k in WHOLE})
+    wB, wC = p["wB"], p["wC"]
     z = x @ p["wz"].to(dt_)
     xin = x @ p["wx"].to(dt_)
-    bin_ = x @ p["wB"].to(dt_)
-    cin = x @ p["wC"].to(dt_)
+    bin_ = x @ wB.to(dt_)
+    cin = x @ wC.to(dt_)
     dt_raw = x @ p["wdt"].to(dt_)
+    conv_b, conv_c = p["conv_B"], p["conv_C"]
 
     decode = conv_state is not None
     if decode:
         xin, cx = _causal_conv(xin, p["conv_x"].to(dt_), conv_state["x"])
-        bin_, cb = _causal_conv(bin_, p["conv_B"].to(dt_), conv_state["B"])
-        cin, cc = _causal_conv(cin, p["conv_C"].to(dt_), conv_state["C"])
+        bin_, cb = _causal_conv(bin_, conv_b.to(dt_), conv_state["B"])
+        cin, cc = _causal_conv(cin, conv_c.to(dt_), conv_state["C"])
         new_conv = {"x": cx, "B": cb, "C": cc}
     else:
         kk = p["conv_x"].shape[0]
@@ -178,12 +238,12 @@ def mamba_block(p, cfg, x, conv_state=None, ssm_state=None, collect_cache=False,
                 "C": cin[:, -(kk - 1):, :],
             }
         xin = _causal_conv(xin, p["conv_x"].to(dt_))
-        bin_ = _causal_conv(bin_, p["conv_B"].to(dt_))
-        cin = _causal_conv(cin, p["conv_C"].to(dt_))
+        bin_ = _causal_conv(bin_, conv_b.to(dt_))
+        cin = _causal_conv(cin, conv_c.to(dt_))
 
     dt = softplus(dt_raw.to(F32) + p["dt_bias"].to(F32))
     a = -torch.exp(p["a_log"].to(F32))  # (H,) negative decay rates
-    xh = xin.reshape(*xin.shape[:2], h, pdim)
+    xh = xin.reshape(*xin.shape[:2], hl, pdim)
     x_disc = xh.to(F32) * dt[..., None]
     log_decay = dt * a  # (B,S,H)
 
@@ -196,10 +256,10 @@ def mamba_block(p, cfg, x, conv_state=None, ssm_state=None, collect_cache=False,
     else:
         y, new_ssm = ssd_chunked(x_disc, log_decay, bin_, cin, cfg.ssm_chunk)
     y = y + xh.to(F32) * p["d_skip"].to(F32)[None, None, :, None]
-    y = y.reshape(*xin.shape[:2], d_inner).to(dt_)
+    y = y.reshape(*xin.shape[:2], hl * pdim).to(dt_)
     # gated RMSNorm (mamba2): norm(y * silu(z))
-    y = L.rms_norm(y * L.silu_f32(z), p["norm"], cfg.norm_eps)
-    out = y @ p["wo"].to(dt_)
+    y = _gated_norm(y, z, p["norm"], cfg.norm_eps, d_inner, ax)
+    out = C.reduce_from(y @ p["wo"].to(dt_), ax)
     if decode or collect_cache:
         return out, new_conv, new_ssm
     return out, new_ssm
@@ -228,23 +288,26 @@ def param_specs(cfg) -> dict:
     }
 
 
-def forward(params, cfg, tokens, *, train=False):
+def forward(params, cfg, tokens, *, train=False, model_axis=None):
     """Logits and a zero aux loss; ``train=True`` runs the differentiable
-    chunked SSD in place of the kernel."""
-    x = L.embed(params, cfg, tokens)
-    x = layer_stack(params["layers"], cfg, x, range(cfg.num_layers), train)
+    chunked SSD in place of the kernel.  Over ``model_axis`` the logits
+    are the rank's vocabulary block."""
+    x = L.embed(params, cfg, tokens, model_axis)
+    x = layer_stack(params["layers"], cfg, x, range(cfg.num_layers), train,
+                    model_axis)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = x @ params["unembed"]["w"].to(x.dtype)
+    logits = L.unembed(params, cfg, x, model_axis)
     return logits, torch.zeros((), dtype=F32, device=x.device)
 
 
-def layer_stack(layers, cfg, x, which, train: bool):
+def layer_stack(layers, cfg, x, which, train: bool, model_axis=None):
     """Residual Mamba2 layers ``which`` of the stacked ``layers`` over x,
     each under ``cfg.remat``'s checkpoint (``"full"`` only, as in the
     reference; ``models/remat.py``)."""
     def body(lp, x):
         h = L.rms_norm(x, lp["ln"], cfg.norm_eps)
-        return x + mamba_block(lp["mamba"], cfg, h, train=train)[0]
+        return x + mamba_block(lp["mamba"], cfg, h, train=train,
+                               model_axis=model_axis)[0]
 
     policy = full_only(cfg.remat)
     for i in which:
@@ -252,14 +315,21 @@ def layer_stack(layers, cfg, x, which, train: bool):
     return x
 
 
-def loss_fn(params, cfg, batch):
-    logits, _ = forward(params, cfg, batch["tokens"], train=True)
-    return L.cross_entropy(logits, batch["labels"])
+def loss_fn(params, cfg, batch, model_axis=None):
+    logits, _ = forward(params, cfg, batch["tokens"], train=True,
+                        model_axis=model_axis)
+    return L.cross_entropy(logits, batch["labels"], cfg, model_axis)
 
 
-def init_cache(cfg, batch: int, max_seq: int = 0, device="cpu"):
-    """Recurrent cache: conv tails + SSD state per layer. O(1) in seq length."""
+def init_cache(cfg, batch: int, max_seq: int = 0, device="cpu",
+               model_axis=None):
+    """Recurrent cache: conv tails + SSD state per layer. O(1) in seq
+    length.  Over ``model_axis`` the rank's blocks (``conv_x`` its
+    ``ssm_inner`` block, ``ssm`` its heads) where it runs its heads."""
     d_inner, h, p, n = dims(cfg)
+    if ssm_split(cfg, model_axis):
+        h //= model_axis.size
+        d_inner = h * p
     k = cfg.conv_kernel
     lc = cfg.num_layers
     dt = cfg.activation_dtype
@@ -284,37 +354,40 @@ def cache_axes(cfg) -> dict:
     }
 
 
-def prefill(params, cfg, tokens):
+def prefill(params, cfg, tokens, model_axis=None):
     """Run the prompt, return (last-token logits, recurrent cache)."""
-    x = L.embed(params, cfg, tokens)
-    cache = init_cache(cfg, x.shape[0], device=x.device)
+    x = L.embed(params, cfg, tokens, model_axis)
+    cache = init_cache(cfg, x.shape[0], device=x.device,
+                       model_axis=model_axis)
     for i in range(cfg.num_layers):
         lp = layer(params["layers"], i)
         h = L.rms_norm(x, lp["ln"], cfg.norm_eps)
-        y, conv, ssm = mamba_block(lp["mamba"], cfg, h, collect_cache=True)
+        y, conv, ssm = mamba_block(lp["mamba"], cfg, h, collect_cache=True,
+                                   model_axis=model_axis)
         x = x + y
         for key, short in CONV_KEYS:
             cache[key][i] = conv[short]
         cache["ssm"][i] = ssm
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = x[:, -1] @ params["unembed"]["w"].to(x.dtype)
-    return logits, cache
+    logits = L.unembed(params, cfg, x[:, -1], model_axis)
+    return L.gather_vocab(logits, cfg, model_axis), cache
 
 
-def decode_step(params, cfg, cache, token, pos=None):
+def decode_step(params, cfg, cache, token, pos=None, model_axis=None):
     """One recurrent step. The cache is updated IN PLACE and returned (the
     reference returns new arrays; the values are the same)."""
-    x = L.embed(params, cfg, token)[:, None, :]
+    x = L.embed(params, cfg, token, model_axis)[:, None, :]
     for i in range(cfg.num_layers):
         lp = layer(params["layers"], i)
         h = L.rms_norm(x, lp["ln"], cfg.norm_eps)
         conv = {short: cache[key][i] for key, short in CONV_KEYS}
         y, new_conv, new_ssm = mamba_block(
-            lp["mamba"], cfg, h, conv_state=conv, ssm_state=cache["ssm"][i])
+            lp["mamba"], cfg, h, conv_state=conv, ssm_state=cache["ssm"][i],
+            model_axis=model_axis)
         x = x + y
         for key, short in CONV_KEYS:
             cache[key][i] = new_conv[short]
         cache["ssm"][i] = new_ssm
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = (x @ params["unembed"]["w"].to(x.dtype))[:, 0]
-    return logits, cache
+    logits = L.unembed(params, cfg, x, model_axis)[:, 0]
+    return L.gather_vocab(logits, cfg, model_axis), cache

@@ -6,7 +6,9 @@ core can vmap them over devices.  Every family of the reference is here:
 the paper's two models (vision: ResNet-9; trajectory: LaneGCN) and the
 LLM families (dense, MoE, ssm, hybrid, audio enc-dec, VLM);
 ``load_params`` carries a reference parameter tree (numpy arrays) over,
-and ``local_params`` cuts a rank's blocks out of a tree.
+``local_params`` cuts a rank's blocks out of a tree (``Model.blocks``'s:
+every family's leaves under the rules) and ``local_cache`` a rank's part
+out of a whole serving cache.
 ``param_axes`` and ``cache_axes`` give the logical dims that the sharding
 rules (``sharding/rules.py``) place.
 ``input_specs`` gives a step's inputs at an ``InputShape`` as meta tensors
@@ -172,6 +174,30 @@ def local_params(model: Model, params: dict, blocks: dict,
     pre = (slice(None),) * lead
     return tree_unflatten(paths, [l[pre + b].clone()
                                   for l, b in zip(leaves, bl)])
+
+
+def local_cache(model: Model, cache: dict, model_axis) -> dict:
+    """A rank's part of a whole serving cache (``init_cache``'s without a
+    model axis), the cache ``init_cache(model_axis=)`` makes: the kv heads
+    of its q heads in the attention slots (``layers.head_plan``), and
+    where it runs its block of the SSD heads (``mamba2.ssm_split``) its
+    block of ``conv_x`` and of ``ssm``; the rest as it is."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as M2
+
+    cfg = model.cfg
+    out = dict(cache)
+    if cfg.num_heads:
+        idx = list(L.head_plan(cfg, model_axis).kv)
+        for key in ("k", "v", "k_scale", "v_scale", "attn_k", "attn_v"):
+            if key in cache:
+                out[key] = cache[key][:, :, :, idx]
+    if "ssm" in cache and M2.ssm_split(cfg, model_axis):
+        m, r = model_axis.size, model_axis.rank
+        for key, dim in (("conv_x", 3), ("ssm", 2)):
+            per = cache[key].shape[dim] // m
+            out[key] = cache[key].narrow(dim, r * per, per)
+    return out
 
 
 # ---------------------------------------------------------------------------

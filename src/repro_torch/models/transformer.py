@@ -18,14 +18,14 @@ int8 cache (``cfg.kv_cache_dtype == "int8"``) go through plain einsum
 paths, as in the reference.
 
 ``model_axis`` (a ``sharding.collectives.ModelAxis``, an explicit
-argument of every entry point): the dense blocks run tensor-parallel on
+argument of every entry point): the blocks run tensor-parallel on
 the rank's parameter blocks (``models/layers.py``).  ``forward`` then
 returns the rank's vocabulary block of the logits, ``loss_fn`` the whole
 loss, ``prefill`` and ``decode_step`` the whole logits; the KV cache
 holds the kv heads of the rank's q heads (``layers.head_plan``: its
 block of them when they divide over the axis), and each decode step runs
-``decode_attn`` on the rank's (B, H/M, KV/M, S, D).  The MoE blocks have
-no model axis yet (``launch/mesh.py::require_model_axis``).
+``decode_attn`` on the rank's (B, H/M, KV/M, S, D).  The MoE blocks run
+on the rank's experts (``models/moe.py``).
 """
 from __future__ import annotations
 
@@ -89,11 +89,7 @@ def param_specs(cfg) -> dict:
 def _ffn(lp, cfg, h, model_axis=None):
     """The block's feed-forward half: (y, aux loss)."""
     if cfg.is_moe:
-        if model_axis is not None and model_axis.size > 1:
-            from repro_torch.launch.mesh import require_model_axis
-
-            require_model_axis(cfg.family, model_axis.size)
-        return MOE.moe_apply(lp["moe"], cfg, h)
+        return MOE.moe_apply(lp["moe"], cfg, h, model_axis)
     return L.mlp_apply(lp["mlp"], h, model_axis, cfg.d_ff), None
 
 

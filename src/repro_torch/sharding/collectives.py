@@ -17,7 +17,9 @@ unsharded function (Megatron-LM's tensor parallelism):
   (``grad="slice"``: every rank did the whole work).
 
 ``all_reduce_`` and ``all_gather_`` are the same collectives outside the
-gradient (the distributed round's norms, counts and threshold samples).
+gradient (the distributed round's norms, counts and threshold samples);
+``agree`` checks that every rank holds the same tensor (the MoE routing's
+checksums), a check outside the computed function that is not counted.
 Each is a ``torch.autograd.Function`` with ``setup_context`` and a
 ``vmap`` rule, so that it works under ``torch.func.vmap(torch.func.grad)``
 (the training gradient over a rank's clients, ``core/afl.py::
@@ -45,6 +47,10 @@ class ModelAxis:
     rank: int
     size: int
     counts: dict = dataclasses.field(default_factory=dict)
+    # None, or the checks run over the axis by name (``agree``'s callers,
+    # the MoE routing's): each counted where it passed; the caller turns
+    # them on (a dict) only outside the gradient and outside ``vmap``
+    checks: dict | None = None
 
     def count(self, kind: str, t: torch.Tensor) -> None:
         n, b = self.counts.get(kind, (0, 0))
@@ -167,3 +173,15 @@ def all_gather_(x: torch.Tensor, axis: ModelAxis | None,
     if axis is None or axis.size == 1:
         return x
     return _all_gather(x, axis, dim)
+
+
+def agree(x: torch.Tensor, axis: ModelAxis | None) -> bool:
+    """Whether every rank of the axis holds the same ``x`` (all-gathered
+    outside the gradient and outside ``counts``: a check, not part of the
+    function the ranks compute)."""
+    if axis is None or axis.size == 1:
+        return True
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(axis.size)]
+    dist.all_gather(parts, x, group=axis.group)
+    return all(torch.equal(p, parts[0]) for p in parts[1:])

@@ -38,8 +38,9 @@ it computed; this process holds it:
   batch split over ``model``, one gradient all-reduce) against
   ``default``, within the same bounds.
 
-The refusals run in this process: unported families, a codec on a model
-axis, a serve step over data > 1, clients that do not split over data.
+The refusals run in this process: the families with no model axis (audio
+and the vision CNNs), a codec on a model axis, a serve step over data > 1,
+clients that do not split over data.
 """
 import json
 import os
@@ -471,9 +472,7 @@ def test_dp_client_matches_default(spawned, one, tag, arch):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("family,item", [("moe", "item 4 "), ("ssm", "item 5 "),
-                                         ("hybrid", "item 5 "),
-                                         ("audio", "item 6 "),
+@pytest.mark.parametrize("family,item", [("audio", "item 6 "),
                                          ("vision", "item 6 ")])
 def test_unported_family_refused(family, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -497,7 +496,7 @@ def test_codec_and_serve_data_and_uneven_clients_refused():
         TS.build_step(cfg, INPUT_SHAPES["decode_32k"], mesh)
     with pytest.raises(ValueError, match="do not split evenly"):
         mesh.rows(3)
-    moe = t_get_config("qwen3-moe-30b-a3b").reduced()
-    with pytest.raises(NotImplementedError, match="item 4 "):
-        TS.build_step(moe, INPUT_SHAPES["train_4k"], mesh)
+    audio = t_get_config("whisper-large-v3").reduced()
+    with pytest.raises(NotImplementedError, match="item 6 "):
+        TS.build_step(audio, INPUT_SHAPES["train_4k"], mesh)
 
