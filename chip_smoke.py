@@ -4,13 +4,14 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --time-tree DIR   # time another checkout's kernels
     python3 chip_smoke.py --only 19,20      # phases 1, 2 and those named
-                                            # (of 3c, 19-25) alone
+                                            # (of 3c, 19-26) alone
     python3 chip_smoke.py --mesh 4          # the round over 4 cards
     python3 chip_smoke.py --mesh 4 --only 24  # phases 24b-d alone
     python3 chip_smoke.py --mesh 4 --only 24cd  # phases 24c-d alone
     python3 chip_smoke.py --mesh 4 --only 25  # phases 25b-e alone
     python3 chip_smoke.py --mesh 4 --only 25de  # phases 25d-e alone
     python3 chip_smoke.py --mesh 4 --only 25f  # 25e's f32 rounds alone
+    python3 chip_smoke.py --mesh 4 --only 26  # phases 26b-d alone
 
 Phases, each of which raises on failure (a failed phase exits non-zero):
 
@@ -269,8 +270,7 @@ Phases, each of which raises on failure (a failed phase exits non-zero):
    the tensor-parallel layers, the round on blocks; run after 23): (a)
    the dry-run plan of every pair on the meta device at a model axis of
    1, 2, 4 and 8 (world = M): how many pairs' arguments fit one card, GB
-   a card (the families with no model axis yet from the rules alone),
-   the leaves a layer gathers; phase 19's full-width InternLM2 ``mads``
+   a card, the leaves a layer gathers; phase 19's full-width InternLM2 ``mads``
    rounds again through a (1, 1) NCCL mesh made with a model axis of 1
    and the rules passed explicitly: bits, k, b and the final w bit-equal
    to phase 19's, one ``sparsify_ef`` a round, each held as it returns.
@@ -285,6 +285,15 @@ Phases, each of which raises on failure (a failed phase exits non-zero):
    (``decode_attn`` at (4, 8, 1, 2080, 128) and (8, 4, 4, 2080, 128),
    ``ssd_scan`` at (4, 4096, 20, 64) N 128 and (4, 4096, 28, 64) N 64).
    The four-card phases 25b-e run under ``--mesh 4 --only 25`` (below).
+26. the model axis for the audio, vision and trajectory families
+   (``models/encdec.py``, ``resnet.py``, ``lanegcn.py``; also ``--only
+   26``): (a) the plan at M = 1, 2, 4, 8 with no pair sized from the
+   rules alone, Whisper-large-v3's three pairs built; full-width ResNet-9
+   and LaneGCN ``mads`` rounds (N = 20, batch 32, f32) on the card alone
+   and through a (1, 1) mesh, bit-equal; ``decode_attn`` at Whisper's
+   per-rank shape of the (1, 4) serve, (8, 5, 5, 1500, 64), and
+   ``sparsify_ef`` at the per-rank shapes of 26b and 26d, held and timed.
+   The four-card phases 26b-d run under ``--mesh 4 --only 26`` (below).
 
 ``--mesh P`` runs, on each of P cards (one process a card, a file
 store): world 1 against world P for six policies at ResNet-9 width 4;
@@ -319,7 +328,22 @@ layers) and Zamba2-7B (81) over (1, 4), batch 4, prompt 4096, every
 train (batch 2, seq 512) on (1, 4) cut as 24c; (e) Zamba2 on (2, 2):
 12 layers against one card as 24b, then the deepest depth that fits
 (``axis_train_step``; the round's collectives over ``model`` equal to the
-plan's count there, as in 24c).
+plan's count there, as in 24c).  ``--mesh 4 --only 26`` runs phases
+26b-d (``paper_axis_mesh``; "26" and some of "bcd"): (b) full-width
+ResNet-9 and LaneGCN on (1, 4) and (2, 2), N = 20, batch 32, 4 ``mads``
+rounds against rank 0's one-card rounds (24b's standard, k in every
+round; in f32 also w within 1e-5 of its largest entry), the threshold
+and count on one f32 x exact, and the witness of k in round 1, where
+both start from one state: the same target k, and ResNet-9's counts no
+further from the f64 counts of the same gradient than 3x one card's,
+plus 2 a client, summed over the clients; (c) Whisper-large-v3
+served over (1, 4) at 32 + 32 layers (batch 8, prompt 64, stub frames,
+32 tokens, twice; every cross-attention ``decode_attn`` call held at the
+per-rank shape) beside one card's run, and at 2 + 2 layers in f32
+against one card as 25b (as drawn, and ``conditioned``: the same tokens,
+logits within 1e-4); (d) Whisper-large-v3 x train_4k on (1, 4) at full
+depth, one client, batch 2 (``axis_train_step``: the round's collectives
+equal to the plan's count).
 
 The last three lines are the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -3956,9 +3980,9 @@ def _free(dev) -> None:
 def axis_plan(smi: str) -> dict:
     """Phase 24a: the dry-run plan (``launch/dryrun.py``) of every pair on
     the meta device at a model axis of 1, 2, 4 and 8 (world = M): how many
-    pairs' arguments fit one card, each pair's GB per card (the families
-    with no model axis yet from the rules alone) and the leaves a layer
-    gathers."""
+    pairs' arguments fit one card, each pair's GB per card and the leaves
+    a layer gathers (``not_ported`` counts the pairs sized from the rules
+    alone: none since phase 26)."""
     import contextlib
     import io
 
@@ -4042,15 +4066,22 @@ def _axis_loss(model, cfg, w, layout, batch, axis) -> float:
         return float(model.loss_fn(layout.unflatten(w), cfg, batch, **kw))
 
 
-def axis_rounds(K, mesh, dev, tag: str, cfg=None, cond: bool = False) -> dict:
+def axis_rounds(K, mesh, dev, tag: str, cfg=None, cond: bool = False,
+                n: int = DIST_N, batch: int = DIST_BATCH,
+                rounds: int = DIST_ROUNDS, capture: dict | None = None) -> dict:
     """Phase 24b's rounds: full-width InternLM2-1.8B, bf16 weights and
     states (``cfg``'s ``param_dtype`` for both; with ``cond`` the drawn
     weights ``conditioned``), N = 2 clients, global
     batch 4, seq 512, 4 ``mads`` rounds with
     both clients in contact in round 2, ``donate=True``; over ``mesh`` or,
-    without one, on this card alone.  Every ``sparsify_ef`` call held as
-    it returns; launches, uploads, k, bits, loss before and after, round
-    seconds (each ends at a barrier over a mesh), peak GiB; the final w."""
+    without one, on this card alone (26a-b: ``n`` clients, a global
+    ``batch``, ``rounds`` rounds; into ``capture`` round 1's target k,
+    as the step hands it to ``block_sparsify``, and with
+    ``capture["inputs"]`` True the state and batch of round 1's
+    ``device_grads``).  Every
+    ``sparsify_ef`` call held as it returns; launches, uploads, k, bits,
+    loss before and after, round seconds (each ends at a barrier over a
+    mesh), peak GiB; the final w."""
     import torch.distributed as dist
 
     from repro_torch.configs import FLConfig
@@ -4064,16 +4095,16 @@ def axis_rounds(K, mesh, dev, tag: str, cfg=None, cond: bool = False) -> dict:
     cfg = cfg or axis_cfg(DIST_ARCH)
     model = build_model(cfg)
     s = model.num_params()
-    fl = FLConfig(num_devices=DIST_N, rounds=DIST_ROUNDS,
+    fl = FLConfig(num_devices=n, rounds=rounds,
                   mean_intercontact=20.0, sparsifier="sampled", seed=0)
     policy = BL.ALL["mads"](s, fl)
-    dcfg = DistConfig(num_clients=DIST_N, learning_rate=fl.learning_rate,
-                      rounds=DIST_ROUNDS, sample_size=fl.sample_size,
+    dcfg = DistConfig(num_clients=n, learning_rate=fl.learning_rate,
+                      rounds=rounds, sample_size=fl.sample_size,
                       state_dtype=cfg.param_dtype)
     rng = np.random.default_rng(0)
     batches = [{k: torch.as_tensor(v).to(dev) for k, v in
-                demo_batch(cfg, DIST_BATCH, DIST_SEQ, rng).items()}
-               for _ in range(DIST_ROUNDS + 1)]
+                demo_batch(cfg, batch, DIST_SEQ, rng).items()}
+               for _ in range(rounds + 1)]
     _reset_peak(dev)
     system = make_afl_train_system(model, cfg, mesh, dcfg=dcfg,
                                    controller=policy.controller,
@@ -4095,15 +4126,34 @@ def axis_rounds(K, mesh, dev, tag: str, cfg=None, cond: bool = False) -> dict:
         marks.append((time.perf_counter(), stats["hold_s"]))
         return batches[r]
 
+    from repro_torch.core import distributed as D
+
+    real, real_grads = D.block_sparsify, D.device_grads
+
+    def spy(x, *args):
+        if capture is not None and "k" not in capture:
+            capture["k"] = args[2].clone()
+        return real(x, *args)
+
+    def spy_grads(model_, w_n, cl, **kw):
+        if capture is not None and capture.get("inputs") is True:
+            capture["inputs"] = (w_n.clone(),
+                                 {k: v.clone() for k, v in cl.items()})
+        return real_grads(model_, w_n, cl, **kw)
+
     K.reset_launches()
-    with holding(tag, stats):
-        state, hist = run_afl_rounds(system["step"], state,
-                                     dist_provider(fl, "mads", DIST_ROUNDS),
-                                     batch_fn, sample_budgets(fl, 0))
-        _sync(dev)
-        if mesh is not None:
-            dist.barrier()
-        marks.append((time.perf_counter(), stats["hold_s"]))
+    D.block_sparsify, D.device_grads = spy, spy_grads
+    try:
+        with holding(tag, stats):
+            state, hist = run_afl_rounds(system["step"], state,
+                                         dist_provider(fl, "mads", rounds),
+                                         batch_fn, sample_budgets(fl, 0))
+            _sync(dev)
+            if mesh is not None:
+                dist.barrier()
+            marks.append((time.perf_counter(), stats["hold_s"]))
+    finally:
+        D.block_sparsify, D.device_grads = real, real_grads
     out = dict(
         s=s, s_card=pl.layout.size, launches=dict(K.LAUNCHES),
         held=stats["held"], peak_gib=max(stats["peak"] / 2**30,
@@ -4116,7 +4166,7 @@ def axis_rounds(K, mesh, dev, tag: str, cfg=None, cond: bool = False) -> dict:
         x_norm2=[m["x_norm2"].tolist() for m in hist],
         loss_before=loss0,
         loss=_axis_loss(model, cfg, state.w, pl.layout, batches[-1], axis))
-    want = DIST_ROUNDS if dev.type == "cuda" else 0
+    want = rounds if dev.type == "cuda" else 0
     if out["launches"].get("sparsify_ef") != want or out["held"] != want:
         fail(f"{tag}: sparsify_ef launched {out['launches']}, held "
              f"{out['held']}, not {want}")
@@ -4129,9 +4179,12 @@ def axis_rounds(K, mesh, dev, tag: str, cfg=None, cond: bool = False) -> dict:
     return out, w, model
 
 
-def axis_same_x(K, mesh, dev, cfg=None) -> dict:
+def axis_same_x(K, mesh, dev, cfg=None, n: int = DIST_N,
+                dtype=torch.bfloat16) -> dict:
     """Phase 24b(i): one random bf16 x (2, s) at full-width InternLM2 (the
-    same on every rank, from one seed): the sampled threshold from the
+    same on every rank, from one seed; 26b: (``n``, s) in ``dtype``, each
+    client's k alternating between s / 400 and s / 7): the sampled
+    threshold from the
     rank's blocks (its part of the strided sample, gathered over
     ``model``) bit-equal to the whole x's, and the count of the rank's
     ``sparsify_ef`` call on its blocks, all-reduced, equal to the whole
@@ -4147,9 +4200,8 @@ def axis_same_x(K, mesh, dev, cfg=None) -> dict:
     sample = 65536
     pl = D.placement(model, mesh, sample)
     gen = torch.Generator(device=dev).manual_seed(24)
-    x = torch.randn(DIST_N, s, generator=gen, device=dev,
-                    dtype=torch.bfloat16)
-    k = torch.tensor([s / 400.0, s / 7.0], device=dev)
+    x = torch.randn(n, s, generator=gen, device=dev, dtype=dtype)
+    k = torch.tensor([s / 400.0, s / 7.0], device=dev).repeat(n // 2)
     t_whole = SP.tree_threshold(x, model.layout, k, method="sampled",
                                 sample=sample)
     c_whole = ops.sparsify_ef(x, t_whole)[2]
@@ -4354,13 +4406,13 @@ def axis_train_step(mods, mesh, dev, train=AXIS_TRAIN) -> dict:
     step seconds, peak GiB, the calculator's bound at ``model_parallel=4``
     over 4 cards; in round 1 uploads > 0 and the error memory moved (it
     was zero), w's moved coordinates counted (every coordinate of every
-    rank's blocks compared with a host copy), w finite."""
+    rank's blocks compared with a host copy), w finite.  Calibration
+    depths of None (26d): full depth, two rounds, and a peak past the
+    limit fails."""
     import torch.distributed as dist
 
     from repro_torch.configs import INPUT_SHAPES, InputShape
     from repro_torch.launch import roofline as RL
-    from repro_torch.launch.calculator import step_analytics
-    from repro_torch.launch.dryrun import active_params
     from repro_torch.launch.steps import build_step, materialize
 
     arch, batch, depths, *seq = train
@@ -4403,7 +4455,7 @@ def axis_train_step(mods, mesh, dev, train=AXIS_TRAIN) -> dict:
             want_counts = RL.step_collectives(
                 "train", 0, mesh.model, 1, model=mesh.model,
                 cfg=built["cfg"], tokens=batch * shape.seq_len
-                // mesh.data_size).count_by_kind
+                // mesh.data_size, seqs=batch // mesh.data_size).count_by_kind
             if counts != want_counts:
                 fail(f"axis {arch} x train_4k: collectives over model "
                      f"{counts}, the plan's {want_counts}")
@@ -4456,6 +4508,30 @@ def axis_train_step(mods, mesh, dev, train=AXIS_TRAIN) -> dict:
         built = build_step(axis_cfg(arch, layers), shape, mesh)
         return built["system"]["placement"].layout.size
 
+    top = axis_cfg(arch).num_layers
+    if depths is None:  # 26d: full depth, cut only past the limit
+        layers, cal, per_layer = top, {}, 0.0
+    else:
+        layers, cal, per_layer = _calibrated(mesh, arch, depths, top, one,
+                                             s_card)
+    res = one(layers, 2)
+    want = 1 if dev.type == "cuda" else 0
+    main = res["runs"][0]
+    if main["launches"].get("sparsify_ef") != want or main["held"] != want \
+            or sum(main["launches"].values()) != want:
+        fail(f"axis train step: launches {main['launches']}, held "
+             f"{main['held']}")
+    if dev.type == "cuda" and not res["peak_gib_max_over_ranks"] <= AXIS_PEAK_GIB:
+        fail(f"axis train step: peak {res['peak_gib_max_over_ranks']:.2f} "
+             f"GiB over {AXIS_PEAK_GIB}")
+    return _train_step_bound(res, mesh, arch, batch, shape, top, layers, cal,
+                             per_layer)
+
+
+def _calibrated(mesh, arch: str, depths: tuple, top: int, one, s_card):
+    """``axis_train_step``'s cut: the two calibration rounds at ``depths``
+    and the deepest depth whose predicted peak stays 3 GiB under
+    ``AXIS_PEAK_GIB``; (layers, the calibrations, GiB a layer)."""
     lo, hi = depths
     cal = {}
     for d in depths:
@@ -4466,7 +4542,6 @@ def axis_train_step(mods, mesh, dev, train=AXIS_TRAIN) -> dict:
               flush=True)
     per_layer = (cal[hi]["peak_gib_max_over_ranks"]
                  - cal[lo]["peak_gib_max_over_ranks"]) / (hi - lo)
-    top = axis_cfg(arch).num_layers
     # the deepest cut whose peak, the larger of the calibrations' line (the
     # backward's, at their depths) and the sparsify pass's bytes (which
     # grow faster and set it deeper down), stays 3 GiB under the limit
@@ -4485,16 +4560,18 @@ def axis_train_step(mods, mesh, dev, train=AXIS_TRAIN) -> dict:
                                 "per_layer_gib": per_layer,
                                 "predicted_peak_gib": predicted(layers)}),
           flush=True)
-    res = one(layers, 2)
-    want = 1 if dev.type == "cuda" else 0
-    main = res["runs"][0]
-    if main["launches"].get("sparsify_ef") != want or main["held"] != want \
-            or sum(main["launches"].values()) != want:
-        fail(f"axis train step: launches {main['launches']}, held "
-             f"{main['held']}")
-    if dev.type == "cuda" and not res["peak_gib_max_over_ranks"] <= AXIS_PEAK_GIB:
-        fail(f"axis train step: peak {res['peak_gib_max_over_ranks']:.2f} "
-             f"GiB over {AXIS_PEAK_GIB}")
+    return layers, cal, per_layer
+
+
+def _train_step_bound(res: dict, mesh, arch: str, batch: int, shape, top: int,
+                      layers: int, cal: dict, per_layer: float) -> dict:
+    """``axis_train_step``'s run ``res`` at ``layers`` (of ``top``) with
+    the calculator's bound at ``model_parallel`` the mesh's model axis
+    and the collectives the plan counts."""
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.calculator import step_analytics
+    from repro_torch.launch.dryrun import active_params
+
     cfg = axis_cfg(arch, layers)
     from repro_torch.models.registry import build_model
 
@@ -4505,7 +4582,8 @@ def axis_train_step(mods, mesh, dev, train=AXIS_TRAIN) -> dict:
                                model=mesh.model,
                                cfg=cfg.replace(remat="full"),
                                tokens=tokens // mesh.data_size,
-                               params_per_card=res["s_card"])
+                               params_per_card=res["s_card"],
+                               seqs=batch // mesh.data_size)
     roof = RL.analyze(step_analytics(cfg, shape, mesh.world_size, n,
                                      model_parallel=mesh.model), coll,
                       model_flops_total=RL.model_flops(
@@ -4518,8 +4596,8 @@ def axis_train_step(mods, mesh, dev, train=AXIS_TRAIN) -> dict:
                bound_by=roof.bottleneck, t_compute=roof.t_compute,
                t_memory=roof.t_memory, t_collective=roof.t_collective,
                bound_over_measured=roof.bound_s / secs,
-               cut=f"layers {top} -> {layers}; global batch 256 -> {batch}; "
-                   f"N = 1 client")
+               cut=(f"layers {top} -> {layers}; " if layers < top else "")
+               + f"global batch 256 -> {batch}; N = 1 client")
     return res
 
 
@@ -4795,16 +4873,18 @@ FAMILY_TRAIN = ("qwen3-moe-30b-a3b", 2, (16, 24), 512)
 FAMILY_HYBRID = ("zamba2-7b", 12, 2, (24, 48))
 
 
-def axis_kernel_times(DA, SSD, R, card: str) -> dict:
+def axis_kernel_times(DA, SSD, R, card: str, decodes=AXIS_DECODES,
+                      scans=AXIS_SCANS) -> dict:
     """Phase 25a: ``decode_attn`` and ``ssd_scan`` at the per-rank shapes
-    of the (1, 4) serves (``AXIS_DECODES``, ``AXIS_SCANS``), each held
+    of the (1, 4) serves (``AXIS_DECODES``, ``AXIS_SCANS``; 26a:
+    Whisper's ``decodes`` alone), each held
     against its plain version (phase 3's tolerances; ``ssd_scan`` row by
     row against the f64 plain version) and timed by phase 3's method beside
     the plain version (and SDPA)."""
     gen = torch.Generator(device="cuda").manual_seed(25)
     out = {"decode_attn": [], "ssd_scan": []}
     dt = torch.bfloat16
-    for b, h, kv, s, d in AXIS_DECODES:
+    for b, h, kv, s, d in decodes:
         q = _randn((b, h, d), gen, dt)
         k, v = _randn((b, s, kv, d), gen, dt), _randn((b, s, kv, d), gen, dt)
         mask = torch.ones((1, 1, 1, s), dtype=torch.bool, device="cuda")
@@ -4827,7 +4907,7 @@ def axis_kernel_times(DA, SSD, R, card: str) -> dict:
         print(f"decode_attn at a rank's (B, H, KV, S, D) = {(b, h, kv, s, d)} "
               f"bf16: {json.dumps(res)} on {card}", flush=True)
         del q, k, v
-    for b, s, h, p, n, ch in AXIS_SCANS:
+    for b, s, h, p, n, ch in scans:
         x, a = _randn((b, s, h, p), gen), -_randn((b, s, h), gen).abs() * 0.5
         bb, cc = _randn((b, s, n), gen), _randn((b, s, n), gen)
         err = hold_against_plain("ssd_scan", (x, a, bb, cc, ch), {},
@@ -4867,7 +4947,7 @@ def family_axis_phase(K, DA, SSD, R, smi: str) -> dict:
     t0 = time.perf_counter()
     plan = KEPT.get("axis plan") or axis_plan(smi)
     for m, rec in plan.items():
-        if m > 1 and rec["not_ported"] != 3:  # whisper's three pairs
+        if rec["not_ported"]:  # none since Whisper's axis (phase 26)
             fail(f"plan at model {m}: {rec['not_ported']} pairs not ported")
     print("plan: pairs that fit one card at M = 1, 2, 4, 8: "
           + ", ".join(f"{plan[m]['fit']} (24a: {PLAN_24A[m]})"
@@ -5085,11 +5165,12 @@ def _first_tie(got: list, want: list, toks, want_toks) -> dict | None:
 
 
 def _serve_once(cfg, model, params, prompts, axis, routes=None, stats=None,
-                hold=None, check=False, probe=None) -> dict:
+                hold=None, check=False, probe=None, frames=None) -> dict:
     """One ``launch/serve.py::serve`` run: tokens, the logits token j came
     from, stats, collectives a decode step; ``hold`` kernel names held as
     they return, ``check`` the MoE routing checked over the ranks,
-    ``probe`` a list the modules' outputs go to (``probed``)."""
+    ``probe`` a list the modules' outputs go to (``probed``), ``frames``
+    the audio family's stub encoder frames."""
     from repro_torch.launch import serve as S
 
     rec, log = _recording(model, axis)
@@ -5103,7 +5184,7 @@ def _serve_once(cfg, model, params, prompts, axis, routes=None, stats=None,
                 (probed(probe) if probe is not None else nullcontext()), \
                 torch.no_grad():
             toks, st = S.serve(cfg, rec, params, prompts, GEN,
-                               model_axis=axis)
+                               frames=frames, model_axis=axis)
         checked = ((axis.checks or {}).get("routing", 0) if axis is not None
                    else 0)
     finally:
@@ -5132,8 +5213,18 @@ def conditioned(model, params: dict) -> dict:
     return params
 
 
+def stub_frames(cfg, batch: int, dev):
+    """The audio family's stub encoder frames, as the serve CLI draws
+    them (after the prompts, N(0, 0.02^2))."""
+    rng = np.random.default_rng(0)
+    rng.integers(0, cfg.vocab_size, (batch, 1))
+    return torch.from_numpy(rng.normal(0, 0.02, (
+        batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32)).to(dev)
+
+
 def _family_short(mesh, dev, store: Path, cfg, model, axis, kernel: str,
-                  cond: bool) -> dict:
+                  cond: bool, moe: bool = False,
+                  prompt: int = FAMILY_SHORT_PROMPT) -> dict:
     """25b-c(i) at ``cfg`` (f32, short), the weights as drawn or
     ``conditioned``: rank 0 alone on its card twice (its own spread from
     run to run), then the mesh twice, the first run of each with its
@@ -5146,17 +5237,19 @@ def _family_short(mesh, dev, store: Path, cfg, model, axis, kernel: str,
     ``FAMILY_F32_TOL`` x max(1, the largest) of one card's.  As drawn the
     inputs are too ill-conditioned for phase 3's f32 tolerance
     (``conditioned``), so there the kernel's distance from its plain
-    version is printed, not held."""
+    version is printed, not held.  ``moe``: the routing checked and
+    compared; ``prompt``: the prompts' length; an audio ``cfg`` serves
+    ``stub_frames``."""
     import torch.distributed as dist
 
     from repro_torch.sharding.rules import RULES_SERVE
 
-    moe = kernel == "decode_attn"
     short = cfg.num_layers
     tag = "cond" if cond else "drawn"
     hold = (kernel,) if cond else None
     pr = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (2, FAMILY_SHORT_PROMPT)).astype(np.int32)).to(dev)
+        0, cfg.vocab_size, (2, prompt)).astype(np.int32)).to(dev)
+    fr = stub_frames(cfg, 2, dev) if cfg.family == "audio" else None
 
     def init(blocks):
         p = model.init(torch.Generator(device=dev).manual_seed(0), dev,
@@ -5172,8 +5265,8 @@ def _family_short(mesh, dev, store: Path, cfg, model, axis, kernel: str,
         params = init(None)
         routes, probe, held = [], [], dict(peak=0, hold_s=0.0, held=0)
         one = _serve_once(cfg, model, params, pr, None, routes=routes,
-                          stats=held, hold=hold, probe=probe)
-        again = _serve_once(cfg, model, params, pr, None)
+                          stats=held, hold=hold, probe=probe, frames=fr)
+        again = _serve_once(cfg, model, params, pr, None, frames=fr)
         torch.save(dict(tokens=one["tokens"], logits=one["logits"],
                         routes=routes, spread=spread(again, one),
                         probe=probe, held=held["held"]), path)
@@ -5182,16 +5275,16 @@ def _family_short(mesh, dev, store: Path, cfg, model, axis, kernel: str,
     params = init(model.blocks(RULES_SERVE, mesh.axis_sizes, mesh.coords))
     routes, probe, held = [], [], dict(peak=0, hold_s=0.0, held=0)
     got = _serve_once(cfg, model, params, pr, axis, routes=routes, check=moe,
-                      stats=held, hold=hold, probe=probe)
-    again = _serve_once(cfg, model, params, pr, axis)
+                      stats=held, hold=hold, probe=probe, frames=fr)
+    again = _serve_once(cfg, model, params, pr, axis, frames=fr)
     one = torch.load(path)
     del params
     _free(dev)
     offs = [float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
             for g, w in zip(got["logits"], one["logits"])]
-    want_held = (short * GEN if moe else short) \
+    want_held = (short * GEN if kernel == "decode_attn" else short) \
         if dev.type == "cuda" and cond else 0
-    out = dict(layers=short, prompt=FAMILY_SHORT_PROMPT, conditioned=cond,
+    out = dict(layers=short, prompt=prompt, conditioned=cond,
                logits_off_max=max(offs), logits_off_steps=offs,
                one_card_run_to_run=one["spread"],
                mesh_run_to_run=spread(again, got),
@@ -5238,7 +5331,10 @@ def family_serve(mods, mesh, dev, store: Path, arch: str, batch: int,
     (``ModelAxis.checks``), against (ii): the share of routing choices
     that differ and where the greedy tokens first differ, with one
     card's margin there; run 2 timed: prefill s, decode s, tok/s, peak
-    GiB, collectives a decode step."""
+    GiB, collectives a decode step.  26c serves Whisper-large-v3 the same
+    way: its stub frames (``stub_frames``), (i) at 2 + 2 layers and
+    ``prompt``, its cross-attention's ``decode_attn`` calls held, and
+    (ii) timed in a second run, one card's numbers beside the mesh's."""
     import torch.distributed as dist
 
     from repro_torch.models.registry import build_model
@@ -5246,7 +5342,8 @@ def family_serve(mods, mesh, dev, store: Path, arch: str, batch: int,
 
     axis = mesh.model_axis()
     moe = "moe" in arch
-    kernel = "decode_attn" if moe else "ssd_scan"
+    audio = axis_cfg(arch).family == "audio"
+    kernel = "decode_attn" if moe or audio else "ssd_scan"
 
     def prompts(cfg, b, n):
         return torch.from_numpy(np.random.default_rng(0).integers(
@@ -5266,11 +5363,14 @@ def family_serve(mods, mesh, dev, store: Path, arch: str, batch: int,
     short = every + 1 if every else FAMILY_SHORT
     cfg = axis_cfg(arch, short).replace(dtype="float32",
                                         param_dtype="float32")
+    if audio:  # 2 + 2 layers
+        cfg = cfg.replace(encoder_layers=short)
     model = build_model(cfg)
     for cond in (False, True):
         key = "short" if cond else "short_as_drawn"
         out[key] = _family_short(mesh, dev, store, cfg, model, axis,
-                                 kernel, cond)
+                                 kernel, cond, moe,
+                                 prompt if audio else FAMILY_SHORT_PROMPT)
         print(f"family serve {arch} f32, {short} layers, "
               f"{'conditioned' if cond else 'as drawn'}, the mesh against "
               f"one card: {json.dumps(out[key])}", flush=True)
@@ -5279,14 +5379,24 @@ def family_serve(mods, mesh, dev, store: Path, arch: str, batch: int,
     cfg = axis_cfg(arch)
     model = build_model(cfg)
     pr = prompts(cfg, batch, prompt)
+    fr = stub_frames(cfg, batch, dev) if audio else None
     if alone:
         if mesh.rank == 0:
+            _reset_peak(dev)
             params = init(model, True)
             routes = []
-            one = _serve_once(cfg, model, params, pr, None, routes=routes)
+            one = _serve_once(cfg, model, params, pr, None, routes=routes,
+                              frames=fr)
+            # the audio serve's one-card numbers, timed in a second run
+            timed = (_serve_once(cfg, model, params, pr, None, frames=fr)
+                     if audio else one)
             torch.save(dict(tokens=one["tokens"], logits=one["logits"],
-                            routes=routes), store / f"family_{arch}_one.pt")
-            del params, one, routes
+                            routes=routes, stats={
+                                k: timed["stats"][k] for k in
+                                ("prefill_s", "decode_s", "tok_per_s")},
+                            peak_gib=_peak_gib(dev)),
+                       store / f"family_{arch}_one.pt")
+            del params, one, routes, timed
             _free(dev)
         dist.barrier()
     # (iii) bf16, full depth, the mesh
@@ -5306,7 +5416,7 @@ def family_serve(mods, mesh, dev, store: Path, arch: str, batch: int,
         dist.barrier()
         r = _serve_once(cfg, model, params, pr, axis, routes=routes,
                         stats=stats, hold=(kernel,) if i == 0 else None,
-                        check=moe and i == 0)
+                        check=moe and i == 0, frames=fr)
         st, toks = r["stats"], r["tokens"]
         run = dict(prefill_s=st["prefill_s"], decode_s=st["decode_s"],
                    tok_per_s=st["tok_per_s"], hold_s=stats["hold_s"],
@@ -5326,8 +5436,9 @@ def family_serve(mods, mesh, dev, store: Path, arch: str, batch: int,
             layers = _choices_differ(routes[:cfg.num_layers],
                                      one["routes"][:cfg.num_layers])
             run["against_one_card"] = dict(
-                routing_choices_differ=sum(layers) / len(layers),
+                routing_choices_differ=sum(layers) / max(len(layers), 1),
                 routing_choices_differ_by_layer=layers,
+                one_card=one["stats"], one_card_peak_gib=one["peak_gib"],
                 logits_off_max=max(float((g - w).abs().max())
                                    / float(w.abs().max()) for g, w in
                                    zip(r["logits"], one["logits"])),
@@ -5336,15 +5447,17 @@ def family_serve(mods, mesh, dev, store: Path, arch: str, batch: int,
             del one
         runs.append(run)
         del r, routes
-    want = (cfg.num_layers * GEN if moe else cfg.num_layers) \
-        if dev.type == "cuda" else 0
+    want = (cfg.num_layers * GEN if kernel == "decode_attn"
+            else cfg.num_layers) if dev.type == "cuda" else 0
     r0 = runs[0]
     if not (r0["launches"].get(kernel) == want and r0["held"] == want
             and all(r["tokens_in_range"] and r["finite"] for r in runs)
             and (not moe or r0["routing_checks"]
                  == cfg.num_layers * (1 + GEN))):
         fail(f"family serve {arch}: {r0}")
-    out["full"] = dict(layers=cfg.num_layers, batch=batch, prompt=prompt,
+    out["full"] = dict(layers=cfg.num_layers,
+                       encoder_layers=cfg.encoder_layers, batch=batch,
+                       prompt=prompt,
                        weights_gib_card=weights_gib, init_s=init_s,
                        peak_gib=_peak_gib(dev), runs=runs)
     print(f"family serve {arch} on (1, 4), {cfg.num_layers} layers: "
@@ -5520,6 +5633,341 @@ def check_family_rank(o: dict) -> None:
               f"{json.dumps(h['f32']['hold'])}; {h['step']['layers']} "
               f"layers {h['step']['seconds']:.6g} s a round, peak "
               f"{h['step']['peak_gib_max_over_ranks']:.2f} GiB", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 26: the model axis for Whisper, ResNet-9 and LaneGCN
+# ---------------------------------------------------------------------------
+
+PAPER_ARCHS = (RESNET9, LANEGCN)  # 26a-b: the paper's models, full width
+PAPER_ROUNDS = 4  # 26a-b: mads rounds, N_DEV clients of batch 32
+PAPER_WIDTHS: dict = {}  # arch: d_model (a rehearsal over gloo only)
+PAPER_MODELS = (4, 2)  # 26b: the model axes of the (1, 4) and (2, 2) meshes
+PAPER_W_OFF = 1e-5  # 26b: f32 w against one card's, of its largest entry
+PAPER_F64 = (RESNET9,)  # 26b: whose k parts from one card's: the f64 witness
+# 26a: Whisper-large-v3's cross-attention a rank of the (1, 4) serve,
+# (B, H, KV, S, D): 20 heads over 4, the 1,500-frame encoder cache
+WHISPER_DECODES = ((8, 5, 5, 1500, 64),)
+WHISPER_SERVE = ("whisper-large-v3", 8, 64)  # 26c: phase 17's batch, prompt
+# 26d: arch, batch (phase 23's), no calibration depths: full depth
+WHISPER_TRAIN = ("whisper-large-v3", 2, None)
+
+
+def paper_cfg(arch: str):
+    """A paper model's config at full width (``PAPER_WIDTHS`` in a
+    rehearsal)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return (cfg.replace(d_model=PAPER_WIDTHS[arch]) if arch in PAPER_WIDTHS
+            else cfg)
+
+
+def paper_rounds(K, mesh, dev, arch: str, tag: str, capture=None) -> tuple:
+    """``axis_rounds`` of a paper model: full width, f32 weights and
+    states, N = 20 clients of batch 32, ``PAPER_ROUNDS`` ``mads`` rounds
+    (every client in contact in round 2), each ``sparsify_ef`` call held
+    as it returns; over ``mesh`` or on this card alone; round 1's target
+    k (and its inputs) into ``capture``."""
+    return axis_rounds(K, mesh, dev, tag, paper_cfg(arch), n=N_DEV,
+                       batch=32 * N_DEV, rounds=PAPER_ROUNDS, capture=capture)
+
+
+def paper_sparsify_times(K, R, card: str) -> list:
+    """26a: ``sparsify_ef`` at the per-rank shapes of 26b's rounds (the
+    paper models' (N / D, s_r) f32 on (1, 4) and (2, 2)) and of 26d's
+    Whisper round ((1, s_r) bf16 on (1, 4)), the rank of model index 0
+    (the one that owns the whole leaves), each held against its plain
+    version (bit-equal uploads and counts) and timed beside it; the bound
+    is the bytes read and written over the HBM rate."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.distributed import placement
+    from repro_torch.launch.dryrun import plan_mesh
+    from repro_torch.models.registry import build_model
+
+    shapes = []
+    for arch in PAPER_ARCHS:
+        model = build_model(paper_cfg(arch))
+        for world, m in ((4, 4), (4, 2)):
+            shapes.append((f"{arch} ({world // m}, {m})", N_DEV * m // world,
+                           placement(model, plan_mesh(world, m)).layout.size,
+                           torch.float32))
+    whisper = build_model(get_config(WHISPER_TRAIN[0]))
+    shapes.append(("whisper-large-v3 train_4k (1, 4)", 1,
+                   placement(whisper, plan_mesh(4, 4)).layout.size,
+                   torch.bfloat16))
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    out = []
+    for label, n, s_r, dt in shapes:
+        x = torch.randn((n, s_r), generator=gen, device="cuda", dtype=dt)
+        t = torch.full((n,), 1.5, device="cuda")
+        err = hold_against_plain("sparsify_ef", (x, t), {},
+                                 K.sparsify_ef_cuda(x, t), "paper shapes")
+        elt = x.element_size()
+        res = dict(label=label, shape=[n, s_r], dtype=str(dt)[6:],
+                   ms=median_ms(lambda: K.sparsify_ef_cuda(x, t)),
+                   plain_ms=median_ms(lambda: R.sparsify_ef_plain(x, t),
+                                      runs=9, batch=3),
+                   library_ms=None, max_abs_err=err,
+                   **bound(3 * elt * x.numel() + 5 * 4 * n, 4 * x.numel(),
+                           torch.float32))
+        res["bound_share"] = res["bound_ms"] / res["ms"]
+        out.append(res)
+        print(f"sparsify_ef at {label}'s per-rank (N/D, s_r) = ({n}, "
+              f"{s_r}) {res['dtype']}: {json.dumps(res)} on {card}",
+              flush=True)
+        del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def paper_axis_phase(K, DA, R, smi: str) -> dict:
+    """Phase 26a: the plan at M = 1, 2, 4, 8 (phase 24a's, when it ran)
+    with no pair sized from the rules alone and Whisper-large-v3's three
+    pairs built and sized; full-width ResNet-9's and LaneGCN's ``mads``
+    rounds (``paper_rounds``) on this card alone and again through a (1,
+    1) NCCL mesh made with a model axis of 1, w, k, bits and uploads
+    bit-equal (cuDNN deterministic: its default wgrad engines add in
+    another order from run to run); ``decode_attn`` at Whisper's per-rank
+    shape of 26c (``axis_kernel_times``) and ``sparsify_ef`` at the
+    per-rank shapes of 26b and 26d (``paper_sparsify_times``)."""
+    from repro_torch.launch.mesh import make_client_mesh
+
+    t0 = time.perf_counter()
+    plan = KEPT.get("axis plan") or axis_plan(smi)
+    for m, rec in plan.items():
+        sized = [k for k in rec["gb"] if k.startswith("whisper-large-v3 x ")]
+        if rec["not_ported"] or len(sized) != 3:
+            fail(f"plan at model {m}: {rec['not_ported']} pairs not "
+                 f"ported, Whisper's sized: {sized}")
+    print("plan: Whisper-large-v3's pairs sized at M = 1, 2, 4, 8 (GB a "
+          "card): " + json.dumps({m: {k.split(" x ")[1]: v for k, v in
+                                      rec["gb"].items()
+                                      if k.startswith("whisper")}
+                                  for m, rec in plan.items()}), flush=True)
+    rounds = {}
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    try:
+        for arch in PAPER_ARCHS:
+            one, w1, _ = paper_rounds(K, None, dev, arch,
+                                      f"paper {arch} world 1")
+            w1 = w1.cpu()
+            mesh = make_client_mesh(N_DEV, model=1,
+                                    family=paper_cfg(arch).family)
+            try:
+                run, w, _ = paper_rounds(K, mesh, mesh.device, arch,
+                                         f"paper {arch} (1, 1)")
+            finally:
+                mesh.close()
+            same = dict(w=bool(torch.equal(w.cpu(), w1)),
+                        **{k: run[k] == one[k]
+                           for k in ("k", "bits", "uploads")})
+            del w, w1
+            if not all(same.values()):
+                fail(f"paper {arch}: the (1, 1) mesh's rounds differ from "
+                     f"world 1's: {same}")
+            rounds[arch] = dict(run=run, world_1=one, bit_equal=same)
+            print(f"paper {arch} (full width, N = {N_DEV}, batch 32, f32) "
+                  f"mads through a (1, 1) mesh bit-equal to world 1 "
+                  f"({json.dumps(same)}); round s {run['round_s']} "
+                  f"(world 1 {one['round_s']}), peak {run['peak_gib']:.2f} "
+                  f"GiB, launches {run['launches']}", flush=True)
+            torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = det
+    times = axis_kernel_times(DA, None, R, smi, decodes=WHISPER_DECODES,
+                              scans=())
+    sparsify = paper_sparsify_times(K, R, smi)
+    print(f"phase 26a {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(plan={m: {k: r[k] for k in ("fit", "sized", "not_ported")}
+                      for m, r in plan.items()}, rounds=rounds,
+                times=dict(times, sparsify_ef=sparsify))
+
+
+def paper_axis(K, mesh, dev, store: Path, arch: str) -> dict:
+    """Phase 26b for one paper model on ``mesh``: (i) ``axis_same_x`` on
+    a random f32 x (N, s), the threshold bit-equal and the count equal;
+    (ii) rank 0 runs ``paper_rounds`` on its card alone (world 1, once for
+    both meshes) and (iii) every rank the same rounds over the mesh on
+    its clients' rows and its blocks, held by ``_rounds_hold`` (24b's
+    standard) in every round and, in f32, w within ``PAPER_W_OFF`` of its
+    largest entry; (iv) the witness of k in round 1, where both start
+    from one state: the same target k on both sides, and for the models
+    of ``PAPER_F64`` the mesh's counts no further from the f64 counts of
+    the same gradient (``round1_f64_counts``) than 3x one card's, plus 2
+    a client, summed over the clients."""
+    import torch.distributed as dist
+
+    same_x = axis_same_x(K, mesh, dev, paper_cfg(arch), n=N_DEV,
+                         dtype=torch.float32)
+    key = f"paper_{arch}"
+    if mesh.rank == 0 and not (store / f"{key}_one.json").exists():
+        cap = {"inputs": True}
+        one, w, _ = paper_rounds(K, None, dev, arch, f"paper {arch} world 1",
+                                 cap)
+        one["k_target_round1"] = cap["k"].tolist()
+        if arch in PAPER_F64:
+            one["k_round1_f64"] = round1_f64_counts(arch, cap)
+        del cap
+        torch.save(w.cpu(), store / f"{key}_w1.pt")
+        (store / f"{key}_one.json").write_text(json.dumps(one))
+        del w
+        _free(dev)
+    dist.barrier()
+    one = json.loads((store / f"{key}_one.json").read_text())
+    shape = f"({mesh.data_size}, {mesh.model})"
+    cap = {}
+    got, w, model = paper_rounds(K, mesh, dev, arch, f"paper {arch} {shape}",
+                                 cap)
+    hold = _rounds_hold(got, one, w, model, mesh, store / f"{key}_w1.pt",
+                        PAPER_ROUNDS)
+    del w
+    _free(dev)
+    witness = dict(k_target_equal=cap["k"].tolist()
+                   == one["k_target_round1"][mesh.rows(N_DEV)])
+    if arch in PAPER_F64:
+        k64, k1, k2 = (one["k_round1_f64"], one["k"][0], got["k"][0])
+        witness.update(
+            mesh_from_f64=sum(abs(a - b) for a, b in zip(k2, k64)),
+            one_card_from_f64=sum(abs(a - b) for a, b in zip(k1, k64)),
+            mesh_from_one_card=sum(abs(a - b) for a, b in zip(k2, k1)),
+            k_f64=k64)
+        witness["within_f32_spread"] = (
+            witness["mesh_from_f64"]
+            <= 3 * witness["one_card_from_f64"] + 2 * len(k64))
+    checks = dict(w_f32=hold["w_off_max"] <= PAPER_W_OFF,
+                  k_target_equal=witness["k_target_equal"],
+                  k_within_f32_spread=witness.get("within_f32_spread", True))
+    return dict(mesh_shape=shape, same_x=same_x, world_1=one, mesh=got,
+                hold=hold, witness=witness, checks=checks,
+                ok=hold["ok"] and all(checks.values()))
+
+
+def round1_f64_counts(arch: str, cap: dict) -> list:
+    """Round 1's count of each client in f64: the gradient of the state
+    and batch of one card's f32 round 1 (``cap["inputs"]``) in f64, with
+    cuDNN off (PyTorch's own f64 convolutions), x = eta g, the sampled
+    threshold at the round's target k (``cap["k"]``), and the
+    coordinates with |x| at or past it."""
+    from repro_torch.configs import FLConfig
+    from repro_torch.core import distributed as D
+    from repro_torch.core.afl import device_grads
+    from repro_torch.models.registry import build_model
+
+    fl = FLConfig()
+    model = build_model(paper_cfg(arch).replace(dtype="float64",
+                                                param_dtype="float64"))
+    w_n, cl = cap["inputs"]
+    with torch.backends.cudnn.flags(enabled=False):
+        x = fl.learning_rate * device_grads(
+            model, w_n.double(), {k: v.double() if v.is_floating_point()
+                                  else v for k, v in cl.items()})
+    t = D.block_threshold(x, model, D.placement(model, None, fl.sample_size),
+                          cap["k"], fl.sample_size)
+    out = (x.abs() >= t[:, None]).sum(dim=1).tolist()
+    del x
+    _free(w_n.device)
+    return out
+
+
+def paper_axis_mesh(mods, K, store: Path, device="cuda",
+                    phases: str = "bcd") -> dict:
+    """Phases 26b-d on four ranks (``--mesh 4 --only 26``; ``phases`` of
+    "bcd"): ResNet-9's and LaneGCN's rounds on (1, 4) and (2, 2) (b),
+    Whisper-large-v3 served at 32 + 32 layers on (1, 4) (c:
+    ``family_serve``) and its train_4k round on (1, 4) at full depth (d:
+    ``axis_train_step``); each rank's numbers."""
+    from repro_torch.launch.mesh import make_client_mesh
+
+    out = {}
+    if "b" in phases:
+        for m in PAPER_MODELS:
+            mesh = make_client_mesh(N_DEV, model=m, family="vision",
+                                    device=device)
+            for arch in PAPER_ARCHS:
+                t0 = time.perf_counter()
+                res = paper_axis(K, mesh, mesh.device, store, arch)
+                res["phase_s"] = time.perf_counter() - t0
+                out[f"{arch} {res['mesh_shape']}"] = res
+                print(f"paper {arch} on {res['mesh_shape']}: round s "
+                      f"{res['mesh']['round_s']}, peak "
+                      f"{res['mesh']['peak_gib']:.2f} GiB, hold "
+                      f"{json.dumps(res['hold'])}", flush=True)
+    if "c" in phases or "d" in phases:
+        mesh14 = make_client_mesh(1, model=4, family="audio", device=device)
+        dev = mesh14.device
+        if "c" in phases:
+            t0 = time.perf_counter()
+            arch, batch, prompt = WHISPER_SERVE
+            out["whisper_serve"] = family_serve(mods, mesh14, dev, store, arch,
+                                                batch, prompt, True)
+            out["whisper_serve"]["phase_s"] = time.perf_counter() - t0
+        if "d" in phases:
+            t0 = time.perf_counter()
+            out["whisper_train"] = axis_train_step(mods, mesh14, dev,
+                                                   WHISPER_TRAIN)
+            out["whisper_train"]["phase_s"] = time.perf_counter() - t0
+            print("AXIS " + json.dumps({"rank": mesh14.rank,
+                                        "whisper_train": out["whisper_train"]}),
+                  flush=True)
+    return out
+
+
+def check_paper_rank(o: dict) -> None:
+    """Phases 26b-d's checks of one rank's results, and their numbers in
+    one line each."""
+    a = o["paper"]
+    for key, res in a.items():
+        if not key.startswith(PAPER_ARCHS):
+            continue
+        if not res["ok"]:
+            fail(f"paper {key} against one card on rank {o['rank']}: "
+                 f"{res['hold']}, {res['checks']}, round 1 "
+                 f"{res['witness']}")
+        h, wt = res["hold"], res["witness"]
+        print(f"paper rank {o['rank']}: {key}: round s "
+              f"{res['mesh']['round_s']} (one card "
+              f"{res['world_1']['round_s']}), peak "
+              f"{res['mesh']['peak_gib']:.2f} GiB; k off at most "
+              f"{h['k_abs_max']} ({h['k_rel_max']:.3g} where both upload), "
+              f"w bit-equal {h['w_bit_equal_share']:.4f}, past 1e-6 of its "
+              f"largest {h['w_beyond_1e6_share']:.4f}, off at most "
+              f"{h['w_off_max']:.3g}; round 1: target k equal "
+              f"{wt['k_target_equal']}, k summed over the clients from f64 "
+              f"{wt.get('mesh_from_f64')} (one card "
+              f"{wt.get('one_card_from_f64')}; the mesh from one card "
+              f"{wt.get('mesh_from_one_card')})", flush=True)
+    if "whisper_serve" in a:
+        for key in ("short_as_drawn", "short"):
+            if not a["whisper_serve"][key]["ok"]:
+                fail(f"Whisper serve f32 ({key}): the mesh against one card "
+                     f"on rank {o['rank']}: {a['whisper_serve'][key]}")
+        f = a["whisper_serve"]["full"]
+        r, one = f["runs"][1], f["runs"][0]["against_one_card"]
+        print(f"paper rank {o['rank']}: Whisper-large-v3 on (1, 4), "
+              f"{f['encoder_layers']} + {f['layers']} layers, batch "
+              f"{f['batch']}: weights "
+              f"{f['weights_gib_card']:.3f} GiB a card, peak "
+              f"{f['peak_gib']:.2f} GiB, prefill {r['prefill_s']:.4g} s, "
+              f"decode {r['decode_s']:.4g} s, {r['tok_per_s']:.4g} tok/s; "
+              f"one card {json.dumps(one['one_card'])}, peak "
+              f"{one['one_card_peak_gib']:.2f} GiB; f32 2 + 2 layers "
+              f"conditioned: tokens equal "
+              f"{a['whisper_serve']['short']['tokens_equal']}, logits off "
+              f"{a['whisper_serve']['short']['logits_off_max']:.3g}",
+              flush=True)
+    if "whisper_train" in a:
+        t = a["whisper_train"]
+        print(f"paper rank {o['rank']}: Whisper-large-v3 x train_4k on "
+              f"(1, 4) at {t['layers']} layers ({t['cut']}): "
+              f"{t['seconds']:.6g} s a round, peak "
+              f"{t['peak_gib_max_over_ranks']:.2f} GiB, bound "
+              f"{t['bound_s']:.6g} s ({t['bound_by']}), collectives over "
+              f"model {json.dumps(t['runs'][1]['axis_counts'])}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -5786,7 +6234,8 @@ def mesh_rank(rank: int, world: int, store_path: str,
               only: str = "") -> None:
     """``--mesh-rank r P STORE [ONLY]``: one rank of ``--mesh P``, on card
     r; ``ONLY`` "24": phases 24b-d alone ("24cd": 24c-d); "25": phases
-    25b-e ("25" and some of "bcde": those)."""
+    25b-e ("25" and some of "bcde": those); "26": phases 26b-d (and some
+    of "bcd")."""
     import torch.distributed as dist
 
     from repro_torch.kernels import decode_attn as DA
@@ -5809,6 +6258,9 @@ def mesh_rank(rank: int, world: int, store_path: str,
         if only.startswith("25"):
             out["family"] = family_axis_mesh(mods, K, Path(store_path).parent,
                                              phases=only[2:] or "bcde")
+        elif only.startswith("26"):
+            out["paper"] = paper_axis_mesh(mods, K, Path(store_path).parent,
+                                           phases=only[2:] or "bcd")
         elif world == 4:
             out["axis"] = axis_mesh(mods, K, Path(store_path).parent,
                                     phases="cd" if only == "24cd" else "bcd")
@@ -5912,6 +6364,8 @@ def mesh_main(world: int, only: str = "") -> None:
             check_axis_rank(o)
         if "family" in o:
             check_family_rank(o)
+        if "paper" in o:
+            check_paper_rank(o)
     for o in outs:
         if only:
             continue
@@ -5982,9 +6436,11 @@ def main() -> None:
     if sys.argv[1:2] == ["--mesh"]:
         only = sys.argv[4] if sys.argv[3:4] == ["--only"] else ""
         if only not in ("", "24", "24cd") and not (
-                only.startswith("25") and set(only[2:]) <= set("bcdef")):
-            fail(f"--mesh takes --only 24, 24cd or 25 (25 and some of "
-                 f"bcde, or 25f: 25e's f32 rounds alone), not {only}")
+                only.startswith("25") and set(only[2:]) <= set("bcdef")) \
+                and not (only.startswith("26") and set(only[2:]) <= set("bcd")):
+            fail(f"--mesh takes --only 24, 24cd, 25 (25 and some of bcde, "
+                 f"or 25f: 25e's f32 rounds alone) or 26 (26 and some of "
+                 f"bcd), not {only}")
         return mesh_main(int(sys.argv[2]), only)
     if sys.argv[1:2] == ["--mesh-rank"]:
         return mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
@@ -5992,9 +6448,9 @@ def main() -> None:
     only = (set(sys.argv[2].split(",")) if sys.argv[1:2] == ["--only"]
             else None)
     if only is not None and not only <= {"3c", "19", "20", "21", "22", "23",
-                                         "24", "25"}:
-        fail(f"--only takes phases of 3c, 19, 20, 21, 22, 23, 24, 25, not "
-             f"{sys.argv[2]}")
+                                         "24", "25", "26"}:
+        fail(f"--only takes phases of 3c, 19, 20, 21, 22, 23, 24, 25, 26, "
+             f"not {sys.argv[2]}")
     from repro_torch.kernels import decode_attn as DA
     from repro_torch.kernels import ref as R
     from repro_torch.kernels import sparsify_ef as K
@@ -6025,9 +6481,10 @@ def main() -> None:
                   "22": lambda: family_phase(K, SSD, smi),
                   "23": lambda: steps_phase(mods, K, DA, SSD, R, smi),
                   "24": lambda: axis_phase(K, smi),
-                  "25": lambda: family_axis_phase(K, DA, SSD, R, smi)}
+                  "25": lambda: family_axis_phase(K, DA, SSD, R, smi),
+                  "26": lambda: paper_axis_phase(K, DA, R, smi)}
         done = {p: phases[p]() for p in ("3c", "19", "20", "21", "22", "23",
-                                         "24", "25")
+                                         "24", "25", "26")
                 if p in only}
         print(json.dumps(dict(phases=sorted(done), held=HELD), default=str))
         return
@@ -6156,6 +6613,13 @@ def main() -> None:
     family_axis = family_axis_phase(K, DA, SSD, R, smi)
     torch.cuda.empty_cache()
 
+    # 26. the model axis for Whisper, ResNet-9 and LaneGCN: the plan with
+    # Whisper's pairs built, the paper models' rounds through a (1, 1)
+    # mesh, the kernels at the four-card phases' per-rank shapes (those
+    # run under --mesh 4 --only 26)
+    paper_axis = paper_axis_phase(K, DA, R, smi)
+    torch.cuda.empty_cache()
+
     # 18. device time by kernel, last (the profiler slows later launches)
     profile_kernels(DA, SSD)
     profiled = {}
@@ -6207,6 +6671,12 @@ def main() -> None:
              launches_family_axis={
                  a: r["run"]["launches"]["sparsify_ef"]
                  for a, r in family_axis["rounds"].items()},
+             # phase 26a: the paper models' mads rounds through a (1, 1)
+             # mesh, and the kernel at the four-card phases' shapes
+             launches_paper_axis={
+                 a: r["run"]["launches"]["sparsify_ef"]
+                 for a, r in paper_axis["rounds"].items()},
+             paper_axis_rank_shapes=paper_axis["times"]["sparsify_ef"],
              **{f"{k}_wide_row": v for k, v in wide["sparsify_ef"].items()},
              **timing["sparsify_ef"]),
         dict(name="sparsify_quantize_ef", route="cuda",
@@ -6255,7 +6725,8 @@ def main() -> None:
                  "bound_share")},
              # phase 25a: held and timed at the (1, 4) MoE serves' per-rank
              # shapes (Qwen3-MoE, Qwen2-MoE)
-             axis_rank_shapes=family_axis["times"]["decode_attn"],
+             axis_rank_shapes=family_axis["times"]["decode_attn"]
+             + paper_axis["times"]["decode_attn"],
              **decode["main"],
              **{f"{key}_32k": decode["deep"][key] for key in
                 ("ms", "ms_per_call", "plain_ms", "library_ms", "bound_ms",

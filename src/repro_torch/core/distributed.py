@@ -38,7 +38,7 @@ state after the call.
 ``abstract_state`` gives meta tensors (shapes and dtypes, no memory).
 
 The ``model`` axis (a (data, model) mesh, ``make_client_mesh(model=M)``;
-dense, VLM, MoE, ssm and hybrid families).  ``placement`` applies the rules
+every family).  ``placement`` applies the rules
 (``RULES_TRAIN`` with the client axis on ``data``, the reference's
 ``state_shardings``) leaf by leaf: each rank's flat buffers, ``w`` (s_r,)
 and ``w_n`` / ``g_n`` / ``e_n`` (N/D, s_r), concatenate its blocks in
@@ -46,7 +46,9 @@ flatten order, and the round runs on them:
 
 * the gradient on the blocks, the loss tensor-parallel over the rank's
   ``model`` group (``models/layers.py``, ``moe.py``, ``mamba2.py``,
-  ``hybrid.py``); a whole leaf that a rank's own part of the work reads
+  ``hybrid.py``, ``encdec.py``; ResNet-9 and LaneGCN channel-parallel,
+  ``resnet.py``, ``lanegcn.py``); a whole leaf that a rank's own part of
+  the work reads
   (Mamba2's ``wB`` / ``wC`` / ``conv_B`` / ``conv_C``, the MoE shared
   ``gate``) enters through ``copy_to``, so its gradient is the sum over
   the ranks, the same on each, as the replicated leaves' (norms, a
@@ -66,7 +68,8 @@ Under ``RULES_TRAIN_DP`` (``launch/steps.py``'s ``dp_client``) the
 parameters stay whole, each client's batch is split over ``model``, and
 the gradient is all-reduced over ``model`` once (an MoE client's batch
 runs whole on every rank: its routing's capacity and load-balance loss
-are functions of the whole batch).  A codec on a model axis
+are functions of the whole batch; so does a ResNet-9 client's, whose
+batch-norm statistics are, ``batch_whole``).  A codec on a model axis
 raises (``launch/mesh.py::CODEC_AXIS_ITEM``).  With a model axis of 1 the
 blocks are the whole leaves and the round is the one above.
 ``ingest_shardings`` is the serve path's split of a packed upload batch
@@ -174,6 +177,14 @@ def placement(model, mesh: ClientMesh | None, sample: int = 65536,
         sample_sizes=tuple(SP.block_sample_size(model.layout, *of(m), sample)
                            for m in range(sizes["model"])),
         dp=dp)
+
+
+def batch_whole(cfg) -> bool:
+    """Whether a client's loss is no mean of its samples' losses, so that
+    ``dp_client`` runs its batch whole on every rank of its model group:
+    an MoE's (capacity and the load-balance loss over the batch) or
+    ResNet-9's (batch-norm statistics over the batch)."""
+    return cfg.is_moe or cfg.family == "vision"
 
 
 def state_shardings(model, mesh, dcfg: DistConfig, rules=None) -> DistAflState:
@@ -419,10 +430,10 @@ def make_afl_train_step(model, cfg, dcfg: DistConfig,
             return device_grads(model, w_n, cl, layout=layout, model_axis=ma)
         # dp_client: each client's batch split over model, one all-reduce;
         # a batch that does not divide runs whole on every rank (the rules
-        # leave it unsharded), and so does an MoE client's (its capacity
-        # and load-balance loss are functions of its whole batch)
+        # leave it unsharded), and so does one whose loss reads the whole
+        # batch (``batch_whole``)
         rows_per = next(iter(cl.values())).shape[1]
-        if rows_per % ma.size or model.cfg.is_moe:
+        if rows_per % ma.size or batch_whole(model.cfg):
             return device_grads(model, w_n, cl, layout=layout)
         part = {k: v.chunk(ma.size, dim=1)[ma.rank] for k, v in cl.items()}
         g = device_grads(model, w_n, part, layout=layout)

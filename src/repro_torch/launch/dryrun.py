@@ -43,7 +43,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import os
 import time
 import traceback
@@ -51,13 +50,12 @@ import traceback
 import torch
 
 from repro_torch.configs import ASSIGNED_ARCHS, INPUT_SHAPES, get_config
+from repro_torch.core.distributed import batch_whole
 from repro_torch.launch import roofline as RL
 from repro_torch.launch.calculator import step_analytics
 from repro_torch.launch.mesh import ClientMesh, make_client_mesh
 from repro_torch.launch.steps import (arg_bytes, build_step, materialize,
                                       supported)
-from repro_torch.sharding import rules as R
-from repro_torch.utils.tree import tree_flatten
 from repro_torch.utils.device import resolve_device
 
 
@@ -103,12 +101,13 @@ def plan(cfg0, shape, *, world: int = 1, model: int = 1,
     dcfg = built["system"]["dcfg"] if shape.kind == "train" else None
     s_r = built["system"]["placement"].layout.size if dcfg else 0
     per_rank = tokens if dcfg is None else tokens // dcfg.num_clients
-    # dp_client splits a client's batch over model, except an MoE
-    # client's or one that does not divide, which runs whole on every
-    # rank of its model group (core/distributed.py): a rank's work is then
-    # that of a mesh of cards / model ranks
+    # dp_client splits a client's batch over model, except one whose loss
+    # reads the whole batch (``batch_whole``) or one that does not divide,
+    # which runs whole on every rank of its model group
+    # (core/distributed.py): a rank's work is then that of a mesh of cards
+    # / model ranks
     dp = variant == "dp_client" and dcfg is not None and model > 1
-    whole = dp and (cfg.is_moe
+    whole = dp and (batch_whole(cfg)
                     or shape.global_batch // dcfg.num_clients % model > 0)
     computed = per_rank // model if dp and not whole else per_rank
     analytic = step_analytics(cfg, shape, cards // model if whole else cards,
@@ -118,7 +117,8 @@ def plan(cfg0, shape, *, world: int = 1, model: int = 1,
         dcfg.upload_dtype if dcfg else "float32",
         model=1 if variant == "dp_client" else model, cfg=cfg,
         tokens=per_rank, params_per_card=s_r,
-        sample=dcfg.sample_size if dcfg else 0, batch=shape.global_batch)
+        sample=dcfg.sample_size if dcfg else 0, batch=shape.global_batch,
+        seqs=shape.global_batch // (dcfg.num_clients if dcfg else 1))
     roof = RL.analyze(analytic, coll, model_flops_total=mf)
     args_b = arg_bytes(built["args"])
     rec = dict(status="ok", world=world, model=model, cards=cards,
@@ -129,49 +129,6 @@ def plan(cfg0, shape, *, world: int = 1, model: int = 1,
                gathered=sorted({g[0] for g in RL.gathers(cfg, mp)}),
                roofline=roof.as_dict())
     return rec, built
-
-
-def _factor(spec: tuple, sizes: dict) -> int:
-    """How many blocks a spec cuts a tensor into."""
-    out = 1
-    for e in spec:
-        for a in ((e,) if isinstance(e, str) else (e or ())):
-            out *= sizes[a]
-    return out
-
-
-def rules_bytes(cfg0, shape, *, world: int, model: int) -> int:
-    """A card's argument bytes under the rules, from the specs alone: for
-    the families whose steps have no model axis yet, what a card would
-    hold once they do (the step built whole on one card, each leaf cut by
-    its spec)."""
-    built = build_step(cfg0, shape, None)
-    cfg, mdl = built["cfg"], built["model"]
-    cards = world if shape.kind == "train" else model
-    sizes = {"data": cards // model, "model": model}
-    if shape.kind == "train":
-        state, batch = built["args"][:2]
-        rules = R.RULES_TRAIN_CLIENT
-        s_r = sum(math.prod(sp.shape) // _factor(p, sizes) for sp, p in zip(
-            tree_flatten(mdl.specs)[1],
-            tree_flatten(mdl.param_pspecs(rules, sizes))[1]))
-        n = state.w_n.shape[0]
-        return (s_r * state.w.element_size()
-                + 3 * n * s_r * state.w_n.element_size()
-                + arg_bytes(batch) + 3 * arg_bytes(state.q))
-    params = built["args"][0]
-    p_specs = mdl.param_pspecs(R.RULES_SERVE, sizes)
-    out = sum(arg_bytes(t) // _factor(p, sizes) for t, p in zip(
-        tree_flatten(params)[1], tree_flatten(p_specs)[1]))
-    if shape.kind == "decode":
-        cache = built["args"][1]
-        axes = mdl.cache_axes(cfg)
-        for k, t in cache.items():
-            out += arg_bytes(t) // (_factor(R.logical_to_pspec(
-                tuple(axes[k]), tuple(t.shape), R.RULES_SERVE, sizes), sizes)
-                if isinstance(t, torch.Tensor) else 1)
-    return out + arg_bytes(built["args"][1 if shape.kind == "prefill"
-                                        else 2:])
 
 
 def execute(built: dict, shape, rec: dict, device, seed: int,
@@ -256,17 +213,6 @@ def run_one(arch: str, shape_name: str, *, out_path: str, world: int = 1,
               f"bottleneck={roof['bottleneck']}"
               + (f" execute={json.dumps(rec['execute'])}"
                  if "execute" in rec else ""), flush=True)
-    except NotImplementedError as e:  # the audio family: no model axis yet
-        b = rules_bytes(cfg0, shape, world=world, model=model)
-        rec.update(status="not_ported", reason=str(e),
-                   cards=world if shape.kind == "train" else model,
-                   mem=dict(argument_gb=b / 1e9, fits=b <= RL.CARD_BYTES,
-                            from_rules=True))
-        if not writer:
-            return rec
-        print(f"[dryrun] {arch} x {shape_name} (world {world}, model "
-              f"{model}): {e}; under the rules "
-              f"arg={b / 1e9:.2f}GB fits={b <= RL.CARD_BYTES}", flush=True)
     except (RuntimeError, ValueError, TypeError) as e:
         rec.update(status="error", error=f"{type(e).__name__}: {e}",
                    trace=traceback.format_exc()[-2000:])

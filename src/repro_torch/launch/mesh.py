@@ -12,8 +12,9 @@ row-major as the reference's ``Mesh(devs.reshape(data, model))``: its
 ``model`` group is the M consecutive ranks of its row, its ``data`` group
 the D ranks that share its model index, and rank r holds clients
 [d N/D, (d + 1) N/D) of its data index d.  The model axis is ported for
-the dense, VLM, MoE, ssm and hybrid families (``require_model_axis``
-refuses the others, naming their ROADMAP item).  The seed mesh is a ``ClientMesh`` whose rows are seeds
+every family: dense, VLM, MoE, ssm, hybrid, audio (Whisper) and the
+paper's vision (ResNet-9) and trajectory (LaneGCN) models, channel-
+parallel.  The seed mesh is a ``ClientMesh`` whose rows are seeds
 (``experiments/batch.py``); the ingest server splits each packed batch
 over a ``ClientMesh`` made by ``make_mesh`` (``serve/server.py``).
 
@@ -42,23 +43,19 @@ import torch.distributed as dist
 from repro_torch.utils.device import resolve_device
 
 TIMEOUT = datetime.timedelta(seconds=300)  # a collective waiting longer fails
-# the families with a model axis, and the ROADMAP item of each other one
-MODEL_AXIS_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
-_ITEM_6 = ("ROADMAP queue 1 item 6 (the model axis for audio and the vision "
-           "CNNs)")
-MODEL_AXIS_ITEMS = {"audio": _ITEM_6, "vision": _ITEM_6, "trajectory": _ITEM_6}
+# the families with a model axis: every family
+MODEL_AXIS_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio",
+                       "vision", "trajectory")
 CODEC_AXIS_ITEM = "ROADMAP queue 1 item 7 (codecs on the model axis)"
 SERVE_DATA_ITEM = ("ROADMAP queue 1 item 8 (serve steps with data > 1, the "
                    "sequence-parallel long_500k cache)")
 
 
 def require_model_axis(family: str, model: int) -> None:
-    """Raise ``NotImplementedError`` for a model axis of ``model`` > 1 on
-    a family that has none, naming its ROADMAP item."""
+    """Raise ``ValueError`` for a model axis of ``model`` > 1 on a family
+    outside ``MODEL_AXIS_FAMILIES``, which are all the known ones."""
     if model > 1 and family not in MODEL_AXIS_FAMILIES:
-        raise NotImplementedError(
-            f"a model axis of {model} for the {family} family is not ported "
-            f"({MODEL_AXIS_ITEMS.get(family, MODEL_AXIS_ITEMS['audio'])})")
+        raise ValueError(f"unknown family {family!r}")
 
 
 @dataclasses.dataclass(eq=False)
@@ -205,10 +202,10 @@ def make_client_mesh(num_clients: int, *, device="cuda", model: int = 1,
     """The client mesh for a federation of ``num_clients``: ``make_mesh``'s
     group as a (data, model) mesh of (P / ``model``, ``model``), whose
     rank at data index d holds clients [d N/D, (d + 1) N/D).  A model axis
-    above 1 needs the model's ``family`` and raises
-    ``NotImplementedError`` for one that has none (``require_model_axis``).
-    Raises ``ValueError`` when the ranks do not divide into rows of
-    ``model`` or ``num_clients`` does not split evenly over ``data``.
+    above 1 needs the model's ``family``, a known one
+    (``require_model_axis``).  Raises ``ValueError`` for an unknown family,
+    when the ranks do not divide into rows of ``model`` or when
+    ``num_clients`` does not split evenly over ``data``.
     """
     if model < 1:
         raise ValueError(f"a model axis of {model}")

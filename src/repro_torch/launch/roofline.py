@@ -60,17 +60,26 @@ def gathers(cfg, m: int) -> tuple:
     gathers a forward pass, site) each, the site "layer" (a transformer
     layer's attention leaves, ``models/layers.py::gathered_leaves``, and
     the MoE router where the experts split, ``models/moe.py``), "shared"
-    (the hybrid's shared attention block, at each invocation) or "mamba"
+    (the hybrid's shared attention block, at each invocation), "mamba"
     (every cut leaf of a Mamba2 block whose heads do not divide,
-    ``models/mamba2.py``)."""
+    ``models/mamba2.py``), or the enc-dec's "enc", "dec" and "cross" (its
+    encoder's, its decoder's self- and cross-attention leaves,
+    ``models/encdec.py``).  The vision and trajectory models gather
+    activations, not leaves: none."""
     from repro_torch.models import mamba2 as M2
     from repro_torch.models.layers import gathered_leaves
     from repro_torch.sharding.collectives import ModelAxis
     from repro_torch.sharding.rules import RULES_TRAIN, logical_to_pspec
 
-    if m == 1 or cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
+    if m == 1 or cfg.family in ("vision", "trajectory"):
         return ()
     out = []
+    if cfg.family == "audio":
+        return tuple((name, shape, grad, n, site)
+                     for site, n in (("enc", cfg.encoder_layers),
+                                     ("dec", cfg.num_layers),
+                                     ("cross", cfg.num_layers))
+                     for name, shape, grad in gathered_leaves(cfg, m))
     if cfg.num_heads:
         hyb = cfg.family == "hybrid"
         out += [(name, shape, grad,
@@ -97,27 +106,35 @@ def _hybrid_invocations(cfg) -> int:
 
 
 def axis_collectives(kind: str, cfg, m: int, tokens: int,
-                     clients: int = 1, batch: int = 0) -> list:
+                     clients: int = 1, batch: int = 0, seqs: int = 0) -> list:
     """The collectives over a model axis of ``m`` that one rank's step of
     ``kind`` issues through the model (``sharding/collectives.py``; each
     under the clients' ``vmap`` is one call): (kind, result bytes,
     count) each.  ``tokens``: the rank's tokens a step (all its
-    ``clients``); ``batch``: the sequences whose logits a serve step
-    gathers (``tokens`` by default).  Forward: a split region's all-reduce (attention, MLP,
-    MoE layer, Mamba2 block and its norm's sum of squares), the gathers
-    (``gathers``), the vocab-parallel embedding's all-reduce, and in
-    serving the logits' gather, in training the loss's gather and
-    all-reduce; under a ``remat`` checkpoint a layer's forward twice.
-    Backward (training): each ``copy_to``'s all-reduce (a region's input,
-    the whole leaves a rank's own work reads, the MoE gate weights, the
-    norm's sum of squares) and each "sum" gather's."""
+    ``clients``; the vision and trajectory models' samples); ``batch``:
+    the sequences whose logits a serve step gathers (``tokens`` by
+    default); ``seqs``: the rank's sequences, whose encoder frames the
+    enc-dec's encoder runs.  Forward: a split region's all-reduce
+    (attention, MLP, MoE layer, Mamba2 block and its norm's sum of
+    squares), the gathers (``gathers``), the vocab-parallel embedding's
+    all-reduce, and in serving the logits' gather, in training the loss's
+    gather and all-reduce; under a ``remat`` checkpoint a layer's forward
+    twice.  Backward (training): each ``copy_to``'s all-reduce (a region's
+    input, the whole leaves a rank's own work reads, the MoE gate
+    weights, the norm's sum of squares) and each "sum" gather's.  The
+    vision and trajectory models' are counted by running them on the meta
+    device (``_traced_collectives``)."""
+    if m == 1:
+        return []
+    if cfg.family in ("vision", "trajectory"):
+        return _traced_collectives(cfg, m, tokens, clients)
+    if cfg.family == "audio":
+        return _audio_collectives(kind, cfg, m, tokens, clients, batch, seqs)
     from repro_torch.models import mamba2 as M2
     from repro_torch.models import moe as MOE
     from repro_torch.models.layers import head_plan
     from repro_torch.sharding.collectives import ModelAxis
 
-    if m == 1 or cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
-        return []
     train = kind == "train"
     ab = torch_dtype(cfg.dtype).itemsize
     pb = torch_dtype(cfg.param_dtype).itemsize
@@ -126,35 +143,31 @@ def axis_collectives(kind: str, cfg, m: int, tokens: int,
     nl = cfg.num_layers
     ev = []
 
-    def add(k, b, n):
-        if n:
-            ev.append((k, b, n))
-
     # the layers' own forward and backward collectives
     if cfg.family in ("ssm", "hybrid"):
         mfwd = 1 + int(train and cfg.remat == "full")
         if M2.ssm_split(cfg, axis):
-            add("all-reduce", act, nl * mfwd)  # wo's partial sums
-            add("all-reduce", tokens * 4, nl * mfwd)  # the norm's squares
+            _add(ev, "all-reduce", act, nl * mfwd)  # wo's partial sums
+            _add(ev, "all-reduce", tokens * 4, nl * mfwd)  # the norm's squares
             if train:
-                add("all-reduce", act, nl)  # x's copy_to
-                add("all-reduce", tokens * 4, nl)  # the squares' copy_to
+                _add(ev, "all-reduce", act, nl)  # x's copy_to
+                _add(ev, "all-reduce", tokens * 4, nl)  # the squares' copy_to
                 specs = M2.mamba_specs(cfg)
                 for name in M2.WHOLE:  # each whole leaf's copy_to
-                    add("all-reduce",
+                    _add(ev, "all-reduce",
                         clients * math.prod(specs[name].shape) * pb, nl)
     if cfg.num_heads:
         n_attn = nl if cfg.family != "hybrid" else _hybrid_invocations(cfg)
         afwd = 1 + int(train and cfg.remat != "none"
                        and cfg.family != "hybrid")
         if head_plan(cfg, axis).split:
-            add("all-reduce", act, n_attn * afwd)
+            _add(ev, "all-reduce", act, n_attn * afwd)
             if train:
-                add("all-reduce", act, n_attn)
+                _add(ev, "all-reduce", act, n_attn)
         if cfg.family in ("dense", "vlm") and cfg.d_ff % m == 0:
-            add("all-reduce", act, nl * afwd)
+            _add(ev, "all-reduce", act, nl * afwd)
             if train:
-                add("all-reduce", act, nl)
+                _add(ev, "all-reduce", act, nl)
     if cfg.is_moe:
         f = cfg.moe_d_ff or cfg.d_ff
         e, k = cfg.num_experts, cfg.num_experts_per_tok
@@ -162,35 +175,126 @@ def axis_collectives(kind: str, cfg, m: int, tokens: int,
         shared = cfg.num_shared_experts and cfg.num_shared_experts * f % m == 0
         fwd = 1 + int(train and cfg.remat != "none")
         if routed or shared:
-            add("all-reduce", act, nl * fwd)  # the layer's one reduce_from
+            _add(ev, "all-reduce", act, nl * fwd)  # the layer's one reduce_from
             if train:
-                add("all-reduce", act, nl)  # x's copy_to
+                _add(ev, "all-reduce", act, nl)  # x's copy_to
         if train and routed:
             per = tokens // clients
             g = max(min(MOE.GROUP, per), 1)
             rows = -(-per // g) * g
-            add("all-reduce", clients * rows * k * 4, nl)  # gate weights
+            _add(ev, "all-reduce", clients * rows * k * 4, nl)  # gate weights
             if e % m and cfg.expert_dtype == "int8":
-                add("all-reduce", clients * e * 4, 3 * nl)  # the scales
+                _add(ev, "all-reduce", clients * e * 4, 3 * nl)  # the scales
         if train and shared:
-            add("all-reduce", clients * cfg.d_model * pb, nl)  # shared gate
+            _add(ev, "all-reduce", clients * cfg.d_model * pb, nl)  # shared gate
     for _, shape, grad, n, site in gathers(cfg, m):
         fwd = {"layer": 1 + int(train and cfg.remat != "none"), "shared": 1,
                "mamba": 1 + int(train and cfg.remat == "full")}[site]
         b = clients * math.prod(shape) * pb
-        add("all-gather", b, n * fwd)
+        _add(ev, "all-gather", b, n * fwd)
         if train and grad == "sum":
-            add("all-reduce", b, n)
-    # the vocab-parallel ends
-    if cfg.vocab_size % m == 0:
-        add("all-reduce", act, 1)  # the embedding
-        if train:
-            add("all-gather", tokens * 4 * m, 1)  # the blocks' lse
-            add("all-reduce", tokens * 4, 1)  # the label logits
-            add("all-reduce", act, 1)  # the unembedding's copy_to
-        else:
-            add("all-gather", (batch or tokens) * cfg.vocab_size * ab, 1)
+            _add(ev, "all-reduce", b, n)
+    _vocab_ends(ev, train, cfg, m, act, tokens,
+                (batch or tokens) * cfg.vocab_size * ab)
     return ev
+
+
+def _add(ev: list, k: str, b: float, n: int) -> None:
+    if n:
+        ev.append((k, b, n))
+
+
+def _vocab_ends(ev: list, train: bool, cfg, m: int, act: float,
+                tokens: int, logits: float) -> None:
+    """The vocab-parallel embedding's and loss's (or logits') collectives
+    where the vocabulary divides over ``m``."""
+    if cfg.vocab_size % m:
+        return
+    _add(ev, "all-reduce", act, 1)  # the embedding
+    if train:
+        _add(ev, "all-gather", tokens * 4 * m, 1)  # the blocks' lse
+        _add(ev, "all-reduce", tokens * 4, 1)  # the label logits
+        _add(ev, "all-reduce", act, 1)  # the unembedding's copy_to
+    else:
+        _add(ev, "all-gather", logits, 1)
+
+
+def _audio_collectives(kind: str, cfg, m: int, tokens: int, clients: int,
+                       batch: int, seqs: int) -> list:
+    """``axis_collectives`` of the enc-dec (``models/encdec.py``): each
+    attention's, each GELU MLP's and the vocabulary's, the encoder output's
+    one ``copy_to`` into the cross-attentions; a decode step runs no
+    encoder, and its cross-attention reads the cache (no k, v leaves)."""
+    from repro_torch.models.layers import KV_KEYS, head_plan
+    from repro_torch.sharding.collectives import ModelAxis
+
+    train = kind == "train"
+    ab = torch_dtype(cfg.dtype).itemsize
+    pb = torch_dtype(cfg.param_dtype).itemsize
+    fwd = 1 + int(train and cfg.remat == "full")  # remat: "full" only
+    act = tokens * cfg.d_model * ab
+    act_enc = seqs * cfg.encoder_seq * cfg.d_model * ab
+    split = head_plan(cfg, ModelAxis(None, 0, m)).split
+    mlp = cfg.d_ff % m == 0
+    sites = [("dec", act), ("cross", act)]
+    if kind != "decode":
+        sites.insert(0, ("enc", act_enc))
+    ev = []
+    for site, a in sites:
+        n = cfg.encoder_layers if site == "enc" else cfg.num_layers
+        if split:
+            _add(ev, "all-reduce", a, n * fwd)  # attn_out's
+            if train:  # the queries' (and self k, v's) input copy_to
+                _add(ev, "all-reduce", a, n)
+        if mlp and site != "cross":
+            _add(ev, "all-reduce", a, n * fwd)
+            if train:
+                _add(ev, "all-reduce", a, n)
+    if split and train:  # the encoder output into the cross-attentions
+        _add(ev, "all-reduce", act_enc, 1)
+    for name, shape, grad, n, site in gathers(cfg, m):
+        if kind == "decode" and (site == "enc" or (site == "cross"
+                                                   and name in KV_KEYS)):
+            continue
+        b = clients * math.prod(shape) * pb
+        _add(ev, "all-gather", b, n * fwd)
+        if train and grad == "sum":
+            _add(ev, "all-reduce", b, n)
+    _vocab_ends(ev, train, cfg, m, act, tokens,
+                (batch or tokens) * cfg.vocab_size * ab)
+    return ev
+
+
+def _traced_collectives(cfg, m: int, samples: int, clients: int) -> list:
+    """The vision and trajectory models' collectives a training step,
+    counted from the model itself: one client's loss and its gradient run
+    on the meta device, on the blocks of model index 0, under a
+    ``ModelAxis`` that counts what it would send (a meta tensor is counted
+    and not sent, ``sharding/collectives.py``).  Under the clients'
+    ``vmap`` each is one call of all ``clients``' ``samples``; a gather's
+    bytes are its result's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.steps import meta_params
+    from repro_torch.models.registry import build_model, demo_batch
+    from repro_torch.sharding.collectives import ModelAxis
+    from repro_torch.sharding.rules import RULES_TRAIN_CLIENT
+    from repro_torch.utils.tree import tree_flatten
+
+    model = build_model(cfg)
+    params = meta_params(model, model.blocks(
+        RULES_TRAIN_CLIENT, {"data": 1, "model": m}, {"data": 0, "model": 0}))
+    leaves = [l.requires_grad_() for l in tree_flatten(params)[1]]
+    per = samples // clients
+    batch = {k: torch.empty((per,) + v.shape[1:],
+                            dtype=torch.from_numpy(v).dtype, device="meta")
+             for k, v in demo_batch(cfg, 1, 1, np.random.default_rng(0)).items()}
+    axis = ModelAxis(None, 0, m)
+    torch.autograd.grad(model.loss_fn(params, cfg, batch, model_axis=axis),
+                        leaves)
+    return [(k, b * clients * (m if k == "all-gather" else 1) / n, n)
+            for k, (n, b) in axis.counts.items()]
 
 
 def step_collectives(kind: str, num_params: int, world: int,
@@ -198,7 +302,7 @@ def step_collectives(kind: str, num_params: int, world: int,
                      upload_dtype: str = "float32", *, model: int = 1,
                      cfg=None, tokens: int = 0, sample: int = 65536,
                      params_per_card: int = 0,
-                     batch: int = 0) -> CollectiveStats:
+                     batch: int = 0, seqs: int = 0) -> CollectiveStats:
     """The collectives one rank of the port's step issues, on a (world /
     model, model) mesh.
 
@@ -208,7 +312,8 @@ def step_collectives(kind: str, num_params: int, world: int,
     ``all_gather`` of the round's (len(METRIC_KEYS), N/D) f32 metrics.
 
     Over ``model`` (``model`` > 1; ``tokens`` the rank's tokens a step,
-    ``batch`` a serve step's sequences): the model's
+    ``batch`` a serve step's sequences, ``seqs`` the rank's sequences, all
+    three as ``axis_collectives`` reads them): the model's
     (``axis_collectives``) and, in training, the round's norm and count
     all-reduces and its threshold sample's all-gather.  A world of 1
     issues none."""
@@ -229,7 +334,8 @@ def step_collectives(kind: str, num_params: int, world: int,
                                      data))
     if model > 1 and cfg is not None:
         n = max((num_clients or data) // data, 1)
-        for k, b, c in axis_collectives(kind, cfg, model, tokens, n, batch):
+        for k, b, c in axis_collectives(kind, cfg, model, tokens, n, batch,
+                                        seqs):
             add(k, ring_bytes(k, b, model), c)
         if kind == "train":
             add("all-reduce", ring_bytes("all-reduce", n * 8, model), 3)

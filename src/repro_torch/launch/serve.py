@@ -9,6 +9,8 @@ Examples:
       --reduced --device cpu
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
       --arch qwen2-vl-72b --model 4 --batch 4 --prompt-len 2048 --gen 32
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --arch whisper-large-v3 --model 4 --batch 8 --prompt-len 64 --gen 32
 
 Serves every LLM family: dense, MoE, ssm, hybrid, audio (enc-dec) and VLM
 (text-only prompts).  Runs on the card by default (``--device cuda``,
@@ -19,11 +21,11 @@ prompt is a multiple of the SSD chunk.  ``--device cpu`` runs the same
 path on the kernels' plain versions.  Weights are random, drawn from
 ``--seed`` by a ``torch.Generator`` on the run's device; prompts (and the
 audio family's stub encoder frames) are the reference's numpy draws.
-Sampling is greedy.  ``--model M`` serves the dense, VLM, MoE, ssm and
-hybrid families over a model axis of M cards (``sharding/rules.py``'s ``RULES_SERVE``:
-each rank draws and keeps its blocks of the weights; its KV cache holds
-its kv heads, its recurrent cache its SSD heads), under ``torchrun`` with ``WORLD_SIZE`` M; rank 0
-prints.
+Sampling is greedy.  ``--model M`` serves every family over a model
+axis of M cards (``sharding/rules.py``'s ``RULES_SERVE``: each rank draws
+and keeps its blocks of the weights; its KV cache, the audio decoder's
+cross-attention cache among them, holds its kv heads, its recurrent cache
+its SSD heads), under ``torchrun`` with ``WORLD_SIZE`` M; rank 0 prints.
 """
 from __future__ import annotations
 

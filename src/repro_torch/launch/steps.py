@@ -23,8 +23,8 @@ train, ``RULES_TRAIN`` with the client axis on data (``variant=
 state_shardings``) and the batch; for serve, ``RULES_SERVE`` on the
 parameters, the batch and the cache.  Over a (data, model) mesh each rank
 holds the blocks its coordinates select: a train step's state and a serve
-step's parameters and cache (the tensor-parallel layers of every family
-but audio compute on them; ``launch/mesh.py::require_model_axis``).
+step's parameters and cache (every family's tensor-parallel layers
+compute on them).
 A serve step runs on a mesh of data 1 (its model axis across the cards);
 data above 1 raises (``launch/mesh.py::SERVE_DATA_ITEM``).
 """
@@ -204,7 +204,7 @@ def build_step(arch_cfg: ModelConfig, shape: InputShape,
         elif cfg.family == "audio":
             def step(params, batch):
                 return model.prefill(params, cfg, batch["tokens"],
-                                     frames=batch["frames"])
+                                     frames=batch["frames"], **kw)
 
         else:
             def step(params, batch):

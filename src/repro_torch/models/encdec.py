@@ -10,6 +10,21 @@ Pre-LN LayerNorm throughout.  At decode the cross-attention reads the
 whole encoder cache through the ``decode_attn`` kernel, as the reference's
 reaches its Pallas kernel; the self-attention passes ``window_pos`` and
 takes the plain einsum path, as the reference's does.
+
+Tensor-parallel over ``model_axis`` (a ``sharding.collectives.ModelAxis``
+on every entry point), through ``models/layers.py``'s layers: the
+attentions over the rank's heads (``attn_qkv`` / ``attn_q`` column-
+parallel, ``attn_out`` row-parallel), the GELU MLP with ``wi`` and ``bi``
+column-parallel and ``wo`` row-parallel (``bo`` added once, after the
+all-reduce), the embedding, unembedding and loss vocab-parallel where the
+vocabulary divides (Whisper-large-v3's 51,866 does not over 4: whole
+there).  The encoder output enters the decoder's cross-attentions through
+one ``copy_to``, and each layer's cross k, v and the cache's ``xk`` /
+``xv`` hold the rank's kv heads, so ``decode_attn`` runs on the rank's
+(B, H/M, KV/M, encoder_seq, D).  Where the heads do not divide (20 on 8)
+every rank runs every head and the caches are whole.  ``forward``
+returns the rank's vocabulary block of the logits, ``loss_fn`` the whole
+loss, ``prefill`` and ``decode_step`` the whole logits.
 """
 from __future__ import annotations
 
@@ -18,6 +33,7 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models.remat import checkpoint, full_only
 from repro_torch.models.transformer import layer, stack_specs
+from repro_torch.sharding import collectives as C
 from repro_torch.sharding.rules import ParamSpec
 
 F32 = torch.float32
@@ -39,11 +55,19 @@ def _gelu_mlp_specs(cfg):
     }
 
 
-def _gelu_mlp(p, x):
-    """``jax.nn.gelu``'s default, the tanh approximation, in f32."""
+def _gelu_mlp(p, x, cfg=None, model_axis=None):
+    """``jax.nn.gelu``'s default, the tanh approximation, in f32; over a
+    model axis whose rank holds its ``mlp`` block of the hidden units,
+    column- then row-parallel, an all-reduce and then ``bo``."""
+    split = cfg is not None and p["bi"].shape[0] != cfg.d_ff
+    if split:
+        x = C.copy_to(x, model_axis)
     h = x @ p["wi"].to(x.dtype) + p["bi"].to(x.dtype)
     h = torch.nn.functional.gelu(h.to(F32), approximate="tanh").to(x.dtype)
-    return h @ p["wo"].to(x.dtype) + p["bo"].to(x.dtype)
+    y = h @ p["wo"].to(x.dtype)
+    if split:
+        y = C.reduce_from(y, model_axis)
+    return y + p["bo"].to(x.dtype)
 
 
 def _enc_block_specs(cfg):
@@ -97,17 +121,17 @@ def _add_positions(cfg, x, start: int = 0):
     return x + _sinusoid(pos, cfg.d_model).to(x.dtype)[None]
 
 
-def encode(params, cfg, frames):
+def encode(params, cfg, frames, model_axis=None):
     """frames: (B, encoder_seq, d_model) stub embeddings -> encoder output."""
     x = _add_positions(cfg, frames.to(cfg.activation_dtype))
 
     def body(lp, x):  # each layer under cfg.remat ("full" only)
         h = _ln(lp["ln_attn"], x, cfg.norm_eps)
-        q, k, v = L.attn_qkv(lp["attn"], cfg, h)
+        q, k, v = L.attn_qkv(lp["attn"], cfg, h, model_axis)
         attn = L.causal_attention(q, k, v, causal=False)
-        x = x + L.attn_out(lp["attn"], attn, x.dtype)
+        x = x + L.attn_out(lp["attn"], attn, x.dtype, cfg, model_axis)
         h = _ln(lp["ln_mlp"], x, cfg.norm_eps)
-        return x + _gelu_mlp(lp["mlp"], h)
+        return x + _gelu_mlp(lp["mlp"], h, cfg, model_axis)
 
     policy = full_only(cfg.remat)
     for i in range(cfg.encoder_layers):
@@ -115,10 +139,11 @@ def encode(params, cfg, frames):
     return _ln(params["enc_ln_f"], x, cfg.norm_eps)
 
 
-def _cross_kv(lp, cfg, enc_out):
-    """One decoder layer's cross-attention k, v (B, encoder_seq, KV, D).
-    ``enc_out`` may be a pair (the encoder output for k, for v)."""
-    ca = lp["cross_attn"]
+def _cross_kv(lp, cfg, enc_out, model_axis=None):
+    """One decoder layer's cross-attention k, v (B, encoder_seq, KV, D),
+    of the rank's kv heads over a model axis.  ``enc_out`` may be a pair
+    (the encoder output for k, for v)."""
+    ca = L.head_leaves(lp["cross_attn"], cfg, model_axis, L.KV_KEYS)
     enc_k, enc_v = enc_out if isinstance(enc_out, tuple) else (enc_out,) * 2
     dt = enc_k.dtype
     k = torch.einsum("bsd,dhk->bshk", enc_k, ca["wk"].to(dt))
@@ -127,6 +152,16 @@ def _cross_kv(lp, cfg, enc_out):
         k = k + ca["bk"].to(dt)
         v = v + ca["bv"].to(dt)
     return k, v
+
+
+def _to_cross(cfg, enc_out, model_axis):
+    """The encoder output as the cross-attentions take it: through
+    ``copy_to`` where each rank runs its block of the heads (their k and
+    v projections are column-parallel), so that its gradient is summed
+    over the ranks once."""
+    if L._split(model_axis) and L.head_plan(cfg, model_axis).split:
+        return C.copy_to(enc_out, model_axis)
+    return enc_out
 
 
 def cache_axes(cfg) -> dict:
@@ -139,32 +174,34 @@ def cache_axes(cfg) -> dict:
             "pos": ("batch", "seq")}
 
 
-def precompute_cross_kv(params, cfg, enc_out):
+def precompute_cross_kv(params, cfg, enc_out, model_axis=None):
     """Every decoder layer's cross k, v, stacked (L, B, encoder_seq, KV, D)."""
-    kvs = [_cross_kv(layer(params["dec_layers"], i), cfg, enc_out)
+    kvs = [_cross_kv(layer(params["dec_layers"], i), cfg, enc_out, model_axis)
            for i in range(cfg.num_layers)]
     return torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs])
 
 
-def _decoder(params, cfg, tokens, enc_out, cache=None):
+def _decoder(params, cfg, tokens, enc_out, cache=None, model_axis=None):
     """Teacher-forced decoder pass from position 0: the final normed
     activations; with ``cache``, each layer's self and cross k, v are
     written into it."""
-    x = _add_positions(cfg, L.embed(params, cfg, tokens))
+    x = _add_positions(cfg, L.embed(params, cfg, tokens, model_axis))
     s = tokens.shape[1]
+    enc_out = _to_cross(cfg, enc_out, model_axis)
+    ma = model_axis
 
     def block(lp, x, enc_out):
         h = _ln(lp["ln_self"], x, cfg.norm_eps)
-        q, k, v = L.attn_qkv(lp["self_attn"], cfg, h)
+        q, k, v = L.attn_qkv(lp["self_attn"], cfg, h, ma)
         attn = L.causal_attention(q, k, v)
-        x = x + L.attn_out(lp["self_attn"], attn, x.dtype)
+        x = x + L.attn_out(lp["self_attn"], attn, x.dtype, cfg, ma)
         h = _ln(lp["ln_cross"], x, cfg.norm_eps)
-        q2, _, _ = L.attn_qkv(lp["cross_attn"], cfg, h)
-        k2, v2 = _cross_kv(lp, cfg, enc_out)
+        q2 = L.attn_q(lp["cross_attn"], cfg, h, ma)
+        k2, v2 = _cross_kv(lp, cfg, enc_out, ma)
         xatt = L.causal_attention(q2, k2, v2, causal=False)
-        x = x + L.attn_out(lp["cross_attn"], xatt, x.dtype)
+        x = x + L.attn_out(lp["cross_attn"], xatt, x.dtype, cfg, ma)
         h = _ln(lp["ln_mlp"], x, cfg.norm_eps)
-        return x + _gelu_mlp(lp["mlp"], h), k, v, k2, v2
+        return x + _gelu_mlp(lp["mlp"], h, cfg, ma), k, v, k2, v2
 
     def body(lp, x, enc_v, enc_k):  # each layer under cfg.remat ("full" only)
         # enc_out comes in twice, for the cross v and k, so that its
@@ -186,28 +223,33 @@ def _decoder(params, cfg, tokens, enc_out, cache=None):
     return _ln(params["dec_ln_f"], x, cfg.norm_eps)
 
 
-def decode_full(params, cfg, tokens, enc_out):
-    """Teacher-forced decoder pass (training). tokens: (B, S)."""
-    x = _decoder(params, cfg, tokens, enc_out)
-    return x @ params["unembed"]["w"].to(x.dtype)
+def decode_full(params, cfg, tokens, enc_out, model_axis=None):
+    """Teacher-forced decoder pass (training). tokens: (B, S).  Over a
+    model axis, the rank's vocabulary block of the logits."""
+    x = _decoder(params, cfg, tokens, enc_out, model_axis=model_axis)
+    return L.unembed(params, cfg, x, model_axis)
 
 
-def forward(params, cfg, tokens, *, frames=None, **_):
-    enc = encode(params, cfg, frames)
-    return (decode_full(params, cfg, tokens, enc),
+def forward(params, cfg, tokens, *, frames=None, model_axis=None, **_):
+    enc = encode(params, cfg, frames, model_axis)
+    return (decode_full(params, cfg, tokens, enc, model_axis),
             torch.zeros((), dtype=F32, device=enc.device))
 
 
-def loss_fn(params, cfg, batch):
-    logits, _ = forward(params, cfg, batch["tokens"], frames=batch["frames"])
-    return L.cross_entropy(logits, batch["labels"])
+def loss_fn(params, cfg, batch, model_axis=None):
+    logits, _ = forward(params, cfg, batch["tokens"], frames=batch["frames"],
+                        model_axis=model_axis)
+    return L.cross_entropy(logits, batch["labels"], cfg, model_axis)
 
 
-def init_cache(cfg, batch: int, max_seq: int, device="cpu"):
+def init_cache(cfg, batch: int, max_seq: int, device="cpu", model_axis=None):
+    """The self- and cross-attention caches: over ``model_axis`` the kv
+    heads of the rank's q heads (``layers.head_plan``)."""
     hd = cfg.resolved_head_dim
     dt = cfg.activation_dtype
-    self_shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, hd)
-    cross_shape = (cfg.num_layers, batch, cfg.encoder_seq, cfg.num_kv_heads, hd)
+    kv = len(L.head_plan(cfg, model_axis).kv)
+    self_shape = (cfg.num_layers, batch, max_seq, kv, hd)
+    cross_shape = (cfg.num_layers, batch, cfg.encoder_seq, kv, hd)
     return {
         "k": torch.zeros(self_shape, dtype=dt, device=device),
         "v": torch.zeros(self_shape, dtype=dt, device=device),
@@ -218,22 +260,24 @@ def init_cache(cfg, batch: int, max_seq: int, device="cpu"):
     }
 
 
-def prefill(params, cfg, tokens, *, frames=None, max_seq=None, **_):
+def prefill(params, cfg, tokens, *, frames=None, max_seq=None,
+            model_axis=None, **_):
     """Encoder + teacher-forced decoder prompt pass; returns (last logits,
     cache), the cache allocated once at ``max_seq`` self-attention slots."""
-    enc = encode(params, cfg, frames)
+    enc = encode(params, cfg, frames, model_axis)
     b, s = tokens.shape
     max_seq = max_seq or s
     if max_seq < s:
         raise ValueError(f"max_seq {max_seq} < prompt length {s}")
-    cache = init_cache(cfg, b, max_seq, enc.device)
-    x = _decoder(params, cfg, tokens, enc, cache)
-    logits = x[:, -1] @ params["unembed"]["w"].to(x.dtype)
+    cache = init_cache(cfg, b, max_seq, enc.device, model_axis)
+    x = _decoder(params, cfg, tokens, enc, cache, model_axis)
+    logits = L.gather_vocab(L.unembed(params, cfg, x[:, -1], model_axis), cfg,
+                            model_axis)
     cache["pos"][:, :s] = torch.arange(s, dtype=torch.int32, device=enc.device)
     return logits, cache
 
 
-def decode_step(params, cfg, cache, token, pos: int):
+def decode_step(params, cfg, cache, token, pos: int, model_axis=None):
     """One step; the cache is updated IN PLACE and returned (the reference
     returns new arrays; the values are the same).
 
@@ -244,9 +288,9 @@ def decode_step(params, cfg, cache, token, pos: int):
     encoder position valid.
     """
     pos = int(pos)
+    ma = model_axis
     s_cache = cache["k"].shape[2]
-    x = L.embed(params, cfg, token)[:, None, :]
-    b = x.shape[0]
+    x = L.embed(params, cfg, token, ma)[:, None, :]
     pe_pos = torch.tensor([min(pos, s_cache - 1)], device=x.device)
     x = x + _sinusoid(pe_pos, cfg.d_model).to(x.dtype)[None]
     slot = pos % s_cache
@@ -257,19 +301,19 @@ def decode_step(params, cfg, cache, token, pos: int):
         lp = layer(params["dec_layers"], i)
         kc, vc = cache["k"][i], cache["v"][i]
         h = _ln(lp["ln_self"], x, cfg.norm_eps)
-        q, k, v = L.attn_qkv(lp["self_attn"], cfg, h)
+        q, k, v = L.attn_qkv(lp["self_attn"], cfg, h, ma)
         kc[:, slot] = k[:, 0].to(kc.dtype)
         vc[:, slot] = v[:, 0].to(vc.dtype)
         attn = L.decode_attention(q[:, 0], kc, vc, length,
                                   window_pos=cache["pos"])
-        x = x + L.attn_out(lp["self_attn"], attn[:, None], x.dtype)
+        x = x + L.attn_out(lp["self_attn"], attn[:, None], x.dtype, cfg, ma)
         h = _ln(lp["ln_cross"], x, cfg.norm_eps)
-        q2, _, _ = L.attn_qkv(lp["cross_attn"], cfg, h)
+        q2 = L.attn_q(lp["cross_attn"], cfg, h, ma)
         xatt = L.decode_attention(q2[:, 0], cache["xk"][i], cache["xv"][i],
                                   enc_len)
-        x = x + L.attn_out(lp["cross_attn"], xatt[:, None], x.dtype)
+        x = x + L.attn_out(lp["cross_attn"], xatt[:, None], x.dtype, cfg, ma)
         h = _ln(lp["ln_mlp"], x, cfg.norm_eps)
-        x = x + _gelu_mlp(lp["mlp"], h)
+        x = x + _gelu_mlp(lp["mlp"], h, cfg, ma)
     x = _ln(params["dec_ln_f"], x, cfg.norm_eps)
-    logits = (x @ params["unembed"]["w"].to(x.dtype))[:, 0]
+    logits = L.gather_vocab(L.unembed(params, cfg, x, ma)[:, 0], cfg, ma)
     return logits, cache

@@ -341,43 +341,77 @@ def gathered_leaves(cfg, m: int) -> tuple:
     return tuple(out)
 
 
+Q_KEYS = ("wq", "bq", "q_norm")  # the leaves the queries read
+KV_KEYS = ("wk", "wv", "bk", "bv", "k_norm")  # the keys' and values'
+
+
+def head_leaves(p, cfg, model_axis, keys=Q_KEYS + KV_KEYS) -> dict:
+    """Attention ``p`` with its leaves ``keys`` as the rank's heads read
+    them (``head_plan``): its blocks, where the q heads divide over the
+    axis, with ``q_norm`` / ``k_norm`` gathered ("sum") and, where the kv
+    heads do not divide, ``wk`` / ``wv`` / ``bk`` / ``bv`` gathered
+    ("sum") and cut to the kv heads its q heads read; every leaf gathered
+    ("slice") where the q heads do not divide (every rank runs every
+    head)."""
+    p = dict(p)
+    if not _split(model_axis):
+        return p
+    hd = cfg.resolved_head_dim
+    d, h, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    plan = head_plan(cfg, model_axis)
+    full = {"wq": (d, h, hd), "wk": (d, kv, hd), "wv": (d, kv, hd),
+            "bq": (h, hd), "bk": (kv, hd), "bv": (kv, hd),
+            "q_norm": (hd,), "k_norm": (hd,)}
+    if not plan.split:  # every rank runs every head
+        for key in full:
+            if key in p and key in keys:
+                p[key] = whole(p[key], full[key], model_axis, "slice")
+        return p
+    if not plan.kv_block:  # (a host list to the card waits for it)
+        idx = torch.tensor(plan.kv, device=p["wk"].device)
+        for key, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
+            if key in p and key in keys:
+                p[key] = whole(p[key], full[key], model_axis,
+                               "sum").index_select(dim, idx)
+    for key in ("q_norm", "k_norm"):
+        if key in p and key in keys:
+            p[key] = whole(p[key], full[key], model_axis, "sum")
+    return p
+
+
+def _project(p, cfg, x, w: str, b: str, norm: str | None = None):
+    """One of the attention's input projections (B, S, heads, D)."""
+    y = dot(x, p[w].to(x.dtype), "bsd,dhk->bshk")
+    if cfg.qkv_bias:
+        y = y + p[b].to(x.dtype)
+    if cfg.qk_norm and norm:
+        y = rms_norm(y, p[norm], cfg.norm_eps)
+    return y
+
+
+def _column(p, cfg, x, model_axis, keys):
+    """``head_leaves`` of ``p`` and ``x`` as the rank's heads take it:
+    through ``copy_to`` where the rank runs its block of the heads (a
+    column-parallel region)."""
+    p = head_leaves(p, cfg, model_axis, keys)
+    if _split(model_axis) and head_plan(cfg, model_axis).split:
+        x = C.copy_to(x, model_axis)
+    return p, x
+
+
 def attn_qkv(p, cfg, x, model_axis=None):
     """q (B, S, hl, D), k and v (B, S, len(kv), D) of the rank's heads
     (``head_plan``; all of them without a model axis)."""
-    p = dict(p)
-    if _split(model_axis):
-        hd = cfg.resolved_head_dim
-        d, h, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
-        plan = head_plan(cfg, model_axis)
-        full = {"wq": (d, h, hd), "wk": (d, kv, hd), "wv": (d, kv, hd),
-                "bq": (h, hd), "bk": (kv, hd), "bv": (kv, hd),
-                "q_norm": (hd,), "k_norm": (hd,)}
-        if not plan.split:  # every rank runs every head
-            for key in full:
-                if key in p:
-                    p[key] = whole(p[key], full[key], model_axis, "slice")
-        else:
-            x = C.copy_to(x, model_axis)
-            if not plan.kv_block:  # (a host list to the card waits for it)
-                idx = torch.tensor(plan.kv, device=x.device)
-                for key, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
-                    if key in p:
-                        p[key] = whole(p[key], full[key], model_axis,
-                                       "sum").index_select(dim, idx)
-            for key in ("q_norm", "k_norm"):
-                if key in p:
-                    p[key] = whole(p[key], full[key], model_axis, "sum")
-    q = dot(x, p["wq"].to(x.dtype), "bsd,dhk->bshk")
-    k = dot(x, p["wk"].to(x.dtype), "bsd,dhk->bshk")
-    v = dot(x, p["wv"].to(x.dtype), "bsd,dhk->bshk")
-    if cfg.qkv_bias:
-        q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    return q, k, v
+    p, x = _column(p, cfg, x, model_axis, Q_KEYS + KV_KEYS)
+    return (_project(p, cfg, x, "wq", "bq", "q_norm"),
+            _project(p, cfg, x, "wk", "bk", "k_norm"),
+            _project(p, cfg, x, "wv", "bv"))
+
+
+def attn_q(p, cfg, x, model_axis=None):
+    """``attn_qkv``'s q alone (a cross-attention's queries)."""
+    p, x = _column(p, cfg, x, model_axis, Q_KEYS)
+    return _project(p, cfg, x, "wq", "bq", "q_norm")
 
 
 def attn_out(p, x_attn, dtype, cfg=None, model_axis=None):

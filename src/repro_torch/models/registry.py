@@ -179,7 +179,8 @@ def local_params(model: Model, params: dict, blocks: dict,
 def local_cache(model: Model, cache: dict, model_axis) -> dict:
     """A rank's part of a whole serving cache (``init_cache``'s without a
     model axis), the cache ``init_cache(model_axis=)`` makes: the kv heads
-    of its q heads in the attention slots (``layers.head_plan``), and
+    of its q heads in the attention slots, the enc-dec's cross-attention
+    slots among them (``layers.head_plan``), and
     where it runs its block of the SSD heads (``mamba2.ssm_split``) its
     block of ``conv_x`` and of ``ssm``; the rest as it is."""
     from repro_torch.models import layers as L
@@ -189,7 +190,8 @@ def local_cache(model: Model, cache: dict, model_axis) -> dict:
     out = dict(cache)
     if cfg.num_heads:
         idx = list(L.head_plan(cfg, model_axis).kv)
-        for key in ("k", "v", "k_scale", "v_scale", "attn_k", "attn_v"):
+        for key in ("k", "v", "k_scale", "v_scale", "attn_k", "attn_v", "xk",
+                    "xv"):
             if key in cache:
                 out[key] = cache[key][:, :, :, idx]
     if "ssm" in cache and M2.ssm_split(cfg, model_axis):

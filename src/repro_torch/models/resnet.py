@@ -10,13 +10,31 @@ Parameters keep the reference's tree: HWIO conv weights.  Images enter
 to OIHW at each call.  All functions are functional over the params dict,
 so ``torch.func.vmap(torch.func.grad(loss_fn))`` gives per-device
 gradients over N-stacked params.
+
+Channel-parallel over a ``model_axis`` (a ``sharding.collectives.
+ModelAxis``): the rules put each conv's out-channels, its BN scale and
+bias, and the FC's rows on ``mlp``, so a rank holds a block of them.  Each
+layer takes its input whole and computes its rank's block of the
+out-channels; batch-norm statistics are per channel, so a block's are
+exact alone, and the pools and the residual adds act on the blocks.  The
+next layer gathers the block along the channels (``collectives.feed``).
+The global max pool stays on the block, and the FC is row-parallel: one
+``reduce_from``, then the whole bias (owned by model index 0).  A layer
+whose width does not divide the axis is whole on every rank (the rules'
+fallback) and runs whole: its input block is gathered with the gradient
+sliced, its output feeds the next layer through ``copy_to``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import collectives as C
 from repro_torch.sharding.rules import ParamSpec
+
+# each conv's out-channels, in base widths
+WIDTHS = {"c1": 1, "c2": 2, "r1a": 2, "r1b": 2, "c3": 4, "c4": 8, "r2a": 8,
+          "r2b": 8}
 
 
 def _conv_bn_specs(cin, cout):
@@ -55,21 +73,39 @@ def _conv_bn(p, x):
     return F.relu(y)
 
 
-def forward(params, cfg, images):
-    """images: (B, 32, 32, 3) NHWC float32 -> logits (B, classes)."""
-    x = images.to(torch.float32).permute(0, 3, 1, 2)
-    x = _conv_bn(params["c1"], x)
-    x = F.max_pool2d(_conv_bn(params["c2"], x), 2)
-    x = x + _conv_bn(params["r1b"], _conv_bn(params["r1a"], x))
-    x = F.max_pool2d(_conv_bn(params["c3"], x), 2)
-    x = F.max_pool2d(_conv_bn(params["c4"], x), 2)
-    x = x + _conv_bn(params["r2b"], _conv_bn(params["r2a"], x))
+def forward(params, cfg, images, model_axis=None):
+    """images: (B, 32, 32, 3) NHWC -> logits (B, classes), in the
+    weights' dtype (float32; float64 for a witness in f64)."""
+    x = images.to(params["c1"]["w"].dtype).permute(0, 3, 1, 2)
+
+    def conv(name, x, block: bool):
+        """The layer's out-channels (the rank's block of them, and
+        whether they are one) from ``x`` (a ``block``, or whole)."""
+        p = params[name]
+        cut = p["scale"].shape[0] != WIDTHS[name] * cfg.d_model
+        if name != "c1":  # the images need no gradient
+            x = C.feed(x, model_axis, 1, block, cut)
+        return _conv_bn(p, x), cut
+
+    x, b = conv("c1", x, False)
+    y, b = conv("c2", x, b)
+    x = F.max_pool2d(y, 2)
+    x = x + conv("r1b", *conv("r1a", x, b))[0]
+    y, b = conv("c3", x, b)
+    x = F.max_pool2d(y, 2)
+    y, b = conv("c4", x, b)
+    x = F.max_pool2d(y, 2)
+    x = x + conv("r2b", *conv("r2a", x, b))[0]
     x = torch.amax(x, dim=(2, 3))  # global max pool
+    if b:  # the FC row-parallel over the rank's channels
+        return C.reduce_from(x @ params["fc"]["w"], model_axis) \
+            + params["fc"]["b"]
     return x @ params["fc"]["w"] + params["fc"]["b"]
 
 
-def loss_fn(params, cfg, batch):
-    logp = torch.log_softmax(forward(params, cfg, batch["images"]), dim=-1)
+def loss_fn(params, cfg, batch, model_axis=None):
+    logp = torch.log_softmax(forward(params, cfg, batch["images"],
+                                     model_axis), dim=-1)
     labels = batch["labels"].to(torch.int64)
     return -torch.gather(logp, -1, labels[:, None])[:, 0].mean()
 

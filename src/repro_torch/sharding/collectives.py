@@ -28,7 +28,9 @@ collectives have no batching rule of their own, and the rule runs one
 collective over every client's values at once (an all-reduce is
 elementwise; the ranks hold the same number of clients).  NCCL on the
 card, gloo on the CPU.  ``ModelAxis.counts`` counts each kind of
-collective and its bytes, so the plan's numbers can be read off a run.
+collective and its bytes, so the plan's numbers can be read off a run;
+on a meta tensor a collective is counted and sends nothing, so a model
+run on the meta device counts its own (``launch/roofline.py``).
 """
 from __future__ import annotations
 
@@ -60,7 +62,8 @@ class ModelAxis:
 def _all_reduce(x: torch.Tensor, axis: ModelAxis, op=dist.ReduceOp.SUM):
     y = x.contiguous().clone()
     axis.count("all-reduce", y)
-    dist.all_reduce(y, op=op, group=axis.group)
+    if not y.is_meta:  # a meta tensor (the plan's count) is counted alone
+        dist.all_reduce(y, op=op, group=axis.group)
     return y
 
 
@@ -68,7 +71,8 @@ def _all_gather(x: torch.Tensor, axis: ModelAxis, dim: int):
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(axis.size)]
     axis.count("all-gather", x)
-    dist.all_gather(parts, x, group=axis.group)
+    if not x.is_meta:
+        dist.all_gather(parts, x, group=axis.group)
     return torch.cat(parts, dim=dim)
 
 
@@ -155,6 +159,19 @@ def gather(x: torch.Tensor, axis: ModelAxis | None, dim: int,
     if axis is None or axis.size == 1:
         return x
     return _Gather.apply(x, axis, dim, grad)
+
+
+def feed(x: torch.Tensor, axis: ModelAxis | None, dim: int, block: bool,
+         split: bool) -> torch.Tensor:
+    """``x`` whole, as a layer of the channel-parallel vision and
+    trajectory models takes its input: a ``block`` of ``x`` (the rank's
+    channels along ``dim``) gathered, its gradient summed over the ranks
+    when the layer is ``split`` (each rank computes its part of the
+    outputs from it) or sliced when every rank runs the whole layer; a
+    whole ``x`` entering a split layer through ``copy_to``."""
+    if block:
+        return gather(x, axis, dim, "sum" if split else "slice")
+    return copy_to(x, axis) if split else x
 
 
 def all_reduce_(x: torch.Tensor, axis: ModelAxis | None,

@@ -686,10 +686,11 @@ def test_uneven_clients_and_model_axis_refused():
     tmodel = t_build_model(t_get_config("resnet9-cifar10").replace(d_model=4))
     with pytest.raises(ValueError, match="do not split evenly"):
         TD.init_state(tmodel, TD.DistConfig(num_clients=3), mesh=mesh)
-    # the model axis is ported for every language family but audio
-    # (test_torch_model_axis*.py); audio is refused, naming its ROADMAP item
-    with pytest.raises(NotImplementedError, match="queue 1 item 6 "):
-        TM.make_client_mesh(4, device="cpu", model=2, family="audio")
+    # the model axis is ported for every family (test_torch_model_axis*.py):
+    # audio's is no longer refused, and an unknown family is
+    TM.require_model_axis("audio", 2)
+    with pytest.raises(ValueError, match="unknown family"):
+        TM.make_client_mesh(4, device="cpu", model=2, family="speech")
 
 
 def test_rank_slices_of_state_schedule_and_telemetry():

@@ -38,9 +38,9 @@ it computed; this process holds it:
   batch split over ``model``, one gradient all-reduce) against
   ``default``, within the same bounds.
 
-The refusals run in this process: the families with no model axis (audio
-and the vision CNNs), a codec on a model axis, a serve step over data > 1,
-clients that do not split over data.
+The refusals run in this process: a codec on a model axis, a serve step
+over data > 1, clients that do not split over data, an unknown family;
+and the families whose model axis came later build on a (1, 2) mesh.
 """
 import json
 import os
@@ -472,14 +472,27 @@ def test_dp_client_matches_default(spawned, one, tag, arch):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("family,item", [("audio", "item 6 "),
-                                         ("vision", "item 6 ")])
-def test_unported_family_refused(family, item):
-    with pytest.raises(NotImplementedError, match=item):
-        TM.make_client_mesh(2, device="cpu", model=2, family=family)
+@pytest.mark.parametrize("arch,family", [
+    ("whisper-large-v3", "audio"), ("resnet9-cifar10", "vision"),
+    ("lanegcn-argoverse", "trajectory")])
+def test_every_family_has_a_model_axis(arch, family):
+    """The families that had no model axis build on a (1, 2) mesh (their
+    train step on the rank's blocks); a mesh still needs the family, and
+    an unknown one is refused."""
+    cfg = t_get_config(arch)
+    assert cfg.family == family
+    TM.require_model_axis(family, 2)
+    built = TS.build_step(cfg, INPUT_SHAPES["train_4k"],
+                          TM.ClientMesh(group=None, rank=1, world_size=2,
+                                        device=torch.device("meta"),
+                                        model=2))
+    assert built["system"]["placement"].layout.size \
+        < built["model"].num_params()
     with pytest.raises(ValueError, match="family"):
         TM.make_client_mesh(2, device="cpu", model=2)
-    TM.require_model_axis(family, 1)  # a model axis of 1 is every family's
+    with pytest.raises(ValueError, match="unknown family"):
+        TM.require_model_axis("speech", 2)
+    TM.require_model_axis("speech", 1)  # a model axis of 1 is any family's
 
 
 def test_codec_and_serve_data_and_uneven_clients_refused():
@@ -496,7 +509,9 @@ def test_codec_and_serve_data_and_uneven_clients_refused():
         TS.build_step(cfg, INPUT_SHAPES["decode_32k"], mesh)
     with pytest.raises(ValueError, match="do not split evenly"):
         mesh.rows(3)
+    # the audio family's train step builds on the (2, 2) mesh (it was
+    # refused until its model axis was ported)
     audio = t_get_config("whisper-large-v3").reduced()
-    with pytest.raises(NotImplementedError, match="item 6 "):
-        TS.build_step(audio, INPUT_SHAPES["train_4k"], mesh)
+    built = TS.build_step(audio, INPUT_SHAPES["train_4k"], mesh)
+    assert built["model_axis"].size == 2
 

@@ -35,10 +35,13 @@ saves what it computed; this process holds it:
   threshold bit-equal given the same x; k within 2, or no further from
   the f64 rounds than 3x world 1 is, plus 2; w within 1e-6 of its largest
   entry at 97 % of the coordinates and 1e-4 everywhere, or no further
-  from the f64 w than 3x world 1 is), with k also allowed 5e-5 of s
-  in the cases where that was measured (``K_NOISY``: reduced Mamba2 and
-  the 6-expert Qwen2-MoE against world 1), and Qwen3-MoE against
-  the reference's ``make_afl_train_step``;
+  from the f64 w than 3x world 1 is), with k also allowed ``K_NOISE``
+  coordinates in the cases of ``F64_ON`` (reduced Mamba2 and the
+  6-expert Qwen2-MoE against world 1), and Qwen3-MoE against the
+  reference's ``make_afl_train_step``;
+* in f64 with the models' f32 internals in f64 too (``F64_ON``,
+  ``f64_inside``), the step's k on the mesh equal to world 1's in every
+  round: the witness that ``K_NOISE`` is the count's f32 noise;
 * ``ModelAxis.counts`` of one step equal to the collectives the plan
   counts (``launch/roofline.py::step_collectives``);
 * ``dp_client`` against the default variant.
@@ -93,15 +96,17 @@ ROUNDS = ((1.0, 0.0), (1.0, 1.0))  # zeta of the two rounds
 TAU, H2, BUDGET = 2.0, 1e-9, 100.0
 # k counts the coordinates past one sampled |x|: at ~600k of them an f32
 # rounding of 1e-5 in that coordinate moves it by ~6, and the ranks' sums
-# round otherwise than one process's.  Measured here, and allowed only
-# where measured (``K_NOISY``: the step against world 1; every other
-# case holds k within 2): reduced Mamba2's round 2 at 13 of 550,860 from
-# world 1 (world 1 4 from f64) on every mesh, Qwen2-MoE with 6 experts
-# at 12 of 604,871 (world 1 equal to f64), while their gradients sit as
-# close to f64's as world 1's (~1e-5 of a leaf's largest entry) and 1e-6
-# from world 1's
-K_NOISE = 5e-5
-K_NOISY = {"mamba2": ("1x2", "1x4", "2x2"), "qwen2-moe-e6": ("1x4",)}
+# round otherwise than one process's.  Reduced Mamba2's round 2 lands 13
+# of 550,860 from world 1's on every mesh, the 6-expert Qwen2-MoE's 12 of
+# 604,871 at (1, 4), where the f64 floor of ``_hold_step`` does not cover
+# them.  The same rounds run in f64 with the models' f32 internals in f64
+# too (``f64_inside``: the routing softmax, the norms, the MoE combine)
+# give the mesh's k equal to world 1's in every round of those cases
+# (``test_k_gap_closes_in_f64``): the gap is the count's f32 noise, not
+# the mesh's function.  So these cases, and only these, have k allowed
+# the largest gap measured, 13, plus the 2 every case is held to
+F64_ON = {"mamba2": ("1x2", "1x4", "2x2"), "qwen2-moe-e6": ("1x4",)}
+K_NOISE = 13 + 2  # coordinates, the step against world 1 in F64_ON only
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -114,6 +119,7 @@ def _one_torch_thread():
 
 # what every rank runs, and this process for world 1
 SETUP = textwrap.dedent(r"""
+import contextlib
 import torch
 from repro_torch.configs import get_config
 from repro_torch.core import distributed as D
@@ -197,6 +203,22 @@ def serve(model, cfg, params, tokens, ma):
                               if isinstance(v, torch.Tensor)}
 
 
+@contextlib.contextmanager
+def f64_inside():
+    # the models' f32 internals (softmax, norms, the MoE combine, the SSD
+    # decay) in f64 while the block runs, so that an f64 round rounds
+    # nowhere in f32
+    from repro_torch.models import layers, mamba2, moe, transformer
+    mods = (layers, mamba2, moe, transformer)
+    for m in mods:
+        m.F32 = torch.float64
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.F32 = torch.float32
+
+
 def routes(fn):
     ROUTES[:] = [None]
     try:
@@ -253,6 +275,13 @@ for name in names:
     if data["dp"]:
         res["w_dp"], res["hist_dp"] = run_steps(model, cfg, data, params,
                                                 mesh, RULES_TRAIN_DP)
+    if tag in data["f64_on"]:  # the same rounds in f64 on the mesh
+        f64 = cfg.replace(dtype=torch.float64, param_dtype=torch.float64)
+        m64 = build_model(f64)
+        with f64_inside():
+            res["w64"], res["hist64"] = run_steps(
+                m64, f64, data, load_params(m64, data["params"]), mesh,
+                dtype=torch.float64)
     torch.save(res, f"{tmp}/{tag}_{name}_{rank}.pt")
 mesh.close()
 print("RESULT " + json.dumps({"coords": mesh.coords}))
@@ -295,7 +324,8 @@ def spawned(tmp_path_factory):
         data = {"params": params, "batch": batch, "step_batch": step_batch,
                 "prompt": prompt,
                 "x": torch.randn(N, s, generator=gen),
-                "k": torch.tensor([s / 400.0, s / 7.0]), "dp": name in DP}
+                "k": torch.tensor([s / 400.0, s / 7.0]), "dp": name in DP,
+                "f64_on": F64_ON.get(name, ())}
         torch.save(data, tmp / f"{name}.pt")
         ref[name] = (cfg, model, params, data)
     procs = {(tag, r): subprocess.Popen(
@@ -325,14 +355,14 @@ def _close(got, want, tol, name):
 
 
 def _hold_step(w_block, hist, w_want_block, hist_want, s, name,
-               hist64=None, w64_block=None, k_noise=0.0):
+               hist64=None, w64_block=None, k_noise=2):
     """``tests/test_torch_model_axis.py``'s standard: k within 2 of the
     wanted rounds' (or no further from the f64 rounds ``hist64`` than 3x
-    the wanted f32 rounds are, plus 2; or, in a case of ``K_NOISY``,
-    within ``k_noise`` of s, the count's f32 noise there);
-    bits = bits_for_k(k); w within 1e-6 of its
-    largest entry at 97 % of the coordinates and 1e-4 everywhere (or no
-    further from the f64 w than 3x the wanted f32 w is)."""
+    the wanted f32 rounds are, plus 2; or, in a case of ``F64_ON``,
+    within ``k_noise`` = ``K_NOISE``); bits = bits_for_k(k); w within
+    1e-6 of its largest entry at 97 % of the coordinates and 1e-4
+    everywhere (or no further from the f64 w than 3x the wanted f32 w
+    is)."""
     for r, (got, want) in enumerate(zip(hist, hist_want)):
         assert got["uploads"] == want["uploads"], name
         d = np.abs(np.subtract(got["k"], want["k"]))
@@ -340,8 +370,7 @@ def _hold_step(w_block, hist, w_want_block, hist_want, s, name,
             kf = hist64[r]["k"]
             floor = 3 * np.abs(np.subtract(want["k"], kf)) + 2
             d = np.where(np.abs(np.subtract(got["k"], kf)) <= floor, 0, d)
-        d = np.where(d <= k_noise * s, 0, d)
-        assert np.all(d <= 2), (name, got["k"], want["k"], hist64)
+        assert np.all(d <= k_noise), (name, got["k"], want["k"], hist64)
         bits = SP.bits_for_k(torch.tensor(got["k"]), s, 32)
         assert torch.equal(bits * torch.tensor(got["uploads"]),
                            torch.tensor(got["bits"])), name
@@ -417,6 +446,10 @@ def one(spawned):
         out[name] = dict(cfg=cfg, model=model, served=served, cache=cache,
                          routes=rt, grads=g, w=w, hist=hist, threshold=thr,
                          w64=w64.float(), hist64=hist64)
+        if name in F64_ON:  # and f64 inside, against the mesh's f64 rounds
+            with ns["f64_inside"]():
+                out[name]["w64_in"], out[name]["hist64_in"] = ns["run_steps"](
+                    m64, f64, data, p64, None, dtype=torch.float64)
     return out
 
 
@@ -529,7 +562,29 @@ def test_step_matches_world_one(spawned, one, tag, name):
                    _want_block(o["model"], o["w"], tag, r), o["hist"],
                    s, f"{tag} {name} rank {r}", o["hist64"],
                    _want_block(o["model"], o["w64"], tag, r),
-                   K_NOISE if tag in K_NOISY.get(name, ()) else 0.0)
+                   K_NOISE if tag in F64_ON.get(name, ()) else 2)
+
+
+F64_CASES = [(t, a) for t, a in CASES if t in F64_ON.get(a, ())]
+
+
+@pytest.mark.parametrize("tag,name", F64_CASES, ids=_ids(F64_CASES))
+def test_k_gap_closes_in_f64(spawned, one, tag, name):
+    """The step's k 12-13 from world 1's in f32 (``F64_ON``, allowed
+    ``K_NOISE``) closes in f64: the same two rounds in f64 on the mesh,
+    f64 inside (``f64_inside``), give world 1's f64 k in every round and
+    w within 1e-12 of its largest entry, so that the f32 gap is the
+    count's f32 noise (k counts the coordinates past one sampled |x|),
+    not the mesh's function."""
+    o = one[name]
+    for r in _ranks(tag):
+        res = _load(spawned, tag, name, r)
+        for got, want in zip(res["hist64"], o["hist64_in"]):
+            assert got["k"] == want["k"] and got["uploads"] == want["uploads"], (
+                tag, name, r, got, want)
+        w = _want_block(o["model"], o["w64_in"], tag, r)
+        off = float((res["w64"] - w).abs().max() / w.abs().max())
+        assert off <= 1e-12, (tag, name, r, off)
 
 
 @pytest.mark.parametrize("tag", list(MESHES))
@@ -656,18 +711,19 @@ def test_build_step_at_four_on_meta(arch, shape):
     assert TS.arg_bytes(built["args"]) < TS.arg_bytes(one["args"])
 
 
-def test_plan_sizes_only_audio_from_the_rules():
-    """At M = 4 only the audio family's pairs are sized from the rules
-    alone, each naming ROADMAP queue 1 item 6."""
+def test_plan_builds_every_family_at_four():
+    """At M = 4 every pair is built on the meta device, none sized from the
+    rules alone: the audio family's among them, whose pairs were (its
+    vocabulary whole, its 20 heads 5 a rank)."""
     from repro_torch.configs import ASSIGNED_ARCHS
     from repro_torch.launch import dryrun as DR
 
     cfg = t_get_config("whisper-large-v3")
     for shape in ("train_4k", "decode_32k"):
-        with pytest.raises(NotImplementedError, match="item 6 "):
-            DR.plan(cfg, INPUT_SHAPES[shape], world=4, model=4)
+        rec, built = DR.plan(cfg, INPUT_SHAPES[shape], world=4, model=4)
+        assert rec["status"] == "ok" and built["model_axis"].size == 4
     fams = {t_get_config(a).family for a in ASSIGNED_ARCHS}
-    assert fams - set(TM.MODEL_AXIS_FAMILIES) == {"audio"}
+    assert fams <= set(TM.MODEL_AXIS_FAMILIES)
 
 
 @pytest.mark.parametrize("arch,whole", [("qwen3-moe-30b-a3b", True),
