@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --time-tree DIR   # time another checkout's kernels
     python3 chip_smoke.py --only 19,20      # phases 1, 2 and those named
-                                            # (of 3c, 19-26) alone
+                                            # (of 3c, 19-27) alone
     python3 chip_smoke.py --mesh 4          # the round over 4 cards
     python3 chip_smoke.py --mesh 4 --only 24  # phases 24b-d alone
     python3 chip_smoke.py --mesh 4 --only 24cd  # phases 24c-d alone
@@ -12,6 +12,7 @@
     python3 chip_smoke.py --mesh 4 --only 25de  # phases 25d-e alone
     python3 chip_smoke.py --mesh 4 --only 25f  # 25e's f32 rounds alone
     python3 chip_smoke.py --mesh 4 --only 26  # phases 26b-d alone
+    python3 chip_smoke.py --mesh 4 --only 27  # phases 27b-c alone
 
 Phases, each of which raises on failure (a failed phase exits non-zero):
 
@@ -294,6 +295,20 @@ Phases, each of which raises on failure (a failed phase exits non-zero):
    per-rank shape of the (1, 4) serve, (8, 5, 5, 1500, 64), and
    ``sparsify_ef`` at the per-rank shapes of 26b and 26d, held and timed.
    The four-card phases 26b-d run under ``--mesh 4 --only 26`` (below).
+27. the codecs on the model axis (``compression/`` through a rank's
+   ``Placement``; also ``--only 27``): (a) every codec policy
+   (``mads-joint``, per-layer ``mads-joint``, ``mads-topk``, ``qsgd``,
+   ``fixed-kb``) for 4 rounds of full-width ResNet-9 and LaneGCN (N = 20,
+   batch 32, f32) on the card alone and through a (1, 1) mesh (a model
+   axis of 1: the codec on whole rows, as on one card), w, k, bits, b
+   and uploads bit-equal, every sparsify call held; the segmented kernel
+   under a counter map (``sparsify_quantize_ef_blocks``: a model-axis
+   rank's blocks, each element drawing its whole-model coordinate's
+   dither) at the four-card phases' per-rank shapes (ResNet-9 and
+   LaneGCN on (1, 4) and (2, 2), InternLM2-1.8B's (1, 944,605,184) bf16
+   on (2, 2)) held against its plain version leaf by leaf and timed
+   beside the same kernel without a map.  The four-card phases 27b-c
+   run under ``--mesh 4 --only 27`` (below).
 
 ``--mesh P`` runs, on each of P cards (one process a card, a file
 store): world 1 against world P for six policies at ResNet-9 width 4;
@@ -343,7 +358,25 @@ per-rank shape) beside one card's run, and at 2 + 2 layers in f32
 against one card as 25b (as drawn, and ``conditioned``: the same tokens,
 logits within 1e-4); (d) Whisper-large-v3 x train_4k on (1, 4) at full
 depth, one client, batch 2 (``axis_train_step``: the round's collectives
-equal to the plan's count).
+equal to the plan's count).  ``--mesh 4 --only 27`` runs phases 27b-c
+(``codec_axis_mesh``; "27" and some of "bc"): (b) full-width ResNet-9
+and LaneGCN on (1, 4) and (2, 2), N = 20, batch 32, f32, 4 rounds of
+each codec policy against rank 0's one-card rounds: given the same x,
+error, budget bits and seeds every rank's payload and error bit-equal to
+one card's on its blocks and the stats equal (``codec_same_x``); over
+the rounds 26b's standard (24b's hold with k in every round, w within
+1e-5 of its largest entry; a quantising codec's w at most 1e-3 past
+1e-6 and none past 1e-3), for each codec ResNet-9's round-1 counts no
+further from those of the f64 gradient than 3x the f32 spread (one
+card's round and a second f32 gradient, floored at one sample step a
+client) plus 2 a client, and the mesh's
+codec on the f64 gradient rounded to f32 giving one card's counts, bits
+within the round's budget on every rank, every sparsify call held, each
+round's collectives over ``model`` equal to the plan's
+(``step_collectives(codec=)``); (c) InternLM2-1.8B, bf16, on (2, 2),
+N = 2, 4 rounds of ``mads-joint`` and per-layer ``mads-joint`` against
+one card's (24b's standard), round s, peak GiB and the counter-map
+entry's time at the rank's (1, s_r).
 
 The last three lines are the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -2661,16 +2694,73 @@ def hold_in_blocks(name: str, x, args, kw, out, tag: str) -> float:
     return worst
 
 
+# ``kernels/ops.py``'s routes to the segmented kernel: without a map and
+# under a counter map (both launch it, and count as its launches)
+SEGMENTED = ("sparsify_quantize_ef_segmented", "sparsify_quantize_ef_blocks")
+SPARSIFY = ("sparsify_ef", "sparsify_quantize_ef") + SEGMENTED
+
+
+def hold_segmented(name: str, args, out, tag: str) -> float:
+    """The segmented ``sparsify_quantize_ef`` entry's output (``_blocks``:
+    under a counter map, ``args[6]``) against its plain version leaf by
+    leaf (a leaf's columns with its own row of the tables and its own
+    map: the plain version's temporaries stay a leaf's): uploads and
+    counts bit-equal, errors within 1e-6.  Returns the largest error
+    difference."""
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import sparsify_ef as K
+
+    x, t, steps, levels, seeds, offsets = args[:6]
+    offsets = [int(o) for o in offsets]
+    counters = args[6] if len(args) > 6 else None
+    up, err, cnt = out
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(offsets, offsets[1:])):
+        # without a map a leaf is whole and owned, its counter the column
+        g0, run, stride, own = (counters[i] if counters is not None
+                                else (a, b - a, b - a, True))
+        one = slice(i, i + 1)
+        # column chunks of about HOLD_BLOCK that start on a run, each with
+        # its own map: a run's counters go on from g0 (R = G) or restart
+        # a stride further on
+        step = HOLD_BLOCK if run == stride else max(HOLD_BLOCK // run, 1) * run
+        total = torch.zeros((x.shape[0], 1), dtype=torch.int64,
+                            device=x.device)
+        for c0 in range(0, b - a, step):
+            c1 = min(c0 + step, b - a)
+            cols = slice(a + c0, a + c1)
+            cmap = ((g0 + c0, c1 - c0, c1 - c0, own) if run == stride
+                    else (g0 + c0 // run * stride, run, stride, own))
+            want = R.sparsify_quantize_ef_blocks_plain(
+                x[:, cols], t[:, one], steps[:, one], levels[:, one], seeds,
+                (0, c1 - c0), (cmap,))
+            if not torch.equal(up[:, cols], want[0]):
+                fail(f"{tag}: {name} upload differs from its plain version "
+                     f"at leaf {i} (columns {cols}, map {counters[i]})")
+            worst = max(worst, (err[:, cols].float() - want[1].float())
+                        .abs().max().item())
+            total += want[2]
+            del want
+        if not torch.equal(cnt[:, one], total.to(cnt.dtype)):
+            fail(f"{tag}: {name} count {cnt[:, one].tolist()} differs from "
+                 f"its plain version's {total.tolist()} at leaf {i}")
+    if worst > 1e-6:
+        fail(f"{tag}: {name} errors off by {worst} from its plain version")
+    return worst
+
+
 def hold_against_plain(name: str, args, kw, out, tag: str) -> float:
     """A kernel's output ``out`` on ``args`` against its plain version on
     the same inputs, with phase 3's tolerances: the sparsify pair through
-    ``hold_in_blocks`` (uploads and counts bit-equal, errors within 1e-6);
-    ``decode_attn`` within 2e-5 (f32) or 3e-2 (bf16) (1 + |want|) at the
+    ``hold_in_blocks`` (uploads and counts bit-equal, errors within 1e-6;
+    the segmented entry leaf by leaf, ``hold_segmented``); ``decode_attn`` within 2e-5 (f32) or 3e-2 (bf16) (1 + |want|) at the
     call's length; ``ssd_scan`` within 2e-4 (1 + |want|) of the plain
     version in f64, one batch row at a time (its f64 chunk tiles at S =
     32768 are 5.4 GB a row).  Returns the largest difference."""
     from repro_torch.kernels import ref as R
 
+    if name in SEGMENTED:
+        return hold_segmented(name, args, out, tag)
     if name.startswith("sparsify"):
         return hold_in_blocks(name, args[0], args[1:], kw, out, tag)
     if name == "decode_attn":
@@ -2832,7 +2922,7 @@ def dist_full_width(K, mesh, policy_name: str, kernel: str, smi: str,
     K.reset_launches()
     tag = (f"dist {policy_name}" if label == DIST_ARCH
            else f"dist {label} {policy_name}")
-    with holding(tag, stats):
+    with holding(tag, stats, SPARSIFY):
         state, hist = run_afl_rounds(system["step"], state, provider,
                                      batch_fn, sample_budgets(fl, 0))
         torch.cuda.synchronize()
@@ -4068,7 +4158,8 @@ def _axis_loss(model, cfg, w, layout, batch, axis) -> float:
 
 def axis_rounds(K, mesh, dev, tag: str, cfg=None, cond: bool = False,
                 n: int = DIST_N, batch: int = DIST_BATCH,
-                rounds: int = DIST_ROUNDS, capture: dict | None = None) -> dict:
+                rounds: int = DIST_ROUNDS, capture: dict | None = None,
+                policy: str = "mads", per_layer: bool = False) -> dict:
     """Phase 24b's rounds: full-width InternLM2-1.8B, bf16 weights and
     states (``cfg``'s ``param_dtype`` for both; with ``cond`` the drawn
     weights ``conditioned``), N = 2 clients, global
@@ -4078,10 +4169,13 @@ def axis_rounds(K, mesh, dev, tag: str, cfg=None, cond: bool = False,
     ``batch``, ``rounds`` rounds; into ``capture`` round 1's target k,
     as the step hands it to ``block_sparsify``, and with
     ``capture["inputs"]`` True the state and batch of round 1's
-    ``device_grads``).  Every
-    ``sparsify_ef`` call held as it returns; launches, uploads, k, bits,
-    loss before and after, round seconds (each ends at a barrier over a
-    mesh), peak GiB; the final w."""
+    ``device_grads``; 27: a codec ``policy`` (``per_layer``: its per-leaf
+    budgets), round 1's budget bits and seeds into ``capture``, each
+    round's budget bits and its collectives over ``model``).  Every
+    sparsify call held as it returns; launches (one of
+    ``codec_kernel``'s a round), uploads, k, bits, b, loss before and
+    after, round seconds (each ends at a barrier over a mesh), peak GiB;
+    the final w."""
     import torch.distributed as dist
 
     from repro_torch.configs import FLConfig
@@ -4096,8 +4190,10 @@ def axis_rounds(K, mesh, dev, tag: str, cfg=None, cond: bool = False,
     model = build_model(cfg)
     s = model.num_params()
     fl = FLConfig(num_devices=n, rounds=rounds,
-                  mean_intercontact=20.0, sparsifier="sampled", seed=0)
-    policy = BL.ALL["mads"](s, fl)
+                  mean_intercontact=20.0, sparsifier="sampled", seed=0,
+                  per_layer_budget=per_layer)
+    kernel = codec_kernel(policy, per_layer, mesh)
+    policy = BL.ALL[policy](s, fl)
     dcfg = DistConfig(num_clients=n, learning_rate=fl.learning_rate,
                       rounds=rounds, sample_size=fl.sample_size,
                       state_dtype=cfg.param_dtype)
@@ -4108,6 +4204,7 @@ def axis_rounds(K, mesh, dev, tag: str, cfg=None, cond: bool = False,
     _reset_peak(dev)
     system = make_afl_train_system(model, cfg, mesh, dcfg=dcfg,
                                    controller=policy.controller,
+                                   compressor=policy.compressor,
                                    staleness=policy.staleness, donate=True)
     state = init_state(model, dcfg, 0, mesh=mesh, device=dev)
     pl = system["placement"]
@@ -4117,23 +4214,35 @@ def axis_rounds(K, mesh, dev, tag: str, cfg=None, cond: bool = False,
     axis = pl.model_axis
     loss0 = _axis_loss(model, cfg, state.w, pl.layout, batches[-1], axis)
     stats = dict(peak=0, hold_s=0.0, held=0)
-    marks = []
+    marks, budgets, counts = [], [], []
 
     def batch_fn(r):
         _sync(dev)
         if mesh is not None:
             dist.barrier()
         marks.append((time.perf_counter(), stats["hold_s"]))
+        if axis is not None:
+            if r:
+                counts.append({k: v[0] for k, v in axis.counts.items()})
+            axis.counts.clear()
         return batches[r]
 
     from repro_torch.core import distributed as D
 
     real, real_grads = D.block_sparsify, D.device_grads
+    real_codec = D.compress_uploads
 
     def spy(x, *args):
         if capture is not None and "k" not in capture:
             capture["k"] = args[2].clone()
         return real(x, *args)
+
+    def spy_codec(comp, g_n, e_n, budget_bits, seeds, *rest):
+        budgets.append(budget_bits.tolist())
+        if capture is not None and "budget" not in capture:
+            capture["budget"], capture["seeds"] = (budget_bits.clone(),
+                                                   seeds.clone())
+        return real_codec(comp, g_n, e_n, budget_bits, seeds, *rest)
 
     def spy_grads(model_, w_n, cl, **kw):
         if capture is not None and capture.get("inputs") is True:
@@ -4143,8 +4252,9 @@ def axis_rounds(K, mesh, dev, tag: str, cfg=None, cond: bool = False,
 
     K.reset_launches()
     D.block_sparsify, D.device_grads = spy, spy_grads
+    D.compress_uploads = spy_codec
     try:
-        with holding(tag, stats):
+        with holding(tag, stats, SPARSIFY):
             state, hist = run_afl_rounds(system["step"], state,
                                          dist_provider(fl, "mads", rounds),
                                          batch_fn, sample_budgets(fl, 0))
@@ -4152,8 +4262,11 @@ def axis_rounds(K, mesh, dev, tag: str, cfg=None, cond: bool = False,
             if mesh is not None:
                 dist.barrier()
             marks.append((time.perf_counter(), stats["hold_s"]))
+            if axis is not None:
+                counts.append({k: v[0] for k, v in axis.counts.items()})
     finally:
         D.block_sparsify, D.device_grads = real, real_grads
+        D.compress_uploads = real_codec
     out = dict(
         s=s, s_card=pl.layout.size, launches=dict(K.LAUNCHES),
         held=stats["held"], peak_gib=max(stats["peak"] / 2**30,
@@ -4163,12 +4276,15 @@ def axis_rounds(K, mesh, dev, tag: str, cfg=None, cond: bool = False,
         uploads=[m["uploads"].tolist() for m in hist],
         k=[m["k"].tolist() for m in hist],
         bits=[m["bits"].tolist() for m in hist],
+        b=[m["b"].tolist() for m in hist],
+        budget=budgets, axis_counts=counts,
         x_norm2=[m["x_norm2"].tolist() for m in hist],
         loss_before=loss0,
         loss=_axis_loss(model, cfg, state.w, pl.layout, batches[-1], axis))
     want = rounds if dev.type == "cuda" else 0
-    if out["launches"].get("sparsify_ef") != want or out["held"] != want:
-        fail(f"{tag}: sparsify_ef launched {out['launches']}, held "
+    if (out["launches"].get(kernel) != want or out["held"] != want
+            or sum(out["launches"].values()) != want):
+        fail(f"{tag}: {kernel} launched {out['launches']}, held "
              f"{out['held']}, not {want}")
     if not (sum(map(sum, out["uploads"])) > 0 and math.isfinite(out["loss"])
             and math.isfinite(loss0)):
@@ -4198,7 +4314,7 @@ def axis_same_x(K, mesh, dev, cfg=None, n: int = DIST_N,
     model = build_model(cfg or axis_cfg(DIST_ARCH))
     s = model.num_params()
     sample = 65536
-    pl = D.placement(model, mesh, sample)
+    pl = D.placement(model, mesh)
     gen = torch.Generator(device=dev).manual_seed(24)
     x = torch.randn(n, s, generator=gen, device=dev, dtype=dtype)
     k = torch.tensor([s / 400.0, s / 7.0], device=dev).repeat(n // 2)
@@ -5855,23 +5971,35 @@ def round1_f64_counts(arch: str, cap: dict) -> list:
     coordinates with |x| at or past it."""
     from repro_torch.configs import FLConfig
     from repro_torch.core import distributed as D
-    from repro_torch.core.afl import device_grads
-    from repro_torch.models.registry import build_model
 
     fl = FLConfig()
-    model = build_model(paper_cfg(arch).replace(dtype="float64",
-                                                param_dtype="float64"))
-    w_n, cl = cap["inputs"]
-    with torch.backends.cudnn.flags(enabled=False):
-        x = fl.learning_rate * device_grads(
-            model, w_n.double(), {k: v.double() if v.is_floating_point()
-                                  else v for k, v in cl.items()})
-    t = D.block_threshold(x, model, D.placement(model, None, fl.sample_size),
+    x, model = round1_x(arch, cap)
+    t = D.block_threshold(x, model, D.placement(model, None),
                           cap["k"], fl.sample_size)
     out = (x.abs() >= t[:, None]).sum(dim=1).tolist()
     del x
-    _free(w_n.device)
+    _free(t.device)
     return out
+
+
+def round1_x(arch: str, cap: dict, dtype: str = "float64") -> tuple:
+    """(x, the model in ``dtype``): round 1's x = eta g of one card's f32
+    round 1 (``cap["inputs"]``: its state and batch), the gradient in
+    ``dtype`` with cuDNN off (PyTorch's own convolutions; in f32 a second
+    f32 computation of the round's gradient, another summation order)."""
+    from repro_torch.configs import FLConfig
+    from repro_torch.core.afl import device_grads
+    from repro_torch.models.registry import build_model
+
+    model = build_model(paper_cfg(arch).replace(dtype=dtype,
+                                                param_dtype=dtype))
+    dt = getattr(torch, dtype)
+    w_n, cl = cap["inputs"]
+    with torch.backends.cudnn.flags(enabled=False):
+        x = FLConfig().learning_rate * device_grads(
+            model, w_n.to(dt), {k: v.to(dt) if v.is_floating_point()
+                                else v for k, v in cl.items()})
+    return x, model
 
 
 def paper_axis_mesh(mods, K, store: Path, device="cuda",
@@ -5968,6 +6096,584 @@ def check_paper_rank(o: dict) -> None:
               f"{t['peak_gib_max_over_ranks']:.2f} GiB, bound "
               f"{t['bound_s']:.6g} s ({t['bound_by']}), collectives over "
               f"model {json.dumps(t['runs'][1]['axis_counts'])}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# 27: the codecs on the model axis
+# ---------------------------------------------------------------------------
+
+CODEC_POLICIES = (("mads-joint", False), ("mads-joint", True),
+                  ("mads-topk", False), ("qsgd", False), ("fixed-kb", False))
+CODEC_LM = (("mads-joint", False), ("mads-joint", True))  # 27c's policies
+CODEC_BUDGETS = (2.0, 9.0)  # 27b(i): budget bits a parameter, by client
+# 27b: a quantising codec's f32 w against one card's, of its largest entry:
+# at most CODEC_W_SHARE of the coordinates past 1e-6 and none past
+# CODEC_W_OFF.  A coordinate whose dither code flips (x / step + u within
+# the f32 gradient's rounding of an integer) or that crosses the threshold
+# moves by up to a quantisation step / N, so 26b's 1e-5 holds only the raw
+# codec (on an H100 80GB HBM3 at 700 W: past 1e-6 at up to 5.0e-4 of the
+# coordinates, off at most 1.68e-4, qsgd on ResNet-9; raw mads-topk 1.5e-6;
+# PERF.md §6)
+CODEC_W_SHARE, CODEC_W_OFF = 1e-3, 1e-3
+
+
+def codec_label(policy: str, per_layer: bool) -> str:
+    return policy + (" per-layer" if per_layer else "")
+
+
+def codec_kernel(policy: str, per_layer: bool, mesh) -> str:
+    """The sparsify kernel a round of ``policy`` launches once: ``mads``'s
+    and the raw ``mads-topk``'s (u = 32) ``sparsify_ef``; over a model
+    axis (the codec on the rank's blocks, through its placement) the
+    quantising codecs' segmented kernel under the blocks' counter map;
+    without one (one card, or a model axis of 1: whole rows) the
+    per-layer codec's segmented kernel and the others'
+    ``sparsify_quantize_ef``."""
+    if policy in ("mads", "mads-topk"):
+        return "sparsify_ef"
+    if per_layer or (mesh is not None and mesh.model > 1):
+        return "sparsify_quantize_ef_segmented"
+    return "sparsify_quantize_ef"
+
+
+def codec_compressor(policy: str, per_layer: bool, s: int,
+                     method: str = "sampled"):
+    """``policy``'s codec as ``core/baselines.py`` builds it from the
+    default ``FLConfig`` (sample 65,536), thresholds by ``method``."""
+    from repro_torch.configs import FLConfig
+    from repro_torch.core import baselines as BL
+
+    fl = FLConfig(sparsifier=method, per_layer_budget=per_layer)
+    return BL.ALL[policy](s, fl).compressor
+
+
+def codec_rounds(K, mesh, dev, arch: str, policy: str, per_layer: bool,
+                 tag: str, capture=None) -> tuple:
+    """``paper_rounds`` of a codec policy: full width, f32, N = 20
+    clients of batch 32, ``PAPER_ROUNDS`` rounds, every sparsify call
+    held as it returns."""
+    return axis_rounds(K, mesh, dev, tag, paper_cfg(arch), n=N_DEV,
+                       batch=32 * N_DEV, rounds=PAPER_ROUNDS, capture=capture,
+                       policy=policy, per_layer=per_layer)
+
+
+def _rank_mesh(world: int, m: int, rank: int):
+    from repro_torch.launch.mesh import ClientMesh
+
+    return ClientMesh(group=None, rank=rank, world_size=world,
+                      device=torch.device("meta"), model=m)
+
+
+def blocks_times(K, R, card: str) -> list:
+    """27a: the segmented ``sparsify_quantize_ef`` under a counter map
+    (``sparsify_quantize_ef_blocks``) at the per-rank shapes of 27b-c's
+    rounds, with the map of model index 1 (its blocks start past a cut
+    leaf's first run; index 0 would own the whole leaves too): ResNet-9's
+    and LaneGCN's (N / D, s_r) f32 on (1, 4) and (2, 2) and
+    InternLM2-1.8B's (1, s_r) bf16 on (2, 2).  Each held against its
+    plain version leaf by leaf (``hold_segmented``), timed beside the
+    plain version and the segmented entry without a map (world 1's
+    draws, the flat column) on the same inputs; the bound is the bytes
+    read and written over the HBM rate (each element read once and
+    written twice, the (N, L) tables, seeds, map and tiles read and the
+    (N, L) counts written)."""
+    from repro_torch.core.distributed import placement
+    from repro_torch.models.registry import build_model
+
+    shapes = []
+    for arch in PAPER_ARCHS:
+        model = build_model(paper_cfg(arch))
+        for world, m in ((4, 4), (4, 2)):
+            shapes.append((f"{arch} ({world // m}, {m})",
+                           N_DEV * m // world,
+                           placement(model, _rank_mesh(world, m, 1)),
+                           torch.float32))
+    lm = build_model(axis_cfg(DIST_ARCH))
+    shapes.append((f"{DIST_ARCH} (2, 2)", 1,
+                   placement(lm, _rank_mesh(4, 2, 1)), torch.bfloat16))
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    out = []
+    for label, n, pl, dt in shapes:
+        lay = pl.layout
+        offsets, nl, s_r = lay.offsets + (lay.size,), len(lay.sizes), lay.size
+        x = torch.randn((n, s_r), generator=gen, device="cuda", dtype=dt)
+        t = torch.rand((n, nl), generator=gen, device="cuda") * 2.0
+        steps = torch.rand((n, nl), generator=gen, device="cuda") * 0.05 + 0.004
+        levels = torch.tensor([1.0, 7.0, 127.0, 32767.0], device="cuda")[
+            torch.randint(0, 4, (n, nl), generator=gen, device="cuda")]
+        seeds = torch.arange(n, device="cuda", dtype=torch.int32) * 7919 + 11
+        args = (x, t, steps, levels, seeds, offsets, pl.counters)
+        err = hold_segmented("sparsify_quantize_ef_blocks", args,
+                             K.sparsify_quantize_ef_blocks_cuda(*args),
+                             f"blocks {label}")
+        big = x.numel() > 1 << 28
+        elt = x.element_size()
+        ntiles = K.tiles(offsets, x.dtype, x.device).shape[0]
+        res = dict(
+            label=label, shape=[n, s_r], dtype=str(dt)[6:], leaves=nl,
+            cut_leaves=sum(run != stride for _, run, stride, _ in pl.counters),
+            ms=median_ms(lambda: K.sparsify_quantize_ef_blocks_cuda(*args)),
+            unmapped_ms=median_ms(lambda: K.sparsify_quantize_ef_segmented_cuda(
+                *args[:6])),
+            plain_ms=median_ms(
+                lambda: R.sparsify_quantize_ef_blocks_plain(*args),
+                runs=3 if big else 9, batch=1 if big else 3),
+            library_ms=None, max_abs_err=err,
+            **bound(3 * elt * x.numel() + (3 * 4 + 8) * n * nl + 4 * n
+                    + 40 * nl + 24 * ntiles, 26 * x.numel(), torch.float32))
+        res["bound_share"] = res["bound_ms"] / res["ms"]
+        out.append(res)
+        print(f"sparsify_quantize_ef_blocks at {label}'s per-rank (N/D, s_r) "
+              f"= ({n}, {s_r}) {res['dtype']}, {nl} leaves "
+              f"({res['cut_leaves']} cut): {json.dumps(res)} on {card}",
+              flush=True)
+        del x, args
+    torch.cuda.empty_cache()
+    return out
+
+
+def codec_axis_phase(K, R, smi: str) -> dict:
+    """Phase 27a: every codec policy's ``PAPER_ROUNDS`` rounds of
+    full-width ResNet-9 and LaneGCN (N = 20, batch 32, f32) on this card
+    alone and again through a (1, 1) NCCL mesh (a model axis of 1: the
+    codec on whole rows, the kernel one card's), w, k, bits, b and uploads
+    bit-equal under deterministic cuDNN; the kernel under a counter map
+    at the four-card phases' per-rank shapes (``blocks_times``)."""
+    from repro_torch.launch.mesh import make_client_mesh
+
+    t0 = time.perf_counter()
+    rounds = {}
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    try:
+        for arch in PAPER_ARCHS:
+            for policy, per_layer in CODEC_POLICIES:
+                label = f"{arch} {codec_label(policy, per_layer)}"
+                one, w1, _ = codec_rounds(K, None, dev, arch, policy,
+                                          per_layer, f"codec {label} world 1")
+                w1 = w1.cpu()
+                mesh = make_client_mesh(N_DEV, model=1,
+                                        family=paper_cfg(arch).family)
+                try:
+                    run, w, _ = codec_rounds(K, mesh, mesh.device, arch,
+                                             policy, per_layer,
+                                             f"codec {label} (1, 1)")
+                finally:
+                    mesh.close()
+                same = dict(w=bool(torch.equal(w.cpu(), w1)),
+                            **{k: run[k] == one[k]
+                               for k in ("k", "bits", "b", "uploads")})
+                del w, w1
+                if not all(same.values()):
+                    fail(f"codec {label}: the (1, 1) mesh's rounds differ "
+                         f"from world 1's: {same}")
+                rounds[label] = dict(run=run, world_1=one, bit_equal=same)
+                print(f"codec {label} (full width, N = {N_DEV}, batch 32, "
+                      f"f32) through a (1, 1) mesh bit-equal to world 1 "
+                      f"({json.dumps(same)}); k {run['k'][1][:4]}..., b "
+                      f"{run['b'][1][:4]}..., round s {run['round_s']} "
+                      f"(world 1 {one['round_s']}), launches "
+                      f"{run['launches']} (world 1 {one['launches']})",
+                      flush=True)
+                torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = det
+    times = blocks_times(K, R, smi)
+    print(f"phase 27a {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(rounds=rounds, times=times)
+
+
+def codec_same_x(K, mesh, dev, arch: str) -> dict:
+    """27b(i): one random f32 x and error memory (N, s) at full width (the
+    same on every rank, from one seed), budget bits of 2 s and 9 s
+    (``CODEC_BUDGETS``) by client and fixed seeds: every policy's codec of
+    ``CODEC_POLICIES`` (sampled; LaneGCN also exact) on the rank's blocks
+    through its placement against world 1's on the whole rows, computed
+    on this card: payload and error bit-equal on the rank's blocks, k,
+    bits, b and step equal; the per-layer codec with world 1's leaf
+    energies fed in (the all-reduced sum of blocks adds in another order;
+    the unfed energies' largest relative difference is printed); the
+    first call at each shape held against its plain version."""
+    from repro_torch.compression.perlayer import (placed_energies,
+                                                  compress_per_layer,
+                                                  leaf_energies)
+    from repro_torch.core import distributed as D
+    from repro_torch.models.registry import build_model, local_params
+    from repro_torch.utils.tree import tree_unflatten
+
+    model = build_model(paper_cfg(arch))
+    s = model.num_params()
+    pl = D.placement(model, mesh)
+    blocks = tree_unflatten(model.layout.paths, list(pl.blocks))
+
+    def cut(t):
+        return pl.layout.flatten(local_params(
+            model, model.layout.unflatten(t), blocks, lead=1), lead=1)
+
+    gen = torch.Generator(device=dev).manual_seed(27)
+    x = torch.randn(N_DEV, s, generator=gen, device=dev)
+    e = 0.25 * torch.randn(N_DEV, s, generator=gen, device=dev)
+    budget = torch.tensor(CODEC_BUDGETS, device=dev).repeat(N_DEV // 2) * s
+    seeds = torch.arange(N_DEV, device=dev, dtype=torch.int32) * 7919 + 11
+    xb, eb = cut(x), cut(e)
+    fed = leaf_energies(x + e, model.layout)
+    out = {}
+    stats = dict(peak=0, hold_s=0.0, held=0)
+    with holding(f"codec same x {arch}", stats, SPARSIFY, True):
+        for method in ("sampled",) + (("exact",) if arch == LANEGCN else ()):
+            for policy, per_layer in CODEC_POLICIES:
+                comp = codec_compressor(policy, per_layer, s, method)
+                if per_layer:
+                    one = compress_per_layer(comp, x + e, model.layout,
+                                             budget, seeds)
+                    got = compress_per_layer(comp, xb + eb, pl.layout, budget,
+                                             seeds, pl, energies=fed)
+                else:
+                    one = comp.compress(x, budget, e, seeds, model.layout)
+                    got = comp.compress(xb, budget, eb, seeds, pl.layout, pl)
+                out[f"{codec_label(policy, per_layer)} {method}"] = dict(
+                    payload=bool(torch.equal(got[0], cut(one[0]))),
+                    error=bool(torch.equal(got[1], cut(one[1]))),
+                    stats=all(torch.equal(got[2][k], one[2][k])
+                              for k in one[2]),
+                    k=got[2]["k"][:2].tolist(), b=got[2]["b"][:2].tolist())
+                del one, got
+    out["energies_rel_max"] = float(((placed_energies(xb + eb, pl) - fed)
+                                     .abs() / fed).max())
+    bad = {k: v for k, v in out.items() if isinstance(v, dict)
+           and not (v["payload"] and v["error"] and v["stats"])}
+    if bad:
+        fail(f"codec same x {arch} on rank {mesh.rank}: {bad}")
+    del x, e, xb, eb
+    _free(dev)
+    return out
+
+
+def codec_axis(K, mesh, dev, store: Path, arch: str) -> dict:
+    """Phase 27b for one paper model on ``mesh``: (i) ``codec_same_x``;
+    (ii) rank 0 runs every policy's rounds on its card alone (world 1,
+    once for both meshes) and round 1's witness: the gradient of round
+    1's state and batch in f64 (``round1_x``, for ``PAPER_F64``),
+    rounded to f32 once, through each codec with round 1's budget bits
+    and seeds; (iii) every rank runs the same rounds over the mesh on its
+    clients' rows and its blocks, held by ``_rounds_hold`` (24b's
+    standard, k in every round) and, in f32, w within ``PAPER_W_OFF`` of
+    its largest entry (a quantising codec's: ``CODEC_W_SHARE`` and
+    ``CODEC_W_OFF``); bits within the round's budget on every rank; each
+    round's collectives over ``model`` equal to the plan's
+    (``step_collectives(codec=)``); and, for each codec, two witnesses of
+    round 1's k (``PAPER_F64``): the mesh's counts, summed over the
+    clients, no further from those of the f64 gradient than 3x the f32
+    spread, plus 2 a client, the spread the largest distance among one
+    card's round, a second f32 gradient of the same state and batch
+    (``round1_x`` in f32) and the f64 gradient's counts, floored at one
+    step of the sorted sample (s / m coordinates) a client that uploads
+    (the f32 readings can all fall within a step of f64 by chance); and
+    the mesh's codec on the f64
+    gradient rounded to f32 (saved by rank 0), cut to the rank's blocks,
+    giving one card's counts on it exactly
+    (``codec_f64_x_counts``)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import roofline as RL
+
+    same_x = codec_same_x(K, mesh, dev, arch)
+    key = f"codec_{arch}"
+    slug = {codec_label(p, l): codec_label(p, l).replace(" ", "_")
+            for p, l in CODEC_POLICIES}
+    if mesh.rank == 0 and not (store / f"{key}_one.json").exists():
+        one, cap0 = {}, {"inputs": True}
+        for policy, per_layer in CODEC_POLICIES:
+            label = codec_label(policy, per_layer)
+            cap = cap0 if not one else {}
+            r1, w, model = codec_rounds(K, None, dev, arch, policy, per_layer,
+                                        f"codec {arch} {label} world 1", cap)
+            r1["budget1"], r1["seeds1"] = (cap["budget"].tolist(),
+                                           cap["seeds"].tolist())
+            torch.save(w.cpu(), store / f"{key}_{slug[label]}_w1.pt")
+            one[label] = r1
+            del w
+            _free(dev)
+        if arch in PAPER_F64:
+            x64, _ = round1_x(arch, cap0)
+            xs = dict(f64=x64.float())
+            del x64
+            xs["alt"] = round1_x(arch, cap0, "float32")[0]
+            del cap0
+            torch.save(xs["f64"].cpu(), store / f"{key}_x32.pt")
+            for policy, per_layer in CODEC_POLICIES:
+                label = codec_label(policy, per_layer)
+                r1 = one[label]
+                comp = codec_compressor(policy, per_layer, model.num_params())
+                for name, x in xs.items():
+                    k = comp.compress(
+                        x, torch.tensor(r1["budget1"], device=dev),
+                        torch.zeros_like(x),
+                        torch.tensor(r1["seeds1"], device=dev,
+                                     dtype=torch.int32), model.layout)[2]["k"]
+                    r1[f"k_round1_{name}_raw"] = k.tolist()
+                    r1[f"k_round1_{name}"] = (k.cpu() * torch.tensor(
+                        r1["uploads"][0])).tolist()
+            del xs
+            _free(dev)
+        (store / f"{key}_one.json").write_text(json.dumps(one))
+    dist.barrier()
+    one = json.loads((store / f"{key}_one.json").read_text())
+    shape = f"({mesh.data_size}, {mesh.model})"
+    rows = mesh.rows(N_DEV)
+    on_f64_x = (codec_f64_x_counts(mesh, dev, arch, store / f"{key}_x32.pt",
+                                   one) if arch in PAPER_F64 else {})
+    out = {}
+    for policy, per_layer in CODEC_POLICIES:
+        label = codec_label(policy, per_layer)
+        want = one[label]
+        got, w, model = codec_rounds(K, mesh, dev, arch, policy, per_layer,
+                                     f"codec {arch} {label} {shape}")
+        hold = _rounds_hold(got, want, w, model, mesh,
+                            store / f"{key}_{slug[label]}_w1.pt",
+                            PAPER_ROUNDS)
+        del w
+        _free(dev)
+        comp = codec_compressor(policy, per_layer, model.num_params())
+        seqs = 32 * N_DEV // mesh.data_size
+        plan = RL.step_collectives(
+            "train", 0, mesh.model, N_DEV // mesh.data_size,
+            model=mesh.model, cfg=paper_cfg(arch), tokens=seqs, seqs=seqs,
+            codec=comp, leaves=len(model.layout.sizes)).count_by_kind
+        witness = {}
+        if "k_round1_f64" in want:
+            ks = dict(f64=want["k_round1_f64"], one_card=want["k"][0],
+                      alt=want["k_round1_alt"], mesh=got["k"][0])
+
+            def dist1(a, b):
+                return sum(abs(x - y) for x, y in zip(ks[a], ks[b]))
+
+            witness = dict(
+                mesh_from_f64=dist1("mesh", "f64"),
+                one_card_from_f64=dist1("one_card", "f64"),
+                alt_from_f64=dist1("alt", "f64"),
+                one_card_from_alt=dist1("one_card", "alt"),
+                mesh_from_one_card=dist1("mesh", "one_card"))
+            witness["f32_spread"] = max(witness[k] for k in (
+                "one_card_from_f64", "alt_from_f64", "one_card_from_alt"))
+            # one step of the sorted sample stands for s / m coordinates:
+            # an f32 reorder at the picked index moves a client's k by
+            # about that, so the spread is floored at one step a client
+            # that uploads (the readings can all miss such a reorder)
+            witness["sample_floor"] = (sum(1 for u in want["uploads"][0] if u)
+                                       * model.num_params() / comp.sample)
+            witness["within_f32_spread"] = (
+                witness["mesh_from_f64"]
+                <= 3 * max(witness["f32_spread"], witness["sample_floor"])
+                + 2 * len(ks["f64"]))
+            witness["codec_on_f64_x_equal"] = on_f64_x[label]
+        checks = dict(
+            w_f32=(hold["w_off_max"] <= CODEC_W_OFF
+                   and hold["w_beyond_1e6_share"] <= CODEC_W_SHARE)
+            if comp.quantize else hold["w_off_max"] <= PAPER_W_OFF,
+            bits_within_budget=all(
+                b <= c * (1 + 1e-6) + 1e-3 for rb, rc in zip(got["bits"],
+                                                             got["budget"])
+                for b, c in zip(rb[rows], rc)),
+            axis_counts=all(c == plan for c in got["axis_counts"]),
+            k_within_f32_spread=witness.get("within_f32_spread", True),
+            codec_on_f64_x_equal=witness.get("codec_on_f64_x_equal", True))
+        out[label] = dict(mesh=got, hold=hold, witness=witness,
+                          checks=checks, plan_counts=plan,
+                          ok=hold["ok"] and all(checks.values()))
+    return dict(mesh_shape=shape, same_x=same_x, world_1=one, policies=out,
+                ok=all(o["ok"] for o in out.values()))
+
+
+def codec_f64_x_counts(mesh, dev, arch: str, path: Path, one: dict) -> dict:
+    """27b's second witness of round 1's k: the f64 gradient rounded to
+    f32 (``path``, saved by rank 0; every client's row, as
+    ``codec_same_x``), cut to the rank's blocks, through each codec on
+    the rank's placement with round 1's budget bits
+    and seeds (the per-layer codec with the whole rows' leaf energies, as
+    ``codec_same_x``); by codec, whether its per-client k equals one
+    card's codec on the same x (``k_round1_f64_raw``).  The first kernel
+    call at each shape held against its plain version."""
+    from repro_torch.compression.perlayer import (compress_per_layer,
+                                                  leaf_energies)
+    from repro_torch.core import distributed as D
+    from repro_torch.models.registry import build_model, local_params
+    from repro_torch.utils.tree import tree_unflatten
+
+    model = build_model(paper_cfg(arch))
+    s = model.num_params()
+    pl = D.placement(model, mesh)
+    blocks = tree_unflatten(model.layout.paths, list(pl.blocks))
+    x = torch.load(path, map_location=dev)
+    fed = leaf_energies(x, model.layout)
+    xb = pl.layout.flatten(local_params(model, model.layout.unflatten(x),
+                                        blocks, lead=1), lead=1)
+    del x
+    out = {}
+    stats = dict(peak=0, hold_s=0.0, held=0)
+    with holding(f"codec f64 x {arch}", stats, SPARSIFY, True):
+        for policy, per_layer in CODEC_POLICIES:
+            label = codec_label(policy, per_layer)
+            r1 = one[label]
+            comp = codec_compressor(policy, per_layer, s)
+            budget = torch.tensor(r1["budget1"], device=dev)
+            seeds = torch.tensor(r1["seeds1"], device=dev, dtype=torch.int32)
+            if per_layer:
+                st = compress_per_layer(comp, xb, pl.layout, budget, seeds,
+                                        pl, energies=fed)[2]
+            else:
+                st = comp.compress(xb, budget, torch.zeros_like(xb), seeds,
+                                   pl.layout, pl)[2]
+            out[label] = st["k"].tolist() == r1["k_round1_f64_raw"]
+    del xb
+    _free(dev)
+    return out
+
+
+def codec_internlm2(K, mesh, dev, store: Path) -> dict:
+    """Phase 27c: full-width InternLM2-1.8B, bf16, on the (data 2, model 2)
+    mesh, N = 2, 4 rounds of each of ``CODEC_LM`` (24b's rounds with the
+    codec): rank 0 first on its card alone (world 1), then every rank
+    over the mesh, held by ``_rounds_hold`` (24b's bf16 standard); round
+    s and peak GiB a card; every sparsify call held; the counter-map
+    entry timed at the rank's (1, s_r) on its own map."""
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import placement
+    from repro_torch.models.registry import build_model
+
+    out = {}
+    for policy, per_layer in CODEC_LM:
+        label = codec_label(policy, per_layer)
+        slug = label.replace(" ", "_")
+        if mesh.rank == 0:
+            one, w, _ = axis_rounds(K, None, dev, f"codec {DIST_ARCH} {label} "
+                                    "world 1", policy=policy,
+                                    per_layer=per_layer)
+            torch.save(w.cpu(), store / f"codec_lm_{slug}_w1.pt")
+            (store / f"codec_lm_{slug}.json").write_text(json.dumps(one))
+            del w
+            _free(dev)
+        dist.barrier()
+        one = json.loads((store / f"codec_lm_{slug}.json").read_text())
+        got, w, model = axis_rounds(K, mesh, dev, f"codec {DIST_ARCH} {label} "
+                                    "(2, 2)", policy=policy,
+                                    per_layer=per_layer)
+        hold = _rounds_hold(got, one, w, model, mesh,
+                            store / f"codec_lm_{slug}_w1.pt", 2)
+        del w
+        _free(dev)
+        out[label] = dict(world_1=one, mesh=got, hold=hold, ok=hold["ok"])
+    out["ok"] = all(out[codec_label(p, l)]["ok"] for p, l in CODEC_LM)
+    if dev.type != "cuda":  # a rehearsal over gloo: no kernel to time
+        return out
+    pl = placement(build_model(axis_cfg(DIST_ARCH)), mesh)
+    lay = pl.layout
+    gen = torch.Generator(device=dev).manual_seed(27)
+    nl = len(lay.sizes)
+    args = (torch.randn((1, lay.size), generator=gen, device=dev,
+                        dtype=torch.bfloat16),
+            torch.full((1, nl), 1.5, device=dev),
+            torch.full((1, nl), 0.01, device=dev),
+            torch.full((1, nl), 7.0, device=dev),
+            torch.tensor([11], device=dev, dtype=torch.int32),
+            lay.offsets + (lay.size,), pl.counters)
+    out["blocks_ms"] = median_ms(
+        lambda: K.sparsify_quantize_ef_blocks_cuda(*args))
+    out["unmapped_ms"] = median_ms(
+        lambda: K.sparsify_quantize_ef_segmented_cuda(*args[:6]))
+    out["shape"] = [1, lay.size]
+    out.update(bound(6 * lay.size + 28 * nl + 4, 26 * lay.size,
+                     torch.float32))
+    del args
+    _free(dev)
+    return out
+
+
+def codec_axis_mesh(mods, K, store: Path, device="cuda",
+                    phases: str = "bc") -> dict:
+    """Phases 27b-c on four ranks (``--mesh 4 --only 27``; ``phases`` of
+    "bc"): every codec policy's rounds of ResNet-9 and LaneGCN on (1, 4)
+    and (2, 2) (b: ``codec_axis``), InternLM2-1.8B's ``mads-joint`` and
+    per-layer rounds on (2, 2) (c: ``codec_internlm2``); each rank's
+    numbers."""
+    from repro_torch.launch.mesh import make_client_mesh
+
+    out = {}
+    if "b" in phases:
+        for m in PAPER_MODELS:
+            mesh = make_client_mesh(N_DEV, model=m, family="vision",
+                                    device=device)
+            for arch in PAPER_ARCHS:
+                t0 = time.perf_counter()
+                res = codec_axis(K, mesh, mesh.device, store, arch)
+                res["phase_s"] = time.perf_counter() - t0
+                out[f"{arch} {res['mesh_shape']}"] = res
+                print(f"codec {arch} on {res['mesh_shape']}: " + json.dumps(
+                    {k: dict(o["checks"], hold_ok=o["hold"]["ok"],
+                             round_s=o["mesh"]["round_s"])
+                     for k, o in res["policies"].items()}), flush=True)
+            mesh.close()
+    if "c" in phases:
+        mesh = make_client_mesh(DIST_N, model=2, family="dense",
+                                device=device)
+        t0 = time.perf_counter()
+        out["internlm2"] = codec_internlm2(K, mesh, mesh.device, store)
+        out["internlm2"]["phase_s"] = time.perf_counter() - t0
+        mesh.close()
+    return out
+
+
+def check_codec_rank(o: dict) -> None:
+    """Phases 27b-c's checks of one rank's results, and their numbers in
+    one line each."""
+    a = o["codec"]
+    for key, res in a.items():
+        if key == "internlm2":
+            continue
+        if not res["ok"]:
+            fail(f"codec {key} against one card on rank {o['rank']}: "
+                 + json.dumps({k: dict(v["checks"], hold=v["hold"],
+                                       witness=v["witness"])
+                               for k, v in res["policies"].items()
+                               if not v["ok"]}))
+        print(f"codec rank {o['rank']}: {key}: same x bit-equal for every "
+              f"codec", flush=True)
+        for label, v in res["policies"].items():
+            h, wt = v["hold"], v["witness"]
+            print(f"codec rank {o['rank']}: {key} {label}: round s "
+                  f"{v['mesh']['round_s']} (one card "
+                  f"{res['world_1'][label]['round_s']}), peak "
+                  f"{v['mesh']['peak_gib']:.2f} GiB; k off at most "
+                  f"{h['k_abs_max']} ({h['k_rel_max']:.3g} where both "
+                  f"upload), w bit-equal {h['w_bit_equal_share']:.4f}, past "
+                  f"1e-6 of its largest {h['w_beyond_1e6_share']:.4f}, off "
+                  f"at most {h['w_off_max']:.3g}; round 1's k witness "
+                  f"{json.dumps(wt)}; collectives over model a round "
+                  f"{json.dumps(v['plan_counts'])}", flush=True)
+    if "internlm2" in a:
+        lm = a["internlm2"]
+        if not lm["ok"]:
+            fail(f"codec InternLM2 (2, 2) on rank {o['rank']}: " + json.dumps(
+                {k: v["hold"] for k, v in lm.items()
+                 if isinstance(v, dict) and "hold" in v}))
+        for label, v in lm.items():
+            if isinstance(v, dict) and "hold" in v:
+                print(f"codec rank {o['rank']}: InternLM2 (2, 2) {label}: "
+                      f"round s {v['mesh']['round_s']} (one card "
+                      f"{v['world_1']['round_s']}), peak "
+                      f"{v['mesh']['peak_gib']:.2f} GiB (one card "
+                      f"{v['world_1']['peak_gib']:.2f}), hold "
+                      f"{json.dumps(v['hold'])}", flush=True)
+        if "blocks_ms" not in lm:  # a rehearsal on the CPU
+            return
+        print(f"codec rank {o['rank']}: sparsify_quantize_ef_blocks at "
+              f"{lm['shape']} bf16 on the rank's map {lm['blocks_ms']:.4f} ms "
+              f"(unmapped {lm['unmapped_ms']:.4f} ms, bound "
+              f"{lm['bound_ms']:.4f} ms by {lm['bound_by']})", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -6235,7 +6941,7 @@ def mesh_rank(rank: int, world: int, store_path: str,
     """``--mesh-rank r P STORE [ONLY]``: one rank of ``--mesh P``, on card
     r; ``ONLY`` "24": phases 24b-d alone ("24cd": 24c-d); "25": phases
     25b-e ("25" and some of "bcde": those); "26": phases 26b-d (and some
-    of "bcd")."""
+    of "bcd"); "27": phases 27b-c (and some of "bc")."""
     import torch.distributed as dist
 
     from repro_torch.kernels import decode_attn as DA
@@ -6261,6 +6967,9 @@ def mesh_rank(rank: int, world: int, store_path: str,
         elif only.startswith("26"):
             out["paper"] = paper_axis_mesh(mods, K, Path(store_path).parent,
                                            phases=only[2:] or "bcd")
+        elif only.startswith("27"):
+            out["codec"] = codec_axis_mesh(mods, K, Path(store_path).parent,
+                                           phases=only[2:] or "bc")
         elif world == 4:
             out["axis"] = axis_mesh(mods, K, Path(store_path).parent,
                                     phases="cd" if only == "24cd" else "bcd")
@@ -6366,6 +7075,8 @@ def mesh_main(world: int, only: str = "") -> None:
             check_family_rank(o)
         if "paper" in o:
             check_paper_rank(o)
+        if "codec" in o:
+            check_codec_rank(o)
     for o in outs:
         if only:
             continue
@@ -6428,6 +7139,14 @@ def family_launches(family: dict, name: str) -> dict:
             if r.get("launches", {}).get(name)}
 
 
+def codec_launches(codec_axis: dict, name: str) -> dict:
+    """Phase 27a's launch counts of one kernel in the (1, 1) mesh rounds,
+    by policy, where nonzero."""
+    return {k: r["run"]["launches"][name]
+            for k, r in codec_axis["rounds"].items()
+            if r["run"]["launches"].get(name)}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -6437,10 +7156,11 @@ def main() -> None:
         only = sys.argv[4] if sys.argv[3:4] == ["--only"] else ""
         if only not in ("", "24", "24cd") and not (
                 only.startswith("25") and set(only[2:]) <= set("bcdef")) \
-                and not (only.startswith("26") and set(only[2:]) <= set("bcd")):
+                and not (only.startswith("26") and set(only[2:]) <= set("bcd")) \
+                and not (only.startswith("27") and set(only[2:]) <= set("bc")):
             fail(f"--mesh takes --only 24, 24cd, 25 (25 and some of bcde, "
-                 f"or 25f: 25e's f32 rounds alone) or 26 (26 and some of "
-                 f"bcd), not {only}")
+                 f"or 25f: 25e's f32 rounds alone), 26 (26 and some of "
+                 f"bcd) or 27 (27 and some of bc), not {only}")
         return mesh_main(int(sys.argv[2]), only)
     if sys.argv[1:2] == ["--mesh-rank"]:
         return mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
@@ -6448,9 +7168,9 @@ def main() -> None:
     only = (set(sys.argv[2].split(",")) if sys.argv[1:2] == ["--only"]
             else None)
     if only is not None and not only <= {"3c", "19", "20", "21", "22", "23",
-                                         "24", "25", "26"}:
+                                         "24", "25", "26", "27"}:
         fail(f"--only takes phases of 3c, 19, 20, 21, 22, 23, 24, 25, 26, "
-             f"not {sys.argv[2]}")
+             f"27, not {sys.argv[2]}")
     from repro_torch.kernels import decode_attn as DA
     from repro_torch.kernels import ref as R
     from repro_torch.kernels import sparsify_ef as K
@@ -6482,9 +7202,10 @@ def main() -> None:
                   "23": lambda: steps_phase(mods, K, DA, SSD, R, smi),
                   "24": lambda: axis_phase(K, smi),
                   "25": lambda: family_axis_phase(K, DA, SSD, R, smi),
-                  "26": lambda: paper_axis_phase(K, DA, R, smi)}
+                  "26": lambda: paper_axis_phase(K, DA, R, smi),
+                  "27": lambda: codec_axis_phase(K, R, smi)}
         done = {p: phases[p]() for p in ("3c", "19", "20", "21", "22", "23",
-                                         "24", "25", "26")
+                                         "24", "25", "26", "27")
                 if p in only}
         print(json.dumps(dict(phases=sorted(done), held=HELD), default=str))
         return
@@ -6620,6 +7341,13 @@ def main() -> None:
     paper_axis = paper_axis_phase(K, DA, R, smi)
     torch.cuda.empty_cache()
 
+    # 27. the codecs on the model axis: every codec policy's rounds of the
+    # paper models through a (1, 1) mesh, the segmented kernel under a
+    # counter map at the four-card phases' per-rank shapes (those run
+    # under --mesh 4 --only 27)
+    codec_axis = codec_axis_phase(K, R, smi)
+    torch.cuda.empty_cache()
+
     # 18. device time by kernel, last (the profiler slows later launches)
     profile_kernels(DA, SSD)
     profiled = {}
@@ -6695,6 +7423,9 @@ def main() -> None:
                  "sparsify_quantize_ef"],
              launches_family_dist=family_launches(family,
                                                   "sparsify_quantize_ef"),
+             # phase 27a: the global codecs' rounds through a (1, 1) mesh
+             launches_codec_axis=codec_launches(codec_axis,
+                                                "sparsify_quantize_ef"),
              **{f"{k}_wide_row": v
                 for k, v in wide["sparsify_quantize_ef"].items()},
              **timing["sparsify_quantize_ef"]),
@@ -6711,7 +7442,19 @@ def main() -> None:
              **segmented[RESNET9],
              **{f"{key}_lanegcn": segmented[LANEGCN][key] for key in
                 ("ms", "ms_per_call", "plain_ms", "bound_ms", "bound_share",
-                 "tiles")}),
+                 "tiles")},
+             # phase 27a: the per-layer codec's rounds through a (1, 1)
+             # mesh; the kernel under a counter map (a model-axis rank's
+             # blocks, ``sparsify_quantize_ef_blocks``) held and timed at
+             # the four-card phases' per-rank shapes, *_counter_map at the
+             # first (ResNet-9 a rank of (1, 4)); its launches a round on
+             # each rank are those of --mesh 4 --only 27
+             launches_codec_axis=codec_launches(
+                 codec_axis, "sparsify_quantize_ef_segmented"),
+             **{f"{k}_counter_map": codec_axis["times"][0][k] for k in (
+                 "shape", "dtype", "ms", "unmapped_ms", "plain_ms",
+                 "bound_ms", "bound_by", "bound_share", "max_abs_err")},
+             counter_map_rank_shapes=codec_axis["times"]),
         dict(name="decode_attn", route="cuda", source=src + "decode_attn.cu",
              replaces="src/repro/kernels/decode_attn.py:64",
              launches=launches_dense["decode_attn"],

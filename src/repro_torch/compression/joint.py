@@ -46,16 +46,30 @@ class JointCompressor(Compressor):
 
     b_grid: tuple = tuple(range(2, 17))
     per_layer: bool = False
+    quantize = True
 
-    def compress(self, x, budget_bits, error, seeds, layout):
+    def model_collectives(self, clients: int, leaves: int) -> list:
+        """Per-layer (``compress_per_layer``): the (N, L) energies'
+        all-reduce, one gather of every leaf's sample part (exact: its
+        magnitudes), the (N, L) amax's MAX and the counts' all-reduce."""
+        if not self.per_layer:
+            return super().model_collectives(clients, leaves)
+        nl = clients * leaves
+        gathered = clients * 4 * (self.s if self.method == "exact"
+                                  else self.sample)
+        return [("all-reduce", nl * 4), ("all-gather", gathered),
+                ("all-reduce", nl * 4), ("all-reduce", nl * 8)]
+
+    def compress(self, x, budget_bits, error, seeds, layout, placement=None):
         xt = x + error
         if self.per_layer:
             if self.group is not None:
                 raise NotImplementedError(
                     "per_layer budgets over a partitioned row (group=) are "
                     "not supported, as in the reference")
-            return compress_per_layer(self, xt, layout, budget_bits, seeds)
+            return compress_per_layer(self, xt, layout, budget_bits, seeds,
+                                      placement)
         k_target, b = solve_kb(budget_bits, self.s, self.index_bits,
                                self.b_grid)
         return self.spend(xt, layout, k_target, b, budget_bits, seeds,
-                          quantize=True)
+                          quantize=True, placement=placement)

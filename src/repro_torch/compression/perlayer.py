@@ -31,15 +31,19 @@ the reference's order, so that the float results are the reference's.
 ``compress_per_layer`` quantises all leaves of all devices in ONE launch
 of the segmented ``sparsify_quantize_ef`` kernel (per-(row, leaf)
 threshold, step and levels); the dither counter is the flat column, which
-is the reference's ``base + index within leaf``.
+is the reference's ``base + index within leaf`` (on a model-axis rank's
+blocks, the counter map's whole-model coordinate).
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.compression import quant as Q
-from repro_torch.compression.base import strict_threshold
+from repro_torch.compression.base import strict_from, strict_threshold
+from repro_torch.core.sparsify import gather_block_abs
 from repro_torch.kernels import ops
+from repro_torch.sharding.collectives import all_reduce_
 from repro_torch.utils.device import constant
 from repro_torch.utils.fmath import div
 from repro_torch.utils.tree import TreeLayout
@@ -161,7 +165,19 @@ def solve_kb_per_leaf(budget_bits, sizes, energies, index_bits: int, b_grid):
             torch.where(greedy_wins, b_g, b_u))
 
 
-def compress_per_layer(comp, xt, layout, budget_bits, seeds):
+def placed_energies(xt: torch.Tensor, placement) -> torch.Tensor:
+    """Per-leaf energies of a rank's blocks: the owned blocks' squares
+    summed, all-reduced over ``model`` (N, L)."""
+    e = torch.stack([
+        l.to(torch.float32).square().sum(dim=-1) if own
+        else l.new_zeros(l.shape[0], dtype=torch.float32)
+        for l, own in zip(_columns(xt, placement.layout), placement.owned)],
+        dim=-1)
+    return all_reduce_(e, placement.model_axis)
+
+
+def compress_per_layer(comp, xt, layout, budget_bits, seeds, placement=None,
+                       energies=None):
     """The per-leaf compression pass behind ``JointCompressor(per_layer=
     True)``: xt (N, s) (signal + error memory) -> (payload, error, stats).
 
@@ -171,30 +187,64 @@ def compress_per_layer(comp, xt, layout, budget_bits, seeds):
     solver-assigned width; one segmented kernel launch quantises them
     all.  The budget gate is all-or-nothing on the bits summed over
     leaves, as in ``spend``.
+
+    ``placement``: xt is a model-axis rank's blocks (``base.py``'s module
+    docstring).  The solver sees the whole leaves' sizes and energies
+    (the owned blocks' squares, all-reduced over ``model``: their float
+    order is not world 1's single reduction); each leaf's threshold comes
+    from its whole strided sample (exact: magnitudes), every leaf's parts
+    gathered in one ``all_gather``; its amax is a MAX and its count the
+    owned blocks' all-reduced over ``model``; the kernel runs under the
+    blocks' counter map.  ``energies``: (N, L) energies to use instead
+    of xt's (a test feeds world 1's to hold the rest bit for bit).
     """
-    sizes = layout.sizes
-    k_l, b_l = solve_kb_per_leaf(budget_bits, sizes, leaf_energies(xt, layout),
+    comp.check_placement(placement)
+    full = layout if placement is None else placement.full
+    sizes = full.sizes
+    if energies is None:
+        energies = (leaf_energies(xt, layout) if placement is None
+                    else placed_energies(xt, placement))
+    k_l, b_l = solve_kb_per_leaf(budget_bits, sizes, energies,
                                  comp.index_bits, comp.b_grid)
     lam = float(comp.index_bits)
-    ts, steps = [], []
-    for i, (leaf, n) in enumerate(zip(_columns(xt, layout), sizes)):
+    m_leaf = [max(min(int(comp.sample * n / max(comp.s, 1)), n), 16)
+              for n in sizes]
+    k_t = []
+    for i, n in enumerate(sizes):
         ki = k_l[:, i]
-        m_leaf = max(min(int(comp.sample * n / max(comp.s, 1)), n), 16)
         if comp.method == "sampled":
             rel = torch.clamp(
                 3.0 * torch.sqrt(div(float(n),
-                                     torch.clamp(ki, min=1.0) * float(m_leaf))),
+                                     torch.clamp(ki, min=1.0)
+                                     * float(m_leaf[i]))),
                 max=0.5)
             ki = torch.floor(torch.clamp(ki * (1.0 - rel), min=0.0))
-        one = TreeLayout(((f"leaf{i}",),), (layout.shapes[i],))
-        ts.append(strict_threshold(leaf, one, ki, method=comp.method,
-                                   sample=m_leaf))
-        steps.append(Q.quant_step(Q.tree_amax(leaf),
-                                  Q.quant_levels(b_l[:, i])))
+        k_t.append(ki)
     levels = Q.quant_levels(b_l)
-    upload, error, cnt = ops.sparsify_quantize_ef_segmented(
-        xt, torch.stack(ts, dim=-1), torch.stack(steps, dim=-1), levels,
-        seeds, layout.offsets + (layout.size,))
+    if placement is None:
+        ts, amax = [], []
+        for i, leaf in enumerate(_columns(xt, layout)):
+            one = TreeLayout(((f"leaf{i}",),), (layout.shapes[i],))
+            ts.append(strict_threshold(leaf, one, k_t[i], method=comp.method,
+                                       sample=m_leaf[i]))
+            amax.append(Q.tree_amax(leaf))
+        amax = torch.stack(amax, dim=-1)
+        upload, error, cnt = ops.sparsify_quantize_ef_segmented(
+            xt, torch.stack(ts, dim=-1), Q.quant_step(amax, levels), levels,
+            seeds, layout.offsets + (layout.size,))
+    else:
+        flats = gather_block_abs(
+            xt, placement, None if comp.method == "exact" else m_leaf)
+        ts = [strict_from(f, ki, n, comp.method)
+              for f, ki, n in zip(flats, k_t, sizes)]
+        amax = all_reduce_(torch.stack(
+            [Q.tree_amax(leaf) for leaf in _columns(xt, placement.layout)],
+            dim=-1), placement.model_axis, op=dist.ReduceOp.MAX)
+        lay = placement.layout
+        upload, error, cnt = ops.sparsify_quantize_ef_blocks(
+            xt, torch.stack(ts, dim=-1), Q.quant_step(amax, levels), levels,
+            seeds, lay.offsets + (lay.size,), placement.counters)
+        cnt = all_reduce_(cnt, placement.model_axis).to(torch.float32)
     # accumulated leaf by leaf, as the reference's loop does
     bits = k_total = b_weighted = torch.zeros_like(budget_bits)
     for i in range(len(sizes)):
@@ -203,8 +253,9 @@ def compress_per_layer(comp, xt, layout, budget_bits, seeds):
         k_total = k_total + c
         b_weighted = b_weighted + c * b
     feasible = (bits <= budget_bits).to(torch.float32)
-    payload = (upload * feasible[:, None]).to(upload.dtype)
-    error = torch.where(feasible[:, None] > 0, error, xt)
+    # in place, as ``Compressor.spend``: no (N, s) temporary at full width
+    payload = upload.mul_(feasible[:, None].to(upload.dtype))
+    torch.where(feasible[:, None] > 0, error, xt, out=error)
     if not comp.error_feedback:
         error = torch.zeros_like(error)
     k_total = k_total * feasible

@@ -16,7 +16,7 @@ import dataclasses
 import torch
 
 from repro_torch.compression import quant as Q
-from repro_torch.compression.base import Compressor
+from repro_torch.compression.base import Compressor, placed_amax
 from repro_torch.utils.fmath import div
 
 
@@ -24,20 +24,28 @@ from repro_torch.utils.fmath import div
 class QSGDCompressor(Compressor):
     b_min: int = 2
     b_max: int = 16
+    quantize = True
 
-    def compress(self, x, budget_bits, error, seeds, layout):
+    def model_collectives(self, clients: int, leaves: int) -> list:
+        """The amax's MAX alone: the threshold is 0 and k is s."""
+        return [("all-reduce", clients * 4)]
+
+    def compress(self, x, budget_bits, error, seeds, layout, placement=None):
+        self.check_placement(placement)
         xt = x + error
         b = torch.floor(div(budget_bits - Q.SCALE_BITS, float(self.s)))
         b = torch.clamp(b, 0.0, float(self.b_max))
         send = (b >= self.b_min).to(torch.float32)
         b = b * send
         levels = Q.quant_levels(b)
-        step = Q.quant_step(Q.tree_amax(xt, group=self.group), levels)
+        amax = (Q.tree_amax(xt, group=self.group) if placement is None
+                else placed_amax(xt, placement))
+        step = Q.quant_step(amax, levels)
         # threshold 0 keeps every coordinate (the kernels' mask is >=);
-        # send = 0 withholds the round
+        # send = 0 withholds the round; k is s whatever the count
         payload, error, _ = self.masked_payload(
             xt, torch.zeros_like(step), quantize=True, step=step,
-            levels=levels, seeds=seeds)
+            levels=levels, seeds=seeds, placement=placement)
         payload.mul_(send[:, None].to(payload.dtype))
         torch.where(send[:, None] > 0, error, xt, out=error)
         if not self.error_feedback:

@@ -24,15 +24,18 @@ class TopKCompressor(Compressor):
 
     u: int = 32  # value bit-width on the wire
 
-    def compress(self, x, budget_bits, error, seeds, layout):
+    @property
+    def quantize(self) -> bool:
+        return self.u < 32
+
+    def compress(self, x, budget_bits, error, seeds, layout, placement=None):
         xt = x + error
-        quantize = self.u < 32
-        overhead = Q.SCALE_BITS if quantize else 0
+        overhead = Q.SCALE_BITS if self.quantize else 0
         k_target = torch.floor(torch.clamp(
             div(budget_bits - overhead, self.u + self.index_bits),
             0.0, float(self.s)))
         return self.spend(xt, layout, k_target, self.u, budget_bits, seeds,
-                          quantize=quantize)
+                          quantize=self.quantize, placement=placement)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,10 +45,13 @@ class FixedKbCompressor(Compressor):
     k_frac: float = 0.01
     b: int = 8
 
-    def compress(self, x, budget_bits, error, seeds, layout):
+    @property
+    def quantize(self) -> bool:
+        return self.b < 32
+
+    def compress(self, x, budget_bits, error, seeds, layout, placement=None):
         xt = x + error
-        quantize = self.b < 32
-        overhead = Q.SCALE_BITS if quantize else 0
+        overhead = Q.SCALE_BITS if self.quantize else 0
         k_cap = torch.floor(torch.clamp(
             div(budget_bits - overhead, self.b + self.index_bits),
             0.0, float(self.s)))
@@ -53,4 +59,4 @@ class FixedKbCompressor(Compressor):
                                        device=k_cap.device))
         k_target = torch.minimum(k_fixed, k_cap)
         return self.spend(xt, layout, k_target, self.b, budget_bits, seeds,
-                          quantize=quantize)
+                          quantize=self.quantize, placement=placement)

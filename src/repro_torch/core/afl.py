@@ -133,13 +133,16 @@ class Policy:
         return k, p, energy
 
 
-def compress_uploads(comp: Compressor, g_n, e_n, budget_bits, seeds, layout):
+def compress_uploads(comp: Compressor, g_n, e_n, budget_bits, seeds, layout,
+                     placement=None):
     """One codec pass over the federation: (upload, e_after, cstats).
 
     ``seeds`` are the (N,) int32 dither seeds (``afl_round`` draws them
     from the state's generator; tests pass the reference's).
+    ``placement``: g_n and e_n are a model-axis rank's blocks
+    (``core/distributed.py::Placement``; ``compression/base.py``).
     """
-    return comp.compress(g_n, budget_bits, e_n, seeds, layout)
+    return comp.compress(g_n, budget_bits, e_n, seeds, layout, placement)
 
 
 def afl_init(model, fl, seed: int, device="cpu", params=None) -> AflState:

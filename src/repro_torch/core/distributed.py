@@ -62,6 +62,15 @@ flatten order, and the round runs on them:
   the sorted sample it is bit-equal to the unsharded one given the same x;
 * ``sparsify_ef`` on the rank's flat blocks, the int64 counts (less those
   of leaves it does not own) all-reduced over ``model``;
+* a codec on the rank's blocks through its ``Placement``
+  (``compression/base.py``): each leaf's whole strided sample (exact
+  mode: the owned magnitudes) gathered over ``model``, the amax a MAX and
+  the count the owned leaves' all-reduced over ``model`` before the
+  budget gate, and ``sparsify_quantize_ef`` under the blocks' counter
+  map, so each element draws the dither of its whole-model coordinate;
+  given the same x, budget and seeds each rank's payload and error are
+  world 1's on its blocks, bit for bit (the seeds are the same on every
+  rank of a data index: the same ``state.gen``);
 * the aggregation over ``data`` only, the metrics gathered over ``data``.
 
 Under ``RULES_TRAIN_DP`` (``launch/steps.py``'s ``dp_client``) the
@@ -69,15 +78,17 @@ parameters stay whole, each client's batch is split over ``model``, and
 the gradient is all-reduced over ``model`` once (an MoE client's batch
 runs whole on every rank: its routing's capacity and load-balance loss
 are functions of the whole batch; so does a ResNet-9 client's, whose
-batch-norm statistics are, ``batch_whole``).  A codec on a model axis
-raises (``launch/mesh.py::CODEC_AXIS_ITEM``).  With a model axis of 1 the
-blocks are the whole leaves and the round is the one above.
+batch-norm statistics are, ``batch_whole``); a codec there runs on the
+whole rows on each rank with no ``model`` collective.  With a model axis
+of 1 the blocks are the whole leaves and the round is the one above; a
+codec there runs on the whole rows, as without a mesh.
 ``ingest_shardings`` is the serve path's split of a packed upload batch
 over a mesh (``serve/server.py``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.distributed as dist
@@ -89,8 +100,8 @@ from repro_torch.core import sparsify as SP
 from repro_torch.core.afl import compress_uploads, device_grads
 from repro_torch.core.mads import MadsController
 from repro_torch.kernels import ops
-from repro_torch.launch.mesh import (CODEC_AXIS_ITEM, ClientMesh,
-                                     mesh_num_clients, require_model_axis)
+from repro_torch.launch.mesh import (ClientMesh, mesh_num_clients,
+                                     require_model_axis)
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding import rules as R
 from repro_torch.sharding.rules import torch_dtype
@@ -135,19 +146,27 @@ class Placement:
     """A rank's part of the model under the rules: each leaf's per-dim
     ``blocks`` (slices of the whole leaf), their flat ``layout``, whether
     it ``owned`` each leaf's values (``placement``), its ``model_axis``,
-    every model index's sample size, and ``dp`` (whole parameters, each
-    client's batch split over ``model``)."""
+    ``dp`` (whole parameters, each client's batch split over ``model``),
+    the whole model's ``full`` layout, and ``peers``: every model index's
+    (blocks, owned), in model-index order (the widths of what the ranks
+    gather)."""
 
     blocks: tuple
     layout: TreeLayout
     owned: tuple
     model_axis: object
-    sample_sizes: tuple
     dp: bool
+    full: TreeLayout
+    peers: tuple
+
+    @functools.cached_property
+    def counters(self) -> tuple:
+        """The blocks' dither counter map (``core/sparsify.py::
+        block_counters``)."""
+        return SP.block_counters(self.full, self.blocks, self.owned)
 
 
-def placement(model, mesh: ClientMesh | None, sample: int = 65536,
-              rules=None) -> Placement:
+def placement(model, mesh: ClientMesh | None, rules=None) -> Placement:
     """The rank's ``Placement`` under ``rules`` (``RULES_TRAIN`` with the
     client axis on (pod, data) by default).  A leaf is owned where the
     rank holds a block of it, or where every rank holds it whole and the
@@ -165,7 +184,8 @@ def placement(model, mesh: ClientMesh | None, sample: int = 65536,
         owned = [m == 0 or any(e is not None for e in sp) for sp in specs]
         return blocks, owned
 
-    blocks, owned = of(coords["model"])
+    peers = tuple(of(m) for m in range(sizes["model"]))
+    blocks, owned = peers[coords["model"]]
     dp = sizes["model"] > 1 and any(
         cand and "model" in cand for cand in rules.get("batch", []))
     return Placement(
@@ -174,9 +194,7 @@ def placement(model, mesh: ClientMesh | None, sample: int = 65536,
             tuple(b.stop - b.start for b in bl) for bl in blocks)),
         owned=tuple(owned),
         model_axis=None if mesh is None else mesh.model_axis(),
-        sample_sizes=tuple(SP.block_sample_size(model.layout, *of(m), sample)
-                           for m in range(sizes["model"])),
-        dp=dp)
+        dp=dp, full=model.layout, peers=peers)
 
 
 def batch_whole(cfg) -> bool:
@@ -220,16 +238,8 @@ def owned_sq_norms(x, pl: Placement) -> torch.Tensor:
 def block_threshold(x, model, pl: Placement, k, sample: int) -> torch.Tensor:
     """``core/sparsify.py::tree_threshold``'s sampled threshold from the
     rank's blocks: every model index's part of the sample, gathered."""
-    part = SP.sample_abs_blocks(x, model.layout, pl.layout, pl.blocks,
-                                pl.owned, sample)
-    if pl.model_axis is not None:
-        width = max(pl.sample_sizes)
-        pad = part.new_zeros((part.shape[0], width))
-        pad[:, :part.shape[1]] = part
-        got = C.all_gather_(pad, pl.model_axis, 0).view(
-            len(pl.sample_sizes), part.shape[0], width)
-        part = torch.cat([got[m, :, :n] for m, n in
-                          enumerate(pl.sample_sizes)], dim=1)
+    part = SP.gather_block_abs(x, pl, SP.leaf_samples(pl.full, sample),
+                               joined=True)[0]
     return SP.threshold_from_sample(part, model.layout.size, k)
 
 
@@ -241,12 +251,7 @@ def block_sparsify(x, model, pl: Placement, k, sample: int):
     upload, error, count = ops.sparsify_ef(x, t.contiguous())
     if pl.model_axis is None:
         return upload, error, count
-    count = count.to(torch.int64)
-    for l, own in zip(pl.layout.leaves(x), pl.owned):
-        if not own:  # another rank counts it
-            count -= (l.to(torch.float32).abs() >= t.view(
-                (-1,) + (1,) * (l.dim() - 1))).flatten(1).sum(
-                    dim=1, dtype=torch.int64)
+    count = SP.owned_count(x, t, pl.layout, pl.owned, count)
     return upload, error, C.all_reduce_(count, pl.model_axis).to(
         torch.float32)
 
@@ -311,7 +316,7 @@ def abstract_state(model, dcfg: DistConfig,
                    mesh: ClientMesh | None = None, rules=None) -> DistAflState:
     """The state's shapes and dtypes as meta tensors (no memory): the
     rank's rows and blocks under ``mesh``, all N without."""
-    s = placement(model, mesh, dcfg.sample_size, rules).layout.size
+    s = placement(model, mesh, rules).layout.size
     n = _rows(dcfg, mesh).stop - _rows(dcfg, mesh).start
     sdt = torch_dtype(dcfg.state_dtype)
     meta = dict(device="meta")
@@ -337,7 +342,7 @@ def init_state(model, dcfg: DistConfig, seed: int = 0, *,
     dev = _device(mesh, device)
     rows = _rows(dcfg, mesh)
     n = rows.stop - rows.start
-    pl = placement(model, mesh, dcfg.sample_size, rules)
+    pl = placement(model, mesh, rules)
     blocks = tree_unflatten(model.layout.paths, list(pl.blocks))
     if params is None:
         params = model.init(torch.Generator(device=dev).manual_seed(seed), dev,
@@ -410,12 +415,14 @@ def make_afl_train_step(model, cfg, dcfg: DistConfig,
         model = dataclasses.replace(model, cfg=cfg)
     n = dcfg.num_clients
     rows = _rows(dcfg, mesh)
-    pl = placement(model, mesh, dcfg.sample_size, rules)
+    pl = placement(model, mesh, rules)
     ma = pl.model_axis
-    if ma is not None and compressor is not None:
-        raise NotImplementedError(
-            f"a codec on a model axis of {ma.size} is not ported "
-            f"({CODEC_AXIS_ITEM})")
+    # the codec's view of the rank's row: its blocks over a model axis,
+    # whole rows at a model axis of 1 or under dp_client (the same x on
+    # every rank)
+    cpl = pl if (ma is not None and not pl.dp) else None
+    if cpl is not None and compressor is not None:
+        _ = cpl.counters  # a layout the counter map cannot take fails here
     eta = dcfg.learning_rate
     sw = None if (staleness is None or staleness.is_identity) else staleness
     at = torch_dtype(dcfg.accum_dtype)
@@ -475,7 +482,7 @@ def make_afl_train_step(model, cfg, dcfg: DistConfig,
                 seeds = Q.draw_seeds(state.gen, n, g_new.device)
             upload, e_after, cstats = compress_uploads(
                 compressor, g_new, state.e_n, budget_bits, seeds[rows],
-                layout)
+                layout, cpl)
             k_actual = cstats["k"]
             bits = cstats["bits"] * okf
             b_used = cstats["b"] * okf
@@ -638,7 +645,7 @@ def make_afl_train_system(model, cfg, mesh: ClientMesh | None = None,
         "state_specs": state_shardings(
             model, {"data": 1, "model": 1} if mesh is None
             else mesh.axis_sizes, dcfg, rules),
-        "placement": placement(model, mesh, dcfg.sample_size, rules),
+        "placement": placement(model, mesh, rules),
         "abstract_state": lambda: abstract_state(model, dcfg, mesh, rules),
         "init_state": lambda seed=0, params=None: init_state(
             model, dcfg, seed, mesh=mesh, params=params, rules=rules),

@@ -22,6 +22,7 @@ import math
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.sharding.collectives import all_gather_parts_
 from repro_torch.utils.fmath import div
 
 
@@ -99,56 +100,127 @@ def _strided_sample(leaf: torch.Tensor, m: int) -> torch.Tensor:
 
 def sample_abs(x: torch.Tensor, layout, sample: int) -> torch.Tensor:
     """The concatenated per-leaf strided |x| samples of x (N, s)."""
-    s = layout.size
-    m_per = [max(int(sample * sz / s), 16) for sz in layout.sizes]
-    return torch.cat([_strided_sample(l, m)
-                      for l, m in zip(layout.leaves(x), m_per)], dim=1)
+    return torch.cat([_strided_sample(l, m) for l, m in zip(
+        layout.leaves(x), leaf_samples(layout, sample))], dim=1)
 
 
-def _block_sample_slices(shape, block, sample: int, s: int):
+def leaf_samples(full_layout, sample: int) -> list:
+    """``sample_abs``'s per-leaf sample sizes m_l of a ~``sample``
+    sample of the whole model."""
+    s = full_layout.size
+    return [max(int(sample * sz / s), 16) for sz in full_layout.sizes]
+
+
+def _block_sample_slices(shape, block, m: int):
     """The slices of a leaf's block (per-dim ``block`` slices of the whole
-    leaf ``shape``) that the whole leaf's strided sample takes: on each
-    dim the sampled coordinates 0, st, 2 st, ... that fall in the block."""
-    strides = _strides(tuple(shape), max(int(sample * math.prod(shape) / s),
-                                         16))
+    leaf ``shape``) that the whole leaf's ~m-element strided sample takes:
+    on each dim the sampled coordinates 0, st, 2 st, ... in the block."""
+    strides = _strides(tuple(shape), m)
     if strides is None:
         return tuple(slice(None) for _ in shape)
     return tuple(slice((-b.start) % st, None, st)
                  for b, st in zip(block, strides))
 
 
-def block_sample_size(full_layout, blocks: list, owned: list,
-                      sample: int) -> int:
-    """The number of coordinates ``sample_abs_blocks`` takes from a rank's
-    blocks."""
-    s = full_layout.size
-    total = 0
-    for shape, block, own in zip(full_layout.shapes, blocks, owned):
-        if own:
-            sl = _block_sample_slices(shape, block, sample, s)
-            total += math.prod(len(range(b.stop - b.start)[q])
-                               for b, q in zip(block, sl))
-    return total
+def block_sample_sizes(full_layout, blocks: list, owned: list,
+                       ms: list) -> list:
+    """Per leaf, the number of coordinates ``block_samples`` takes from a
+    rank's blocks under per-leaf sample sizes ``ms`` (0 where the rank
+    does not own the leaf)."""
+    return [math.prod(len(range(b.stop - b.start)[q]) for b, q in zip(
+        block, _block_sample_slices(shape, block, m))) if own else 0
+            for shape, block, own, m in zip(full_layout.shapes, blocks, owned,
+                                            ms)]
 
 
-def sample_abs_blocks(x: torch.Tensor, full_layout, block_layout,
-                      blocks: list, owned: list, sample: int) -> torch.Tensor:
-    """A rank's part of ``sample_abs``'s sample: x (N, s_r) its flat
-    blocks, ``blocks`` each leaf's per-dim slices of the whole leaf,
-    ``owned`` whether its values count here (a leaf every rank holds
-    whole counts on one of them).  The ranks' parts together hold the
-    whole sample's values, so its sorted values are the whole sample's."""
-    s = full_layout.size
-    parts = []
-    for shape, block, own, leaf in zip(full_layout.shapes, blocks, owned,
-                                       block_layout.leaves(x)):
-        if own:
-            sl = _block_sample_slices(shape, block, sample, s)
-            parts.append(leaf[(slice(None),) + sl].to(torch.float32).abs()
-                         .reshape(x.shape[0], -1))
-    if not parts:
-        return x.new_zeros((x.shape[0], 0), dtype=torch.float32)
-    return torch.cat(parts, dim=1)
+def block_samples(x: torch.Tensor, full_layout, block_layout, blocks: list,
+                  owned: list, ms: list) -> list:
+    """A rank's part of each leaf's ~m_l-element strided |x| sample (the
+    reference's ``_strided_sample`` of the whole leaf, ``ms`` per leaf):
+    x (N, s_r) its flat blocks, ``blocks`` each leaf's per-dim slices of
+    the whole leaf, ``owned`` whether its values count here (a leaf every
+    rank holds whole counts on one of them).  One (N, w_l) f32 tensor a
+    leaf, (N, 0) where the rank does not own it.  The ranks' parts of a
+    leaf together hold its whole sample's values."""
+    return [leaf[(slice(None),) + _block_sample_slices(shape, block, m)]
+            .to(torch.float32).abs().reshape(x.shape[0], -1) if own
+            else x.new_zeros((x.shape[0], 0), dtype=torch.float32)
+            for shape, block, own, m, leaf in zip(
+                full_layout.shapes, blocks, owned, ms,
+                block_layout.leaves(x))]
+
+
+def owned_abs(x: torch.Tensor, block_layout, owned: list) -> list:
+    """Each leaf's |x| of a rank's blocks x (N, s_r), (N, n_l) f32, and
+    (N, 0) where the rank does not own the leaf: the ranks' parts of a
+    leaf together hold its whole magnitudes (exact thresholds)."""
+    return [leaf.to(torch.float32).abs().reshape(x.shape[0], -1) if own
+            else x.new_zeros((x.shape[0], 0), dtype=torch.float32)
+            for leaf, own in zip(block_layout.leaves(x), owned)]
+
+
+def gather_block_abs(x: torch.Tensor, pl, ms: list | None = None, *,
+                     joined: bool = False) -> list:
+    """Each leaf's whole |x| values (exact: ``ms`` None) or its whole
+    ~m_l-element strided sample (``ms`` per leaf) from a rank's blocks x
+    (N, s_r) under its placement ``pl`` (``core/distributed.py::
+    Placement``): the rank's owned parts, put together over ``model`` in
+    ONE ``all_gather`` with the ranks' widths stripped.  A leaf's values
+    come in another order than world 1's, the same once sorted.
+    ``joined``: one (N, w) tensor of every leaf's values instead of one a
+    leaf (a global threshold's sort)."""
+    if ms is None:
+        parts = owned_abs(x, pl.layout, pl.owned)
+        widths = [[math.prod(b.stop - b.start for b in block) if own else 0
+                   for block, own in zip(*peer)] for peer in pl.peers]
+    else:
+        parts = block_samples(x, pl.full, pl.layout, pl.blocks, pl.owned, ms)
+        widths = [block_sample_sizes(pl.full, *peer, ms) for peer in pl.peers]
+    if joined:
+        parts, widths = [torch.cat(parts, dim=1)], [[sum(w)] for w in widths]
+    return all_gather_parts_(parts, pl.model_axis, widths)
+
+
+def owned_count(x: torch.Tensor, t: torch.Tensor, block_layout, owned: list,
+                count) -> torch.Tensor:
+    """A rank's int64 count of |x| >= t on the leaves it owns, from the
+    ``sparsify_ef`` count of all its blocks x (N, s_r): less the leaves
+    another rank counts (summed over ``model`` it is the whole model's)."""
+    count = count.to(torch.int64)
+    for l, own in zip(block_layout.leaves(x), owned):
+        if not own:
+            count -= (l.to(torch.float32).abs() >= t.view(
+                (-1,) + (1,) * (l.dim() - 1))).flatten(1).sum(
+                    dim=1, dtype=torch.int64)
+    return count
+
+
+def block_counters(full_layout, blocks: list, owned: list) -> tuple:
+    """The dither counter map of a rank's blocks (``kernels/
+    sparsify_ef.py``): per leaf (g0, R, G, owned) such that local column
+    c of the leaf's block has its whole-model coordinate g0 + (c // R) *
+    G + c % R.  The rules cut at most one dim of a leaf (a mesh axis is
+    used once a tensor), so a block is outer x [a0, a1) x inner: R = (a1
+    - a0) * inner, G = extent * inner, g0 = the leaf's offset + a0 *
+    inner.  A whole leaf's map is (offset, size, size)."""
+    out = []
+    for off, shape, block, own in zip(full_layout.offsets, full_layout.shapes,
+                                      blocks, owned):
+        cut = [i for i, (b, d) in enumerate(zip(block, shape))
+               if (b.start, b.stop) != (0, d)]
+        if len(cut) > 1 or any(b.step not in (None, 1) for b in block):
+            raise ValueError(f"a block cut on dims {cut} of a leaf of shape "
+                             f"{tuple(shape)}: the counter map takes one")
+        size = math.prod(shape)
+        if not cut:
+            out.append((off, size, size, bool(own)))
+            continue
+        a = cut[0]
+        inner = math.prod(shape[a + 1:])
+        b = block[a]
+        out.append((off + b.start * inner, (b.stop - b.start) * inner,
+                    shape[a] * inner, bool(own)))
+    return tuple(out)
 
 
 def threshold_from_sample(flat: torch.Tensor, s: int, k) -> torch.Tensor:

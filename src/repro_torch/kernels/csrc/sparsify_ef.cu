@@ -10,7 +10,9 @@
 //   sparsify_ef:           upload = x*[|x| >= t], error = x*[|x| < t]
 //   sparsify_quantize_ef:  upload = [|x| >= t] * clip(floor(x/step + u),
 //                          -levels, levels) * step, error = x - upload,
-//                          u = lowbias32(seed, base + column) / 2^32
+//                          u = lowbias32(seed, counter) / 2^32, the
+//                          counter base + column (the segmented entry:
+//                          the leaf's counter map, below)
 //   both:                  count = #{|x| >= t}
 // The mask is taken on the f32 value; outputs are stored in x's dtype.
 //
@@ -43,6 +45,21 @@
 // never straddle a leaf boundary, and a block streams its tile of its row
 // with the same 16-byte body and scalar edges (leaf starts are not 16-byte
 // aligned), then adds its count once into (row, leaf).
+//
+// The counter map. A rank of a (data, model) mesh holds a block of each
+// leaf, and its flat row concatenates them; the reference draws from the
+// whole model's flat coordinate. The rules cut at most one dim of a leaf,
+// so a block is outer x [a0, a1) x inner and its local column c (within
+// the leaf's columns) has the global counter g0 + (c / R) * G + c % R,
+// with R = (a1 - a0) * inner the block's run, G = extent * inner the
+// whole leaf's stride and g0 = the leaf's global offset + a0 * inner
+// (all mod 2^32). The map gives (offset of the leaf in the row, g0, R, G,
+// owned) per leaf; world 1's is (offset, offset, size, size, 1), which is
+// the flat column. The division is done once per 16-byte vector (and
+// skipped where the block is the whole leaf, c < R), then the counter
+// steps across a run boundary inside the vector. A leaf that is not
+// owned (every rank holds it whole and another rank counts it) adds
+// nothing to its count.
 //
 // Bit-exactness with the reference: x/step is an IEEE round-to-nearest
 // divide (__fdiv_rn), and every add/multiply/subtract after it is an
@@ -95,8 +112,51 @@ __device__ __forceinline__ float dither_u01(uint32_t seed, uint32_t idx) {
   return __fmul_rn(__uint2float_rn(h), 2.3283064365386963e-10f);  // 2^-32
 }
 
+// The dither counter of consecutive columns from a vector's first one:
+// base + column.
+struct LinearCounter {
+  uint32_t v;
+  __device__ __forceinline__ uint32_t next() { return v++; }
+};
+
+// The counter of a block's columns under the leaf's map (header).
+struct BlockCounter {
+  uint32_t v, r, run, skip;
+  __device__ __forceinline__ uint32_t next() {
+    const uint32_t out = v;
+    ++v;
+    if (++r == run) {
+      r = 0;
+      v += skip;
+    }
+    return out;
+  }
+};
+
+struct Linear {
+  uint32_t base;
+  __device__ __forceinline__ LinearCounter at(int64_t col) const {
+    return {base + static_cast<uint32_t>(col)};
+  }
+};
+
+struct Blocked {
+  int64_t off;  // the leaf's first column in the row
+  uint32_t g0, run, stride;
+  __device__ __forceinline__ BlockCounter at(int64_t col) const {
+    const uint32_t c = static_cast<uint32_t>(col - off);
+    const uint32_t q = c < run ? 0u : c / run;
+    const uint32_t r = c - q * run;
+    return {g0 + q * stride + r, r, run, stride - run};
+  }
+};
+
 struct SparsifyOp {
   float t;
+
+  __device__ __forceinline__ LinearCounter counter(int64_t) const {
+    return {0u};
+  }
 
   template <typename T>
   __device__ __forceinline__ int operator()(T x, uint32_t, T& up,
@@ -114,16 +174,22 @@ struct SparsifyParams {
   __device__ __forceinline__ SparsifyOp row(int r) const { return {t[r]}; }
 };
 
+template <typename Map>
 struct QuantizeOp {
   float t, step, levels;
-  uint32_t seed, base;
+  uint32_t seed;
+  Map map;
+
+  __device__ __forceinline__ auto counter(int64_t col) const {
+    return map.at(col);
+  }
 
   template <typename T>
-  __device__ __forceinline__ int operator()(T x, uint32_t col, T& up,
+  __device__ __forceinline__ int operator()(T x, uint32_t ctr, T& up,
                                             T& err) const {
     const float xf = to_f32(x);
     const bool keep = fabsf(xf) >= t;
-    const float u = dither_u01(seed, base + col);
+    const float u = dither_u01(seed, ctr);
     float q = floorf(__fadd_rn(__fdiv_rn(xf, step), u));
     q = fminf(fmaxf(q, -levels), levels);
     const T v = from_f32<T>(keep ? __fmul_rn(q, step) : 0.0f);
@@ -139,8 +205,9 @@ struct QuantizeParams {
   const float* levels;
   const int32_t* seed;
   uint32_t base;
-  __device__ __forceinline__ QuantizeOp row(int r) const {
-    return {t[r], step[r], levels[r], static_cast<uint32_t>(seed[r]), base};
+  __device__ __forceinline__ QuantizeOp<Linear> row(int r) const {
+    return {t[r], step[r], levels[r], static_cast<uint32_t>(seed[r]),
+            Linear{base}};
   }
 };
 
@@ -149,10 +216,18 @@ struct SegQuantizeParams {
   const float* step;
   const float* levels;
   const int32_t* seed;  // (rows,)
+  const int64_t* map;  // (leaves, 5): offset, g0, run, stride, owned
   int64_t leaves;
-  __device__ __forceinline__ QuantizeOp at(int r, int64_t leaf) const {
+  __device__ __forceinline__ QuantizeOp<Blocked> at(int r,
+                                                    int64_t leaf) const {
     const int64_t i = static_cast<int64_t>(r) * leaves + leaf;
-    return {t[i], step[i], levels[i], static_cast<uint32_t>(seed[r]), 0u};
+    const int64_t* m = map + 5 * leaf;
+    return {t[i], step[i], levels[i], static_cast<uint32_t>(seed[r]),
+            Blocked{m[0], static_cast<uint32_t>(m[1]),
+                    static_cast<uint32_t>(m[2]), static_cast<uint32_t>(m[3])}};
+  }
+  __device__ __forceinline__ bool owned(int64_t leaf) const {
+    return map[5 * leaf + 4] != 0;
   }
 };
 
@@ -185,9 +260,9 @@ __device__ __forceinline__ int stream_span(const T* xr, T* ur, T* er,
     alignas(16) T uo[V];
     alignas(16) T eo[V];
     *reinterpret_cast<uint4*>(xin) = __ldcs(xv + i);
-    const uint32_t col = static_cast<uint32_t>(start + i * V);
+    auto ctr = op.counter(start + i * V);
 #pragma unroll
-    for (int j = 0; j < V; ++j) count += op(xin[j], col + j, uo[j], eo[j]);
+    for (int j = 0; j < V; ++j) count += op(xin[j], ctr.next(), uo[j], eo[j]);
     __stcs(uv + i, *reinterpret_cast<uint4*>(uo));
     __stcs(ev + i, *reinterpret_cast<uint4*>(eo));
   }
@@ -199,7 +274,7 @@ __device__ __forceinline__ int stream_span(const T* xr, T* ur, T* er,
     } else if (j - head < c1 - tail) {
       c = tail + (j - head);
     }
-    if (c >= 0) count += op(xr[c], static_cast<uint32_t>(c), ur[c], er[c]);
+    if (c >= 0) count += op(xr[c], op.counter(c).next(), ur[c], er[c]);
   }
   return count;
 }
@@ -253,7 +328,10 @@ __global__ void __launch_bounds__(kThreads)
   const int count =
       stream_span<T>(x + off, up + off, err + off, off, tile[1], tile[2],
                      threadIdx.x, blockDim.x, true, params.at(r, leaf));
-  block_count_add(count, counts + static_cast<int64_t>(r) * params.leaves + leaf);
+  // uniform over the block: every thread's tile is of the same leaf
+  if (params.owned(leaf))
+    block_count_add(count,
+                    counts + static_cast<int64_t>(r) * params.leaves + leaf);
 }
 
 int blocks_per_row(int64_t rows, int64_t cols, int vec) {
@@ -349,15 +427,17 @@ extern "C" int sparsify_quantize_ef_launch(const void* x, void* up, void* err,
 
 // The segmented entry: t, step and levels are (rows, leaves); tiles is an
 // (ntiles, 3) int64 device array of (leaf, first column, end column) that
-// covers every column once, no tile crossing a leaf boundary; counts is
-// (rows, leaves).
+// covers every column once, no tile crossing a leaf boundary; map is the
+// (leaves, 5) int64 counter map (header: offset, g0, R, G, owned, with
+// g0 and G taken mod 2^32 and 0 < R < 2^32); counts is (rows, leaves), 0
+// for a leaf that is not owned.
 extern "C" int sparsify_quantize_ef_segmented_launch(
     const void* x, void* up, void* err, unsigned long long* counts,
     const float* t, const float* step, const float* levels,
     const int32_t* seed,
-    const int64_t* tiles, int64_t ntiles, int64_t leaves, int64_t rows,
-    int64_t cols, int dtype, void* stream) {
-  return launch_segmented(x, up, err, counts, tiles, ntiles, rows, cols, dtype,
-                          SegQuantizeParams{t, step, levels, seed, leaves},
-                          stream);
+    const int64_t* tiles, int64_t ntiles, const int64_t* map, int64_t leaves,
+    int64_t rows, int64_t cols, int dtype, void* stream) {
+  return launch_segmented(
+      x, up, err, counts, tiles, ntiles, rows, cols, dtype,
+      SegQuantizeParams{t, step, levels, seed, map, leaves}, stream);
 }

@@ -59,6 +59,18 @@ def sparsify_quantize_ef_segmented(x, thresholds, steps, levels, seeds,
         x, thresholds, steps, levels, seeds, offsets)
 
 
+def sparsify_quantize_ef_blocks(x, thresholds, steps, levels, seeds,
+                                offsets, counters):
+    """The segmented op on a rank's blocks: ``counters`` each leaf's (g0,
+    R, G, owned) counter map -> (upload, error, count (N, L) int64, 0
+    where a leaf is not owned)."""
+    if _device(x) == "cuda":
+        return K.sparsify_quantize_ef_blocks_cuda(
+            x, thresholds, steps, levels, seeds, offsets, counters)
+    return ref.sparsify_quantize_ef_blocks_plain(
+        x, thresholds, steps, levels, seeds, offsets, counters)
+
+
 def decode_attn(q, k, v, length: int):
     """One query token per sequence against a KV cache: q (B, H, D), k, v
     (B, S, KV, D), ``length`` valid positions -> (B, H, D) in q's dtype."""

@@ -4,7 +4,9 @@ The sparsify pair are twins of ``kernels/ref.py::sparsify_ef_ref`` and
 ``::sparsify_quantize_ef_ref`` of the reference, for x (rows, n) with one
 parameter per row, so one call covers the whole federation as the CUDA
 kernels do; ``sparsify_quantize_ef_segmented_plain`` takes one parameter
-per (row, leaf), the per-layer codec's call.  ``decode_attn_plain`` is the twin of ``decode_attn_ref``, and
+per (row, leaf), the per-layer codec's call, and
+``sparsify_quantize_ef_blocks_plain`` the same on a rank's blocks under
+a counter map (the codecs on a model axis).  ``decode_attn_plain`` is the twin of ``decode_attn_ref``, and
 ``ssd_scan_plain`` is the port's ``models/mamba2.py::ssd_chunked`` (the
 reference's "ref" route for ``ssd_scan``).  The CPU path runs them
 (``ops.py``), and ``chip_smoke.py`` holds the kernels to them on the card.
@@ -58,14 +60,17 @@ def sparsify_quantize_ef_plain(x: torch.Tensor, thresholds, steps, levels,
     return upload, error, count
 
 
-def sparsify_quantize_ef_segmented_plain(x: torch.Tensor, thresholds, steps,
-                                         levels, seeds, offsets):
+def sparsify_quantize_ef_blocks_plain(x: torch.Tensor, thresholds, steps,
+                                      levels, seeds, offsets, counters):
     """``sparsify_quantize_ef_plain`` with one threshold, step and levels
-    per (row, leaf): x (rows, n); thresholds, steps, levels (rows, L) f32;
-    seeds (rows,) int32; offsets: the L + 1 leaf boundaries (0, ..., n).
-    The dither counter is the column, so leaf l's elements draw what a
-    per-leaf call with base = offsets[l] draws.  Returns (upload, error,
-    count (rows, L) f32).
+    per (row, leaf) under a counter map: x (rows, n) a rank's blocks;
+    thresholds, steps, levels (rows, L) f32; seeds (rows,) int32; offsets:
+    the L + 1 leaf boundaries (0, ..., n); ``counters`` each leaf's (g0,
+    R, G, owned): local column c of leaf l draws the dither of counter
+    g0 + (c // R) * G + c % R (its whole-model coordinate), and a leaf
+    that is not owned counts 0; None: world 1's map (each leaf whole and
+    owned, the counter its column).  Returns (upload, error, count (rows,
+    L) int64).
     """
     offsets = [int(o) for o in offsets]
     sizes = torch.tensor([b - a for a, b in zip(offsets, offsets[1:])],
@@ -74,16 +79,41 @@ def sparsify_quantize_ef_segmented_plain(x: torch.Tensor, thresholds, steps,
     def per_column(p):
         return torch.repeat_interleave(p, sizes, dim=1)
 
+    bounds = list(zip(offsets, offsets[1:]))
+    if counters is None:
+        idx = torch.arange(x.shape[1], device=x.device, dtype=torch.int64)
+        owned = [True] * len(bounds)
+    else:
+        idx = torch.cat([torch.zeros(0, dtype=torch.int64, device=x.device)]
+                        + [g0 + (c // max(run, 1)) * stride + c % max(run, 1)
+                           for (a, b), (g0, run, stride, _) in zip(bounds,
+                                                                   counters)
+                           for c in [torch.arange(b - a, device=x.device,
+                                                  dtype=torch.int64)]])
+        owned = [own for *_, own in counters]
     xf = x.to(torch.float32)
     mask = xf.abs() >= per_column(thresholds)
-    idx = torch.arange(x.shape[1], device=x.device, dtype=torch.int64)
     u = dither_u01(seeds[:, None], idx[None, :])
     step, lv = per_column(steps), per_column(levels)
     q = torch.minimum(torch.maximum(torch.floor(xf / step + u), -lv), lv) * step
     upload = torch.where(mask, q, q.new_zeros(())).to(x.dtype)
     error = (xf - upload.to(torch.float32)).to(x.dtype)
-    count = torch.stack([mask[:, a:b].sum(dim=1, dtype=torch.int64)
-                         for a, b in zip(offsets, offsets[1:])], dim=1)
+    count = torch.stack([
+        mask[:, a:b].sum(dim=1, dtype=torch.int64) if own
+        else torch.zeros(x.shape[0], dtype=torch.int64, device=x.device)
+        for (a, b), own in zip(bounds, owned)], dim=1)
+    return upload, error, count
+
+
+def sparsify_quantize_ef_segmented_plain(x: torch.Tensor, thresholds, steps,
+                                         levels, seeds, offsets):
+    """``sparsify_quantize_ef_blocks_plain`` under world 1's map (each
+    leaf whole and owned): the dither counter is the column, so leaf l's
+    elements draw what a per-leaf call with base = offsets[l] draws.
+    Returns (upload, error, count (rows, L) f32).
+    """
+    upload, error, count = sparsify_quantize_ef_blocks_plain(
+        x, thresholds, steps, levels, seeds, offsets, None)
     return upload, error, count.to(torch.float32)
 
 

@@ -14,10 +14,19 @@ plain versions are ``ref.py``'s ``sparsify_ef_plain`` /
 levels per (row, leaf) and does every leaf of every row in one launch,
 where the reference's per-layer codec calls its kernel once per leaf and
 per device; its plain version is ``sparsify_quantize_ef_segmented_plain``.
+``sparsify_quantize_ef_blocks_cuda`` launches the same kernel under a
+counter map: x is a rank's blocks of each leaf on a (data, model) mesh,
+and each leaf's (g0, R, G, owned) (``core/sparsify.py::block_counters``)
+gives its elements the dither counter of their whole-model coordinate
+and skips the count of a leaf another rank counts; its plain version is
+``sparsify_quantize_ef_blocks_plain``.  Without a map the kernel runs
+under world 1's (g0 the leaf's offset, R = G = its size: the flat
+column), so both wrappers count their launches as the segmented
+kernel's.
 
 Each wrapper takes CUDA tensors only, checks them, launches once on the
-current stream and adds one to ``LAUNCHES[name]``; ``ops.py`` sends CPU
-tensors to the plain versions.
+current stream and adds one to ``LAUNCHES`` of the kernel it launches;
+``ops.py`` sends CPU tensors to the plain versions.
 
 Index range.  A row's count is an exact int64 total, so a row may hold
 2^31 columns and more (full-width Llama-3.2-3B's s = 3,212,749,824).  The
@@ -44,13 +53,14 @@ from repro_torch.kernels import build
 
 __all__ = [
     "LAUNCHES", "library", "reset_launches", "sparsify_ef_cuda",
-    "sparsify_quantize_ef_cuda", "sparsify_quantize_ef_segmented_cuda",
-    "tiles",
+    "sparsify_quantize_ef_blocks_cuda", "sparsify_quantize_ef_cuda",
+    "sparsify_quantize_ef_segmented_cuda", "tiles",
 ]
 
 LAUNCHES = {"sparsify_ef": 0, "sparsify_quantize_ef": 0,
             "sparsify_quantize_ef_segmented": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_M32 = 0xFFFFFFFF
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _THREADS = 256  # kThreads of the .cu
@@ -74,7 +84,7 @@ def library() -> ctypes.CDLL:
         ctypes.c_int, _P]
     lib.sparsify_quantize_ef_launch.restype = ctypes.c_int
     lib.sparsify_quantize_ef_segmented_launch.argtypes = [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _I64, _I64, _I64,
         ctypes.c_int, _P]
     lib.sparsify_quantize_ef_segmented_launch.restype = ctypes.c_int
     return lib
@@ -86,6 +96,19 @@ def _tile_table(offsets: tuple, tile: int, device: torch.device):
             for leaf, (start, end) in enumerate(zip(offsets, offsets[1:]))
             for c in range(start, end, tile)]
     return torch.tensor(rows, dtype=torch.int64).reshape(-1, 3).to(device)
+
+
+@functools.cache  # as ``_tile_table``: keyed on the layout and the map
+def _map_table(offsets: tuple, counters: tuple | None, device: torch.device):
+    """Each leaf's (first column, g0, R, G, owned) for the kernel; with
+    ``counters`` None world 1's: (offset, offset, size, size, 1)."""
+    if counters is None:
+        rows = [(a, a & _M32, max(b - a, 1), (b - a) & _M32, 1)
+                for a, b in zip(offsets, offsets[1:])]
+    else:
+        rows = [(off, g0 & _M32, max(run, 1), stride & _M32, int(bool(own)))
+                for off, (g0, run, stride, own) in zip(offsets, counters)]
+    return torch.tensor(rows, dtype=torch.int64).reshape(-1, 5).to(device)
 
 
 def tiles(offsets, dtype: torch.dtype, device) -> torch.Tensor:
@@ -176,12 +199,10 @@ def sparsify_quantize_ef_cuda(x: torch.Tensor, thresholds, steps, levels,
     return up, err, cnt.to(torch.float32)
 
 
-def sparsify_quantize_ef_segmented_cuda(x: torch.Tensor, thresholds, steps,
-                                        levels, seeds, offsets):
-    """x (N, s); thresholds, steps, levels (N, L) f32; seeds (N,) int32;
-    offsets: the L + 1 leaf boundaries 0 = o_0 <= ... <= o_L = s (a
-    sequence of ints) -> (upload, error, count (N, L) f32).  The dither
-    counter is the column."""
+def _segmented(x: torch.Tensor, thresholds, steps, levels, seeds, offsets,
+               counters):
+    """One launch of the segmented kernel under ``counters`` (None: world
+    1's map): (upload, error, count (N, L) int64)."""
     offsets = tuple(int(o) for o in offsets)
     _check(x, seeds=seeds)
     leaves = len(offsets) - 1
@@ -189,10 +210,26 @@ def sparsify_quantize_ef_segmented_cuda(x: torch.Tensor, thresholds, steps,
             or any(b < a for a, b in zip(offsets, offsets[1:]))):
         raise ValueError(f"offsets must rise from 0 to {x.shape[1]}, got "
                          f"{offsets[:4]}...{offsets[-2:]}")
-    for name, t in (("thresholds", thresholds), ("steps", steps),
-                    ("levels", levels)):
-        _check_table(name, t, x, leaves)
+    if any(b - a > _M32 for a, b in zip(offsets, offsets[1:])):
+        raise ValueError("a leaf of the segmented kernel holds at most 2^32 "
+                         "columns")
+    if counters is not None:
+        counters = tuple((int(g0), int(run), int(stride), bool(own))
+                         for g0, run, stride, own in counters)
+        if len(counters) != leaves or any(
+                not 0 <= run <= _M32 or stride < run
+                or (b > a and (run < 1 or (b - a) % run))
+                for (a, b), (_, run, stride, _) in zip(
+                    zip(offsets, offsets[1:]), counters)):
+            raise ValueError("counters must give each leaf (g0, R, G, owned)"
+                             " with 0 < R <= G, R dividing its size, below "
+                             "2^32")
+    for tname, t in (("thresholds", thresholds), ("steps", steps),
+                     ("levels", levels)):
+        _check_table(tname, t, x, leaves)
     table = tiles(offsets, x.dtype, x.device)
+    cmap = _map_table(offsets if counters is None else offsets[:-1],
+                      counters, x.device)
     lib = library()
     up, err = torch.empty_like(x), torch.empty_like(x)
     cnt = torch.empty((x.shape[0], leaves), dtype=torch.int64,
@@ -202,8 +239,30 @@ def sparsify_quantize_ef_segmented_cuda(x: torch.Tensor, thresholds, steps,
         rc = lib.sparsify_quantize_ef_segmented_launch(
             x.data_ptr(), up.data_ptr(), err.data_ptr(), cnt.data_ptr(),
             thresholds.data_ptr(), steps.data_ptr(), levels.data_ptr(),
-            seeds.data_ptr(), table.data_ptr(), table.shape[0], leaves,
-            x.shape[0], x.shape[1], _DTYPES[x.dtype], stream)
+            seeds.data_ptr(), table.data_ptr(), table.shape[0],
+            cmap.data_ptr(), leaves, x.shape[0], x.shape[1],
+            _DTYPES[x.dtype], stream)
     _raise_on(rc, "sparsify_quantize_ef_segmented")
     LAUNCHES["sparsify_quantize_ef_segmented"] += 1
+    return up, err, cnt
+
+
+def sparsify_quantize_ef_segmented_cuda(x: torch.Tensor, thresholds, steps,
+                                        levels, seeds, offsets):
+    """x (N, s); thresholds, steps, levels (N, L) f32; seeds (N,) int32;
+    offsets: the L + 1 leaf boundaries 0 = o_0 <= ... <= o_L = s (a
+    sequence of ints) -> (upload, error, count (N, L) f32).  The dither
+    counter is the column."""
+    up, err, cnt = _segmented(x, thresholds, steps, levels, seeds, offsets,
+                              None)
     return up, err, cnt.to(torch.float32)
+
+
+def sparsify_quantize_ef_blocks_cuda(x: torch.Tensor, thresholds, steps,
+                                     levels, seeds, offsets, counters):
+    """The segmented kernel on a rank's blocks: as
+    ``sparsify_quantize_ef_segmented_cuda``, with ``counters`` each
+    leaf's (g0, R, G, owned) (the module docstring) -> (upload, error,
+    count (N, L) int64, 0 where a leaf is not owned: the exact totals,
+    for an all-reduce).  Counted as a launch of the segmented kernel."""
+    return _segmented(x, thresholds, steps, levels, seeds, offsets, counters)

@@ -46,7 +46,6 @@ TIMEOUT = datetime.timedelta(seconds=300)  # a collective waiting longer fails
 # the families with a model axis: every family
 MODEL_AXIS_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio",
                        "vision", "trajectory")
-CODEC_AXIS_ITEM = "ROADMAP queue 1 item 7 (codecs on the model axis)"
 SERVE_DATA_ITEM = ("ROADMAP queue 1 item 8 (serve steps with data > 1, the "
                    "sequence-parallel long_500k cache)")
 

@@ -302,7 +302,8 @@ def step_collectives(kind: str, num_params: int, world: int,
                      upload_dtype: str = "float32", *, model: int = 1,
                      cfg=None, tokens: int = 0, sample: int = 65536,
                      params_per_card: int = 0,
-                     batch: int = 0, seqs: int = 0) -> CollectiveStats:
+                     batch: int = 0, seqs: int = 0,
+                     codec=None, leaves: int = 0) -> CollectiveStats:
     """The collectives one rank of the port's step issues, on a (world /
     model, model) mesh.
 
@@ -315,8 +316,10 @@ def step_collectives(kind: str, num_params: int, world: int,
     ``batch`` a serve step's sequences, ``seqs`` the rank's sequences, all
     three as ``axis_collectives`` reads them): the model's
     (``axis_collectives``) and, in training, the round's norm and count
-    all-reduces and its threshold sample's all-gather.  A world of 1
-    issues none."""
+    all-reduces and its threshold sample's all-gather; with ``codec`` (a
+    ``compression`` codec on the rank's blocks of a model of ``leaves``
+    leaves) the two norms' and the codec's own
+    (``Compressor.model_collectives``).  A world of 1 issues none."""
     by, cnt = {}, {}
 
     def add(k, b, n=1):  # n collectives of b bytes each
@@ -337,10 +340,14 @@ def step_collectives(kind: str, num_params: int, world: int,
         for k, b, c in axis_collectives(kind, cfg, model, tokens, n, batch,
                                         seqs):
             add(k, ring_bytes(k, b, model), c)
-        if kind == "train":
+        if kind == "train" and codec is None:
             add("all-reduce", ring_bytes("all-reduce", n * 8, model), 3)
             add("all-gather", ring_bytes("all-gather", n * sample * 4,
                                          model))
+        elif kind == "train":
+            add("all-reduce", ring_bytes("all-reduce", n * 4, model), 2)
+            for k, b in codec.model_collectives(n, leaves):
+                add(k, ring_bytes(k, b, model))
     return CollectiveStats(by, cnt)
 
 

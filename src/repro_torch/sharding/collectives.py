@@ -17,7 +17,8 @@ unsharded function (Megatron-LM's tensor parallelism):
   (``grad="slice"``: every rank did the whole work).
 
 ``all_reduce_`` and ``all_gather_`` are the same collectives outside the
-gradient (the distributed round's norms, counts and threshold samples);
+gradient (the distributed round's norms, counts and threshold samples;
+``all_gather_parts_`` gathers parts whose widths differ over the ranks);
 ``agree`` checks that every rank holds the same tensor (the MoE routing's
 checksums), a check outside the computed function that is not counted.
 Each is a ``torch.autograd.Function`` with ``setup_context`` and a
@@ -190,6 +191,31 @@ def all_gather_(x: torch.Tensor, axis: ModelAxis | None,
     if axis is None or axis.size == 1:
         return x
     return _all_gather(x, axis, dim)
+
+
+def all_gather_parts_(parts: list, axis: ModelAxis | None,
+                      widths: list) -> list:
+    """Each rank's (N, w) parts (one a leaf, say) put together over the
+    axis in one ``all_gather``, outside the gradient: ``widths[m]`` the
+    parts' widths on model index m (the ranks' parts differ in width, so
+    each is padded to the widest rank's total and the pads stripped).
+    Returns one (N, sum over m of widths[m][i]) tensor a part, the ranks'
+    columns in model-index order."""
+    if axis is None or axis.size == 1:
+        return list(parts)
+    n = parts[0].shape[0]
+    mine = torch.cat(parts, dim=1)
+    width = max(sum(w) for w in widths)
+    pad = mine.new_zeros((n, width))
+    pad[:, :mine.shape[1]] = mine
+    got = _all_gather(pad, axis, 0).view(axis.size, n, width)
+    out = [[] for _ in parts]
+    for m, ws in enumerate(widths):
+        at = 0
+        for i, w in enumerate(ws):
+            out[i].append(got[m, :, at:at + w])
+            at += w
+    return [torch.cat(o, dim=1) for o in out]
 
 
 def agree(x: torch.Tensor, axis: ModelAxis | None) -> bool:

@@ -168,6 +168,10 @@ def test_cpu_tensor_takes_plain_path_and_counts_nothing():
     ops.sparsify_quantize_ef_segmented(
         x, torch.zeros(2, 3), torch.ones(2, 3), torch.ones(2, 3),
         torch.zeros(2, dtype=torch.int32), (0, 10, 11, 64))
+    ops.sparsify_quantize_ef_blocks(
+        x, torch.zeros(2, 2), torch.ones(2, 2), torch.ones(2, 2),
+        torch.zeros(2, dtype=torch.int32), (0, 16, 64),
+        ((0, 4, 8, True), (40, 48, 96, False)))
     assert K.LAUNCHES == {"sparsify_ef": 0, "sparsify_quantize_ef": 0,
                           "sparsify_quantize_ef_segmented": 0}
     with pytest.raises(ValueError, match="CUDA"):
@@ -176,6 +180,10 @@ def test_cpu_tensor_takes_plain_path_and_counts_nothing():
         K.sparsify_quantize_ef_segmented_cuda(
             x, torch.zeros(2, 1), torch.ones(2, 1), torch.ones(2, 1),
             torch.zeros(2, dtype=torch.int32), (0, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        K.sparsify_quantize_ef_blocks_cuda(
+            x, torch.zeros(2, 1), torch.ones(2, 1), torch.ones(2, 1),
+            torch.zeros(2, dtype=torch.int32), (0, 64), ((0, 64, 64, True),))
 
 
 # ---------------------------------------------------------------------------

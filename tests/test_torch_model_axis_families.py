@@ -262,7 +262,7 @@ for name in names:
                                            torch.as_tensor(data["prompt"]), ma)
     res["routing_checks"] = ma.checks.get("routing", 0)
     ma.checks = None
-    pl = D.placement(model, mesh, SAMPLE)
+    pl = D.placement(model, mesh)
     res["grads"] = grads(model, cfg, lp, data, pl.layout, ma)
     with torch.no_grad():
         x = local_params(model, model.layout.unflatten(data["x"]),
@@ -397,7 +397,7 @@ def _want_block(model, w, tag, rank):
     from repro_torch.core.distributed import placement
     from repro_torch.models.registry import local_params
 
-    pl = placement(model, _mesh(tag, rank), SAMPLE)
+    pl = placement(model, _mesh(tag, rank))
     blocks = tree_unflatten(model.layout.paths, list(pl.blocks))
     return pl.layout.flatten(local_params(model, model.layout.unflatten(w),
                                           blocks))
@@ -515,7 +515,7 @@ def test_gradients_match_unsharded_blocks(spawned, one, tag, name):
         want = _want_block(model, o["grads"], tag, r)
         from repro_torch.core.distributed import placement
 
-        layout = placement(model, _mesh(tag, r), SAMPLE).layout
+        layout = placement(model, _mesh(tag, r)).layout
         seen = []
         for path, got, exp in zip(layout.paths, layout.leaves(
                 res["grads"][None]), layout.leaves(want[None])):

@@ -226,7 +226,7 @@ for name in names:
         res["loss"] = model.loss_fn(lp, cfg, batch, model_axis=ma)
         if cfg.family == "audio":
             res["serve"], res["cache"] = serve(model, cfg, lp, data, ma)
-    pl = D.placement(model, mesh, SAMPLE)
+    pl = D.placement(model, mesh)
     ma.counts.clear()
     res["grads"] = grads(model, cfg, lp, data, pl.layout, ma)
     res["grad_counts"] = dict(ma.counts)
@@ -377,7 +377,7 @@ def _mesh(tag, rank):
 
 def _want_block(model, w, tag, rank):
     """The rank's flat blocks of a whole flat ``w``."""
-    pl = placement(model, _mesh(tag, rank), SAMPLE)
+    pl = placement(model, _mesh(tag, rank))
     blocks = tree_unflatten(model.layout.paths, list(pl.blocks))
     return pl.layout.flatten(local_params(model, model.layout.unflatten(w),
                                           blocks))
@@ -510,7 +510,7 @@ def test_gradients_match_unsharded_blocks(spawned, one, tag, name):
     for r in _ranks(tag):
         res = _load(spawned, tag, name, r)
         want = _want_block(model, o["grads"], tag, r)
-        layout = placement(model, _mesh(tag, r), SAMPLE).layout
+        layout = placement(model, _mesh(tag, r)).layout
         for path, got, exp in zip(layout.paths, layout.leaves(
                 res["grads"][None]), layout.leaves(want[None])):
             _close(got[0], exp[0], 1e-4,
@@ -543,7 +543,7 @@ def test_gradients_as_drawn_within_the_reference_s_distance(spawned, one,
         res = _load(spawned, tag, name, r)
         want = _want_block(tm, o["grads_drawn"], tag, r)
         far = _want_block(tm, ref, tag, r)
-        layout = placement(tm, _mesh(tag, r), SAMPLE).layout
+        layout = placement(tm, _mesh(tag, r)).layout
         for path, got, exp, rf in zip(
                 layout.paths, layout.leaves(res["grads_drawn"][None]),
                 layout.leaves(want[None]), layout.leaves(far[None])):
