@@ -5033,9 +5033,12 @@ def axis_kernel_times(DA, SSD, R, card: str, decodes=AXIS_DECODES,
                       + b * h * p * n)
         res = dict(shape=[b, s, h, p, n, ch], dtype="float32",
                    ms=median_ms(lambda: SSD.ssd_scan_cuda(x, a, bb, cc, ch)),
-                   plain_ms=median_ms(lambda: R.ssd_scan_plain(x, a, bb, cc,
-                                                               ch),
-                                      runs=9, batch=3),
+                   # the plain version on blocks of at most 4 rows: its
+                   # (B, H, S / chunk, chunk, chunk) f32 intermediates are
+                   # 21.5 GB for 4 rows of S = 32768
+                   plain_ms=median_ms(lambda: [R.ssd_scan_plain(
+                       *(t[i:i + 4] for t in (x, a, bb, cc)), ch)
+                       for i in range(0, b, 4)], runs=9, batch=3),
                    library_ms=None, max_abs_err=err,
                    **bound(nbytes, 3 * ssd_causal_flops(b, s, h, p, n, ch),
                            "tf32"))
@@ -5112,8 +5115,8 @@ def routes_recorded(log: list):
 
     real = MOE.dispatch
 
-    def spy(logits, cfg):
-        out = real(logits, cfg)
+    def spy(logits, cfg, **kw):
+        out = real(logits, cfg, **kw)
         log.append(out[2].to(torch.int16).cpu())
         return out
 
@@ -5182,8 +5185,8 @@ def probed(log: list):
         log.append(("moe_out", _last(y[0])))
         return y
 
-    def route(logits, cfg):
-        r = real["route"](logits, cfg)
+    def route(logits, cfg, **kw):
+        r = real["route"](logits, cfg, **kw)
         if logits.shape[1] <= 8:  # decode: the kept choices' weights
             weights, keep, topi = r[0], r[1], r[2]
             log.append(("gate_w", (torch.gather(weights, -1, topi)
@@ -6677,6 +6680,374 @@ def check_codec_rank(o: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 28: serve steps over the data axis (launch/steps.py on a (data,
+# model) mesh: the batch's rows, the long_500k ring's slots merged over
+# the ranks, the MoE dispatch groups that span ranks)
+# ---------------------------------------------------------------------------
+
+# 28a: the kernels at the four-card phases' per-rank shapes: decode_attn's
+# (B, H, KV, S, D) of Llama-3.2-3B x decode_32k (batch 64) on (4, 1) and
+# (2, 2) and of Qwen3-MoE (batch 32) on (2, 2); ssd_scan's (B, S, H, P, N,
+# chunk) of Mamba2-2.7B x prefill_32k (batch 32) on (4, 1)
+DATA_DECODES = ((16, 24, 8, 32768, 128), (32, 12, 4, 32768, 128),
+                (16, 16, 2, 32768, 128))
+DATA_SCANS = ((8, 32768, 80, 64, 128, 256),)
+DATA_PLAN = ((4, 1), (4, 2))  # 28a: the plan's (world, model)
+# 28b-e: (arch, shape, global batch, the f32 check's layers, meshes as
+# (data, model)); the batch is cut from the shape's only where printed
+DATA_CASES = {
+    "b": (("llama3.2-3b", "decode_32k", 64, 2, ((4, 1), (2, 2))),),
+    "c": (("mamba2-2.7b", "prefill_32k", 32, 0, ((4, 1),)),),
+    "d": (("llama3.2-3b", "long_500k", 1, 2, ((4, 1),)),
+          ("zamba2-7b", "long_500k", 1, -1, ((2, 2),))),
+    "e": (("qwen3-moe-30b-a3b", "decode_32k", 32, 2, ((2, 2),)),),
+}
+DATA_SEQ: dict = {}  # shape: seq_len (a rehearsal over gloo only)
+DATA_PEAK_GIB = 75.0  # 28c: a batch whose peak passes this is halved
+
+
+def data_axis_phase(DA, SSD, R, smi: str) -> dict:
+    """Phase 28a (one card): the dry-run plan of every serve pair at
+    world 4 with a model axis of 1 and 2, planned on 4 cards with each
+    card's block (no card used), and ``decode_attn`` and ``ssd_scan`` at
+    the four-card phases' per-rank shapes (``DATA_DECODES``,
+    ``DATA_SCANS``), held and timed as 25a's (``axis_kernel_times``)."""
+    from repro_torch.configs import ASSIGNED_ARCHS, INPUT_SHAPES, get_config
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.steps import supported
+
+    t0 = time.perf_counter()
+    plan = {}
+    for world, m in DATA_PLAN:
+        fit = 0
+        for arch in ASSIGNED_ARCHS:
+            for name, shape in INPUT_SHAPES.items():
+                if shape.kind == "train" or not supported(get_config(arch),
+                                                          shape):
+                    continue
+                rec, built = DR.plan(get_config(arch), shape, world=world,
+                                     model=m)
+                del built
+                if rec["cards"] != world:
+                    fail(f"plan {arch} x {name} at ({world // m}, {m}): "
+                         f"{rec['cards']} cards, not {world}")
+                fit += rec["mem"]["fits"]
+                plan[f"{arch} x {name} ({world // m}, {m})"] = dict(
+                    argument_gb=rec["mem"]["argument_gb"],
+                    tokens_per_rank=rec["tokens_per_rank"],
+                    coll_counts=rec["roofline"]["coll_counts"])
+        print(f"plan at ({world // m}, {m}): {fit} serve pairs fit a card "
+              f"(sizes of a plan, no card used)", flush=True)
+    times = axis_kernel_times(DA, SSD, R, smi, decodes=DATA_DECODES,
+                              scans=DATA_SCANS)
+    print(f"phase 28a {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(plan=plan, times=times)
+
+
+def data_shape(name: str, batch: int):
+    """The shape ``name`` at global batch ``batch`` (``DATA_SEQ``'s
+    seq_len in a rehearsal)."""
+    from repro_torch.configs import INPUT_SHAPES, InputShape
+
+    s = INPUT_SHAPES[name]
+    return InputShape(s.name, DATA_SEQ.get(name, s.seq_len), batch, s.kind)
+
+
+@contextmanager
+def routes_kept(log: list):
+    """Every MoE dispatch's ``keep``, slots and the rank's own rows
+    (``own``, None on one card), on the host, appended to ``log``."""
+    from repro_torch.models import moe as MOE
+
+    real = MOE.dispatch
+
+    def spy(logits, cfg, **kw):
+        out = real(logits, cfg, **kw)
+        own = kw.get("own")
+        log.append((out[1].cpu(), out[3].cpu(),
+                    None if own is None else own.cpu()))
+        return out
+
+    MOE.dispatch = spy
+    try:
+        yield log
+    finally:
+        MOE.dispatch = real
+
+
+def _routes_equal(got: list, want: list, start: int) -> bool:
+    """The rank's routes (``routes_kept``) equal one card's at its tokens
+    (and on the last rank the whole batch's pads): ``keep`` and the slots
+    of rows [start, start + its own rows) of the whole batch."""
+    if len(got) != len(want) or not got:
+        return False
+    for (keep, slot, own), (wk, ws, _) in zip(got, want):
+        rows = own.reshape(-1) > 0
+        n = int(rows.sum())
+        e, k = keep.shape[-1], slot.shape[-1]
+        if not (torch.equal(keep.reshape(-1, e)[rows],
+                            wk.reshape(-1, e)[start:start + n])
+                and torch.equal(slot.reshape(-1, k)[rows],
+                                ws.reshape(-1, k)[start:start + n])):
+            return False
+    return True
+
+
+def _data_counts(axis) -> dict:
+    return {} if axis is None else {k: n for k, (n, _) in axis.counts.items()}
+
+
+def data_f32(mesh, dev, arch: str, shape_name: str, batch: int,
+             layers: int) -> dict:
+    """28b-e(i): the step at ``layers`` (-1: the hybrid's ``attn_every``
+    + 1, so that its shared attention runs) in f32 on ``conditioned``
+    weights from seed 0, whole arguments drawn alike on every card
+    (``materialize`` on one card's step): this card runs one card's step
+    on them, then the mesh's step on its block (``local_args``).  Held:
+    every logit of the rank's rows within ``FAMILY_F32_TOL`` x max(1, the
+    largest) of one card's, the same greedy tokens, the cache block's
+    positions equal to one card's block and its values within the same
+    bound; at long_500k the block unchanged but for the owner's slot
+    (which holds one card's new token); an MoE's ``keep`` and slots bit-
+    equal; the data axis's collectives equal to the plan's count
+    (``roofline.data_collectives``); nothing non-finite."""
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.steps import build_step, local_args, materialize
+
+    cfg = axis_cfg(arch)
+    short = cfg.attn_every + 1 if layers < 0 else layers
+    cfg = axis_cfg(arch, short).replace(dtype="float32",
+                                        param_dtype="float32")
+    shape = data_shape(shape_name, batch)
+    one_b = build_step(cfg, shape, None)
+    mesh_b = build_step(cfg, shape, mesh)
+    da = mesh.data_axis()
+    whole = materialize(one_b, shape, torch.Generator(
+        device=dev).manual_seed(0), dev)
+    conditioned(one_b["model"], whole[0])
+    local = local_args(mesh_b, whole)
+    before = ({k: v.clone() for k, v in local[1].items()
+               if isinstance(v, torch.Tensor)}
+              if mesh_b["split"] == "seq" else None)
+    want_routes, routes = [], []
+    with torch.no_grad(), routes_kept(want_routes):
+        want_logits, want_cache = one_b["step"](*whole)
+    want_block = (local_args(mesh_b, (whole[0], want_cache)
+                             + tuple(whole[2:]))[1]
+                  if shape.kind == "decode" else {})
+    del whole, want_cache
+    _free(dev)
+    da.counts.clear()
+    _sync(dev)
+    with torch.no_grad(), routes_kept(routes):
+        logits, cache = mesh_b["step"](*local)
+    _sync(dev)
+    rows = mesh_b["input_blocks"]["tokens" if shape.kind == "prefill"
+                                  else "token"][0]
+    want = want_logits[rows]
+    scale = max(1.0, float(want.abs().max()))
+    off = float((logits - want).abs().max()) / scale
+    out = dict(layers=short, shape=[shape.name, shape.seq_len, batch,
+                                    shape.kind], split=mesh_b["split"],
+               rows=[rows.start, rows.stop], logits_off=off,
+               greedy_equal=bool(torch.equal(logits.argmax(-1),
+                                             want.argmax(-1))),
+               finite=bool(torch.isfinite(logits).all()))
+    if shape.kind == "decode":
+        cache_off, pos_equal, kept = 0.0, True, True
+        axes = mesh_b["model"].cache_axes(cfg)
+        slots = mesh_b["slots"]
+        mine = set()
+        if mesh_b["split"] == "seq":  # the token's slot, where it is ours
+            at = (shape.seq_len - 1) % ((slots.stop - slots.start) * da.size)
+            mine = {at - slots.start} if slots.start <= at < slots.stop \
+                else set()
+        for key, w in want_block.items():
+            if not isinstance(w, torch.Tensor):
+                continue
+            g = cache[key]
+            out["finite"] &= bool(torch.isfinite(g.float()).all())
+            if mesh_b["split"] == "seq" and "seq" in axes[key]:
+                d = axes[key].index("seq")
+                touched = (g != before[key]).movedim(d, 0).flatten(1).any(1)
+                kept &= set(touched.nonzero().flatten().tolist()) <= mine
+            if key == "pos":
+                pos_equal = bool(torch.equal(g, w))
+                continue
+            cache_off = max(cache_off, float((g - w).abs().max())
+                            / max(1.0, float(w.abs().max())))
+        out.update(cache_off=cache_off, pos_equal=pos_equal,
+                   other_slots_kept=kept)
+    if cfg.is_moe:
+        per = shape.global_batch * (shape.seq_len if shape.kind == "prefill"
+                                    else 1) // da.size
+        out["routes_equal"] = _routes_equal(routes, want_routes,
+                                            da.rank * per)
+    out["data_counts"] = _data_counts(da)
+    out["plan_counts"] = {k: n for k, _, n in RL.data_collectives(
+        cfg, shape, da.size, mesh.model)}
+    out["ok"] = (off <= FAMILY_F32_TOL and out["greedy_equal"]
+                 and out["finite"] and out["data_counts"] == out[
+                     "plan_counts"]
+                 and out.get("cache_off", 0.0) <= FAMILY_F32_TOL
+                 and out.get("pos_equal", True)
+                 and out.get("other_slots_kept", True)
+                 and out.get("routes_equal", True))
+    del local, before, cache, logits, mesh_b, one_b
+    _free(dev)
+    return out
+
+
+def data_full(mods, mesh, dev, arch: str, shape_name: str,
+              batch: int) -> dict:
+    """28b-e(ii): the step at full depth in bf16 over the mesh on the
+    rank's own block (``materialize``; random weights from seed 0): run 1
+    with its counts set to 0 just before and read just after, every
+    ``decode_attn`` / ``ssd_scan`` call held against its plain version as
+    it returns; run 2 timed alone: seconds, peak GiB, the data axis's
+    collectives.  28c halves the batch (printed) while the peak passes
+    ``DATA_PEAK_GIB``."""
+    from repro_torch.launch.steps import build_step, materialize
+
+    from repro_torch.launch import roofline as RL
+
+    cfg = axis_cfg(arch)
+    # the kernel the step runs a layer: the prefill's SSD scan, the plain
+    # cache's decode; none at long_500k (the ring and the recurrence are
+    # plain, as the reference's)
+    kernel = ("ssd_scan" if shape_name == "prefill_32k" else
+              "decode_attn" if shape_name == "decode_32k" else None)
+    cuts = []
+    while True:
+        shape = data_shape(shape_name, batch)
+        built = build_step(cfg, shape, mesh)
+        da = mesh.data_axis()
+        _reset_peak(dev)
+        t0 = time.perf_counter()
+        args = materialize(built, shape, torch.Generator(
+            device=dev).manual_seed(0), dev, mesh)
+        _sync(dev)
+        setup_s = time.perf_counter() - t0
+        runs = []
+        try:
+            for i in range(2):
+                for mod in mods.values():
+                    mod.reset_launches()
+                da.counts.clear()
+                stats = dict(peak=0, hold_s=0.0, held=0)
+                _sync(dev)
+                t0 = time.perf_counter()
+                with (holding(f"data {arch} x {shape_name}", stats,
+                              (kernel,)) if i == 0 and kernel
+                      else nullcontext()), \
+                        torch.no_grad():
+                    logits, _ = built["step"](*args)
+                _sync(dev)
+                runs.append(dict(
+                    seconds=time.perf_counter() - t0 - stats["hold_s"],
+                    held=stats["held"], hold_s=stats["hold_s"],
+                    launches={k: v for mod in mods.values()
+                              for k, v in mod.LAUNCHES.items()},
+                    data_counts=_data_counts(da),
+                    finite=bool(torch.isfinite(logits).all())))
+                del logits
+            peak = max(_peak_gib(dev), stats["peak"] / 2**30)
+        except torch.cuda.OutOfMemoryError:
+            peak = float("inf")
+        if peak <= DATA_PEAK_GIB or shape.kind != "prefill" or batch == 1:
+            break
+        cuts.append(f"global batch {batch} -> {batch // 2} (peak "
+                    f"{peak:.2f} GiB)")
+        del args, built
+        _free(dev)
+        batch //= 2
+    arg_gib = sum(t.numel() * t.element_size() for t in _leaves(args[0])
+                  ) / 2**30
+    cache_gib = (sum(t.numel() * t.element_size() for t in args[1].values()
+                     if isinstance(t, torch.Tensor)) / 2**30
+                 if shape.kind == "decode" else 0.0)
+    calls = cfg.num_layers if kernel and dev.type == "cuda" else 0
+    r0 = runs[0]
+    rows = built["input_blocks"]["tokens" if shape.kind == "prefill"
+                                 else "token"][0]
+    out = dict(arch=arch, shape=[shape.name, shape.seq_len, batch,
+                                 shape.kind], cuts=cuts,
+               layers=cfg.num_layers, split=built["split"],
+               rows=[rows.start, rows.stop], weights_gib=arg_gib,
+               cache_gib=cache_gib, setup_s=setup_s, peak_gib=peak,
+               seconds=runs[1]["seconds"], runs=runs, kernel=kernel,
+               launches=r0["launches"], want_launches=calls,
+               plan_counts={k: n for k, _, n in RL.data_collectives(
+                   cfg, shape, da.size, mesh.model)})
+    out["ok"] = (all(n == (calls if k == kernel else 0)
+                     for k, n in r0["launches"].items())
+                 and r0["held"] == calls
+                 and all(r["finite"] and r["data_counts"] ==
+                         out["plan_counts"] for r in runs))
+    del args, built
+    _free(dev)
+    return out
+
+
+def data_axis_mesh(mods, K, store: Path, device="cuda",
+                   phases: str = "bcde") -> dict:
+    """Phases 28b-e on four ranks (``--mesh 4 --only 28``; ``phases`` of
+    "bcde"): each case of ``DATA_CASES`` on each of its meshes, (i) in
+    f32 at a few layers against one card's step on the same whole
+    arguments (``data_f32``; not for 28c, whose batch rows run apart by
+    construction and whose kernel is held) and (ii) at full depth in bf16
+    (``data_full``); each rank's numbers."""
+    from repro_torch.launch.mesh import make_client_mesh
+
+    meshes, out = {}, {}
+    for ph in "bcde":
+        if ph not in phases:
+            continue
+        for arch, shape, batch, short, shapes in DATA_CASES[ph]:
+            for d, m in shapes:
+                if (d, m) not in meshes:
+                    meshes[(d, m)] = make_client_mesh(
+                        d, model=m, family="moe", device=device)
+                mesh = meshes[(d, m)]
+                dev = mesh.device
+                label = f"{ph} {arch} x {shape} on ({d}, {m})"
+                t0 = time.perf_counter()
+                res = {}
+                if short:
+                    res["f32"] = data_f32(mesh, dev, arch, shape, batch,
+                                          short)
+                    print(f"data {label}, f32 at {res['f32']['layers']} "
+                          f"layers against one card: "
+                          f"{json.dumps(res['f32'])}", flush=True)
+                res["full"] = data_full(mods, mesh, dev, arch, shape, batch)
+                res["phase_s"] = time.perf_counter() - t0
+                print(f"data {label}, bf16 at {res['full']['layers']} "
+                      f"layers: {json.dumps(res['full'])}", flush=True)
+                out[label] = res
+    return out
+
+
+def check_data_rank(o: dict) -> None:
+    """Phases 28b-e's checks of one rank's results, a line a case."""
+    for label, res in o["data"].items():
+        f = res["full"]
+        if "f32" in res and not res["f32"]["ok"]:
+            fail(f"data {label} on rank {o['rank']}: f32 against one card: "
+                 f"{res['f32']}")
+        if not f["ok"]:
+            fail(f"data {label} on rank {o['rank']}: {f}")
+        print(f"data rank {o['rank']}: {label}, {f['layers']} layers, "
+              f"global batch {f['shape'][2]} (rows {f['rows']}, cuts "
+              f"{f['cuts'] or 'none'}): {f['seconds']:.6g} s, peak "
+              f"{f['peak_gib']:.2f} GiB (weights {f['weights_gib']:.2f}, "
+              f"cache {f['cache_gib']:.2f}), launches {f['launches']}, "
+              f"held {f['runs'][0]['held']}, data collectives a step "
+              f"{f['runs'][1]['data_counts']} (plan {f['plan_counts']})"
+              + (f"; f32 logits off {res['f32']['logits_off']:.3g}"
+                 if "f32" in res else ""), flush=True)
+
+
+# ---------------------------------------------------------------------------
 # --mesh P: the distributed round over P cards (one process a card)
 # ---------------------------------------------------------------------------
 
@@ -6941,7 +7312,8 @@ def mesh_rank(rank: int, world: int, store_path: str,
     """``--mesh-rank r P STORE [ONLY]``: one rank of ``--mesh P``, on card
     r; ``ONLY`` "24": phases 24b-d alone ("24cd": 24c-d); "25": phases
     25b-e ("25" and some of "bcde": those); "26": phases 26b-d (and some
-    of "bcd"); "27": phases 27b-c (and some of "bc")."""
+    of "bcd"); "27": phases 27b-c (and some of "bc"); "28": phases 28b-e
+    (and some of "bcde")."""
     import torch.distributed as dist
 
     from repro_torch.kernels import decode_attn as DA
@@ -6970,6 +7342,9 @@ def mesh_rank(rank: int, world: int, store_path: str,
         elif only.startswith("27"):
             out["codec"] = codec_axis_mesh(mods, K, Path(store_path).parent,
                                            phases=only[2:] or "bc")
+        elif only.startswith("28"):
+            out["data"] = data_axis_mesh(mods, K, Path(store_path).parent,
+                                         phases=only[2:] or "bcde")
         elif world == 4:
             out["axis"] = axis_mesh(mods, K, Path(store_path).parent,
                                     phases="cd" if only == "24cd" else "bcd")
@@ -7077,6 +7452,8 @@ def mesh_main(world: int, only: str = "") -> None:
             check_paper_rank(o)
         if "codec" in o:
             check_codec_rank(o)
+        if "data" in o:
+            check_data_rank(o)
     for o in outs:
         if only:
             continue
@@ -7157,10 +7534,12 @@ def main() -> None:
         if only not in ("", "24", "24cd") and not (
                 only.startswith("25") and set(only[2:]) <= set("bcdef")) \
                 and not (only.startswith("26") and set(only[2:]) <= set("bcd")) \
-                and not (only.startswith("27") and set(only[2:]) <= set("bc")):
+                and not (only.startswith("27") and set(only[2:]) <= set("bc")) \
+                and not (only.startswith("28") and set(only[2:]) <= set("bcde")):
             fail(f"--mesh takes --only 24, 24cd, 25 (25 and some of bcde, "
                  f"or 25f: 25e's f32 rounds alone), 26 (26 and some of "
-                 f"bcd) or 27 (27 and some of bc), not {only}")
+                 f"bcd), 27 (27 and some of bc) or 28 (28 and some of "
+                 f"bcde), not {only}")
         return mesh_main(int(sys.argv[2]), only)
     if sys.argv[1:2] == ["--mesh-rank"]:
         return mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
@@ -7168,9 +7547,9 @@ def main() -> None:
     only = (set(sys.argv[2].split(",")) if sys.argv[1:2] == ["--only"]
             else None)
     if only is not None and not only <= {"3c", "19", "20", "21", "22", "23",
-                                         "24", "25", "26", "27"}:
+                                         "24", "25", "26", "27", "28"}:
         fail(f"--only takes phases of 3c, 19, 20, 21, 22, 23, 24, 25, 26, "
-             f"27, not {sys.argv[2]}")
+             f"27, 28, not {sys.argv[2]}")
     from repro_torch.kernels import decode_attn as DA
     from repro_torch.kernels import ref as R
     from repro_torch.kernels import sparsify_ef as K
@@ -7203,9 +7582,10 @@ def main() -> None:
                   "24": lambda: axis_phase(K, smi),
                   "25": lambda: family_axis_phase(K, DA, SSD, R, smi),
                   "26": lambda: paper_axis_phase(K, DA, R, smi),
-                  "27": lambda: codec_axis_phase(K, R, smi)}
+                  "27": lambda: codec_axis_phase(K, R, smi),
+                  "28": lambda: data_axis_phase(DA, SSD, R, smi)}
         done = {p: phases[p]() for p in ("3c", "19", "20", "21", "22", "23",
-                                         "24", "25", "26", "27")
+                                         "24", "25", "26", "27", "28")
                 if p in only}
         print(json.dumps(dict(phases=sorted(done), held=HELD), default=str))
         return
@@ -7348,6 +7728,12 @@ def main() -> None:
     codec_axis = codec_axis_phase(K, R, smi)
     torch.cuda.empty_cache()
 
+    # 28. serve steps over the data axis: the plan of the serve pairs on
+    # four cards, the kernels at the four-card phases' per-rank shapes
+    # (those run under --mesh 4 --only 28)
+    data_axis = data_axis_phase(DA, SSD, R, smi)
+    torch.cuda.empty_cache()
+
     # 18. device time by kernel, last (the profiler slows later launches)
     profile_kernels(DA, SSD)
     profiled = {}
@@ -7470,6 +7856,11 @@ def main() -> None:
              # shapes (Qwen3-MoE, Qwen2-MoE)
              axis_rank_shapes=family_axis["times"]["decode_attn"]
              + paper_axis["times"]["decode_attn"],
+             # phase 28a: held and timed at the data-axis serves' per-rank
+             # shapes (Llama-3.2-3B x decode_32k on (4, 1) and (2, 2),
+             # Qwen3-MoE on (2, 2)); their launches are --mesh 4 --only
+             # 28's
+             data_rank_shapes=data_axis["times"]["decode_attn"],
              **decode["main"],
              **{f"{key}_32k": decode["deep"][key] for key in
                 ("ms", "ms_per_call", "plain_ms", "library_ms", "bound_ms",
@@ -7495,6 +7886,9 @@ def main() -> None:
              # phase 25a: held and timed at the (1, 4) serves' per-rank
              # shapes (Mamba2-2.7B, Zamba2-7B)
              axis_rank_shapes=family_axis["times"]["ssd_scan"],
+             # phase 28a: at Mamba2-2.7B x prefill_32k's rows a rank of
+             # (4, 1)
+             data_rank_shapes=data_axis["times"]["ssd_scan"],
              **ssd),
     ]
     for entry in kernels:

@@ -22,8 +22,10 @@ bytes (``launch/calculator.py`` at ``model_parallel=--model``), the
 collectives (``launch/roofline.py::step_collectives``), the H100 roofline
 terms and bottleneck and ``model_flops``.  A train step's card holds its
 blocks of its data rank's clients (one client a data rank) and the global
-batch; a serve step runs over the model axis alone (a mesh of data 1, on
-``--model`` cards) at the global batch, whatever the world.
+batch; a serve step's card its blocks on both axes (``RULES_SERVE``): its
+rows of the global batch, or at long_500k (batch 1) the whole batch and
+its block of the ring cache's slots, and ``tokens_per_rank`` counts the
+tokens it computes.
 ``--execute`` (the counterpart of compile + ``memory_analysis``) runs
 each planned step whose arguments fit, once, on ``--device`` (the card by
 default; a missing card raises) from random arguments
@@ -86,9 +88,8 @@ def plan(cfg0, shape, *, world: int = 1, model: int = 1,
     mesh to build over (``plan_mesh``'s by default)."""
     if world % model:
         raise ValueError(f"a world of {world} has no model axis of {model}")
-    cards = world if shape.kind == "train" else model
-    if mesh is None and cards > 1:  # world 1: one process, no group
-        mesh = plan_mesh(cards, model)
+    if mesh is None and world > 1:  # world 1: one process, no group
+        mesh = plan_mesh(world, model)
     built = build_step(cfg0, shape, mesh, dist_overrides=dist_overrides,
                        variant=variant)
     cfg, mdl = built["cfg"], built["model"]
@@ -101,27 +102,34 @@ def plan(cfg0, shape, *, world: int = 1, model: int = 1,
     dcfg = built["system"]["dcfg"] if shape.kind == "train" else None
     s_r = built["system"]["placement"].layout.size if dcfg else 0
     per_rank = tokens if dcfg is None else tokens // dcfg.num_clients
+    rows = shape.global_batch
+    if dcfg is None:  # the rank's rows (all where the batch does not divide)
+        r = built["input_blocks"]["tokens" if shape.kind == "prefill"
+                                  else "token"][0]
+        rows = r.stop - r.start
+        per_rank = tokens * rows // shape.global_batch
     # dp_client splits a client's batch over model, except one whose loss
     # reads the whole batch (``batch_whole``) or one that does not divide,
     # which runs whole on every rank of its model group
-    # (core/distributed.py): a rank's work is then that of a mesh of cards
+    # (core/distributed.py): a rank's work is then that of a mesh of world
     # / model ranks
     dp = variant == "dp_client" and dcfg is not None and model > 1
     whole = dp and (batch_whole(cfg)
                     or shape.global_batch // dcfg.num_clients % model > 0)
     computed = per_rank // model if dp and not whole else per_rank
-    analytic = step_analytics(cfg, shape, cards // model if whole else cards,
+    analytic = step_analytics(cfg, shape, world // model if whole else world,
                               n_params, model_parallel=mp)
     coll = RL.step_collectives(
-        shape.kind, n_params, cards, dcfg.num_clients if dcfg else 0,
+        shape.kind, n_params, world, dcfg.num_clients if dcfg else 0,
         dcfg.upload_dtype if dcfg else "float32",
         model=1 if variant == "dp_client" else model, cfg=cfg,
         tokens=per_rank, params_per_card=s_r,
-        sample=dcfg.sample_size if dcfg else 0, batch=shape.global_batch,
-        seqs=shape.global_batch // (dcfg.num_clients if dcfg else 1))
+        sample=dcfg.sample_size if dcfg else 0, batch=rows,
+        seqs=rows // (dcfg.num_clients if dcfg else 1),
+        shape=None if dcfg else shape)
     roof = RL.analyze(analytic, coll, model_flops_total=mf)
     args_b = arg_bytes(built["args"])
-    rec = dict(status="ok", world=world, model=model, cards=cards,
+    rec = dict(status="ok", world=world, model=model, cards=world,
                num_params=n_params, active_params=act,
                tokens_per_rank=computed,
                mem=dict(argument_gb=args_b / 1e9,
@@ -236,7 +244,8 @@ def main(argv=None) -> list:
     ap.add_argument("--shape", default=None, choices=list(INPUT_SHAPES))
     ap.add_argument("--all", action="store_true", help="sweep all arch x shape")
     ap.add_argument("--world", type=int, default=1,
-                    help="cards of the plan (train: one client a data rank)")
+                    help="cards of the plan (train: one client a data rank; "
+                         "serve: the batch's rows over data)")
     ap.add_argument("--model", type=int, default=1,
                     help="the mesh's model axis (tensor-parallel cards)")
     ap.add_argument("--out", default="runs/dryrun.jsonl")

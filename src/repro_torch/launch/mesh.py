@@ -14,7 +14,9 @@ the D ranks that share its model index, and rank r holds clients
 [d N/D, (d + 1) N/D) of its data index d.  The model axis is ported for
 every family: dense, VLM, MoE, ssm, hybrid, audio (Whisper) and the
 paper's vision (ResNet-9) and trajectory (LaneGCN) models, channel-
-parallel.  The seed mesh is a ``ClientMesh`` whose rows are seeds
+parallel.  A serve step splits its batch over ``data`` (or, where the
+batch does not divide, the long_500k ring cache's slots) through
+``data_axis``.  The seed mesh is a ``ClientMesh`` whose rows are seeds
 (``experiments/batch.py``); the ingest server splits each packed batch
 over a ``ClientMesh`` made by ``make_mesh`` (``serve/server.py``).
 
@@ -46,8 +48,6 @@ TIMEOUT = datetime.timedelta(seconds=300)  # a collective waiting longer fails
 # the families with a model axis: every family
 MODEL_AXIS_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio",
                        "vision", "trajectory")
-SERVE_DATA_ITEM = ("ROADMAP queue 1 item 8 (serve steps with data > 1, the "
-                   "sequence-parallel long_500k cache)")
 
 
 def require_model_axis(family: str, model: int) -> None:
@@ -71,6 +71,8 @@ class ClientMesh:
     model_group: object = None  # None: the model axis is 1
     data_group: object = None  # None: the whole group
     _axis: object = dataclasses.field(default=None, init=False, repr=False)
+    _data_axis: object = dataclasses.field(default=None, init=False,
+                                           repr=False)
 
     @property
     def data_size(self) -> int:
@@ -109,6 +111,20 @@ class ClientMesh:
             self._axis = ModelAxis(self.model_group, self.model_rank,
                                    self.model)
         return self._axis
+
+    def data_axis(self):
+        """This rank's view of the ``data`` axis for serving, a
+        ``sharding.collectives.ModelAxis`` over ``data_group`` (None for a
+        data axis of 1): the rank's batch rows or cache slots, whose
+        collectives it counts."""
+        from repro_torch.sharding.collectives import ModelAxis
+
+        if self.data_size == 1:
+            return None
+        if self._data_axis is None:
+            self._data_axis = ModelAxis(self.data, self.data_rank,
+                                        self.data_size)
+        return self._data_axis
 
     def rows(self, num_clients: int) -> slice:
         """The rank's clients: rows [d N/D, (d + 1) N/D) of the client

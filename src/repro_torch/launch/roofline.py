@@ -297,13 +297,58 @@ def _traced_collectives(cfg, m: int, samples: int, clients: int) -> list:
             for k, (n, b) in axis.counts.items()]
 
 
+def data_collectives(cfg, shape, data: int, model: int = 1) -> list:
+    """The collectives over a serve step's ``data`` axis of ``data`` ranks
+    (``launch/steps.py``; ``shape`` an ``InputShape`` of kind prefill or
+    decode): (kind, result bytes, count) each.  Where ``RULES_SERVE``
+    puts the batch on ``data``: each MoE layer's expert counts, all-
+    gathered (``collectives.counts_before``) where a dispatch group holds
+    tokens of two ranks (``models/moe.py::Span``), the (groups, E) f32
+    counts of the whole batch.  Where it puts a decode cache's slots there
+    (long_500k at batch 1): each attention layer's merge
+    (``collectives.merge_softmax``), one all-gather of the rank's
+    (B, H_rank, D + 2) f32 partials.  None on a data axis of 1."""
+    from repro_torch.launch.steps import cache_max_seq, resolve_cfg
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.hybrid import segments
+    from repro_torch.models.layers import head_plan
+    from repro_torch.sharding import rules as R
+    from repro_torch.sharding.collectives import ModelAxis
+
+    cfg = resolve_cfg(cfg, shape)
+    sizes = {"data": data, "model": model}
+    if data == 1 or cfg.family not in ("dense", "moe", "vlm", "ssm",
+                                       "hybrid", "audio"):
+        return []
+    b = shape.global_batch
+    decode = shape.kind == "decode"
+    seq = cache_max_seq(cfg, shape) if decode else shape.seq_len
+    split = R.serve_split(b, seq or None, sizes)
+    ev = []
+    if split == "batch" and cfg.is_moe:
+        sp = MOE.Span.of(b * (1 if decode else shape.seq_len) // data,
+                         ModelAxis(None, 0, data))
+        if sp.spans:
+            _add(ev, "all-gather", data * sp.groups * cfg.num_experts * 4,
+                 cfg.num_layers)
+    if decode and split == "seq":
+        plan = head_plan(cfg, ModelAxis(None, 0, model))
+        heads = cfg.num_heads // model if plan.split else cfg.num_heads
+        n = (len(segments(cfg)) - 1 if cfg.family == "hybrid"
+             else cfg.num_layers)
+        _add(ev, "all-gather",
+             data * b * heads * (cfg.resolved_head_dim + 2) * 4, n)
+    return ev
+
+
 def step_collectives(kind: str, num_params: int, world: int,
                      num_clients: int = 0,
                      upload_dtype: str = "float32", *, model: int = 1,
                      cfg=None, tokens: int = 0, sample: int = 65536,
                      params_per_card: int = 0,
                      batch: int = 0, seqs: int = 0,
-                     codec=None, leaves: int = 0) -> CollectiveStats:
+                     codec=None, leaves: int = 0,
+                     shape=None) -> CollectiveStats:
     """The collectives one rank of the port's step issues, on a (world /
     model, model) mesh.
 
@@ -319,7 +364,10 @@ def step_collectives(kind: str, num_params: int, world: int,
     all-reduces and its threshold sample's all-gather; with ``codec`` (a
     ``compression`` codec on the rank's blocks of a model of ``leaves``
     leaves) the two norms' and the codec's own
-    (``Compressor.model_collectives``).  A world of 1 issues none."""
+    (``Compressor.model_collectives``).  A serve step's ``shape`` (an
+    ``InputShape``) over a data axis above 1 adds ``data_collectives``
+    (``tokens`` and ``batch`` then the rank's).  A world of 1 issues
+    none."""
     by, cnt = {}, {}
 
     def add(k, b, n=1):  # n collectives of b bytes each
@@ -348,6 +396,9 @@ def step_collectives(kind: str, num_params: int, world: int,
             add("all-reduce", ring_bytes("all-reduce", n * 4, model), 2)
             for k, b in codec.model_collectives(n, leaves):
                 add(k, ring_bytes(k, b, model))
+    if kind != "train" and shape is not None and cfg is not None:
+        for k, b, c in data_collectives(cfg, shape, data, model):
+            add(k, ring_bytes(k, b, data), c)
     return CollectiveStats(by, cnt)
 
 

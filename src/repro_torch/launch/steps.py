@@ -23,10 +23,16 @@ train, ``RULES_TRAIN`` with the client axis on data (``variant=
 state_shardings``) and the batch; for serve, ``RULES_SERVE`` on the
 parameters, the batch and the cache.  Over a (data, model) mesh each rank
 holds the blocks its coordinates select: a train step's state and a serve
-step's parameters and cache (every family's tensor-parallel layers
-compute on them).
-A serve step runs on a mesh of data 1 (its model axis across the cards);
-data above 1 raises (``launch/mesh.py::SERVE_DATA_ITEM``).
+step's parameters, inputs and cache (every family's tensor-parallel
+layers compute on them).
+A serve step runs on any (data, model) mesh, as ``RULES_SERVE`` places
+it: over ``data`` each rank runs its rows of the batch (the MoE dispatch
+groups that span ranks exchange their expert counts), or, where the batch
+does not divide (long_500k at batch 1), the whole batch over its block of
+the ring cache's slots, the attentions merged over the ranks; a prefill
+whose batch does not divide runs whole on every rank, which keeps its
+block of the cache's slots.  ``local_args`` cuts a rank's arguments out
+of whole ones.
 """
 from __future__ import annotations
 
@@ -36,9 +42,11 @@ import torch
 
 from repro_torch.configs.base import FLConfig, InputShape, ModelConfig
 from repro_torch.core import distributed as D
-from repro_torch.launch.mesh import (SERVE_DATA_ITEM, ClientMesh,
-                                     mesh_num_clients, require_model_axis)
-from repro_torch.models.registry import Model, build_model, input_specs
+from repro_torch.launch.mesh import (ClientMesh, mesh_num_clients,
+                                     require_model_axis)
+from repro_torch.models.registry import (Model, build_model, data_cache,
+                                         input_specs, local_cache,
+                                         local_params)
 from repro_torch.sharding import rules as R
 from repro_torch.sharding.rules import torch_dtype
 from repro_torch.utils.tree import tree_flatten, tree_unflatten
@@ -142,8 +150,11 @@ def build_step(arch_cfg: ModelConfig, shape: InputShape,
 
     ``mesh``: a (data, model) client mesh (N = its data size, one client a
     data rank, as the reference's ``mesh_num_clients``); None is one
-    process with one client.  A serve step runs over the mesh's model axis
-    and needs data 1.  ``dist_overrides``: ``DistConfig`` fields
+    process with one client.  A serve step runs over both axes (the
+    module's docstring; ``data_axis`` the rank's ``mesh.data_axis()``,
+    ``split`` what the rules put on it, "batch", "seq" or None, ``rows``
+    and ``slots`` its rows of the batch and slots of a decode's cache).
+    ``dist_overrides``: ``DistConfig`` fields
     (``upload_dtype``, ``accum_dtype``, ``state_dtype``, ...).
     ``donate``: the train step writes the new state into the old one's
     buffers (the counterpart of ``jax.jit(step, donate_argnums=0)``)."""
@@ -172,25 +183,39 @@ def build_step(arch_cfg: ModelConfig, shape: InputShape,
                     blocks=tree_unflatten(model.layout.paths,
                                           list(sys_["placement"].blocks)))
 
-    if sizes["data"] > 1:
-        raise NotImplementedError(
-            f"a serve step over a data axis of {sizes['data']} is not "
-            f"ported ({SERVE_DATA_ITEM})")
     rules = R.RULES_SERVE
-    blocks = model.blocks(rules, sizes,
-                          ORIGIN if mesh is None else mesh.coords)
+    coords = ORIGIN if mesh is None else mesh.coords
+    blocks = model.blocks(rules, sizes, coords)
     params = meta_params(model, blocks)
     p_sh = _param_shardings(model, rules, mesh)
     b_sh = _input_shardings(dims, tree, rules, mesh)
-    kw = {} if ma is None else {"model_axis": ma}
-    out = dict(model=model, cfg=cfg, model_axis=ma, blocks=blocks)
+    da = None if mesh is None else mesh.data_axis()
+    if shape.kind == "prefill":
+        split = R.serve_split(shape.global_batch, shape.seq_len, sizes)
+    else:
+        max_seq = cache_max_seq(cfg, shape)
+        split = R.serve_split(shape.global_batch, max_seq or None, sizes)
+    # the rank's rows of each input where the batch is on data, else the
+    # whole input (a prefill whose batch does not divide runs it whole)
+    in_bl = (R.data_blocks(dims, tree, sizes, coords) if split == "batch"
+             else {k: tuple(slice(0, n) for n in t.shape)
+                   for k, t in tree.items()})
+    local = {k: torch.empty(tuple(b.stop - b.start for b in in_bl[k]),
+                            dtype=t.dtype, device="meta")
+             for k, t in tree.items()}
+    mkw = {} if ma is None else {"model_axis": ma}
+    kw = (dict(mkw, data_axis=da) if split == "batch" and cfg.is_moe
+          else mkw)
+    out = dict(model=model, cfg=cfg, model_axis=ma, blocks=blocks,
+               data_axis=da, input_blocks=in_bl, sizes=sizes, coords=coords,
+               split=split)
     if shape.kind == "prefill":
         if cfg.family == "vlm":
             from repro_torch.models import layers as L
             from repro_torch.models import transformer as T
             from repro_torch.models import vlm as V
 
-            def step(params, batch):
+            def run(params, batch):
                 text = L.embed(params, cfg, batch["tokens"], ma)
                 x = torch.cat([batch["vision_embeds"].to(cfg.activation_dtype),
                                text], dim=1)
@@ -199,38 +224,71 @@ def build_step(arch_cfg: ModelConfig, shape: InputShape,
                 pos = V.mrope_positions(bsz, n_img, batch["tokens"].shape[1],
                                         grid, x.device)
                 return T.prefill(params, cfg, None, embeds=x, positions=pos,
-                                 model_axis=ma)
+                                 **kw)
 
         elif cfg.family == "audio":
-            def step(params, batch):
+            def run(params, batch):
                 return model.prefill(params, cfg, batch["tokens"],
                                      frames=batch["frames"], **kw)
 
         else:
-            def step(params, batch):
+            def run(params, batch):
                 return model.prefill(params, cfg, batch["tokens"], **kw)
 
-        return dict(out, step=step, args=(params, tree),
+        if split == "seq":  # the rank keeps its block of the cache's slots
+            def step(params, batch):
+                logits, cache = run(params, batch)
+                return logits, data_cache(model, cache, sizes, coords)
+        else:
+            step = run
+        return dict(out, step=step, args=(params, local),
                     in_shardings=(p_sh, b_sh))
 
     # decode
-    max_seq = cache_max_seq(cfg, shape)
-    cache = model.init_cache(cfg, shape.global_batch, max_seq, device="meta",
-                             **kw)
+    rows, slots = R.serve_block(shape.global_batch, max_seq or None, sizes,
+                                coords)
+    cache = model.init_cache(cfg, rows.stop - rows.start,
+                             0 if slots is None else slots.stop - slots.start,
+                             "meta", **mkw)
     c_sh = _cache_shardings(model, cfg, model.init_cache(
         cfg, shape.global_batch, max_seq, device="meta"), rules, mesh)
+    if split == "seq":
+        kw = dict(kw, seq_axis=da)
 
     def step(params, cache, token, pos):
         return model.decode_step(params, cfg, cache, token, int(pos), **kw)
 
-    args = (params, cache, tree["token"], tree["pos"])
-    return dict(out, step=step, args=args,
+    args = (params, cache, local["token"], tree["pos"])
+    return dict(out, step=step, args=args, rows=rows, slots=slots,
                 in_shardings=(p_sh, c_sh, b_sh["token"], ()))
+
+
+def local_args(built: dict, args: tuple) -> tuple:
+    """A rank's arguments of a serve step (``build_step``'s) cut out of
+    the whole ones that one process's step takes (``materialize``'s, or a
+    test's): its parameter blocks; a prefill's rows of its inputs (all of
+    them where the batch does not divide); a decode's block of the cache
+    on both axes (``data_cache``, then ``local_cache``), its rows of the
+    token, the position."""
+    model, ma = built["model"], built["model_axis"]
+    params = local_params(model, args[0], built["blocks"])
+    bl = built["input_blocks"]
+    if len(args) == 2:  # a prefill's
+        return params, {k: v[bl[k]].clone() for k, v in args[1].items()}
+    cache = local_cache(model, data_cache(model, args[1], built["sizes"],
+                                          built["coords"]), ma)
+    return params, cache, args[2][bl["token"]].clone(), args[3]
 
 
 def _filled(t: torch.Tensor, gen: torch.Generator, scale: float = 1.0):
     """``t`` filled in place with N(0, scale^2) values from ``gen`` (int8:
-    uniform codes in [-127, 127]), drawn on the generator's device."""
+    uniform codes in [-127, 127]), drawn on the generator's device: in
+    place where ``t`` lies there (a card's 60 GB cache block needs no
+    draw beside it), else drawn and copied."""
+    if t.device == gen.device:
+        if t.dtype == torch.int8:
+            return t.random_(-127, 128, generator=gen)
+        return t.normal_(0.0, scale, generator=gen)
     if t.dtype == torch.int8:
         vals = torch.randint(-127, 128, t.shape, generator=gen,
                              device=gen.device, dtype=torch.int8)
@@ -269,7 +327,10 @@ def materialize(built: dict, shape: InputShape, gen: torch.Generator,
     ``FLConfig``'s range.  Decode: the cache through ``init_cache``, its
     values N(0, 1), with the positions before ``pos = seq_len - 1`` in its
     slots (a ring's slots the last ``max_seq`` of them), ``length`` their
-    count, and ``pos`` a host int, as the port's decode takes it."""
+    count, and ``pos`` a host int, as the port's decode takes it.  Over a
+    mesh (``built``'s) the rank draws its own block: its parameter blocks,
+    its rows of the inputs, and its block of the cache, whose slots hold
+    the positions of the whole cache's slots they are."""
     from repro_torch.channel.wireless import WirelessChannel
 
     cfg, model = built["cfg"], built["model"]
@@ -298,17 +359,23 @@ def materialize(built: dict, shape: InputShape, gen: torch.Generator,
     _, cache, token, _ = built["args"]
     b = token.shape[0]
     ma = built["model_axis"]
-    cache = model.init_cache(cfg, b, cache_max_seq(cfg, shape), device,
+    window = cache_max_seq(cfg, shape)
+    slots = built["slots"]
+    cache = model.init_cache(cfg, b, 0 if slots is None else
+                             slots.stop - slots.start, device,
                              **({} if ma is None else {"model_axis": ma}))
     pos = shape.seq_len - 1
     for key, t in cache.items():
         if key == "pos":
-            slots = t.shape[1]
-            past = torch.arange(max(0, pos - slots), pos, device=device,
+            # each global slot's position, then the rank's block of them
+            whole = torch.full((b, window), -1, dtype=torch.int32,
+                               device=device)
+            past = torch.arange(max(0, pos - window), pos, device=device,
                                 dtype=torch.int32)
-            t[:, past.long() % slots] = past
+            whole[:, past.long() % window] = past
+            t.copy_(whole[:, slots])
         elif key == "length":
-            cache[key] = min(pos, cache_max_seq(cfg, shape))
+            cache[key] = min(pos, window)
         else:
             _filled(t, gen)
             if key.endswith("_scale"):

@@ -277,7 +277,8 @@ def prefill(params, cfg, tokens, *, frames=None, max_seq=None,
     return logits, cache
 
 
-def decode_step(params, cfg, cache, token, pos: int, model_axis=None):
+def decode_step(params, cfg, cache, token, pos: int, model_axis=None,
+                seq_axis=None, **_):
     """One step; the cache is updated IN PLACE and returned (the reference
     returns new arrays; the values are the same).
 
@@ -285,27 +286,31 @@ def decode_step(params, cfg, cache, token, pos: int, model_axis=None):
     attention is the plain einsum path, as the reference's is on every
     backend; the cross-attention reads each layer's ``xk[l]``, ``xv[l]``
     (contiguous slices of the cache) through ``decode_attn`` with every
-    encoder position valid.
+    encoder position valid.  ``seq_axis``: the self-attention slots are
+    the rank's block of the ring, as ``transformer.decode_step``'s.
     """
     pos = int(pos)
     ma = model_axis
-    s_cache = cache["k"].shape[2]
+    sa = seq_axis if L._split(seq_axis) else None
+    cs = L.cache_slot(pos, cache["k"].shape[2], True, sa)
+    slot = cs.local
     x = L.embed(params, cfg, token, ma)[:, None, :]
-    pe_pos = torch.tensor([min(pos, s_cache - 1)], device=x.device)
+    pe_pos = torch.tensor([min(pos, cs.window - 1)], device=x.device)
     x = x + _sinusoid(pe_pos, cfg.d_model).to(x.dtype)[None]
-    slot = pos % s_cache
-    cache["pos"][:, slot] = pos
-    length = min(pos + 1, s_cache)
+    if slot is not None:
+        cache["pos"][:, slot] = pos
+    length = cs.length
     enc_len = cache["xk"].shape[2]
     for i in range(cfg.num_layers):
         lp = layer(params["dec_layers"], i)
         kc, vc = cache["k"][i], cache["v"][i]
         h = _ln(lp["ln_self"], x, cfg.norm_eps)
         q, k, v = L.attn_qkv(lp["self_attn"], cfg, h, ma)
-        kc[:, slot] = k[:, 0].to(kc.dtype)
-        vc[:, slot] = v[:, 0].to(vc.dtype)
+        if slot is not None:
+            kc[:, slot] = k[:, 0].to(kc.dtype)
+            vc[:, slot] = v[:, 0].to(vc.dtype)
         attn = L.decode_attention(q[:, 0], kc, vc, length,
-                                  window_pos=cache["pos"])
+                                  window_pos=cache["pos"], seq_axis=sa)
         x = x + L.attn_out(lp["self_attn"], attn[:, None], x.dtype, cfg, ma)
         h = _ln(lp["ln_cross"], x, cfg.norm_eps)
         q2 = L.attn_q(lp["cross_attn"], cfg, h, ma)

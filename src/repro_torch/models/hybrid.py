@@ -15,7 +15,9 @@ Over a ``model`` axis (``model_axis``) the Mamba2 layers run on the
 rank's heads (``models/mamba2.py``) and the shared block on its
 attention heads through ``layers.attn_qkv`` / ``attn_out``, as the
 dense family's (``layers.head_plan``); its cache slots hold the kv heads
-of the rank's q heads.
+of the rank's q heads.  Over a serve step's ``data`` axis a rank runs its
+rows of the batch, or at long_500k (batch 1) the whole batch with its
+block of the shared attention's ring (``seq_axis``).
 """
 from __future__ import annotations
 
@@ -151,7 +153,8 @@ def prefill(params, cfg, tokens, *, max_seq=None, model_axis=None, **_):
     return L.gather_vocab(logits, cfg, model_axis), cache
 
 
-def decode_step(params, cfg, cache, token, pos: int, model_axis=None):
+def decode_step(params, cfg, cache, token, pos: int, model_axis=None,
+                seq_axis=None, **_):
     """One step; the cache is updated IN PLACE and returned (the reference
     returns new arrays; the values are the same).
 
@@ -160,17 +163,21 @@ def decode_step(params, cfg, cache, token, pos: int, model_axis=None):
     plain einsum path there on every backend (its Pallas kernel is not
     called with ``window_pos``); so does this one, which is also why
     Zamba2's head dim 112, outside ``decode_attn``'s (64, 128), never
-    reaches the kernel.
+    reaches the kernel.  ``seq_axis``: the attention slots are the rank's
+    block of the ring (every rank runs the whole batch and the whole
+    Mamba2 state), as ``transformer.decode_step``'s.
     """
     pos = int(pos)
     x = L.embed(params, cfg, token, model_axis)[:, None, :]
     b = x.shape[0]
-    s_cache = cache["attn_k"].shape[2]
+    sa = seq_axis if L._split(seq_axis) else None
+    cs = L.cache_slot(pos, cache["attn_k"].shape[2], True, sa)
+    slot = cs.local
     posb = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     cos, sin = L.rope_cos_sin(posb, cfg.resolved_head_dim, cfg.rope_theta)
-    slot = pos % s_cache
-    cache["pos"][:, slot] = pos
-    length = min(pos + 1, s_cache)
+    if slot is not None:
+        cache["pos"][:, slot] = pos
+    length = cs.length
     sp = params["shared_attn"]
     off = 0
     for i, size in enumerate(segments(cfg)):
@@ -179,10 +186,11 @@ def decode_step(params, cfg, cache, token, pos: int, model_axis=None):
             h = L.rms_norm(x, sp["ln"], cfg.norm_eps)
             q, k, v = L.attn_qkv(sp["attn"], cfg, h, model_axis)
             q, k = L.apply_rope(q, k, cos, sin)
-            ak[:, slot] = k[:, 0].to(ak.dtype)
-            av[:, slot] = v[:, 0].to(av.dtype)
+            if slot is not None:
+                ak[:, slot] = k[:, 0].to(ak.dtype)
+                av[:, slot] = v[:, 0].to(av.dtype)
             attn = L.decode_attention(q[:, 0], ak, av, length,
-                                      window_pos=cache["pos"])
+                                      window_pos=cache["pos"], seq_axis=sa)
             x = x + L.attn_out(sp["attn"], attn[:, None], x.dtype, cfg,
                                model_axis)
         for j in range(off, off + size):

@@ -11,7 +11,12 @@ Conventions, as in the reference:
   ``decode_attn`` kernel (``kernels/ops.py``) or, in ring-buffer
   (``window_pos``) mode, through the plain einsum path;
 * the int8 KV cache (``quantize_kv``, ``decode_attention_q``) is plain
-  torch, as the reference's is plain ``jnp`` outside any kernel.
+  torch, as the reference's is plain ``jnp`` outside any kernel;
+* a cache whose slots are split over a serve step's data ranks (the
+  long_500k ring, ``seq_axis``): each rank attends over its slots on the
+  plain path and the partial softmaxes are merged
+  (``collectives.merge_softmax``); ``cache_slot`` says which rank writes a
+  step's token.
 
 Tensor parallelism over a ``model`` axis (``model_axis``, a
 ``sharding.collectives.ModelAxis``; None, or an axis of one, runs the
@@ -192,7 +197,8 @@ def causal_attention(q, k, v, *, chunk: int = 1024, sliding_window: int = 0,
 
 
 def decode_attention(q, k_cache, v_cache, length: int, *,
-                     window_pos: Optional[torch.Tensor] = None):
+                     window_pos: Optional[torch.Tensor] = None,
+                     seq_axis=None):
     """Single-token attention against a KV cache.
 
     q: (B, H, D); caches: (B, S, KV, D); ``length``: number of valid cache
@@ -200,9 +206,13 @@ def decode_attention(q, k_cache, v_cache, length: int, *,
     ``decode_attn`` kernel (its plain version on the CPU).  ``window_pos``
     (ring-buffer mode): absolute positions per cache slot (B, S), -1 for an
     empty slot, used for masking instead of the slot index; that mode is
-    the reference's plain einsum path here as there.
+    the reference's plain einsum path here as there.  ``seq_axis`` (a
+    ``ModelAxis`` over the ranks that split the cache's slots, with
+    ``window_pos``): the caches are the rank's slots, each rank attends
+    over its own and ``collectives.merge_softmax`` puts them together.
     """
     if window_pos is None:
+        _unsplit(seq_axis)
         return ops.decode_attn(q, k_cache, v_cache, length)
     b, s, kv, d = k_cache.shape
     h = q.shape[1]
@@ -211,9 +221,70 @@ def decode_attention(q, k_cache, v_cache, length: int, *,
     s_ = torch.einsum("bkgd,bskd->bkgs", qf, k_cache.to(F32)) / math.sqrt(d)
     valid = window_pos >= 0
     s_ = torch.where(valid[:, None, None, :], s_, -torch.inf)
+    if _split(seq_axis):
+        return _merged(s_, None, v_cache, seq_axis).reshape(b, h, d).to(
+            q.dtype)
     p = torch.softmax(s_, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(F32))
     return out.reshape(b, h, d).to(q.dtype)
+
+
+def _unsplit(seq_axis) -> None:
+    """Slots split over ranks are masked by their positions: a split
+    cache without ``window_pos`` has none to attend by."""
+    if _split(seq_axis):
+        raise ValueError("a cache whose slots are split over ranks "
+                         "(seq_axis) needs window_pos")
+
+
+def _merged(s_, v_scale, v_cache, seq_axis):
+    """(B, KV, G, D) attention over every rank's slots from this rank's
+    masked scores ``s_`` (B, KV, G, S_rank): its partial max, sum and
+    unnormalised output (an int8 cache's ``v_scale`` on the probability
+    rows), merged over ``seq_axis``.  A rank with no valid slot gives a
+    max of -inf, no NaN, and adds nothing."""
+    m = s_.amax(-1)
+    p = torch.exp(s_ - m[..., None])
+    p = torch.where(torch.isfinite(m)[..., None], p, 0.0)
+    l = p.sum(-1)
+    if v_scale is not None:
+        p = p * v_scale.permute(0, 2, 1)[:, :, None, :]
+    o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(F32))
+    return C.merge_softmax(m, l, o, seq_axis)
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheSlot:
+    """Where one decode step's token goes in a cache whose slots may be
+    split over ``seq_axis``: ``window`` the whole cache's slots, ``local``
+    the token's slot in this rank's block (None where another rank owns
+    it), ``length`` the valid slots of the whole cache."""
+
+    window: int
+    local: Optional[int]
+    length: int
+
+
+def cache_slot(pos: int, slots: int, ring: bool, seq_axis=None) -> CacheSlot:
+    """The slot of position ``pos`` in a cache of which this rank holds
+    ``slots`` (block ``seq_axis.rank`` of ``seq_axis.size`` equal blocks;
+    all of them without the axis): ``pos % window`` in a ring, ``pos``
+    otherwise.  Only a ring's slots may be split: a cache without one
+    attends through the ``decode_attn`` kernel, which has no merge."""
+    if _split(seq_axis) and not ring:
+        raise ValueError("a cache whose slots are split over ranks "
+                         "(seq_axis) must be a ring: a decode's batch "
+                         "that the data axis divides keeps them whole")
+    n = seq_axis.size if _split(seq_axis) else 1
+    r = seq_axis.rank if n > 1 else 0
+    window = slots * n
+    slot = pos % max(window, 1) if ring else pos
+    if slot >= window:
+        raise IndexError(f"position {pos} is past the cache's {window} "
+                         f"slots")
+    local = slot - r * slots
+    return CacheSlot(window, local if 0 <= local < slots else None,
+                     min(pos + 1, window))
 
 
 def quantize_kv(x):
@@ -229,10 +300,12 @@ def quantize_kv(x):
 
 
 def decode_attention_q(q, kq, vq, k_scale, v_scale, length: int, *,
-                       window_pos: Optional[torch.Tensor] = None):
+                       window_pos: Optional[torch.Tensor] = None,
+                       seq_axis=None):
     """``decode_attention`` over an int8 cache; the scales multiply the
     score and probability rows, so the dequantised cache never exists.
-    Plain torch, as the reference's is plain ``jnp``.
+    Plain torch, as the reference's is plain ``jnp``.  ``seq_axis`` as
+    ``decode_attention``'s.
 
     q: (B, H, D); kq, vq: (B, S, KV, D) int8; scales: (B, S, KV) f32."""
     b, s, kv, d = kq.shape
@@ -242,10 +315,13 @@ def decode_attention_q(q, kq, vq, k_scale, v_scale, length: int, *,
     s_ = torch.einsum("bkgd,bskd->bkgs", qf, kq.to(F32)) / math.sqrt(d)
     s_ = s_ * k_scale.permute(0, 2, 1)[:, :, None, :]  # (B,KV,1,S)
     if window_pos is None:
+        _unsplit(seq_axis)
         valid = (torch.arange(s, device=q.device) < length)[None].expand(b, s)
     else:
         valid = window_pos >= 0
     s_ = torch.where(valid[:, None, None, :], s_, -torch.inf)
+    if _split(seq_axis):
+        return _merged(s_, v_scale, vq, seq_axis).reshape(b, h, d).to(q.dtype)
     p = torch.softmax(s_, dim=-1)
     p = p * v_scale.permute(0, 2, 1)[:, :, None, :]
     out = torch.einsum("bkgs,bskd->bkgd", p, vq.to(F32))

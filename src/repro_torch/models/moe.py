@@ -46,6 +46,8 @@ rank that routes a token otherwise raises.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.models import layers as L
@@ -114,7 +116,7 @@ def load_balance_loss(probs_mean, dispatch_frac, num_experts: int):
     return num_experts * torch.sum(probs_mean * dispatch_frac)
 
 
-def dispatch(logits, cfg):
+def dispatch(logits, cfg, own=None, before=None, cap=None):
     """The routing plan of groups of tokens. logits: (ng, g, E).
 
     Returns (weights, keep, topi, slot, aux): ``keep`` (ng, g, E) f32 is
@@ -122,10 +124,20 @@ def dispatch(logits, cfg):
     reference's ``keep``); ``slot`` (ng, g, k) is each choice's slot in
     its expert's buffer (its rank among the group's tokens that chose the
     expert), and ``aux`` the load-balance loss over every row, pads too.
+    Over a serve step's data ranks (``moe_apply``): ``own`` (ng, g) marks
+    the rows that are this rank's tokens, ``before`` maps the rank's
+    per-group expert counts (ng, E) to those of the ranks before it in the
+    same groups, and ``cap`` is the whole group's capacity.
     """
     weights, mask, topi = route(logits, cfg)
-    pos_in_exp = (torch.cumsum(mask, dim=1) - 1.0) * mask  # (ng,g,E)
-    keep = (pos_in_exp < capacity(logits.shape[1], cfg)).to(F32) * mask
+    if own is not None:
+        mask = mask * own[..., None]
+    pos_in_exp = torch.cumsum(mask, dim=1) - 1.0
+    if before is not None:
+        pos_in_exp = pos_in_exp + before(mask.sum(1))[:, None]
+    pos_in_exp = pos_in_exp * mask  # (ng,g,E)
+    cap = capacity(logits.shape[1], cfg) if cap is None else cap
+    keep = (pos_in_exp < cap).to(F32) * mask
     probs = torch.softmax(logits.to(F32), dim=-1)
     aux = load_balance_loss(probs.mean(dim=(0, 1)), mask.mean(dim=(0, 1)),
                             cfg.num_experts)
@@ -147,13 +159,65 @@ def _experts(p, cfg, xe):
     return ye
 
 
-def _groups(x, g: int):
-    """(B, S, d) -> (ng, g, d) groups of tokens, pads last."""
+def _groups(x, g: int, lead: int = 0, ng: int = 0):
+    """(B, S, d) -> (ng, g, d) groups of tokens, pads last; ``lead`` pad
+    rows first and ``ng`` groups in all (a data rank's tokens placed at
+    their offsets in the whole batch's groups)."""
     d = x.shape[-1]
     xt = x.reshape(-1, d)
-    if xt.shape[0] % g:  # pad tokens to a whole number of groups
-        xt = torch.nn.functional.pad(xt, (0, 0, 0, g - xt.shape[0] % g))
-    return xt.reshape(-1, g, d)
+    ng = ng or -(-xt.shape[0] // g)
+    tail = ng * g - lead - xt.shape[0]
+    if lead or tail:
+        xt = torch.nn.functional.pad(xt, (0, 0, lead, tail))
+    return xt.reshape(ng, g, d)
+
+
+@dataclasses.dataclass(frozen=True)
+class Span:
+    """A data rank's tokens among the whole batch's dispatch groups: they
+    are tokens [offset, offset + t) of ``total`` (the ranks' rows in rank
+    order), in groups of ``g`` of which the rank's first is ``first``;
+    ``lead`` rows of that group come before them, and the rank's ``ng``
+    groups end with its last token (the last rank's with the whole
+    batch's pads)."""
+
+    g: int
+    total: int
+    offset: int
+    t: int
+    first: int
+    lead: int
+    ng: int
+    last_rank: bool
+
+    @classmethod
+    def of(cls, t: int, data_axis) -> "Span":
+        n, r = data_axis.size, data_axis.rank
+        total = t * n
+        g = max(min(GROUP, total), 1)
+        off = r * t
+        first = off // g
+        return cls(g, total, off, t, first, off % g,
+                   (off + t - 1) // g - first + 1, r == n - 1)
+
+    @property
+    def spans(self) -> bool:
+        """Whether a group holds tokens of two ranks (every rank sees the
+        same: the ranks hold equal token counts)."""
+        return self.t % self.g != 0
+
+    @property
+    def groups(self) -> int:
+        """The whole batch's groups."""
+        return -(-self.total // self.g)
+
+    def own(self, device) -> torch.Tensor:
+        """(ng, g) f32: 1 on this rank's tokens, and on the last rank the
+        whole batch's pads after them."""
+        i = torch.arange(self.ng * self.g, device=device)
+        end = self.ng * self.g if self.last_rank else self.lead + self.t
+        return ((i >= self.lead) & (i < end)).to(F32).reshape(self.ng,
+                                                              self.g)
 
 
 def _check_routing(topi, keep, axis) -> None:
@@ -174,14 +238,20 @@ def _check_routing(topi, keep, axis) -> None:
     axis.checks["routing"] = axis.checks.get("routing", 0) + 1
 
 
-def moe_apply(p, cfg, x, model_axis=None):
+def moe_apply(p, cfg, x, model_axis=None, data_axis=None):
     """x: (B, S, d) -> (B, S, d), aux_loss (scalar f32); over
     ``model_axis`` on the rank's blocks of ``p`` (the module's
-    docstring)."""
+    docstring).  ``data_axis``: x is this rank's rows of a serve step's
+    batch split over the axis's ranks in rank order, and its tokens are
+    routed in the whole batch's groups: a group that spans ranks has the
+    whole group's capacity, and a token's slot counts the tokens of the
+    ranks before it (``collectives.counts_before``, one all-gather a
+    layer; none where no group spans ranks), so ``keep`` and the slots
+    are one process's on the whole batch.  ``aux`` is then over the
+    rank's groups (serving discards it)."""
     b, s, d = x.shape
     t = b * s
     dt = x.dtype
-    g = max(min(GROUP, t), 1)
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     f = cfg.moe_d_ff or cfg.d_ff
     ma = model_axis
@@ -192,13 +262,27 @@ def moe_apply(p, cfg, x, model_axis=None):
     shared = bool(cfg.num_shared_experts) and split and (
         p["shared"]["wi_gate"].shape[1] != cfg.num_shared_experts * f)
     xc = C.copy_to(x, ma) if routed or shared else x  # the rank's own work
-    xg = _groups(x, g)
-    ng = xg.shape[0]
+    own = before = None
+    if L._split(data_axis):
+        sp = Span.of(t, data_axis)
+        g, lead, ng = sp.g, sp.lead, sp.ng
+        own = sp.own(x.device)
+        if sp.spans:
+            def before(counts):
+                whole = counts.new_zeros((sp.groups, e))
+                whole[sp.first:sp.first + ng] = counts
+                return C.counts_before(whole, data_axis)[
+                    sp.first:sp.first + ng]
+    else:
+        g, lead = max(min(GROUP, t), 1), 0
+        ng = -(-t // g)
+    xg = _groups(x, g, lead, ng)
     cap = capacity(g, cfg)
 
     router = L.whole(p["router"], (d, e), ma, "slice")
     logits = dot(xg, router.to(dt))
-    weights, keep, topi, slot, aux = dispatch(logits, cfg)
+    dkw = {} if own is None else dict(own=own, before=before, cap=cap)
+    weights, keep, topi, slot, aux = dispatch(logits, cfg, **dkw)
     _check_routing(topi, keep, ma)
     # every choice's row in the rank's (E/M, ng, cap) buffers; a dropped
     # choice, or one on another rank's expert, points at one spare row
@@ -215,7 +299,7 @@ def moe_apply(p, cfg, x, model_axis=None):
     src = torch.full((nrow + 1,), ng * g, dtype=torch.long, device=x.device)
     src = torch.scatter(src, 0, rows.reshape(-1),
                         tok.expand(ng, g, k).reshape(-1))[:nrow]
-    xd = _groups(xc, g) if routed else xg
+    xd = _groups(xc, g, lead, ng) if routed else xg
     xz = torch.nn.functional.pad(xd.reshape(-1, d), (0, 0, 0, 1))
     pe = p
     if routed and el == e and cfg.expert_dtype == "int8":
@@ -233,7 +317,7 @@ def moe_apply(p, cfg, x, model_axis=None):
         w = C.copy_to(w, ma) * mine
     w = w.to(dt)
     yg = torch.einsum("gtk,gtkd->gtd", w.to(F32), ye[rows].to(F32)).to(dt)
-    y = yg.reshape(-1, d)[:t].reshape(b, s, d)
+    y = yg.reshape(-1, d)[lead:lead + t].reshape(b, s, d)
 
     ysh = None
     if cfg.num_shared_experts:

@@ -7,8 +7,9 @@ the paper's two models (vision: ResNet-9; trajectory: LaneGCN) and the
 LLM families (dense, MoE, ssm, hybrid, audio enc-dec, VLM);
 ``load_params`` carries a reference parameter tree (numpy arrays) over,
 ``local_params`` cuts a rank's blocks out of a tree (``Model.blocks``'s:
-every family's leaves under the rules) and ``local_cache`` a rank's part
-out of a whole serving cache.
+every family's leaves under the rules), ``local_cache`` a rank's
+model-axis part out of a whole serving cache and ``data_cache`` its
+data-axis block.
 ``param_axes`` and ``cache_axes`` give the logical dims that the sharding
 rules (``sharding/rules.py``) place.
 ``input_specs`` gives a step's inputs at an ``InputShape`` as meta tensors
@@ -200,6 +201,18 @@ def local_cache(model: Model, cache: dict, model_axis) -> dict:
             per = cache[key].shape[dim] // m
             out[key] = cache[key].narrow(dim, r * per, per)
     return out
+
+
+def data_cache(model: Model, cache: dict, mesh, coords: dict) -> dict:
+    """A rank's block on a serve step's ``data`` axis of a whole serving
+    cache: each leaf cut by ``RULES_SERVE``'s ``data`` entry
+    (``sharding/rules.py::data_blocks``; its rows of the batch, or where
+    the batch does not divide its block of the slots), as copies;
+    ``length`` as it is.  ``local_cache`` then cuts its model part."""
+    ten = {k: v for k, v in cache.items() if isinstance(v, torch.Tensor)}
+    axes = model.cache_axes(model.cfg)
+    bl = R.data_blocks({k: axes[k] for k in ten}, ten, mesh, coords)
+    return {k: v[bl[k]].clone() if k in ten else v for k, v in cache.items()}
 
 
 # ---------------------------------------------------------------------------

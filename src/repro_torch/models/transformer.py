@@ -26,6 +26,12 @@ holds the kv heads of the rank's q heads (``layers.head_plan``: its
 block of them when they divide over the axis), and each decode step runs
 ``decode_attn`` on the rank's (B, H/M, KV/M, S, D).  The MoE blocks run
 on the rank's experts (``models/moe.py``).
+
+Over a serve step's ``data`` axis (``launch/steps.py``) a rank runs its
+rows of the batch (``data_axis``: only the MoE dispatch, whose groups may
+span ranks, exchanges anything), or, where the batch does not divide
+(long_500k at batch 1), the whole batch over its block of the ring
+cache's slots (``seq_axis``).
 """
 from __future__ import annotations
 
@@ -86,14 +92,14 @@ def param_specs(cfg) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _ffn(lp, cfg, h, model_axis=None):
+def _ffn(lp, cfg, h, model_axis=None, data_axis=None):
     """The block's feed-forward half: (y, aux loss)."""
     if cfg.is_moe:
-        return MOE.moe_apply(lp["moe"], cfg, h, model_axis)
+        return MOE.moe_apply(lp["moe"], cfg, h, model_axis, data_axis)
     return L.mlp_apply(lp["mlp"], h, model_axis, cfg.d_ff), None
 
 
-def _block(lp, cfg, x, cos, sin, model_axis=None):
+def _block(lp, cfg, x, cos, sin, model_axis=None, data_axis=None):
     """One decoder layer: (x, the MoE aux loss or None, its k, v)."""
     h = L.rms_norm(x, lp["ln_attn"], cfg.norm_eps)
     q, k, v = L.attn_qkv(lp["attn"], cfg, h, model_axis)
@@ -101,12 +107,12 @@ def _block(lp, cfg, x, cos, sin, model_axis=None):
     attn = L.causal_attention(q, k, v, sliding_window=cfg.sliding_window)
     x = x + L.attn_out(lp["attn"], attn, x.dtype, cfg, model_axis)
     h2 = L.rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
-    y, a = _ffn(lp, cfg, h2, model_axis)
+    y, a = _ffn(lp, cfg, h2, model_axis, data_axis)
     return x + y, a, k, v
 
 
 def forward(params, cfg, tokens=None, *, embeds=None, positions=None,
-            cache=None, model_axis=None):
+            cache=None, model_axis=None, data_axis=None):
     """Returns (logits, aux_loss).
 
     ``embeds`` (B, S, d) replaces the token embedding (the VLM's stub
@@ -117,7 +123,8 @@ def forward(params, cfg, tokens=None, *, embeds=None, positions=None,
     layer's k and v go into its first S slots as the layer returns, so no
     layer's k and v outlive it, and the logits are the last position's
     alone, (B, 1, V).  Over ``model_axis`` the logits are the rank's
-    vocabulary block.
+    vocabulary block.  ``data_axis``: the batch is the rank's rows of a
+    serve step's batch split over it (only the MoE dispatch reads it).
     """
     x = (L.embed(params, cfg, tokens, model_axis) if embeds is None
          else embeds.to(cfg.activation_dtype))
@@ -131,13 +138,14 @@ def forward(params, cfg, tokens=None, *, embeds=None, positions=None,
     aux = torch.zeros((), dtype=F32, device=x.device)
 
     def body(lp, x, cos, sin):  # the layer ``cfg.remat`` checkpoints
-        x, a, _, _ = _block(lp, cfg, x, cos, sin, model_axis)
+        x, a, _, _ = _block(lp, cfg, x, cos, sin, model_axis, data_axis)
         return x if a is None else (x, a)
 
     for i in range(cfg.num_layers):
         lp = layer(params["layers"], i)
         if cache is not None:  # the prefill: serving keeps no checkpoint
-            x, a, k, v = _block(lp, cfg, x, cos, sin, model_axis)
+            x, a, k, v = _block(lp, cfg, x, cos, sin, model_axis,
+                                data_axis)
             _write_kv(cache, cfg, i, k, v)
         else:
             out = checkpoint(body, cfg.remat, lp, x, cos, sin)
@@ -197,13 +205,13 @@ def init_cache(cfg, batch: int, max_seq: int, device="cpu", model_axis=None):
 
 
 def prefill(params, cfg, tokens, *, embeds=None, positions=None,
-            max_seq: Optional[int] = None, model_axis=None):
+            max_seq: Optional[int] = None, model_axis=None, data_axis=None):
     """Run the prompt, return (last-token logits, filled cache).
 
     The cache is allocated once at ``max_seq`` slots, (L, B, max_seq, KV,
     D), filled layer by layer by ``forward``, and ``decode_step`` writes
     it in place; ``length`` is a Python int.  An int8 cache holds the
-    quantised k and v and their scales.
+    quantised k and v and their scales.  ``data_axis`` as ``forward``'s.
     """
     src = tokens if embeds is None else embeds
     b, s = src.shape[:2]
@@ -213,13 +221,14 @@ def prefill(params, cfg, tokens, *, embeds=None, positions=None,
     cache = init_cache(cfg, b, max_seq, src.device, model_axis)
     logits, _ = forward(params, cfg, tokens, embeds=embeds,
                         positions=positions, cache=cache,
-                        model_axis=model_axis)
+                        model_axis=model_axis, data_axis=data_axis)
     cache["pos"][:, :s] = torch.arange(s, dtype=torch.int32, device=src.device)
     cache["length"] = s
     return L.gather_vocab(logits[:, -1], cfg, model_axis), cache
 
 
-def decode_step(params, cfg, cache, token, pos: int, model_axis=None):
+def decode_step(params, cfg, cache, token, pos: int, model_axis=None,
+                data_axis=None, seq_axis=None):
     """One decode step. token: (B,) int; pos: the absolute position, a
     Python int, so that the slot and ``length`` need no copy from the card.
 
@@ -229,21 +238,30 @@ def decode_step(params, cfg, cache, token, pos: int, model_axis=None):
     ``dynamic_update_slice`` makes a functional copy instead; the values
     are the same.  An int8 cache takes the new k and v quantised and
     attends through the plain ``decode_attention_q``, as the reference.
+
+    ``data_axis``: the batch is the rank's rows (the MoE dispatch reads
+    it).  ``seq_axis``: the cache holds the rank's block of the slots
+    (every rank the whole batch): the window is the whole cache's, the
+    token's k, v and position go to the rank that owns its slot, and each
+    attention is the plain path over the rank's slots, masked by their
+    positions and merged over the axis (``layers.decode_attention``).
     """
     pos = int(pos)
     x = L.embed(params, cfg, token, model_axis)[:, None, :]  # (B,1,d)
     b = x.shape[0]
     window = cfg.sliding_window
-    s_cache = cache["k"].shape[2]
-    slot = pos % max(s_cache, 1) if window > 0 else pos
+    sa = seq_axis if L._split(seq_axis) else None
+    cs = L.cache_slot(pos, cache["k"].shape[2], window > 0, sa)
+    slot = cs.local
     posb = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     if cfg.mrope_sections:
         posb = posb.expand(3, b, 1)
     cos, sin = L.rope_cos_sin(posb, cfg.resolved_head_dim, cfg.rope_theta,
                               cfg.mrope_sections)
-    cache["pos"][:, slot] = pos
+    if slot is not None:
+        cache["pos"][:, slot] = pos
     wpos = cache["pos"] if window > 0 else None
-    length = min(pos + 1, s_cache)
+    length = cs.length
     quant = cfg.kv_cache_dtype == "int8"
     for i in range(cfg.num_layers):
         lp = layer(params["layers"], i)
@@ -253,18 +271,21 @@ def decode_step(params, cfg, cache, token, pos: int, model_axis=None):
         q, k = L.apply_rope(q, k, cos, sin)
         if quant:
             ksc, vsc = cache["k_scale"][i], cache["v_scale"][i]
-            kc[:, slot], ksc[:, slot] = L.quantize_kv(k[:, 0])
-            vc[:, slot], vsc[:, slot] = L.quantize_kv(v[:, 0])
+            if slot is not None:
+                kc[:, slot], ksc[:, slot] = L.quantize_kv(k[:, 0])
+                vc[:, slot], vsc[:, slot] = L.quantize_kv(v[:, 0])
             attn = L.decode_attention_q(q[:, 0], kc, vc, ksc, vsc, length,
-                                        window_pos=wpos)
+                                        window_pos=wpos, seq_axis=sa)
         else:
-            kc[:, slot] = k[:, 0].to(kc.dtype)
-            vc[:, slot] = v[:, 0].to(vc.dtype)
-            attn = L.decode_attention(q[:, 0], kc, vc, length, window_pos=wpos)
+            if slot is not None:
+                kc[:, slot] = k[:, 0].to(kc.dtype)
+                vc[:, slot] = v[:, 0].to(vc.dtype)
+            attn = L.decode_attention(q[:, 0], kc, vc, length,
+                                      window_pos=wpos, seq_axis=sa)
         x = x + L.attn_out(lp["attn"], attn[:, None], x.dtype, cfg,
                            model_axis)
         h2 = L.rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
-        x = x + _ffn(lp, cfg, h2, model_axis)[0]
+        x = x + _ffn(lp, cfg, h2, model_axis, data_axis)[0]
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = L.gather_vocab(L.unembed(params, cfg, x, model_axis)[:, 0], cfg,
                             model_axis)

@@ -32,6 +32,13 @@ card, gloo on the CPU.  ``ModelAxis.counts`` counts each kind of
 collective and its bytes, so the plan's numbers can be read off a run;
 on a meta tensor a collective is counted and sends nothing, so a model
 run on the meta device counts its own (``launch/roofline.py``).
+
+A ``ModelAxis`` over a mesh's ``data`` group (``launch/mesh.py::
+ClientMesh.data_axis``) carries a serve step's two collectives over the
+data ranks, both outside the gradient: ``merge_softmax`` puts together
+the partial attentions of a cache whose slots are split over the ranks
+(the long_500k ring), and ``counts_before`` gives each rank the per-expert
+counts of the ranks before it in an MoE dispatch group that spans ranks.
 """
 from __future__ import annotations
 
@@ -228,3 +235,32 @@ def agree(x: torch.Tensor, axis: ModelAxis | None) -> bool:
     parts = [torch.empty_like(x) for _ in range(axis.size)]
     dist.all_gather(parts, x, group=axis.group)
     return all(torch.equal(p, parts[0]) for p in parts[1:])
+
+
+def merge_softmax(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                  axis: ModelAxis | None) -> torch.Tensor:
+    """The attention over every rank's slots from each rank's partial
+    one over its own: ``m`` (..., ) the running max of its scores, ``l``
+    the sum of exp(s - m), ``o`` (..., D) the unnormalised output, all
+    f32.  One all-gather of the three, then every rank combines them in
+    rank order, so each holds the same result.  A rank whose slots are
+    all empty (``m`` = -inf) adds nothing."""
+    if axis is not None and axis.size > 1:
+        part = torch.cat([m[..., None], l[..., None], o], dim=-1)
+        got = _all_gather(part[None], axis, 0)
+        m, l, o = got[..., 0], got[..., 1], got[..., 2:]
+        top = m.amax(0)
+        w = torch.where(torch.isfinite(m), torch.exp(m - top), 0.0)
+        l = (w * l).sum(0)
+        o = (w[..., None] * o).sum(0)
+    return o / torch.clamp(l[..., None], min=1e-30)
+
+
+def counts_before(counts: torch.Tensor,
+                  axis: ModelAxis | None) -> torch.Tensor:
+    """The sum of ``counts`` over the ranks before this one on the axis
+    (zeros on rank 0): one all-gather, outside the gradient."""
+    if axis is None or axis.size == 1:
+        return torch.zeros_like(counts)
+    got = _all_gather(counts[None], axis, 0)
+    return got[:axis.rank].sum(0)

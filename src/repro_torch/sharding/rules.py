@@ -29,7 +29,9 @@ an axis name, or a tuple of names), trailing ``None``s dropped: exactly
 a mapping, ``launch.mesh.ClientMesh`` (``axis_sizes``), or an object with
 ``axis_names`` and ``devices.shape``.  ``local_block`` cuts a rank's block
 out of a leaf and ``assemble`` puts the leaf back together from every
-rank's block.
+rank's block.  ``serve_split`` and ``data_blocks`` read a serve step's
+``data`` axis off ``RULES_SERVE``: the batch's rows where they divide,
+else a cache's slots (the long_500k ring), else neither.
 """
 from __future__ import annotations
 
@@ -324,3 +326,43 @@ def block_tree(specs_tree: dict, shapes, mesh, coords: dict) -> dict:
     """Each leaf's per-dim block slices (``init_params(blocks=)``)."""
     return _map(lambda p, s: block_slices(tuple(s.shape), p, mesh, coords),
                 specs_tree, shapes)
+
+
+def _data_only(spec: tuple) -> tuple:
+    return tuple(e if e == "data" else None for e in spec)
+
+
+def _serve_dims(batch: int, seq: Optional[int]) -> tuple:
+    return ((("batch", "seq"), (batch, seq)) if seq is not None
+            else (("batch",), (batch,)))
+
+
+def serve_split(batch: int, seq: Optional[int], mesh) -> Optional[str]:
+    """What ``RULES_SERVE`` puts on the ``data`` axis of a serve step of
+    ``batch`` sequences of ``seq`` (tokens or cache slots; None where the
+    step has no sequence dim, a recurrent cache): "batch", "seq" or None
+    (a data axis of 1, or neither divides)."""
+    if axis_sizes(mesh).get("data", 1) == 1:
+        return None
+    dims, shape = _serve_dims(batch, seq)
+    spec = logical_to_pspec(dims, shape, RULES_SERVE, mesh)
+    return next((n for n, e in zip(dims, spec) if e == "data"), None)
+
+
+def serve_block(batch: int, seq: Optional[int], mesh, coords: dict) -> tuple:
+    """The rank's (rows, slots) of a serve step's ``batch`` and of ``seq``
+    cache slots under ``RULES_SERVE`` (slots None with ``seq`` None)."""
+    dims, shape = _serve_dims(batch, seq)
+    spec = _data_only(logical_to_pspec(dims, shape, RULES_SERVE, mesh))
+    sl = block_slices(shape, spec, mesh, coords)
+    return sl[0], (sl[1] if seq is not None else None)
+
+
+def data_blocks(axes, shapes, mesh, coords: dict) -> dict:
+    """Each leaf's per-dim block slices on the ``data`` axis alone under
+    ``RULES_SERVE``: its spec with every other axis's entry dropped (a
+    serve cache's ``model`` part is the rank's head plan,
+    ``models/layers.py::head_plan``)."""
+    return _map(lambda d, s: block_slices(tuple(s.shape), _data_only(
+        logical_to_pspec(tuple(d), tuple(s.shape), RULES_SERVE, mesh)),
+        mesh, coords), axes, shapes)

@@ -38,9 +38,11 @@ it computed; this process holds it:
   batch split over ``model``, one gradient all-reduce) against
   ``default``, within the same bounds.
 
-The refusals run in this process: a codec on a model axis, a serve step
-over data > 1, clients that do not split over data, an unknown family;
-and the families whose model axis came later build on a (1, 2) mesh.
+The refusals run in this process: clients that do not split over data,
+an unknown family; a codec on a model axis and a serve step over the
+(2, 2) mesh build (the latter on the rank's block of the batch and
+cache); and the families whose model axis came later build on a (1, 2)
+mesh.
 """
 import json
 import os
@@ -506,8 +508,15 @@ def test_codec_builds_and_serve_data_and_uneven_clients_refused():
     step = TD.make_afl_train_step(tmodel, cfg, dcfg, TMadsController(
         s=tmodel.num_params()), compressor=comp, mesh=mesh)
     assert callable(step)
-    with pytest.raises(NotImplementedError, match="item 8 "):
-        TS.build_step(cfg, INPUT_SHAPES["decode_32k"], mesh)
+    # a serve step over data 2 builds on the rank's block: its 64 of the
+    # 128 rows, the kv head of its q heads, every slot
+    built = TS.build_step(cfg, INPUT_SHAPES["decode_32k"], mesh)
+    assert built["split"] == "batch" and built["data_axis"].size == 2
+    _, cache, token, _ = built["args"]
+    assert tuple(token.shape) == (64,)
+    assert tuple(cache["k"].shape) == (cfg.num_layers, 64, 32768, 1,
+                                       cfg.resolved_head_dim)
+    assert tuple(cache["pos"].shape) == (64, 32768)
     with pytest.raises(ValueError, match="do not split evenly"):
         mesh.rows(3)
     # the audio family's train step builds on the (2, 2) mesh (it was

@@ -35,6 +35,7 @@ from repro_torch import configs as TC  # noqa: E402
 from repro_torch.core import distributed as TD  # noqa: E402
 from repro_torch.core.sparsify import bits_for_k  # noqa: E402
 from repro_torch.launch import dryrun as TDR  # noqa: E402
+from repro_torch.launch import roofline as TRL  # noqa: E402
 from repro_torch.launch import steps as TS  # noqa: E402
 from repro_torch.models import registry as TR  # noqa: E402
 from repro_torch.models.registry import load_params  # noqa: E402
@@ -415,3 +416,51 @@ def test_plan_counts_the_train_collectives_at_world_4():
                                    "all-gather": 1}
     assert roof["coll_detail"]["all-reduce"] == 2 * 3 / 4 * s * 4
     assert roof["t_collective"] == roof["coll_bytes"] / 450e9
+
+
+@pytest.mark.parametrize("model", [1, 2])
+@pytest.mark.parametrize("arch,shape", [("llama3.2-3b", "long_500k"),
+                                        ("qwen3-moe-30b-a3b", "decode_32k"),
+                                        ("mamba2-2.7b", "prefill_32k")])
+def test_plan_serves_over_the_data_axis(arch, shape, model):
+    """A serve pair at ``--world 4``: planned on 4 cards, each holding its
+    block on both axes (``argument_gb`` the bytes of rank 0's block as
+    ``build_step`` gives it, less than a model-axis-only mesh's;
+    ``tokens_per_rank`` its tokens), with the data axis's collectives
+    beside the model axis's: long_500k's merge, one all-gather a layer of
+    the rank's (1, H_rank, D + 2) f32 partials; Qwen3-MoE x decode_32k's
+    one dispatch group of all 128 tokens, which spans the ranks, one count
+    exchange a layer; none for Mamba2's rows."""
+    cfg, sh = TC.get_config(arch), TC.INPUT_SHAPES[shape]
+    rec, built = TDR.plan(cfg, sh, world=4, model=model)
+    assert rec["cards"] == 4 and rec["world"] == 4
+    again = TS.build_step(cfg, sh, TDR.plan_mesh(4, model))
+    assert rec["mem"]["argument_gb"] == TS.arg_bytes(again["args"]) / 1e9
+    mesh_m = TDR.plan_mesh(model, model) if model > 1 else None
+    assert rec["mem"]["argument_gb"] * 1e9 < TS.arg_bytes(
+        TS.build_step(cfg, sh, mesh_m)["args"])
+    data, rcfg = 4 // model, built["cfg"]
+    rows = built["input_blocks"]["tokens" if sh.kind == "prefill"
+                                 else "token"][0]
+    model_only = TRL.step_collectives(
+        sh.kind, rec["num_params"], 4, model=model, cfg=rcfg,
+        tokens=rec["tokens_per_rank"], batch=rows.stop - rows.start,
+        seqs=rows.stop - rows.start).count_by_kind
+    counts = rec["roofline"]["coll_counts"]
+    extra = {k: n - model_only.get(k, 0) for k, n in counts.items()
+             if n != model_only.get(k, 0)}
+    if shape == "long_500k":
+        assert built["split"] == "seq" and rec["tokens_per_rank"] == 1
+        assert extra == {"all-gather": rcfg.num_layers}
+        part = data * rcfg.num_heads // model * (rcfg.resolved_head_dim
+                                                 + 2) * 4
+        assert rec["roofline"]["coll_detail"]["all-gather"] >= \
+            rcfg.num_layers * (data - 1) / data * part
+    elif shape == "decode_32k":
+        assert built["split"] == "batch"
+        assert rec["tokens_per_rank"] == 128 // data
+        assert extra == {"all-gather": rcfg.num_layers}
+    else:
+        assert built["split"] == "batch"
+        assert rec["tokens_per_rank"] == 32 // data * sh.seq_len
+        assert extra == {}
