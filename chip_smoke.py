@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --time-tree DIR   # time another checkout's kernels
     python3 chip_smoke.py --only 19,20      # phases 1, 2 and those named
-                                            # (of 3c, 19-27) alone
+                                            # (of 3c, 19-29) alone
     python3 chip_smoke.py --mesh 4          # the round over 4 cards
     python3 chip_smoke.py --mesh 4 --only 24  # phases 24b-d alone
     python3 chip_smoke.py --mesh 4 --only 24cd  # phases 24c-d alone
@@ -13,6 +13,8 @@
     python3 chip_smoke.py --mesh 4 --only 25f  # 25e's f32 rounds alone
     python3 chip_smoke.py --mesh 4 --only 26  # phases 26b-d alone
     python3 chip_smoke.py --mesh 4 --only 27  # phases 27b-c alone
+    python3 chip_smoke.py --mesh 4 --only 28  # phases 28b-e alone
+    python3 chip_smoke.py --mesh 4 --only 29  # phases 29b-c alone
 
 Phases, each of which raises on failure (a failed phase exits non-zero):
 
@@ -309,6 +311,22 @@ Phases, each of which raises on failure (a failed phase exits non-zero):
    on (2, 2)) held against its plain version leaf by leaf and timed
    beside the same kernel without a map.  The four-card phases 27b-c
    run under ``--mesh 4 --only 27`` (below).
+28. serve steps over the data axis (``launch/steps.py`` on a (data,
+   model) mesh; also ``--only 28``): (a) the plan of every serve pair on
+   four cards at model axes 1 and 2, ``decode_attn`` and ``ssd_scan`` at
+   the four-card phases' per-rank shapes, held and timed.  The four-card
+   phases 28b-e run under ``--mesh 4 --only 28`` (below).
+29. the decode cache cut on its slots (``sharding/rules.py::
+   model_slots``: where the rules cut a cache's ``head_dim`` over
+   ``model``, a rank holds every kv head over its block of the slots;
+   ``decode_attn``'s partials entry; ``collectives.merge_partials``; also
+   ``--only 29``): (a) the plan's bytes a card of Qwen2-7B,
+   Qwen3-MoE-30B-A3B and Whisper-large-v3 x decode_32k at M = 8; the
+   partials entry at their per-rank shapes, bf16, held against its plain
+   version (an empty block among them) and timed beside the normalised
+   entry, the plain version and SDPA; the 8 blocks of a whole cache
+   combined against the normalised kernel on it.  The four-card phases
+   29b-c run under ``--mesh 4 --only 29`` (below).
 
 ``--mesh P`` runs, on each of P cards (one process a card, a file
 store): world 1 against world P for six policies at ResNet-9 width 4;
@@ -376,7 +394,18 @@ round's collectives over ``model`` equal to the plan's
 (``step_collectives(codec=)``); (c) InternLM2-1.8B, bf16, on (2, 2),
 N = 2, 4 rounds of ``mads-joint`` and per-layer ``mads-joint`` against
 one card's (24b's standard), round s, peak GiB and the counter-map
-entry's time at the rank's (1, s_r).
+entry's time at the rank's (1, s_r).  ``--mesh 4 --only 28`` runs phases
+28b-e (``data_axis_mesh``; "28" and some of "bcde"): Llama-3.2-3B x
+decode_32k, Mamba2-2.7B x prefill_32k, long_500k and Qwen3-MoE x
+decode_32k over the data axis, each against one card's step in f32 at
+a few layers and at full depth in bf16.  ``--mesh 4 --only 29`` runs
+phases 29b-c (``slot_axis_mesh``; "29" and some of "bc"): (b)
+Llama-3.2-3B x decode_32k at batch 2 on (4, 1) and batch 1 on (2, 2),
+its cache's slots on the data axis, each rank's block through the
+partials entry (28b's checks, every partials call held); (c) the model
+axis's slot cut on (1, 4), f32, the reduced Qwen2-7B with 4 and 6 q
+heads, a prompt of 61 and 32 decodes against one card's
+(``slot_cut_run``).
 
 The last three lines are the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -1810,7 +1839,7 @@ KEPT = {}  # host copies one phase keeps for a later one
 def _call_shape(name: str, args) -> tuple:
     """A kernel call's shape: ``decode_attn``'s (B, H, KV, S, D), the
     first argument's for the others."""
-    if name == "decode_attn":
+    if name.startswith("decode_attn"):
         (b, h, d), (_, s, kv, _) = args[0].shape, args[1].shape
         return (b, h, kv, s, d)
     return tuple(args[0].shape)
@@ -2754,7 +2783,9 @@ def hold_against_plain(name: str, args, kw, out, tag: str) -> float:
     the same inputs, with phase 3's tolerances: the sparsify pair through
     ``hold_in_blocks`` (uploads and counts bit-equal, errors within 1e-6;
     the segmented entry leaf by leaf, ``hold_segmented``); ``decode_attn`` within 2e-5 (f32) or 3e-2 (bf16) (1 + |want|) at the
-    call's length; ``ssd_scan`` within 2e-4 (1 + |want|) of the plain
+    call's length, its partials entry within the rounding the two can
+    differ by (``hold_partials``);
+    ``ssd_scan`` within 2e-4 (1 + |want|) of the plain
     version in f64, one batch row at a time (its f64 chunk tiles at S =
     32768 are 5.4 GB a row).  Returns the largest difference."""
     from repro_torch.kernels import ref as R
@@ -2763,6 +2794,11 @@ def hold_against_plain(name: str, args, kw, out, tag: str) -> float:
         return hold_segmented(name, args, out, tag)
     if name.startswith("sparsify"):
         return hold_in_blocks(name, args[0], args[1:], kw, out, tag)
+    if name == "decode_attn_partials":
+        q, k, v, length = args
+        return hold_partials(out, q, k, v, length,
+                             f"{tag}: decode_attn_partials at "
+                             f"{_call_shape(name, args)} length {length}")[0]
     if name == "decode_attn":
         q, k, v, length = args
         tol = 2e-5 if q.dtype == torch.float32 else 3e-2
@@ -2818,7 +2854,7 @@ def holding(tag: str, stats: dict,
             held = dict(name=name, tag=tag, shape=list(key[1]),
                         dtype=str(args[0].dtype).replace("torch.", ""),
                         max_abs_err=err)
-            if name == "decode_attn":
+            if name.startswith("decode_attn"):
                 held["length"] = int(args[3])
             HELD.append(held)
             print(f"{tag}: {name} matches its plain version on the main "
@@ -6913,14 +6949,17 @@ def data_full(mods, mesh, dev, arch: str, shape_name: str,
 
     cfg = axis_cfg(arch)
     # the kernel the step runs a layer: the prefill's SSD scan, the plain
-    # cache's decode; none at long_500k (the ring and the recurrence are
-    # plain, as the reference's)
+    # cache's decode (its partials entry where the slots are on data);
+    # none at long_500k (the ring and the recurrence are plain, as the
+    # reference's)
     kernel = ("ssd_scan" if shape_name == "prefill_32k" else
               "decode_attn" if shape_name == "decode_32k" else None)
     cuts = []
     while True:
         shape = data_shape(shape_name, batch)
         built = build_step(cfg, shape, mesh)
+        if kernel == "decode_attn" and built["split"] == "seq":
+            kernel = "decode_attn_partials"  # each rank's block, merged
         da = mesh.data_axis()
         _reset_peak(dev)
         t0 = time.perf_counter()
@@ -6990,20 +7029,21 @@ def data_full(mods, mesh, dev, arch: str, shape_name: str,
 
 
 def data_axis_mesh(mods, K, store: Path, device="cuda",
-                   phases: str = "bcde") -> dict:
+                   phases: str = "bcde", cases=None) -> dict:
     """Phases 28b-e on four ranks (``--mesh 4 --only 28``; ``phases`` of
-    "bcde"): each case of ``DATA_CASES`` on each of its meshes, (i) in
-    f32 at a few layers against one card's step on the same whole
-    arguments (``data_f32``; not for 28c, whose batch rows run apart by
-    construction and whose kernel is held) and (ii) at full depth in bf16
-    (``data_full``); each rank's numbers."""
+    "bcde"): each case of ``cases`` (``DATA_CASES``; 29b's ``SLOT_DATA``)
+    on each of its meshes, (i) in f32 at a few layers against one card's
+    step on the same whole arguments (``data_f32``; not for 28c, whose
+    batch rows run apart by construction and whose kernel is held) and
+    (ii) at full depth in bf16 (``data_full``); each rank's numbers."""
     from repro_torch.launch.mesh import make_client_mesh
 
+    cases = DATA_CASES if cases is None else cases
     meshes, out = {}, {}
     for ph in "bcde":
         if ph not in phases:
             continue
-        for arch, shape, batch, short, shapes in DATA_CASES[ph]:
+        for arch, shape, batch, short, shapes in cases[ph]:
             for d, m in shapes:
                 if (d, m) not in meshes:
                     meshes[(d, m)] = make_client_mesh(
@@ -7045,6 +7085,365 @@ def check_data_rank(o: dict) -> None:
               f"{f['runs'][1]['data_counts']} (plan {f['plan_counts']})"
               + (f"; f32 logits off {res['f32']['logits_off']:.3g}"
                  if "f32" in res else ""), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 29: the decode cache cut on its slots (sharding/rules.py::
+# model_slots: where the rules cut a cache's head_dim over model, a rank
+# holds every kv head over its block of the slots; decode_attn's partials
+# entry; collectives.merge_partials over model, then over data)
+# ---------------------------------------------------------------------------
+
+SLOT_M = 8  # 29a: the model axis whose per-rank shapes are timed
+# 29a: (label, (B, H, KV, S, D), the whole cache's slots and length for the
+# 8-block combine, or None): the per-rank shapes at M = 8, bf16, of
+# Qwen2-7B and Qwen3-MoE-30B-A3B x decode_32k (4,096 of 32,768 slots a
+# rank, every kv head; q heads 28 whole, 32 gathered) and of
+# Whisper-large-v3's cross cache (188 of its 1,500 slots a rank; the last
+# rank 184)
+SLOT_DECODES = (
+    ("qwen2-7b", (128, 28, 4, 4096, 128), (32768, 27768)),
+    ("qwen3-moe-30b-a3b", (128, 32, 4, 4096, 128), None),
+    ("whisper-large-v3 cross", (128, 20, 20, 188, 64), (1500, 1500)),
+    ("whisper-large-v3 cross, last block", (128, 20, 20, 184, 64), None))
+SLOT_PLAN = ("qwen2-7b", "qwen3-moe-30b-a3b", "whisper-large-v3")
+# 29b: (arch, shape, global batch, the f32 check's layers, meshes as
+# (data, model)): a batch that does not divide the data axis puts a cache
+# without a ring there (8,192 slots a rank on (4, 1), 16,384 on (2, 2))
+SLOT_DATA = (("llama3.2-3b", "decode_32k", 2, 2, ((4, 1),)),
+             ("llama3.2-3b", "decode_32k", 1, 2, ((2, 2),)))
+# 29c: the reduced Qwen2-7B (configs/base.py: 4 q heads, 2 kv heads, head
+# dim 64) and the same with 6 q heads, over (1, 4); batch, prompt, decodes
+# (93 slots: blocks of 24, 24, 24 and 21, the last empty until position 72)
+SLOT_CUT_CONFIGS = {"4 heads": {}, "6 heads": {"num_heads": 6}}
+SLOT_CUT_RUN = (4, 61, 32)
+
+
+def partials_off(got, want, tol, label: str) -> tuple:
+    """The partials entry's (m, l, acc) against (m, l, acc) ``want`` of
+    the same inputs, ``tol`` each's tolerance
+    (``ref.decode_attn_partials_tol``): fails on a NaN, or on -inf
+    elsewhere than ``want``'s (rows with no valid slot, where l and acc
+    must be 0).  Returns (the largest difference, the largest difference
+    over its tolerance: above 1 where the hold fails)."""
+    (m, l, acc), (wm, wl, wacc) = got, want
+    inf = torch.isinf(wm)
+    if (torch.isnan(m).any() or torch.isnan(l).any() or torch.isnan(acc).any()
+            or not torch.equal(torch.isinf(m), inf)):
+        fail(f"{label}: the partials have NaN, or -inf elsewhere than their "
+             f"plain version's")
+    if bool(inf.any()) and (l[inf].any() or acc[inf].any()):
+        fail(f"{label}: a row with no valid slot has l or acc past 0")
+    err = ratio = 0.0
+    for g, w, t in ((m[~inf], wm[~inf], tol[0][~inf]),
+                    (l[~inf], wl[~inf], tol[1][~inf]),
+                    (acc[~inf], wacc[~inf], tol[2][~inf])):
+        if not g.numel():
+            continue
+        d = (g.double() - w.double()).abs()
+        t = t.double()
+        r = torch.where(t > 0, d / t.clamp(min=1e-300),
+                        torch.where(d > 0, math.inf, 0.0))
+        err, ratio = max(err, d.max().item()), max(ratio, r.max().item())
+    return err, ratio
+
+
+def hold_partials(got, q, k, v, length: int, label: str) -> tuple:
+    """The partials entry's (m, l, acc) on (q, k, v, ``length``) against
+    its plain version's, within the rounding the two can differ by
+    (``ref.decode_attn_partials_tol``: m and l to f32 roundings of the
+    scores and sums, acc besides to the bf16 route's rounding of each
+    probability, 2^-8 of sum_j p_j |v_j|).  Returns ``partials_off``'s
+    (largest difference, largest ratio to its tolerance)."""
+    from repro_torch.kernels import ref as R
+
+    err, ratio = partials_off(
+        got, R.decode_attn_partials_plain(q, k, v, length),
+        R.decode_attn_partials_tol(q, k, v, length), label)
+    if ratio > 1:
+        fail(f"{label}: the partials differ from their plain version by "
+             f"{err}, {ratio:.3g} times their tolerance")
+    return err, ratio
+
+
+def slot_combine(DA, R, shape, whole: tuple, gen) -> dict:
+    """29a: ``SLOT_M`` blocks of a whole cache (``rules.model_slots``),
+    each rank's partials at its own count of valid slots, combined
+    (``collectives.combine``) and held as one partials call on the whole
+    cache (``partials_off`` against the plain version there, within
+    ``ref.decode_attn_partials_tol``), then normalised against the
+    normalised kernel on it, within twice that tolerance over l and the
+    kernel's bf16 output rounding (2^-8 |want|).  A planted fault, block
+    ``SLOT_M`` / 2's m 0.01 high (a wrong split's max), must fail the
+    hold.  Returns the differences and their ratios to the tolerance."""
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.rules import model_slots
+
+    b, h, kv, _, d = shape
+    slots, length = whole
+    dt = torch.bfloat16
+    q = _randn((b, h, d), gen, dt)
+    k, v = (_randn((b, slots, kv, d), gen, dt) for _ in range(2))
+    want = DA.decode_attn_cuda(q, k, v, length).float()
+    parts = []
+    for r in range(SLOT_M):
+        blk = model_slots(slots, kv, d, SLOT_M, r)
+        local = min(max(length - blk.start, 0), blk.stop - blk.start)
+        parts.append(DA.decode_attn_partials_cuda(
+            q, k[:, blk].contiguous(), v[:, blk].contiguous(), local))
+    stacked = [torch.stack(t) for t in zip(*parts)]
+    plain = R.decode_attn_partials_plain(q, k, v, length)
+    tol = R.decode_attn_partials_tol(q, k, v, length)
+    label = f"slot cut: {SLOT_M} blocks of {(b, h, kv, slots, d)} combined"
+    got = C.combine(*stacked)
+    err, ratio = partials_off(got, plain, tol, label)
+    o = got[2] / got[1][..., None]
+    off = (o - want).abs()
+    n_ratio = (off / (2 * tol[2] / got[1][..., None]
+                      + 2.0 ** -8 * want.abs())).max().item()
+    if ratio > 1 or n_ratio > 1 or not torch.isfinite(o).all():
+        fail(f"{label}: differ by {err} ({ratio:.3g} times the tolerance) "
+             f"from the plain version on the whole cache, by "
+             f"{off.max().item()} ({n_ratio:.3g} times) from the kernel's "
+             f"attention there")
+    stacked[0][SLOT_M // 2] += 0.01
+    fault = partials_off(C.combine(*stacked), plain, tol, label)[1]
+    if fault <= 1:
+        fail(f"{label}: a block's m 0.01 off passes the hold ({fault:.3g} "
+             f"times the tolerance)")
+    del q, k, v, parts, stacked, plain, tol, got
+    return dict(combined_max_abs_err=err, combined_tol_ratio=ratio,
+                normalised_max_abs_err=off.max().item(),
+                normalised_tol_ratio=n_ratio, wrong_m_tol_ratio=fault)
+
+
+def slot_axis_phase(DA, R, smi: str) -> dict:
+    """Phase 29a (one card): the plan's bytes a card of the three
+    decode_32k pairs whose kv heads do not divide at M = 8 (meta device,
+    no card used); ``decode_attn``'s partials entry at their per-rank
+    shapes (``SLOT_DECODES``), bf16, held against its plain version at
+    lengths S, S / 3 and 0 (an empty block: m = -inf, l = 0, acc = 0),
+    timed beside the normalised entry on the same inputs, the plain
+    version and SDPA (the normalised output alone); a planted fault, the
+    kernel's partials at S - 20 held against the plain version's at S (a
+    dropped tail), must fail the hold; the ``SLOT_M`` blocks of a whole
+    cache combined against the plain version and the normalised kernel
+    on it (``slot_combine``)."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch import dryrun as DR
+
+    t0 = time.perf_counter()
+    plan = {}
+    for arch in SLOT_PLAN:
+        rec, built = DR.plan(get_config(arch), INPUT_SHAPES["decode_32k"],
+                             world=SLOT_M, model=SLOT_M)
+        del built
+        plan[arch] = dict(argument_gb=rec["mem"]["argument_gb"],
+                          fits=rec["mem"]["fits"],
+                          coll_counts=rec["roofline"]["coll_counts"])
+        print(f"plan {arch} x decode_32k at (1, {SLOT_M}): "
+              f"{json.dumps(plan[arch])} (sizes of a plan, no card used)",
+              flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    dt = torch.bfloat16
+    times = []
+    for label, (b, h, kv, s, d), whole in SLOT_DECODES:
+        q = _randn((b, h, d), gen, dt)
+        k, v = _randn((b, s, kv, d), gen, dt), _randn((b, s, kv, d), gen, dt)
+        err = ratio = 0.0
+        for length in (s, s // 3, 0):
+            got = DA.decode_attn_partials_cuda(q, k, v, length)
+            torch.cuda.synchronize()
+            e, r = hold_partials(got, q, k, v, length,
+                                 f"{label} at {(b, h, kv, s, d)} length "
+                                 f"{length}")
+            err, ratio = max(err, e), max(ratio, r)
+            del got
+        dropped = partials_off(
+            DA.decode_attn_partials_cuda(q, k, v, s - 20),
+            R.decode_attn_partials_plain(q, k, v, s),
+            R.decode_attn_partials_tol(q, k, v, s), label)[1]
+        if dropped <= 1:
+            fail(f"{label}: the partials at {s - 20} of {s} slots pass the "
+                 f"hold at {s} ({dropped:.3g} times the tolerance)")
+        mask = torch.ones((1, 1, 1, s), dtype=torch.bool, device="cuda")
+        res = dict(
+            label=label, shape=[b, h, kv, s, d], dtype="bfloat16", length=s,
+            ms=median_ms(lambda: DA.decode_attn_partials_cuda(q, k, v, s)),
+            normalised_ms=median_ms(lambda: DA.decode_attn_cuda(q, k, v, s)),
+            plain_ms=median_ms(lambda: R.decode_attn_partials_plain(
+                q, k, v, s), runs=9, batch=3),
+            library_ms=median_ms(lambda: torch.nn.functional
+                                 .scaled_dot_product_attention(
+                                     q[:, :, None], k.transpose(1, 2),
+                                     v.transpose(1, 2), attn_mask=mask,
+                                     enable_gqa=True)),
+            max_abs_err=err, tol_ratio=ratio, dropped_tail_tol_ratio=dropped,
+            # K and V rows read once, q read, (m, l, acc) f32 written once
+            **bound(2 * b * s * kv * d * 2 + b * h * d * 2
+                    + b * h * (d + 2) * 4, 4 * b * h * s * d, dt))
+        res["bound_share"] = res["bound_ms"] / res["ms"]
+        del q, k, v
+        if whole is not None:
+            res["combined_whole"] = list(whole)
+            res.update(slot_combine(DA, R, (b, h, kv, s, d), whole, gen))
+        torch.cuda.empty_cache()
+        times.append(res)
+        print(f"decode_attn partials at a rank's (B, H, KV, S, D) = "
+              f"{(b, h, kv, s, d)} of the slot cut at M = {SLOT_M} "
+              f"({label}): {json.dumps(res)} on {smi}", flush=True)
+    print(f"phase 29a {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(plan=plan, times=times)
+
+
+def slot_cut_run(mods, mesh, dev, name: str, over: dict) -> dict:
+    """29c, one config of ``SLOT_CUT_CONFIGS`` on the (1, 4) mesh, f32:
+    one card's prefill and ``SLOT_CUT_RUN``'s greedy decodes on this
+    card, then the mesh's on the rank's blocks of the same weights (seed
+    0, ``conditioned``: as drawn the reduced model's scores reach the
+    thousands, whose f32 rounding the one-hot softmax carries into the
+    partials at ~5e-4 of l on an H100, PERF.md §6) and prompt, every
+    ``decode_attn`` partials call held against
+    its plain version as it returns.  Held: every logit within
+    ``FAMILY_F32_TOL`` x max(1, the largest) of one card's, the same
+    greedy tokens, the cache one card's slot block (``local_cache``;
+    positions equal), one partials launch a layer a decode step and none
+    of the normalised entry, the collectives over ``model`` at the prefill
+    and at each step equal to ``roofline.step_collectives``'s."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import roofline as RL
+    from repro_torch.models.registry import (build_model, local_cache,
+                                             local_params)
+    from repro_torch.sharding import rules as RR
+
+    b, p, gen = SLOT_CUT_RUN
+    cfg = get_config("qwen2-7b").reduced().replace(
+        dtype="float32", param_dtype="float32", **over)
+    model = build_model(cfg)
+    params = conditioned(model, model.init(
+        torch.Generator(device=dev).manual_seed(0), dev))
+    tokens = torch.randint(0, cfg.vocab_size, (b, p), device=dev,
+                           dtype=torch.int32, generator=torch.Generator(
+                               device=dev).manual_seed(1))
+    ma = mesh.model_axis()
+
+    def serve(params, axis):
+        kw = {} if axis is None else {"model_axis": axis}
+        counts = []
+        logits, cache = model.prefill(params, cfg, tokens, max_seq=p + gen,
+                                      **kw)
+        out = [logits]
+        for i in range(gen + 1):
+            if axis is not None:
+                counts.append(_data_counts(axis))
+                axis.counts.clear()
+            if i == gen:
+                break
+            logits, cache = model.decode_step(params, cfg, cache,
+                                              out[-1].argmax(-1), p + i, **kw)
+            out.append(logits)
+        return torch.stack(out), cache, counts
+
+    with torch.no_grad():
+        want, want_cache, _ = serve(params, None)
+    lp = local_params(model, params, model.blocks(
+        RR.RULES_SERVE, mesh.axis_sizes, mesh.coords))
+    for mod in mods.values():
+        mod.reset_launches()
+    ma.counts.clear()
+    stats = dict(peak=0, hold_s=0.0, held=0)
+    _sync(dev)
+    t0 = time.perf_counter()
+    with holding(f"slot cut {name}", stats, ("decode_attn_partials",)), \
+            torch.no_grad():
+        got, cache, counts = serve(lp, ma)
+    _sync(dev)
+    secs = time.perf_counter() - t0 - stats["hold_s"]
+    launches = {k: v for mod in mods.values() for k, v in mod.LAUNCHES.items()}
+    scale = max(1.0, float(want.abs().max()))
+    block = local_cache(model, want_cache, ma)
+    cache_off, pos_equal = 0.0, True
+    for key, w in block.items():
+        if key == "pos":
+            pos_equal = bool(torch.equal(cache[key], w))
+        elif isinstance(w, torch.Tensor):
+            cache_off = max(cache_off, float((cache[key] - w).abs().max())
+                            / max(1.0, float(w.abs().max())))
+    plan = [RL.step_collectives(kind, 0, ma.size, model=ma.size, cfg=cfg,
+                                tokens=n, batch=b, seqs=b).count_by_kind
+            for kind, n in [("prefill", b * p)] + [("decode", b)] * gen]
+    calls = cfg.num_layers * gen if dev.type == "cuda" else 0
+    out = dict(config=name, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+               batch=b, prompt=p, decodes=gen, slots=cache["k"].shape[2],
+               seconds=secs,
+               logits_off=float((got - want).abs().max()) / scale,
+               greedy_equal=bool(torch.equal(got.argmax(-1),
+                                             want.argmax(-1))),
+               finite=bool(torch.isfinite(got).all()), cache_off=cache_off,
+               pos_equal=pos_equal, launches=launches, held=stats["held"],
+               counts_prefill=counts[0], counts_decode=counts[1],
+               plan_prefill=plan[0], plan_decode=plan[1],
+               counts_equal=counts == plan)
+    out["ok"] = (out["logits_off"] <= FAMILY_F32_TOL and out["greedy_equal"]
+                 and out["finite"] and cache_off <= FAMILY_F32_TOL
+                 and pos_equal and out["counts_equal"]
+                 and launches["decode_attn_partials"] == calls
+                 and stats["held"] == calls
+                 and launches["decode_attn"] == 0)
+    del params, lp, cache, want_cache
+    _free(dev)
+    return out
+
+
+def slot_axis_mesh(mods, K, store: Path, device="cuda",
+                   phases: str = "bc") -> dict:
+    """Phases 29b-c on four ranks (``--mesh 4 --only 29``; ``phases`` of
+    "bc").  (b) ROADMAP's fault 3g lifted: Llama-3.2-3B x decode_32k at
+    global batch 2 on (4, 1) and at batch 1 on (2, 2), whose batch does
+    not divide the data axis, so its cache (no ring) puts its slots there
+    and each rank attends over its block through ``decode_attn``'s
+    partials entry: 28b's f32 check at 2 layers on ``conditioned``
+    weights against one card's step on the same whole arguments and its
+    bf16 run at full depth, every partials call held (``data_f32``,
+    ``data_full``).  (c) The model axis's slot cut on (1, 4), f32, the
+    reduced Qwen2-7B with 4 and with 6 q heads (``slot_cut_run``).  No
+    full-width arch of the repository reaches the model axis's slot cut
+    on four cards: every kv-head count divides 4 (Qwen2-7B's and
+    Qwen3-MoE's 4, Whisper's 20); they reach it at M = 8, which 29a
+    plans and times at the per-rank shapes."""
+    from repro_torch.launch.mesh import make_client_mesh
+
+    out = {}
+    if "b" in phases:
+        out["data"] = data_axis_mesh(mods, K, store, device, phases="b",
+                                     cases={"b": SLOT_DATA})
+    if "c" in phases:
+        mesh = make_client_mesh(1, model=4, family="dense", device=device)
+        out["cut"] = {}
+        for name, over in SLOT_CUT_CONFIGS.items():
+            res = slot_cut_run(mods, mesh, mesh.device, name, over)
+            print(f"slot cut {name} on (1, 4): {json.dumps(res)}",
+                  flush=True)
+            out["cut"][name] = res
+    return out
+
+
+def check_slot_rank(o: dict) -> None:
+    """Phases 29b-c's checks of one rank's results, a line a case."""
+    s = o["slot"]
+    if "data" in s:
+        check_data_rank(dict(o, data=s["data"]))
+    for name, res in s.get("cut", {}).items():
+        if not res["ok"]:
+            fail(f"slot cut {name} on rank {o['rank']}: {res}")
+        print(f"slot rank {o['rank']}: reduced Qwen2-7B, {name} over "
+              f"(1, 4), {res['slots']} slots of {res['prompt']} + "
+              f"{res['decodes']}: logits off {res['logits_off']:.3g}, "
+              f"cache off {res['cache_off']:.3g}, {res['seconds']:.4g} s, "
+              f"launches "
+              f"{res['launches']}, held {res['held']}, collectives a decode "
+              f"step {res['counts_decode']} (plan {res['plan_decode']})",
+              flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -7313,7 +7712,7 @@ def mesh_rank(rank: int, world: int, store_path: str,
     r; ``ONLY`` "24": phases 24b-d alone ("24cd": 24c-d); "25": phases
     25b-e ("25" and some of "bcde": those); "26": phases 26b-d (and some
     of "bcd"); "27": phases 27b-c (and some of "bc"); "28": phases 28b-e
-    (and some of "bcde")."""
+    (and some of "bcde"); "29": phases 29b-c (and some of "bc")."""
     import torch.distributed as dist
 
     from repro_torch.kernels import decode_attn as DA
@@ -7345,6 +7744,9 @@ def mesh_rank(rank: int, world: int, store_path: str,
         elif only.startswith("28"):
             out["data"] = data_axis_mesh(mods, K, Path(store_path).parent,
                                          phases=only[2:] or "bcde")
+        elif only.startswith("29"):
+            out["slot"] = slot_axis_mesh(mods, K, Path(store_path).parent,
+                                         phases=only[2:] or "bc")
         elif world == 4:
             out["axis"] = axis_mesh(mods, K, Path(store_path).parent,
                                     phases="cd" if only == "24cd" else "bcd")
@@ -7454,6 +7856,8 @@ def mesh_main(world: int, only: str = "") -> None:
             check_codec_rank(o)
         if "data" in o:
             check_data_rank(o)
+        if "slot" in o:
+            check_slot_rank(o)
     for o in outs:
         if only:
             continue
@@ -7535,11 +7939,12 @@ def main() -> None:
                 only.startswith("25") and set(only[2:]) <= set("bcdef")) \
                 and not (only.startswith("26") and set(only[2:]) <= set("bcd")) \
                 and not (only.startswith("27") and set(only[2:]) <= set("bc")) \
-                and not (only.startswith("28") and set(only[2:]) <= set("bcde")):
+                and not (only.startswith("28") and set(only[2:]) <= set("bcde")) \
+                and not (only.startswith("29") and set(only[2:]) <= set("bc")):
             fail(f"--mesh takes --only 24, 24cd, 25 (25 and some of bcde, "
                  f"or 25f: 25e's f32 rounds alone), 26 (26 and some of "
-                 f"bcd), 27 (27 and some of bc) or 28 (28 and some of "
-                 f"bcde), not {only}")
+                 f"bcd), 27 (27 and some of bc), 28 (28 and some of "
+                 f"bcde) or 29 (29 and some of bc), not {only}")
         return mesh_main(int(sys.argv[2]), only)
     if sys.argv[1:2] == ["--mesh-rank"]:
         return mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
@@ -7547,9 +7952,9 @@ def main() -> None:
     only = (set(sys.argv[2].split(",")) if sys.argv[1:2] == ["--only"]
             else None)
     if only is not None and not only <= {"3c", "19", "20", "21", "22", "23",
-                                         "24", "25", "26", "27", "28"}:
+                                         "24", "25", "26", "27", "28", "29"}:
         fail(f"--only takes phases of 3c, 19, 20, 21, 22, 23, 24, 25, 26, "
-             f"27, 28, not {sys.argv[2]}")
+             f"27, 28, 29, not {sys.argv[2]}")
     from repro_torch.kernels import decode_attn as DA
     from repro_torch.kernels import ref as R
     from repro_torch.kernels import sparsify_ef as K
@@ -7583,9 +7988,10 @@ def main() -> None:
                   "25": lambda: family_axis_phase(K, DA, SSD, R, smi),
                   "26": lambda: paper_axis_phase(K, DA, R, smi),
                   "27": lambda: codec_axis_phase(K, R, smi),
-                  "28": lambda: data_axis_phase(DA, SSD, R, smi)}
+                  "28": lambda: data_axis_phase(DA, SSD, R, smi),
+                  "29": lambda: slot_axis_phase(DA, R, smi)}
         done = {p: phases[p]() for p in ("3c", "19", "20", "21", "22", "23",
-                                         "24", "25", "26", "27", "28")
+                                         "24", "25", "26", "27", "28", "29")
                 if p in only}
         print(json.dumps(dict(phases=sorted(done), held=HELD), default=str))
         return
@@ -7734,6 +8140,13 @@ def main() -> None:
     data_axis = data_axis_phase(DA, SSD, R, smi)
     torch.cuda.empty_cache()
 
+    # 29. the decode cache cut on its slots: the plan's bytes a card at
+    # M = 8, decode_attn's partials entry at the per-rank shapes and the
+    # blocks combined against the whole cache (the four-card phases run
+    # under --mesh 4 --only 29)
+    slot_axis = slot_axis_phase(DA, R, smi)
+    torch.cuda.empty_cache()
+
     # 18. device time by kernel, last (the profiler slows later launches)
     profile_kernels(DA, SSD)
     profiled = {}
@@ -7861,6 +8274,12 @@ def main() -> None:
              # Qwen3-MoE on (2, 2)); their launches are --mesh 4 --only
              # 28's
              data_rank_shapes=data_axis["times"]["decode_attn"],
+             # phase 29a: the partials entry (the TPU kernel's own (m, l,
+             # acc) outputs; ``LAUNCHES["decode_attn_partials"]``) held
+             # and timed at the M = 8 slot cut's per-rank shapes, beside
+             # the normalised entry on the same inputs; its launches are
+             # --mesh 4 --only 29's (one a layer a decode step a rank)
+             partials_rank_shapes=slot_axis["times"],
              **decode["main"],
              **{f"{key}_32k": decode["deep"][key] for key in
                 ("ms", "ms_per_call", "plain_ms", "library_ms", "bound_ms",

@@ -45,6 +45,14 @@
 // merge launch by 1-2 us, PERF.md).  A split or a warp that saw no key has
 // m = -inf and weighs 0 (the TPU kernel's isfinite guards); len = 0 gives
 // zeros, as the TPU kernel does.
+//
+// The partials entry (kPartial) is the same kernel with another last
+// store: the block that finishes a (b, kv-head) writes its merged f32
+// (m, l, acc) in head order, m the max of the scaled scores, l the sum of
+// exp(s - m), acc the unnormalised output: the TPU kernel's pallas_call
+// outputs before its wrapper divides.  A rank that holds a block of a
+// cache's slots attends over them with it, and the ranks' partials are
+// merged (sharding/collectives.py); len = 0 gives m = -inf, l = 0, acc = 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -149,12 +157,31 @@ __device__ __forceinline__ int swz(int r, int c) {
   return r * RB + ((c ^ (r & 7)) << 4);
 }
 
-template <typename T, int D>
+// The finished (m, l, acc) of query row o = (b * KV + kh) * G + g at
+// element d: normalised into out, or (kPartial) stored as it is.
+template <typename T, bool kPartial>
+__device__ __forceinline__ void finish(T* out, float* pm, float* pl,
+                                       float* pacc, size_t o, int D, int d,
+                                       float mm, float ll, float aa) {
+  if constexpr (kPartial) {
+    pacc[o * D + d] = aa;
+    if (d == 0) {
+      pm[o] = mm;
+      pl[o] = ll;
+    }
+  } else {
+    out[o * D + d] = from_f32<T>(aa / fmaxf(ll, 1e-30f));
+  }
+}
+
+template <typename T, int D, bool kPartial>
 __global__ void __launch_bounds__(kThreads, 2) decode_split(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, float* __restrict__ ws_m, float* __restrict__ ws_l,
-    float* __restrict__ ws_acc, int* __restrict__ tickets, int S, int KV,
-    int G, int len, int per_split, float scale) {
+    T* __restrict__ out, float* __restrict__ pm, float* __restrict__ pl,
+    float* __restrict__ pacc, float* __restrict__ ws_m,
+    float* __restrict__ ws_l, float* __restrict__ ws_acc,
+    int* __restrict__ tickets, int S, int KV, int G, int len, int per_split,
+    float scale) {
   constexpr bool kBf16 = sizeof(T) == 2;
   constexpr int kKeys = Tile<T>::kKeys;
   constexpr int RB = D * static_cast<int>(sizeof(T));  // bytes of a row
@@ -391,8 +418,8 @@ __global__ void __launch_bounds__(kThreads, 2) decode_split(
       aa += wacc[(w * kMaxG + g) * D + d] * f;
     }
     if (nsplit == 1) {
-      out[(static_cast<size_t>(bk) * G + g) * D + d] =
-          from_f32<T>(aa / fmaxf(ll, 1e-30f));
+      finish<T, kPartial>(out, pm, pl, pacc, static_cast<size_t>(bk) * G + g,
+                          D, d, mm, ll, aa);
     } else {
       ws_acc[(part * G + g) * D + d] = aa;
       if (d == 0) {
@@ -422,50 +449,74 @@ __global__ void __launch_bounds__(kThreads, 2) decode_split(
       ll += __ldcg(ws_l + (p0 + s) * G + g) * f;
       aa += __ldcg(ws_acc + ((p0 + s) * G + g) * D + d) * f;
     }
-    out[(static_cast<size_t>(bk) * G + g) * D + d] =
-        from_f32<T>(aa / fmaxf(ll, 1e-30f));
+    finish<T, kPartial>(out, pm, pl, pacc, static_cast<size_t>(bk) * G + g,
+                        D, d, mm, ll, aa);
   }
   if (tid == 0) tickets[bk] = 0;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kPartial>
 int launch_t(const void* q, const void* k, const void* v, void* out,
-             float* ws, int* tickets, int B, int S, int KV, int G, int len,
-             int per_split, int nsplit, cudaStream_t s) {
+             float* part, float* ws, int* tickets, int B, int S, int KV,
+             int G, int len, int per_split, int nsplit, cudaStream_t s) {
   constexpr int smem =
       kStages * 2 * Tile<T>::kKeys * D * static_cast<int>(sizeof(T));
   static_assert(smem >= kWarps * kMaxG * (D + 2) * 4, "merge needs the ring");
+  auto kernel = decode_split<T, D, kPartial>;
   // set on every launch: the attribute holds for the current device only
   cudaError_t e = cudaFuncSetAttribute(
-      decode_split<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const size_t parts = static_cast<size_t>(B) * KV * nsplit * G;
   float* ws_m = ws;
   float* ws_l = ws + parts;
   float* ws_acc = ws + 2 * parts;
+  // the partials (m (B, H), l (B, H), acc (B, H, D)) one after another
+  const size_t rows = static_cast<size_t>(B) * KV * G;
+  float* pm = part;
+  float* pl = part ? part + rows : nullptr;
+  float* pacc = part ? part + 2 * rows : nullptr;
   dim3 grid(B * KV, nsplit);
-  decode_split<T, D><<<grid, kThreads, smem, s>>>(
+  kernel<<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), ws_m, ws_l, ws_acc,
-      tickets, S, KV, G, len, per_split, 1.0f / sqrtf(static_cast<float>(D)));
+      static_cast<const T*>(v), static_cast<T*>(out), pm, pl, pacc, ws_m,
+      ws_l, ws_acc, tickets, S, KV, G, len, per_split,
+      1.0f / sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool kPartial>
 int launch_d(const void* q, const void* k, const void* v, void* out,
-             float* ws, int* tickets, int B, int S, int KV, int G, int D,
-             int len, int per_split, int nsplit, cudaStream_t s) {
+             float* part, float* ws, int* tickets, int B, int S, int KV,
+             int G, int D, int len, int per_split, int nsplit,
+             cudaStream_t s) {
   if (G < 1 || G > kMaxG) return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
     case 64:
-      return launch_t<T, 64>(q, k, v, out, ws, tickets, B, S, KV, G, len,
-                             per_split, nsplit, s);
+      return launch_t<T, 64, kPartial>(q, k, v, out, part, ws, tickets, B, S,
+                                       KV, G, len, per_split, nsplit, s);
     case 128:
-      return launch_t<T, 128>(q, k, v, out, ws, tickets, B, S, KV, G, len,
-                              per_split, nsplit, s);
+      return launch_t<T, 128, kPartial>(q, k, v, out, part, ws, tickets, B,
+                                        S, KV, G, len, per_split, nsplit, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <bool kPartial>
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* part, float* ws, int* tickets, int B, int S, int KV, int G,
+           int D, int len, int per_split, int nsplit, int dtype,
+           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_d<float, kPartial>(q, k, v, out, part, ws, tickets, B, S,
+                                     KV, G, D, len, per_split, nsplit, s);
+  if (dtype == 1)
+    return launch_d<__nv_bfloat16, kPartial>(q, k, v, out, part, ws, tickets,
+                                             B, S, KV, G, D, len, per_split,
+                                             nsplit, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -481,12 +532,16 @@ extern "C" int decode_attn_launch(const void* q, const void* k, const void* v,
                                   int S, int KV, int G, int D, int len,
                                   int per_split, int nsplit, int dtype,
                                   void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_d<float>(q, k, v, out, ws, tickets, B, S, KV, G, D, len,
-                           per_split, nsplit, s);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, k, v, out, ws, tickets, B, S, KV, G, D,
-                                   len, per_split, nsplit, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch<false>(q, k, v, out, nullptr, ws, tickets, B, S, KV, G, D,
+                       len, per_split, nsplit, dtype, stream);
+}
+
+// The partials entry: as decode_attn_launch, with part in place of out:
+// B*H*(D + 2) f32, m (B, H), then l (B, H), then acc (B, H, D).
+extern "C" int decode_attn_partials_launch(
+    const void* q, const void* k, const void* v, float* part, float* ws,
+    int* tickets, int B, int S, int KV, int G, int D, int len, int per_split,
+    int nsplit, int dtype, void* stream) {
+  return launch<true>(q, k, v, nullptr, part, ws, tickets, B, S, KV, G, D,
+                      len, per_split, nsplit, dtype, stream);
 }

@@ -9,11 +9,15 @@ The wrapper takes CUDA tensors only, checks them, clamps ``length`` to the
 cache, picks the split of the valid positions across blocks (``splits``),
 allocates the output and the f32 workspace of partial results, launches on
 the current stream and adds one to ``LAUNCHES["decode_attn"]``; ``ops.py``
-sends CPU tensors to the plain version.  The splits of a (batch, KV head)
-are merged by the last of its blocks to finish, which takes a ticket from
-an int32 counter per (batch, KV head); the counters live in one zeroed
-buffer per device that the kernel leaves zeroed, so calls on one stream
-share it (calls on two streams at once would need two).
+sends CPU tensors to the plain version.  ``decode_attn_partials_cuda`` is
+the kernel's partials entry (the TPU kernel's own (m, l, acc) outputs, in
+head order), counted in ``LAUNCHES["decode_attn_partials"]``; its plain
+version is ``ref.py::decode_attn_partials_plain``.  The splits of a
+(batch, KV head) are merged by the last of its blocks to finish, which
+takes a ticket from an int32 counter per (batch, KV head); the counters
+live in one zeroed buffer per device that the kernel leaves zeroed, so
+calls on one stream share it (calls on two streams at once would need
+two).
 """
 from __future__ import annotations
 
@@ -24,9 +28,10 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["LAUNCHES", "decode_attn_cuda", "library", "reset_launches", "splits"]
+__all__ = ["LAUNCHES", "decode_attn_cuda", "decode_attn_partials_cuda",
+           "library", "reset_launches", "splits"]
 
-LAUNCHES = {"decode_attn": 0}
+LAUNCHES = {"decode_attn": 0, "decode_attn_partials": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,15 +40,17 @@ TILE = {torch.float32: 32, torch.bfloat16: 64}  # keys per pipeline tile
 
 
 def reset_launches() -> None:
-    LAUNCHES["decode_attn"] = 0
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
 
 
 @functools.cache
 def library() -> ctypes.CDLL:
     """The kernel's library (built on first use), its C signature set."""
     lib = build.load("decode_attn")
-    lib.decode_attn_launch.argtypes = [_P] * 6 + [_I] * 9 + [_P]
-    lib.decode_attn_launch.restype = ctypes.c_int
+    for fn in (lib.decode_attn_launch, lib.decode_attn_partials_launch):
+        fn.argtypes = [_P] * 6 + [_I] * 9 + [_P]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -107,10 +114,9 @@ def _check(q, k, v) -> None:
                          "does not)")
 
 
-def decode_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     length: int) -> torch.Tensor:
-    """q (B, H, D), k/v (B, S, KV, D), f32 or bf16; ``length`` valid
-    positions (clamped to [0, S]) -> (B, H, D) in q's dtype."""
+def _launch(entry: str, q, k, v, out, length: int) -> None:
+    """One launch of the kernel's ``entry`` into ``out`` (the output, or
+    the partials' f32 buffer), counted in ``LAUNCHES[entry]``."""
     _check(q, k, v)
     lib = library()
     b, h, d = q.shape
@@ -119,17 +125,36 @@ def decode_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     length = min(max(int(length), 0), s)
     nsplit, per_split = splits(b * kv, length, _sms(q.device.index),
                                TILE[q.dtype])
-    out = torch.empty_like(q)
     ws = torch.empty(b * kv * nsplit * g * (d + 2) if nsplit > 1 else 1,
                      dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         tk = _tickets(q.device, b * kv)
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.decode_attn_launch(
+        rc = getattr(lib, f"{entry}_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             ws.data_ptr(), tk.data_ptr(), b, s, kv, g, d, length, per_split,
             nsplit, _DTYPES[q.dtype], stream)
     if rc != 0:
-        raise RuntimeError(f"decode_attn kernel launch failed: CUDA error {rc}")
-    LAUNCHES["decode_attn"] += 1
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[entry] += 1
+
+
+def decode_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     length: int) -> torch.Tensor:
+    """q (B, H, D), k/v (B, S, KV, D), f32 or bf16; ``length`` valid
+    positions (clamped to [0, S]) -> (B, H, D) in q's dtype."""
+    out = torch.empty_like(q)
+    _launch("decode_attn", q, k, v, out, length)
     return out
+
+
+def decode_attn_partials_cuda(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, length: int) -> tuple:
+    """The same attention's partials, all f32: (m (B, H) the max of the
+    scaled scores, l (B, H) the sum of exp(s - m), acc (B, H, D) the
+    unnormalised output); ``length`` 0 gives m = -inf, l = 0, acc = 0."""
+    b, h, d = q.shape
+    part = torch.empty(b * h * (d + 2), dtype=torch.float32, device=q.device)
+    _launch("decode_attn_partials", q, k, v, part, length)
+    return (part[:b * h].view(b, h), part[b * h:2 * b * h].view(b, h),
+            part[2 * b * h:].view(b, h, d))

@@ -79,6 +79,14 @@ def decode_attn(q, k, v, length: int):
     return ref.decode_attn_plain(q, k, v, length)
 
 
+def decode_attn_partials(q, k, v, length: int):
+    """``decode_attn``'s partials, all f32: (m (B, H), l (B, H), acc (B,
+    H, D)); merged by ``sharding/collectives.py::merge_partials``."""
+    if _device(q) == "cuda":
+        return DA.decode_attn_partials_cuda(q, k, v, length)
+    return ref.decode_attn_partials_plain(q, k, v, length)
+
+
 def ssd_scan(x, a, b, c, chunk: int):
     """Chunked SSD scan -> (y (B,S,H,P), final state (B,H,P,N)), f32.
 

@@ -6,7 +6,10 @@ parameter per row, so one call covers the whole federation as the CUDA
 kernels do; ``sparsify_quantize_ef_segmented_plain`` takes one parameter
 per (row, leaf), the per-layer codec's call, and
 ``sparsify_quantize_ef_blocks_plain`` the same on a rank's blocks under
-a counter map (the codecs on a model axis).  ``decode_attn_plain`` is the twin of ``decode_attn_ref``, and
+a counter map (the codecs on a model axis).  ``decode_attn_plain`` is
+the twin of ``decode_attn_ref`` (``decode_attn_partials_plain`` gives the
+TPU kernel's own (m, l, acc) outputs before its wrapper divides, and
+``decode_attn_partials_tol`` the rounding a kernel's may differ by), and
 ``ssd_scan_plain`` is the port's ``models/mamba2.py::ssd_chunked`` (the
 reference's "ref" route for ``ssd_scan``).  The CPU path runs them
 (``ops.py``), and ``chip_smoke.py`` holds the kernels to them on the card.
@@ -133,6 +136,60 @@ def decode_attn_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v.to(torch.float32))
     return out.reshape(b, h, d).to(q.dtype)
+
+
+def decode_attn_partials_plain(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, length: int) -> tuple:
+    """``decode_attn_plain``'s partials, all f32, in head order: m (B, H)
+    the max of the scaled scores over the valid entries, l (B, H) the sum
+    of exp(s - m), acc (B, H, D) the unnormalised output; no valid entry
+    gives m = -inf, l = 0 and acc = 0."""
+    b, s, kv, d = k.shape
+    h = q.shape[1]
+    qf = q.to(torch.float32).reshape(b, kv, h // kv, d)
+    scores = torch.einsum("bkgd,bskd->bkgs", qf,
+                          k.to(torch.float32)) / math.sqrt(d)
+    valid = torch.arange(s, device=q.device) < length
+    scores = torch.where(valid, scores, -torch.inf)
+    m = (scores.amax(-1) if s
+         else scores.new_full(scores.shape[:-1], -torch.inf))
+    p = torch.where(torch.isfinite(m)[..., None],
+                    torch.exp(scores - m[..., None]), 0.0)
+    acc = torch.einsum("bkgs,bskd->bkgd", p, v.to(torch.float32))
+    return m.reshape(b, h), p.sum(-1).reshape(b, h), acc.reshape(b, h, d)
+
+
+def decode_attn_partials_tol(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, length: int) -> tuple:
+    """How far a kernel's (m, l, acc) may lie from
+    ``decode_attn_partials_plain``'s on the same inputs: tolerances of the
+    partials' shapes, from the rounding that the two can differ by, so
+    that a block that drops or adds keys shows.
+
+    Both sum q . k in f32 (the bf16 route's mma accumulates in f32): with
+    u = 2^-23 a step (a tensor core may truncate), a score is within D u
+    C of its exact value in each, C = sum_d |q_d k_d| / sqrt(D) of the
+    row's valid keys at most.  So m is within 2 D u C (and its scale's 2u
+    |m|); exp carries twice that into each probability relatively, and a
+    sum of S terms adds S u: l within that relative part of l, acc within
+    it of sum_j p_j |v_j|.  The bf16 route rounds each probability to
+    bf16 (2^-9 relatively) before the product with V: 2^-8 of sum_j p_j
+    |v_j| more on acc.  A row with no valid key has tolerances 0."""
+    u = 2.0 ** -23
+    b, s, kv, d = k.shape
+    h = q.shape[1]
+    n = min(max(int(length), 0), s)
+    qa = q.to(torch.float32).abs().reshape(b, kv, h // kv, d)
+    c = (torch.einsum("bkgd,bskd->bkgs", qa,
+                      k[:, :n].to(torch.float32).abs()).amax(-1)
+         / math.sqrt(d) if n else qa.new_zeros((b, kv, h // kv)))
+    m, l, pv = decode_attn_partials_plain(q, k, v.abs(), n)
+    fin = torch.isfinite(m)
+    score = 2 * d * u * c.reshape(b, h)
+    tm = torch.where(fin, score + 2 * u * m.abs(), 0.0)
+    rel = torch.where(fin, 2 * score + n * u, 0.0)
+    unit = 2.0 ** -8 if q.dtype == torch.bfloat16 else 0.0
+    return tm, rel * l, (rel + unit)[..., None] * pv
 
 
 def ssd_scan_plain(x, a, b, c, chunk: int):

@@ -23,9 +23,12 @@ collectives (``launch/roofline.py::step_collectives``), the H100 roofline
 terms and bottleneck and ``model_flops``.  A train step's card holds its
 blocks of its data rank's clients (one client a data rank) and the global
 batch; a serve step's card its blocks on both axes (``RULES_SERVE``): its
-rows of the global batch, or at long_500k (batch 1) the whole batch and
-its block of the ring cache's slots, and ``tokens_per_rank`` counts the
-tokens it computes.
+rows of the global batch, or where the batch does not divide (long_500k
+at batch 1) the whole batch and its block of the cache's slots; over
+``model`` a cache whose kv heads do not divide holds every kv head over
+the card's block of the slots (``sharding/rules.py::model_slots``, where
+the rules cut its ``head_dim``); ``tokens_per_rank`` counts the tokens
+it computes.
 ``--execute`` (the counterpart of compile + ``memory_analysis``) runs
 each planned step whose arguments fit, once, on ``--device`` (the card by
 default; a missing card raises) from random arguments

@@ -15,8 +15,8 @@ the D ranks that share its model index, and rank r holds clients
 every family: dense, VLM, MoE, ssm, hybrid, audio (Whisper) and the
 paper's vision (ResNet-9) and trajectory (LaneGCN) models, channel-
 parallel.  A serve step splits its batch over ``data`` (or, where the
-batch does not divide, the long_500k ring cache's slots) through
-``data_axis``.  The seed mesh is a ``ClientMesh`` whose rows are seeds
+batch does not divide, its cache's slots) through ``data_axis``.  The
+seed mesh is a ``ClientMesh`` whose rows are seeds
 (``experiments/batch.py``); the ingest server splits each packed batch
 over a ``ClientMesh`` made by ``make_mesh`` (``serve/server.py``).
 

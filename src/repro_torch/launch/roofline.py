@@ -119,9 +119,11 @@ def axis_collectives(kind: str, cfg, m: int, tokens: int,
     squares), the gathers (``gathers``), the vocab-parallel embedding's
     all-reduce, and in serving the logits' gather, in training the loss's
     gather and all-reduce; under a ``remat`` checkpoint a layer's forward
-    twice.  Backward (training): each ``copy_to``'s all-reduce (a region's
-    input, the whole leaves a rank's own work reads, the MoE gate
-    weights, the norm's sum of squares) and each "sum" gather's.  The
+    twice; a decode over a cache cut on its slots, each attention's merge
+    (``_slot_merges``).  Backward (training): each ``copy_to``'s
+    all-reduce (a region's input, the whole leaves a rank's own work
+    reads, the MoE gate weights, the norm's sum of squares) and each
+    "sum" gather's.  The
     vision and trajectory models' are counted by running them on the meta
     device (``_traced_collectives``)."""
     if m == 1:
@@ -164,6 +166,7 @@ def axis_collectives(kind: str, cfg, m: int, tokens: int,
             _add(ev, "all-reduce", act, n_attn * afwd)
             if train:
                 _add(ev, "all-reduce", act, n_attn)
+        _slot_merges(ev, kind, cfg, m, tokens, n_attn)
         if cfg.family in ("dense", "vlm") and cfg.d_ff % m == 0:
             _add(ev, "all-reduce", act, nl * afwd)
             if train:
@@ -204,6 +207,27 @@ def _add(ev: list, k: str, b: float, n: int) -> None:
         ev.append((k, b, n))
 
 
+def _slot_merges(ev: list, kind: str, cfg, m: int, tokens: int,
+                 n: int) -> None:
+    """A decode's collectives over a cache whose slots are cut over the
+    model axis (``models/layers.py::slot_cut``), for each of its ``n``
+    attentions: the merge's all-gather of every rank's (B, H, D + 2) f32
+    partials (``collectives.merge_partials``) and, where the rank runs
+    its block of the q heads (``layers.q_rows``), q's all-gather before
+    it; ``tokens`` the rank's sequences."""
+    from repro_torch.models.layers import q_rows, slot_cut
+    from repro_torch.sharding.collectives import ModelAxis
+
+    axis = ModelAxis(None, 0, m)
+    if kind != "decode" or slot_cut(cfg, axis) is None:
+        return
+    h, d = cfg.num_heads, cfg.resolved_head_dim
+    if q_rows(cfg, axis) is not None:
+        ab = torch_dtype(cfg.dtype).itemsize
+        _add(ev, "all-gather", tokens * h * d * ab, n)
+    _add(ev, "all-gather", m * tokens * h * (d + 2) * 4, n)
+
+
 def _vocab_ends(ev: list, train: bool, cfg, m: int, act: float,
                 tokens: int, logits: float) -> None:
     """The vocab-parallel embedding's and loss's (or logits') collectives
@@ -224,7 +248,8 @@ def _audio_collectives(kind: str, cfg, m: int, tokens: int, clients: int,
     """``axis_collectives`` of the enc-dec (``models/encdec.py``): each
     attention's, each GELU MLP's and the vocabulary's, the encoder output's
     one ``copy_to`` into the cross-attentions; a decode step runs no
-    encoder, and its cross-attention reads the cache (no k, v leaves)."""
+    encoder, and its cross-attention reads the cache (no k, v leaves);
+    over caches cut on their slots both attentions merge a layer."""
     from repro_torch.models.layers import KV_KEYS, head_plan
     from repro_torch.sharding.collectives import ModelAxis
 
@@ -252,6 +277,7 @@ def _audio_collectives(kind: str, cfg, m: int, tokens: int, clients: int,
                 _add(ev, "all-reduce", a, n)
     if split and train:  # the encoder output into the cross-attentions
         _add(ev, "all-reduce", act_enc, 1)
+    _slot_merges(ev, kind, cfg, m, tokens, 2 * cfg.num_layers)
     for name, shape, grad, n, site in gathers(cfg, m):
         if kind == "decode" and (site == "enc" or (site == "cross"
                                                    and name in KV_KEYS)):
@@ -305,9 +331,11 @@ def data_collectives(cfg, shape, data: int, model: int = 1) -> list:
     gathered (``collectives.counts_before``) where a dispatch group holds
     tokens of two ranks (``models/moe.py::Span``), the (groups, E) f32
     counts of the whole batch.  Where it puts a decode cache's slots there
-    (long_500k at batch 1): each attention layer's merge
+    (a batch that does not divide: long_500k at batch 1, say): each
+    attention's merge
     (``collectives.merge_softmax``), one all-gather of the rank's
-    (B, H_rank, D + 2) f32 partials.  None on a data axis of 1."""
+    (B, H_rank, D + 2) f32 partials (after the model axis's merge where
+    the slots are cut there too).  None on a data axis of 1."""
     from repro_torch.launch.steps import cache_max_seq, resolve_cfg
     from repro_torch.models import moe as MOE
     from repro_torch.models.hybrid import segments

@@ -24,8 +24,11 @@ audio family's stub encoder frames) are the reference's numpy draws.
 Sampling is greedy.  ``--model M`` serves every family over a model
 axis of M cards (``sharding/rules.py``'s ``RULES_SERVE``: each rank draws
 and keeps its blocks of the weights; its KV cache, the audio decoder's
-cross-attention cache among them, holds its kv heads, its recurrent cache
-its SSD heads), under ``torchrun`` with ``WORLD_SIZE`` M; rank 0 prints.
+cross-attention cache among them, holds its kv heads, or where they do
+not divide and the rules cut the cache's ``head_dim``, every kv head over
+its block of the slots (``sharding/rules.py::model_slots``), its
+recurrent cache its SSD heads), under ``torchrun`` with ``WORLD_SIZE`` M;
+rank 0 prints.
 """
 from __future__ import annotations
 

@@ -29,10 +29,12 @@ A serve step runs on any (data, model) mesh, as ``RULES_SERVE`` places
 it: over ``data`` each rank runs its rows of the batch (the MoE dispatch
 groups that span ranks exchange their expert counts), or, where the batch
 does not divide (long_500k at batch 1), the whole batch over its block of
-the ring cache's slots, the attentions merged over the ranks; a prefill
+the cache's slots, the attentions merged over the ranks; a prefill
 whose batch does not divide runs whole on every rank, which keeps its
-block of the cache's slots.  ``local_args`` cuts a rank's arguments out
-of whole ones.
+block of the cache's slots.  Over ``model`` a decode cache whose kv heads
+do not divide holds the rank's block of the slots where the rules cut its
+``head_dim`` (``sharding/rules.py::model_slots``), nested in its data
+block.  ``local_args`` cuts a rank's arguments out of whole ones.
 """
 from __future__ import annotations
 
@@ -206,6 +208,8 @@ def build_step(arch_cfg: ModelConfig, shape: InputShape,
     mkw = {} if ma is None else {"model_axis": ma}
     kw = (dict(mkw, data_axis=da) if split == "batch" and cfg.is_moe
           else mkw)
+    if split == "seq" and cfg.num_heads:  # its block of the cache's slots
+        kw = dict(kw, seq_axis=da)
     out = dict(model=model, cfg=cfg, model_axis=ma, blocks=blocks,
                data_axis=da, input_blocks=in_bl, sizes=sizes, coords=coords,
                split=split)
@@ -235,13 +239,7 @@ def build_step(arch_cfg: ModelConfig, shape: InputShape,
             def run(params, batch):
                 return model.prefill(params, cfg, batch["tokens"], **kw)
 
-        if split == "seq":  # the rank keeps its block of the cache's slots
-            def step(params, batch):
-                logits, cache = run(params, batch)
-                return logits, data_cache(model, cache, sizes, coords)
-        else:
-            step = run
-        return dict(out, step=step, args=(params, local),
+        return dict(out, step=run, args=(params, local),
                     in_shardings=(p_sh, b_sh))
 
     # decode
@@ -252,8 +250,6 @@ def build_step(arch_cfg: ModelConfig, shape: InputShape,
                              "meta", **mkw)
     c_sh = _cache_shardings(model, cfg, model.init_cache(
         cfg, shape.global_batch, max_seq, device="meta"), rules, mesh)
-    if split == "seq":
-        kw = dict(kw, seq_axis=da)
 
     def step(params, cache, token, pos):
         return model.decode_step(params, cfg, cache, token, int(pos), **kw)

@@ -22,7 +22,10 @@ there).  The encoder output enters the decoder's cross-attentions through
 one ``copy_to``, and each layer's cross k, v and the cache's ``xk`` /
 ``xv`` hold the rank's kv heads, so ``decode_attn`` runs on the rank's
 (B, H/M, KV/M, encoder_seq, D).  Where the heads do not divide (20 on 8)
-every rank runs every head and the caches are whole.  ``forward``
+every rank runs every head, and as the rules cut the caches' ``head_dim``
+there, each rank holds every kv head over its block of each cache's
+slots (``layers.cache_block``: 188 of the 1,500 cross slots at M = 8);
+its attentions merge the blocks' partials over the axis.  ``forward``
 returns the rank's vocabulary block of the logits, ``loss_fn`` the whole
 loss, ``prefill`` and ``decode_step`` the whole logits.
 """
@@ -128,7 +131,8 @@ def encode(params, cfg, frames, model_axis=None):
     def body(lp, x):  # each layer under cfg.remat ("full" only)
         h = _ln(lp["ln_attn"], x, cfg.norm_eps)
         q, k, v = L.attn_qkv(lp["attn"], cfg, h, model_axis)
-        attn = L.causal_attention(q, k, v, causal=False)
+        attn = L.causal_attention(q, L.head_kv(k, cfg, model_axis),
+                                  L.head_kv(v, cfg, model_axis), causal=False)
         x = x + L.attn_out(lp["attn"], attn, x.dtype, cfg, model_axis)
         h = _ln(lp["ln_mlp"], x, cfg.norm_eps)
         return x + _gelu_mlp(lp["mlp"], h, cfg, model_axis)
@@ -141,8 +145,9 @@ def encode(params, cfg, frames, model_axis=None):
 
 def _cross_kv(lp, cfg, enc_out, model_axis=None):
     """One decoder layer's cross-attention k, v (B, encoder_seq, KV, D),
-    of the rank's kv heads over a model axis.  ``enc_out`` may be a pair
-    (the encoder output for k, for v)."""
+    of the rank's kv heads over a model axis (every kv head where the
+    caches' slots are cut, ``layers.slot_cut``).  ``enc_out`` may be a
+    pair (the encoder output for k, for v)."""
     ca = L.head_leaves(lp["cross_attn"], cfg, model_axis, L.KV_KEYS)
     enc_k, enc_v = enc_out if isinstance(enc_out, tuple) else (enc_out,) * 2
     dt = enc_k.dtype
@@ -181,24 +186,30 @@ def precompute_cross_kv(params, cfg, enc_out, model_axis=None):
     return torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs])
 
 
-def _decoder(params, cfg, tokens, enc_out, cache=None, model_axis=None):
+def _decoder(params, cfg, tokens, enc_out, cache=None, model_axis=None,
+             at: int = 0):
     """Teacher-forced decoder pass from position 0: the final normed
     activations; with ``cache``, each layer's self and cross k, v are
-    written into it."""
+    written into it (its self slot 0 the whole cache's ``at``; the
+    rank's blocks where the caches' slots are cut, ``layers.
+    cache_block``)."""
     x = _add_positions(cfg, L.embed(params, cfg, tokens, model_axis))
-    s = tokens.shape[1]
     enc_out = _to_cross(cfg, enc_out, model_axis)
     ma = model_axis
+    xblk = L.cache_block(cfg, ma, enc_out.shape[1])
+
+    def own(k, v):  # the kv heads of the rank's q heads
+        return L.head_kv(k, cfg, ma), L.head_kv(v, cfg, ma)
 
     def block(lp, x, enc_out):
         h = _ln(lp["ln_self"], x, cfg.norm_eps)
         q, k, v = L.attn_qkv(lp["self_attn"], cfg, h, ma)
-        attn = L.causal_attention(q, k, v)
+        attn = L.causal_attention(q, *own(k, v))
         x = x + L.attn_out(lp["self_attn"], attn, x.dtype, cfg, ma)
         h = _ln(lp["ln_cross"], x, cfg.norm_eps)
         q2 = L.attn_q(lp["cross_attn"], cfg, h, ma)
         k2, v2 = _cross_kv(lp, cfg, enc_out, ma)
-        xatt = L.causal_attention(q2, k2, v2, causal=False)
+        xatt = L.causal_attention(q2, *own(k2, v2), causal=False)
         x = x + L.attn_out(lp["cross_attn"], xatt, x.dtype, cfg, ma)
         h = _ln(lp["ln_mlp"], x, cfg.norm_eps)
         return x + _gelu_mlp(lp["mlp"], h, cfg, ma), k, v, k2, v2
@@ -216,10 +227,10 @@ def _decoder(params, cfg, tokens, enc_out, cache=None, model_axis=None):
             x = checkpoint(body, policy, lp, x, enc_out, enc_out)
             continue
         x, k, v, k2, v2 = block(lp, x, enc_out)  # serving: no checkpoint
-        cache["k"][i, :, :s] = k
-        cache["v"][i, :, :s] = v
-        cache["xk"][i] = k2
-        cache["xv"][i] = v2
+        L.write_block(cache["k"][i], k, at)
+        L.write_block(cache["v"][i], v, at)
+        cache["xk"][i] = k2 if xblk is None else k2[:, xblk]
+        cache["xv"][i] = v2 if xblk is None else v2[:, xblk]
     return _ln(params["dec_ln_f"], x, cfg.norm_eps)
 
 
@@ -244,12 +255,16 @@ def loss_fn(params, cfg, batch, model_axis=None):
 
 def init_cache(cfg, batch: int, max_seq: int, device="cpu", model_axis=None):
     """The self- and cross-attention caches: over ``model_axis`` the kv
-    heads of the rank's q heads (``layers.head_plan``)."""
+    heads of the rank's q heads (``layers.head_plan``), or every kv head
+    over the rank's block of each cache's slots (``layers.cache_block``;
+    the positions whole)."""
     hd = cfg.resolved_head_dim
     dt = cfg.activation_dtype
-    kv = len(L.head_plan(cfg, model_axis).kv)
-    self_shape = (cfg.num_layers, batch, max_seq, kv, hd)
-    cross_shape = (cfg.num_layers, batch, cfg.encoder_seq, kv, hd)
+    kv = len(L.cache_kv(cfg, model_axis))
+    self_shape = (cfg.num_layers, batch,
+                  L.cache_slots(cfg, model_axis, max_seq), kv, hd)
+    cross_shape = (cfg.num_layers, batch,
+                   L.cache_slots(cfg, model_axis, cfg.encoder_seq), kv, hd)
     return {
         "k": torch.zeros(self_shape, dtype=dt, device=device),
         "v": torch.zeros(self_shape, dtype=dt, device=device),
@@ -261,19 +276,21 @@ def init_cache(cfg, batch: int, max_seq: int, device="cpu", model_axis=None):
 
 
 def prefill(params, cfg, tokens, *, frames=None, max_seq=None,
-            model_axis=None, **_):
+            model_axis=None, seq_axis=None, **_):
     """Encoder + teacher-forced decoder prompt pass; returns (last logits,
-    cache), the cache allocated once at ``max_seq`` self-attention slots."""
+    cache), the cache allocated once at ``max_seq`` self-attention slots
+    (``seq_axis``: the rank's block of them, ``layers.prompt_slots``)."""
     enc = encode(params, cfg, frames, model_axis)
     b, s = tokens.shape
     max_seq = max_seq or s
     if max_seq < s:
         raise ValueError(f"max_seq {max_seq} < prompt length {s}")
-    cache = init_cache(cfg, b, max_seq, enc.device, model_axis)
-    x = _decoder(params, cfg, tokens, enc, cache, model_axis)
+    slots, first, at = L.prompt_slots(cfg, model_axis, seq_axis, max_seq)
+    cache = init_cache(cfg, b, slots, enc.device, model_axis)
+    x = _decoder(params, cfg, tokens, enc, cache, model_axis, at)
     logits = L.gather_vocab(L.unembed(params, cfg, x[:, -1], model_axis), cfg,
                             model_axis)
-    cache["pos"][:, :s] = torch.arange(s, dtype=torch.int32, device=enc.device)
+    L.prompt_positions(cache["pos"], s, first)
     return logits, cache
 
 
@@ -287,20 +304,20 @@ def decode_step(params, cfg, cache, token, pos: int, model_axis=None,
     backend; the cross-attention reads each layer's ``xk[l]``, ``xv[l]``
     (contiguous slices of the cache) through ``decode_attn`` with every
     encoder position valid.  ``seq_axis``: the self-attention slots are
-    the rank's block of the ring, as ``transformer.decode_step``'s.
+    the rank's block of the ring, as ``transformer.decode_step``'s; where
+    both caches' slots are cut over the model axis (``layers.slot_cut``)
+    each attention runs over the rank's block of them (the cross one
+    through the kernel's partials entry) and merges over the axis.
     """
     pos = int(pos)
     ma = model_axis
-    sa = seq_axis if L._split(seq_axis) else None
-    cs = L.cache_slot(pos, cache["k"].shape[2], True, sa)
-    slot = cs.local
+    cut = L.decode_cut(cfg, ma, seq_axis, cache["pos"], pos, True)
+    slot = cut.slot
     x = L.embed(params, cfg, token, ma)[:, None, :]
-    pe_pos = torch.tensor([min(pos, cs.window - 1)], device=x.device)
+    pe_pos = torch.tensor([min(pos, cut.token.window - 1)], device=x.device)
     x = x + _sinusoid(pe_pos, cfg.d_model).to(x.dtype)[None]
-    if slot is not None:
-        cache["pos"][:, slot] = pos
-    length = cs.length
-    enc_len = cache["xk"].shape[2]
+    cross = dict(slot_axis=cut.slot_axis, rows=cut.rows)
+    enc_len = cache["xk"].shape[2]  # the rank's cross slots, all valid
     for i in range(cfg.num_layers):
         lp = layer(params["dec_layers"], i)
         kc, vc = cache["k"][i], cache["v"][i]
@@ -309,13 +326,12 @@ def decode_step(params, cfg, cache, token, pos: int, model_axis=None,
         if slot is not None:
             kc[:, slot] = k[:, 0].to(kc.dtype)
             vc[:, slot] = v[:, 0].to(vc.dtype)
-        attn = L.decode_attention(q[:, 0], kc, vc, length,
-                                  window_pos=cache["pos"], seq_axis=sa)
+        attn = L.decode_attention(q[:, 0], kc, vc, cut.length, **cut.kw)
         x = x + L.attn_out(lp["self_attn"], attn[:, None], x.dtype, cfg, ma)
         h = _ln(lp["ln_cross"], x, cfg.norm_eps)
         q2 = L.attn_q(lp["cross_attn"], cfg, h, ma)
         xatt = L.decode_attention(q2[:, 0], cache["xk"][i], cache["xv"][i],
-                                  enc_len)
+                                  enc_len, **cross)
         x = x + L.attn_out(lp["cross_attn"], xatt[:, None], x.dtype, cfg, ma)
         h = _ln(lp["ln_mlp"], x, cfg.norm_eps)
         x = x + _gelu_mlp(lp["mlp"], h, cfg, ma)

@@ -15,9 +15,11 @@ Over a ``model`` axis (``model_axis``) the Mamba2 layers run on the
 rank's heads (``models/mamba2.py``) and the shared block on its
 attention heads through ``layers.attn_qkv`` / ``attn_out``, as the
 dense family's (``layers.head_plan``); its cache slots hold the kv heads
-of the rank's q heads.  Over a serve step's ``data`` axis a rank runs its
-rows of the batch, or at long_500k (batch 1) the whole batch with its
-block of the shared attention's ring (``seq_axis``).
+of the rank's q heads, or where the rules cut their ``head_dim``, every
+kv head over the rank's block of the ring (``layers.cache_block``).
+Over a serve step's ``data`` axis a rank runs its rows of the batch, or
+at long_500k (batch 1) the whole batch with its block of the shared
+attention's ring (``seq_axis``).
 """
 from __future__ import annotations
 
@@ -57,12 +59,14 @@ def param_specs(cfg) -> dict:
 
 
 def _shared_attn(params, cfg, x, cos, sin, model_axis=None):
-    """The shared block over a whole sequence: (x + attn, k, v)."""
+    """The shared block over a whole sequence: (x + attn, k, v: every kv
+    head's where the cache's slots are cut, ``layers.slot_cut``)."""
     sp = params["shared_attn"]
     h = L.rms_norm(x, sp["ln"], cfg.norm_eps)
     q, k, v = L.attn_qkv(sp["attn"], cfg, h, model_axis)
     q, k = L.apply_rope(q, k, cos, sin)
-    attn = L.causal_attention(q, k, v)
+    attn = L.causal_attention(q, L.head_kv(k, cfg, model_axis),
+                              L.head_kv(v, cfg, model_axis))
     return x + L.attn_out(sp["attn"], attn, x.dtype, cfg, model_axis), k, v
 
 
@@ -99,10 +103,11 @@ def loss_fn(params, cfg, batch, model_axis=None):
 def init_cache(cfg, batch: int, max_seq: int, device="cpu", model_axis=None):
     """The Mamba2 cache and the shared block's (invocations, B, max_seq,
     KV, D) slots: over ``model_axis`` the rank's blocks and the kv heads
-    of its q heads (``layers.head_plan``)."""
+    of its q heads (``layers.head_plan``), or every kv head over its
+    block of the slots (``layers.cache_block``; the positions whole)."""
     na = len(segments(cfg)) - 1
-    kv = len(L.head_plan(cfg, model_axis).kv)
-    shape = (na, batch, max_seq, kv, cfg.resolved_head_dim)
+    shape = (na, batch, L.cache_slots(cfg, model_axis, max_seq),
+             len(L.cache_kv(cfg, model_axis)), cfg.resolved_head_dim)
     c = M2.init_cache(cfg, batch, device=device, model_axis=model_axis)
     c["attn_k"] = torch.zeros(shape, dtype=cfg.activation_dtype, device=device)
     c["attn_v"] = torch.zeros(shape, dtype=cfg.activation_dtype, device=device)
@@ -120,22 +125,25 @@ def cache_axes(cfg) -> dict:
     return ax
 
 
-def prefill(params, cfg, tokens, *, max_seq=None, model_axis=None, **_):
+def prefill(params, cfg, tokens, *, max_seq=None, model_axis=None,
+            seq_axis=None, **_):
     """Run the prompt: returns (last logits, recurrent + shared-attn cache),
-    the cache allocated once at ``max_seq`` attention slots."""
+    the cache allocated once at ``max_seq`` attention slots (``seq_axis``:
+    the rank's block of them, ``layers.prompt_slots``)."""
     x = L.embed(params, cfg, tokens, model_axis)
     b, s = tokens.shape
     max_seq = max_seq or s
     if max_seq < s:
         raise ValueError(f"max_seq {max_seq} < prompt length {s}")
-    cache = init_cache(cfg, b, max_seq, x.device, model_axis)
+    slots, first, at = L.prompt_slots(cfg, model_axis, seq_axis, max_seq)
+    cache = init_cache(cfg, b, slots, x.device, model_axis)
     cos, sin = _cos_sin(cfg, b, s, x.device)
     off = 0
     for i, size in enumerate(segments(cfg)):
         if i > 0:
             x, k, v = _shared_attn(params, cfg, x, cos, sin, model_axis)
-            cache["attn_k"][i - 1, :, :s] = k
-            cache["attn_v"][i - 1, :, :s] = v
+            L.write_block(cache["attn_k"][i - 1], k, at)
+            L.write_block(cache["attn_v"][i - 1], v, at)
         for j in range(off, off + size):
             lp = layer(params["layers"], j)
             h = L.rms_norm(x, lp["ln"], cfg.norm_eps)
@@ -149,7 +157,7 @@ def prefill(params, cfg, tokens, *, max_seq=None, model_axis=None, **_):
         off += size
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = L.unembed(params, cfg, x[:, -1], model_axis)
-    cache["pos"][:, :s] = torch.arange(s, dtype=torch.int32, device=x.device)
+    L.prompt_positions(cache["pos"], s, first)
     return L.gather_vocab(logits, cfg, model_axis), cache
 
 
@@ -165,19 +173,15 @@ def decode_step(params, cfg, cache, token, pos: int, model_axis=None,
     Zamba2's head dim 112, outside ``decode_attn``'s (64, 128), never
     reaches the kernel.  ``seq_axis``: the attention slots are the rank's
     block of the ring (every rank runs the whole batch and the whole
-    Mamba2 state), as ``transformer.decode_step``'s.
+    Mamba2 state), as ``transformer.decode_step``'s, and over the model
+    axis where the ring's slots are cut there (``layers.slot_cut``).
     """
     pos = int(pos)
     x = L.embed(params, cfg, token, model_axis)[:, None, :]
     b = x.shape[0]
-    sa = seq_axis if L._split(seq_axis) else None
-    cs = L.cache_slot(pos, cache["attn_k"].shape[2], True, sa)
-    slot = cs.local
+    cut = L.decode_cut(cfg, model_axis, seq_axis, cache["pos"], pos, True)
     posb = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     cos, sin = L.rope_cos_sin(posb, cfg.resolved_head_dim, cfg.rope_theta)
-    if slot is not None:
-        cache["pos"][:, slot] = pos
-    length = cs.length
     sp = params["shared_attn"]
     off = 0
     for i, size in enumerate(segments(cfg)):
@@ -186,11 +190,10 @@ def decode_step(params, cfg, cache, token, pos: int, model_axis=None,
             h = L.rms_norm(x, sp["ln"], cfg.norm_eps)
             q, k, v = L.attn_qkv(sp["attn"], cfg, h, model_axis)
             q, k = L.apply_rope(q, k, cos, sin)
-            if slot is not None:
-                ak[:, slot] = k[:, 0].to(ak.dtype)
-                av[:, slot] = v[:, 0].to(av.dtype)
-            attn = L.decode_attention(q[:, 0], ak, av, length,
-                                      window_pos=cache["pos"], seq_axis=sa)
+            if cut.slot is not None:
+                ak[:, cut.slot] = k[:, 0].to(ak.dtype)
+                av[:, cut.slot] = v[:, 0].to(av.dtype)
+            attn = L.decode_attention(q[:, 0], ak, av, cut.length, **cut.kw)
             x = x + L.attn_out(sp["attn"], attn[:, None], x.dtype, cfg,
                                model_axis)
         for j in range(off, off + size):

@@ -12,11 +12,16 @@ Conventions, as in the reference:
   (``window_pos``) mode, through the plain einsum path;
 * the int8 KV cache (``quantize_kv``, ``decode_attention_q``) is plain
   torch, as the reference's is plain ``jnp`` outside any kernel;
-* a cache whose slots are split over a serve step's data ranks (the
-  long_500k ring, ``seq_axis``): each rank attends over its slots on the
-  plain path and the partial softmaxes are merged
-  (``collectives.merge_softmax``); ``cache_slot`` says which rank writes a
-  step's token.
+* a cache whose slots are split over ranks: over a serve step's data
+  ranks where its batch does not divide them (``seq_axis``), over the
+  model axis where the rules cut the cache's ``head_dim`` (``slot_axis``,
+  ``slot_cut``: the port cuts its slots, ``rules.model_slots``), the model
+  block nested in the data block.  Each rank attends over its slots, by
+  the ``decode_attn`` kernel's partials entry (a ring, ``window_pos``: the
+  plain path's), and the partial softmaxes are merged over the model
+  axis, then the data axis (``collectives.merge_partials``);
+  ``cache_slot`` says which rank writes a step's token and how many of a
+  rank's slots are valid, ``decode_cut`` the whole layout of a step.
 
 Tensor parallelism over a ``model`` axis (``model_axis``, a
 ``sharding.collectives.ModelAxis``; None, or an axis of one, runs the
@@ -39,9 +44,13 @@ gathers that leaf over ``model`` before use, and its gradient returns to
 the block: ``q_norm`` / ``k_norm`` (``head_dim``), and ``wk``, ``wv``,
 ``bk``, ``bv`` when the kv heads do not divide over the axis (they fall
 back to ``head_dim``: the rank gathers them and keeps the kv heads its q
-heads read).  When the q heads do not divide (24 or 28 heads on 16), the
-attention runs whole on every rank from gathered leaves; an ``mlp`` or
-vocab that does not divide is held whole by the rules and runs whole.
+heads read; where a serve cache's slots are cut over the axis,
+``slot_cut``, ``attn_qkv`` gives every kv head's k and v, which
+``head_kv`` cuts back for a whole-sequence attention, and the rank
+gathers q over the axis for the decode attention, ``q_rows``).  When the q heads do not divide (24 or 28
+heads on 16), the attention runs whole on every rank from gathered
+leaves; an ``mlp`` or vocab that does not divide is held whole by the
+rules and runs whole.
 
 The reference's ``_replicate`` (``repro/models/layers.py:211-225``) is a
 GSPMD hint, a sharding constraint on an activation inside one program;
@@ -58,7 +67,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models.remat import dot
 from repro_torch.sharding import collectives as C
-from repro_torch.sharding.rules import ParamSpec
+from repro_torch.sharding.rules import ParamSpec, model_slots
 
 F32 = torch.float32
 
@@ -198,22 +207,38 @@ def causal_attention(q, k, v, *, chunk: int = 1024, sliding_window: int = 0,
 
 def decode_attention(q, k_cache, v_cache, length: int, *,
                      window_pos: Optional[torch.Tensor] = None,
-                     seq_axis=None):
+                     seq_axis=None, slot_axis=None,
+                     rows: Optional[slice] = None):
     """Single-token attention against a KV cache.
 
-    q: (B, H, D); caches: (B, S, KV, D); ``length``: number of valid cache
-    entries (a Python int).  Without ``window_pos`` this is the
-    ``decode_attn`` kernel (its plain version on the CPU).  ``window_pos``
-    (ring-buffer mode): absolute positions per cache slot (B, S), -1 for an
-    empty slot, used for masking instead of the slot index; that mode is
-    the reference's plain einsum path here as there.  ``seq_axis`` (a
-    ``ModelAxis`` over the ranks that split the cache's slots, with
-    ``window_pos``): the caches are the rank's slots, each rank attends
-    over its own and ``collectives.merge_softmax`` puts them together.
+    q: (B, H, D); caches: (B, S, KV, D); ``length``: the valid entries of
+    the caches given, from slot 0 (a Python int: a rank's own count where
+    its slots are a block of the cache's, ``CacheSlot.local_length``).
+    Without ``window_pos`` this is the ``decode_attn`` kernel (its plain
+    version on the CPU).  ``window_pos`` (ring-buffer mode): absolute
+    positions per cache slot (B, S), -1 for an empty slot, used for
+    masking instead of the slot index; that mode is the reference's plain
+    einsum path here as there.
+
+    A cache whose slots are split over ranks: ``slot_axis`` (the model
+    axis, where the rules cut the cache's ``head_dim``: ``slot_cut``) and
+    ``seq_axis`` (a ``ModelAxis`` over a serve step's data ranks, whose
+    block holds the model blocks).  Each rank attends over its slots, by
+    the kernel's partials entry (``ops.decode_attn_partials``; with
+    ``window_pos`` the plain path's), and the partials are merged over
+    ``slot_axis``, then ``seq_axis`` (``collectives.merge_partials``).
+    ``rows``: q holds the rank's block ``rows`` of the heads (``q_rows``):
+    it is gathered over ``slot_axis`` first, as every rank's slots serve
+    every head, and the model merge's result is cut back to ``rows``.
     """
+    if rows is not None:
+        q = C.all_gather_(q, slot_axis, 1)
+    split = _split(seq_axis) or _split(slot_axis)
     if window_pos is None:
-        _unsplit(seq_axis)
-        return ops.decode_attn(q, k_cache, v_cache, length)
+        if not split:
+            return ops.decode_attn(q, k_cache, v_cache, length)
+        part = ops.decode_attn_partials(q, k_cache, v_cache, length)
+        return _merged(part, slot_axis, seq_axis, rows).to(q.dtype)
     b, s, kv, d = k_cache.shape
     h = q.shape[1]
     groups = h // max(kv, 1)
@@ -221,60 +246,77 @@ def decode_attention(q, k_cache, v_cache, length: int, *,
     s_ = torch.einsum("bkgd,bskd->bkgs", qf, k_cache.to(F32)) / math.sqrt(d)
     valid = window_pos >= 0
     s_ = torch.where(valid[:, None, None, :], s_, -torch.inf)
-    if _split(seq_axis):
-        return _merged(s_, None, v_cache, seq_axis).reshape(b, h, d).to(
-            q.dtype)
+    if split:
+        return _merged(_partials(s_, None, v_cache), slot_axis, seq_axis,
+                       rows).to(q.dtype)
     p = torch.softmax(s_, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(F32))
     return out.reshape(b, h, d).to(q.dtype)
 
 
-def _unsplit(seq_axis) -> None:
-    """Slots split over ranks are masked by their positions: a split
-    cache without ``window_pos`` has none to attend by."""
-    if _split(seq_axis):
-        raise ValueError("a cache whose slots are split over ranks "
-                         "(seq_axis) needs window_pos")
-
-
-def _merged(s_, v_scale, v_cache, seq_axis):
-    """(B, KV, G, D) attention over every rank's slots from this rank's
-    masked scores ``s_`` (B, KV, G, S_rank): its partial max, sum and
-    unnormalised output (an int8 cache's ``v_scale`` on the probability
-    rows), merged over ``seq_axis``.  A rank with no valid slot gives a
-    max of -inf, no NaN, and adds nothing."""
-    m = s_.amax(-1)
+def _partials(s_, v_scale, v_cache) -> tuple:
+    """The partial softmax of masked scores ``s_`` (B, KV, G, S_rank) over
+    the rank's slots, in head order, as ``ops.decode_attn_partials`` gives
+    it: (m (B, H), l (B, H), o (B, H, D)) f32, an int8 cache's
+    ``v_scale`` on the probability rows.  A rank with no valid slot gives
+    m = -inf, l = o = 0, no NaN."""
+    b, kv, g, s = s_.shape
+    m = s_.amax(-1) if s else s_.new_full((b, kv, g), -torch.inf)
     p = torch.exp(s_ - m[..., None])
     p = torch.where(torch.isfinite(m)[..., None], p, 0.0)
     l = p.sum(-1)
     if v_scale is not None:
         p = p * v_scale.permute(0, 2, 1)[:, :, None, :]
     o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(F32))
+    return m.reshape(b, kv * g), l.reshape(b, kv * g), o.reshape(b, kv * g, -1)
+
+
+def _merged(part: tuple, slot_axis, seq_axis, rows) -> torch.Tensor:
+    """(B, H, D) f32 attention from the rank's partials ``part``: merged
+    over ``slot_axis`` (then cut to ``rows``) and over ``seq_axis``."""
+    m, l, o = C.merge_partials(*part, slot_axis)
+    if rows is not None:
+        m, l, o = m[:, rows], l[:, rows], o[:, rows]
     return C.merge_softmax(m, l, o, seq_axis)
 
 
 @dataclasses.dataclass(frozen=True)
 class CacheSlot:
     """Where one decode step's token goes in a cache whose slots may be
-    split over ``seq_axis``: ``window`` the whole cache's slots, ``local``
-    the token's slot in this rank's block (None where another rank owns
-    it), ``length`` the valid slots of the whole cache."""
+    split over ranks: ``window`` the whole cache's slots, ``local`` the
+    token's slot in this rank's block (None where another rank owns it),
+    ``length`` the valid slots of the whole cache, ``start`` and ``size``
+    the rank's block of them."""
 
     window: int
     local: Optional[int]
     length: int
+    start: int
+    size: int
+
+    @property
+    def local_length(self) -> int:
+        """The valid slots of the rank's block of a cache without a ring
+        (the whole cache's valid slots are its first ``length``)."""
+        return min(max(self.length - self.start, 0), self.size)
+
+    def within(self, block: slice) -> "CacheSlot":
+        """The same token in ``block`` of the rank's slots (the model
+        axis's cut, ``cache_block``)."""
+        size = block.stop - block.start
+        local = None if self.local is None else self.local - block.start
+        return CacheSlot(self.window,
+                         local if local is not None and 0 <= local < size
+                         else None, self.length, self.start + block.start,
+                         size)
 
 
 def cache_slot(pos: int, slots: int, ring: bool, seq_axis=None) -> CacheSlot:
     """The slot of position ``pos`` in a cache of which this rank holds
     ``slots`` (block ``seq_axis.rank`` of ``seq_axis.size`` equal blocks;
     all of them without the axis): ``pos % window`` in a ring, ``pos``
-    otherwise.  Only a ring's slots may be split: a cache without one
-    attends through the ``decode_attn`` kernel, which has no merge."""
-    if _split(seq_axis) and not ring:
-        raise ValueError("a cache whose slots are split over ranks "
-                         "(seq_axis) must be a ring: a decode's batch "
-                         "that the data axis divides keeps them whole")
+    otherwise.  ``CacheSlot.within`` cuts the model axis's block out of
+    the rank's slots."""
     n = seq_axis.size if _split(seq_axis) else 1
     r = seq_axis.rank if n > 1 else 0
     window = slots * n
@@ -284,7 +326,53 @@ def cache_slot(pos: int, slots: int, ring: bool, seq_axis=None) -> CacheSlot:
                          f"slots")
     local = slot - r * slots
     return CacheSlot(window, local if 0 <= local < slots else None,
-                     min(pos + 1, window))
+                     min(pos + 1, window), r * slots, slots)
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeCut:
+    """One decode step's layout on this rank (``decode_cut``): ``token``
+    the token in the whole cache (``window``, ``length``), ``slot`` its
+    slot in the rank's k and v block (None where another rank writes it),
+    ``length`` the valid slots of that block (``CacheSlot.
+    local_length``), and ``decode_attention``'s layout arguments."""
+
+    token: CacheSlot
+    slot: Optional[int]
+    length: int
+    window_pos: Optional[torch.Tensor]
+    seq_axis: object
+    slot_axis: object
+    rows: Optional[slice]
+
+    @property
+    def kw(self) -> dict:
+        """``decode_attention``'s keywords over the step's cache."""
+        return dict(window_pos=self.window_pos, seq_axis=self.seq_axis,
+                    slot_axis=self.slot_axis, rows=self.rows)
+
+
+def decode_cut(cfg, model_axis, seq_axis, pos_cache, pos: int,
+               ring: bool) -> DecodeCut:
+    """Where a decode step's token at ``pos`` and the valid slots lie once
+    a cache's slots are cut over ``seq_axis`` (a serve step's data ranks)
+    and over ``model_axis`` (``cache_block``, nested in the data block):
+    writes ``pos`` into ``pos_cache`` (B, slots), the rank's positions,
+    whole on the model axis, where the rank holds the token's slot.  A
+    ring (``ring``) passes its block of the positions as ``window_pos``."""
+    sa = seq_axis if _split(seq_axis) else None
+    slots = pos_cache.shape[1]
+    token = cache_slot(pos, slots, ring, sa)
+    blk = cache_block(cfg, model_axis, slots)
+    kvs = token if blk is None else token.within(blk)
+    if token.local is not None:
+        pos_cache[:, token.local] = pos
+    wpos = None
+    if ring:
+        wpos = pos_cache if blk is None else pos_cache[:, blk]
+    return DecodeCut(token, kvs.local, kvs.local_length, wpos, sa,
+                     None if blk is None else model_axis,
+                     q_rows(cfg, model_axis))
 
 
 def quantize_kv(x):
@@ -301,13 +389,17 @@ def quantize_kv(x):
 
 def decode_attention_q(q, kq, vq, k_scale, v_scale, length: int, *,
                        window_pos: Optional[torch.Tensor] = None,
-                       seq_axis=None):
+                       seq_axis=None, slot_axis=None,
+                       rows: Optional[slice] = None):
     """``decode_attention`` over an int8 cache; the scales multiply the
     score and probability rows, so the dequantised cache never exists.
-    Plain torch, as the reference's is plain ``jnp``.  ``seq_axis`` as
-    ``decode_attention``'s.
+    Plain torch, as the reference's is plain ``jnp``; a split cache's
+    rank masks its slots past ``length`` (its own count) and merges as
+    ``decode_attention``'s, whose other arguments these are.
 
     q: (B, H, D); kq, vq: (B, S, KV, D) int8; scales: (B, S, KV) f32."""
+    if rows is not None:
+        q = C.all_gather_(q, slot_axis, 1)
     b, s, kv, d = kq.shape
     h = q.shape[1]
     groups = h // max(kv, 1)
@@ -315,13 +407,13 @@ def decode_attention_q(q, kq, vq, k_scale, v_scale, length: int, *,
     s_ = torch.einsum("bkgd,bskd->bkgs", qf, kq.to(F32)) / math.sqrt(d)
     s_ = s_ * k_scale.permute(0, 2, 1)[:, :, None, :]  # (B,KV,1,S)
     if window_pos is None:
-        _unsplit(seq_axis)
         valid = (torch.arange(s, device=q.device) < length)[None].expand(b, s)
     else:
         valid = window_pos >= 0
     s_ = torch.where(valid[:, None, None, :], s_, -torch.inf)
-    if _split(seq_axis):
-        return _merged(s_, v_scale, vq, seq_axis).reshape(b, h, d).to(q.dtype)
+    if _split(seq_axis) or _split(slot_axis):
+        return _merged(_partials(s_, v_scale, vq), slot_axis, seq_axis,
+                       rows).to(q.dtype)
     p = torch.softmax(s_, dim=-1)
     p = p * v_scale.permute(0, 2, 1)[:, :, None, :]
     out = torch.einsum("bkgs,bskd->bkgd", p, vq.to(F32))
@@ -395,6 +487,94 @@ def head_plan(cfg, axis) -> HeadPlan:
                     kv % axis.size == 0)
 
 
+def cache_block(cfg, model_axis, slots: int) -> Optional[slice]:
+    """The rank's block of a serve cache's ``slots`` where the rules cut
+    its ``head_dim`` over ``model_axis`` (``rules.model_slots``: the port
+    cuts its slots there), else None (the rank holds every slot)."""
+    if not _split(model_axis) or not cfg.num_heads:
+        return None
+    return model_slots(slots, cfg.num_kv_heads, cfg.resolved_head_dim,
+                       model_axis.size, model_axis.rank)
+
+
+def cache_slots(cfg, model_axis, slots: int) -> int:
+    """How many of a serve cache's ``slots`` a rank holds: its block's
+    (``cache_block``), or every one."""
+    blk = cache_block(cfg, model_axis, slots)
+    return slots if blk is None else blk.stop - blk.start
+
+
+def slot_cut(cfg, model_axis):
+    """``model_axis`` where a serve cache's slots are cut over it
+    (``cache_block``), else None."""
+    return None if cache_block(cfg, model_axis, 0) is None else model_axis
+
+
+def cache_kv(cfg, model_axis) -> tuple:
+    """The kv heads a rank's serve cache holds: every one where its slots
+    are cut (``slot_cut``), else those its q heads read (``head_plan``)."""
+    if slot_cut(cfg, model_axis) is not None:
+        return tuple(range(cfg.num_kv_heads))
+    return head_plan(cfg, model_axis).kv
+
+
+def q_rows(cfg, model_axis) -> Optional[slice]:
+    """Where the rank runs its block of the q heads over a cache cut on
+    its slots: that block, whose q it gathers over the axis before the
+    decode attention and whose rows it keeps after the merge
+    (``decode_attention(rows=)``); else None."""
+    if slot_cut(cfg, model_axis) is None or not head_plan(
+            cfg, model_axis).split:
+        return None
+    hl = cfg.num_heads // model_axis.size
+    return slice(model_axis.rank * hl, (model_axis.rank + 1) * hl)
+
+
+def head_kv(t, cfg, model_axis):
+    """Of ``t`` (B, S, KV, D), ``attn_qkv``'s k or v, the kv heads the
+    rank's q heads read (``head_plan``), for an attention over the whole
+    sequence: ``t`` itself unless it holds every kv head where the rank
+    runs its block of the q heads (a cache cut on its slots,
+    ``slot_cut``)."""
+    plan = head_plan(cfg, model_axis)
+    if not plan.split or slot_cut(cfg, model_axis) is None:
+        return t
+    return t.index_select(2, torch.tensor(plan.kv, device=t.device))
+
+
+def prompt_slots(cfg, model_axis, seq_axis, max_seq: int) -> tuple:
+    """Where a prefill's cache of ``max_seq`` slots lies on this rank:
+    (its slots, ``max_seq`` or its block of them over ``seq_axis``, a
+    serve step's data axis of equal blocks; the whole slot of its first;
+    the whole slot of the first its k and v hold, past the model block's
+    start where they are cut over ``model_axis``, ``cache_block``)."""
+    n = seq_axis.size if _split(seq_axis) else 1
+    if max_seq % n:
+        raise ValueError(f"{max_seq} cache slots do not divide over {n} "
+                         f"ranks")
+    slots = max_seq // n
+    first = (seq_axis.rank if n > 1 else 0) * slots
+    blk = cache_block(cfg, model_axis, slots)
+    return slots, first, first + (0 if blk is None else blk.start)
+
+
+def write_block(dst, t, at: int) -> None:
+    """A prompt's ``t`` (B, S, ...) into ``dst`` (B, slots, ...), a rank's
+    block of a cache whose slot 0 is the whole cache's slot ``at``: the
+    prompt's entries that fall in it."""
+    lo, hi = max(at, 0), min(at + dst.shape[1], t.shape[1])
+    if hi > lo:
+        dst[:, lo - at:hi - at] = t[:, lo:hi].to(dst.dtype)
+
+
+def prompt_positions(pos, s: int, first: int) -> None:
+    """A prefill's positions (B, slots) in place: whole slot ``first`` + j
+    holds position ``first`` + j of a prompt of ``s``, -1 past it."""
+    whole = first + torch.arange(pos.shape[1], dtype=torch.int32,
+                                 device=pos.device)
+    pos.copy_(torch.where(whole < s, whole, -1).expand_as(pos))
+
+
 def gathered_leaves(cfg, m: int) -> tuple:
     """The attention leaves of a layer that a rank of a model axis of
     ``m`` gathers before use (``attn_qkv``, ``attn_out``): (name, whole
@@ -426,9 +606,10 @@ def head_leaves(p, cfg, model_axis, keys=Q_KEYS + KV_KEYS) -> dict:
     them (``head_plan``): its blocks, where the q heads divide over the
     axis, with ``q_norm`` / ``k_norm`` gathered ("sum") and, where the kv
     heads do not divide, ``wk`` / ``wv`` / ``bk`` / ``bv`` gathered
-    ("sum") and cut to the kv heads its q heads read; every leaf gathered
-    ("slice") where the q heads do not divide (every rank runs every
-    head)."""
+    ("sum") and cut to the kv heads its q heads read (every kv head where
+    a serve cache's slots are cut, ``slot_cut``: the cache holds them
+    all); every leaf gathered ("slice") where the q heads do not divide
+    (every rank runs every head)."""
     p = dict(p)
     if not _split(model_axis):
         return p
@@ -444,11 +625,12 @@ def head_leaves(p, cfg, model_axis, keys=Q_KEYS + KV_KEYS) -> dict:
                 p[key] = whole(p[key], full[key], model_axis, "slice")
         return p
     if not plan.kv_block:  # (a host list to the card waits for it)
+        every = slot_cut(cfg, model_axis) is not None
         idx = torch.tensor(plan.kv, device=p["wk"].device)
         for key, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
             if key in p and key in keys:
-                p[key] = whole(p[key], full[key], model_axis,
-                               "sum").index_select(dim, idx)
+                w = whole(p[key], full[key], model_axis, "sum")
+                p[key] = w if every else w.index_select(dim, idx)
     for key in ("q_norm", "k_norm"):
         if key in p and key in keys:
             p[key] = whole(p[key], full[key], model_axis, "sum")
@@ -477,7 +659,9 @@ def _column(p, cfg, x, model_axis, keys):
 
 def attn_qkv(p, cfg, x, model_axis=None):
     """q (B, S, hl, D), k and v (B, S, len(kv), D) of the rank's heads
-    (``head_plan``; all of them without a model axis)."""
+    (``head_plan``; all of them without a model axis); where a serve
+    cache's slots are cut over the axis (``slot_cut``) k and v of every kv
+    head, which ``head_kv`` cuts to the rank's."""
     p, x = _column(p, cfg, x, model_axis, Q_KEYS + KV_KEYS)
     return (_project(p, cfg, x, "wq", "bq", "q_norm"),
             _project(p, cfg, x, "wk", "bk", "k_norm"),

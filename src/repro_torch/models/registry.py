@@ -181,20 +181,26 @@ def local_cache(model: Model, cache: dict, model_axis) -> dict:
     """A rank's part of a whole serving cache (``init_cache``'s without a
     model axis), the cache ``init_cache(model_axis=)`` makes: the kv heads
     of its q heads in the attention slots, the enc-dec's cross-attention
-    slots among them (``layers.head_plan``), and
-    where it runs its block of the SSD heads (``mamba2.ssm_split``) its
-    block of ``conv_x`` and of ``ssm``; the rest as it is."""
+    slots among them (``layers.head_plan``), or where the rules cut their
+    ``head_dim``, every kv head over its block of the slots
+    (``layers.cache_block``: of the positions' slots, of the cross
+    cache's own; the positions stay whole), and where it runs its block
+    of the SSD heads (``mamba2.ssm_split``) its block of ``conv_x`` and of
+    ``ssm``; the rest as it is."""
     from repro_torch.models import layers as L
     from repro_torch.models import mamba2 as M2
 
     cfg = model.cfg
     out = dict(cache)
     if cfg.num_heads:
-        idx = list(L.head_plan(cfg, model_axis).kv)
+        idx = list(L.cache_kv(cfg, model_axis))
         for key in ("k", "v", "k_scale", "v_scale", "attn_k", "attn_v", "xk",
                     "xv"):
             if key in cache:
-                out[key] = cache[key][:, :, :, idx]
+                slots = cache[key].shape[2] if key in ("xk", "xv") else \
+                    cache["pos"].shape[1]
+                blk = L.cache_block(cfg, model_axis, slots) or slice(None)
+                out[key] = cache[key][:, :, blk][:, :, :, idx]
     if "ssm" in cache and M2.ssm_split(cfg, model_axis):
         m, r = model_axis.size, model_axis.rank
         for key, dim in (("conv_x", 3), ("ssm", 2)):

@@ -24,14 +24,19 @@ returns the rank's vocabulary block of the logits, ``loss_fn`` the whole
 loss, ``prefill`` and ``decode_step`` the whole logits; the KV cache
 holds the kv heads of the rank's q heads (``layers.head_plan``: its
 block of them when they divide over the axis), and each decode step runs
-``decode_attn`` on the rank's (B, H/M, KV/M, S, D).  The MoE blocks run
-on the rank's experts (``models/moe.py``).
+``decode_attn`` on the rank's (B, H/M, KV/M, S, D).  Where the kv heads
+do not divide and the rules cut the cache's ``head_dim`` instead, the
+rank holds every kv head over its block of the slots
+(``layers.cache_block``): each decode attends over it through the
+kernel's partials entry and merges over the axis (``layers.
+decode_attention``).  The MoE blocks run on the rank's experts
+(``models/moe.py``).
 
 Over a serve step's ``data`` axis (``launch/steps.py``) a rank runs its
 rows of the batch (``data_axis``: only the MoE dispatch, whose groups may
-span ranks, exchanges anything), or, where the batch does not divide
-(long_500k at batch 1), the whole batch over its block of the ring
-cache's slots (``seq_axis``).
+span ranks, exchanges anything), or, where the batch does not divide,
+the whole batch over its block of the cache's slots (``seq_axis``), the
+model axis's block nested in it.
 """
 from __future__ import annotations
 
@@ -100,11 +105,14 @@ def _ffn(lp, cfg, h, model_axis=None, data_axis=None):
 
 
 def _block(lp, cfg, x, cos, sin, model_axis=None, data_axis=None):
-    """One decoder layer: (x, the MoE aux loss or None, its k, v)."""
+    """One decoder layer: (x, the MoE aux loss or None, its k, v: every
+    kv head's where a serve cache's slots are cut, ``layers.slot_cut``)."""
     h = L.rms_norm(x, lp["ln_attn"], cfg.norm_eps)
     q, k, v = L.attn_qkv(lp["attn"], cfg, h, model_axis)
     q, k = L.apply_rope(q, k, cos, sin)
-    attn = L.causal_attention(q, k, v, sliding_window=cfg.sliding_window)
+    attn = L.causal_attention(q, L.head_kv(k, cfg, model_axis),
+                              L.head_kv(v, cfg, model_axis),
+                              sliding_window=cfg.sliding_window)
     x = x + L.attn_out(lp["attn"], attn, x.dtype, cfg, model_axis)
     h2 = L.rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
     y, a = _ffn(lp, cfg, h2, model_axis, data_axis)
@@ -112,17 +120,18 @@ def _block(lp, cfg, x, cos, sin, model_axis=None, data_axis=None):
 
 
 def forward(params, cfg, tokens=None, *, embeds=None, positions=None,
-            cache=None, model_axis=None, data_axis=None):
+            cache=None, cache_at: int = 0, model_axis=None, data_axis=None):
     """Returns (logits, aux_loss).
 
     ``embeds`` (B, S, d) replaces the token embedding (the VLM's stub
     injection).  ``positions``: (B, S), or (3, B, S) for M-RoPE; 0..S-1
     by default (on all three streams for M-RoPE).  Each layer runs under
     ``cfg.remat``'s checkpoint (``models/remat.py``) unless ``cache``.
-    With ``cache`` (``init_cache``'s, at least S slots: the prefill) each
-    layer's k and v go into its first S slots as the layer returns, so no
-    layer's k and v outlive it, and the logits are the last position's
-    alone, (B, 1, V).  Over ``model_axis`` the logits are the rank's
+    With ``cache`` (``init_cache``'s: the prefill) each layer's k and v
+    go into its slots as the layer returns, so no layer's k and v outlive
+    it, and the logits are the last position's alone, (B, 1, V); the
+    cache's slot 0 is the whole cache's ``cache_at`` (a rank's block,
+    ``layers.prompt_slots``).  Over ``model_axis`` the logits are the rank's
     vocabulary block.  ``data_axis``: the batch is the rank's rows of a
     serve step's batch split over it (only the MoE dispatch reads it).
     """
@@ -146,7 +155,7 @@ def forward(params, cfg, tokens=None, *, embeds=None, positions=None,
         if cache is not None:  # the prefill: serving keeps no checkpoint
             x, a, k, v = _block(lp, cfg, x, cos, sin, model_axis,
                                 data_axis)
-            _write_kv(cache, cfg, i, k, v)
+            _write_kv(cache, cfg, i, k, v, cache_at)
         else:
             out = checkpoint(body, cfg.remat, lp, x, cos, sin)
             x, a = out if cfg.is_moe else (out, None)
@@ -158,17 +167,17 @@ def forward(params, cfg, tokens=None, *, embeds=None, positions=None,
     return L.unembed(params, cfg, x, model_axis), aux
 
 
-def _write_kv(cache, cfg, i: int, k, v):
-    """Layer i's k and v (B, S, KV, D) into the cache's first S slots,
-    quantised for an int8 cache."""
-    s = k.shape[1]
+def _write_kv(cache, cfg, i: int, k, v, at: int = 0):
+    """Layer i's k and v (B, S, KV, D) into the cache's slots, whose slot
+    0 is the whole cache's ``at`` (``layers.write_block``), quantised for
+    an int8 cache."""
     if cfg.kv_cache_dtype == "int8":
         k, k_scale = L.quantize_kv(k)
         v, v_scale = L.quantize_kv(v)
-        cache["k_scale"][i, :, :s] = k_scale
-        cache["v_scale"][i, :, :s] = v_scale
-    cache["k"][i, :, :s] = k
-    cache["v"][i, :, :s] = v
+        L.write_block(cache["k_scale"][i], k_scale, at)
+        L.write_block(cache["v_scale"][i], v_scale, at)
+    L.write_block(cache["k"][i], k, at)
+    L.write_block(cache["v"][i], v, at)
 
 
 def loss_fn(params, cfg, batch, model_axis=None):
@@ -185,10 +194,13 @@ def loss_fn(params, cfg, batch, model_axis=None):
 
 
 def init_cache(cfg, batch: int, max_seq: int, device="cpu", model_axis=None):
-    """The KV cache (L, B, max_seq, KV, D): over ``model_axis`` the kv
-    heads of the rank's q heads (``layers.head_plan``)."""
-    kv = len(L.head_plan(cfg, model_axis).kv)
-    shape = (cfg.num_layers, batch, max_seq, kv, cfg.resolved_head_dim)
+    """The KV cache (L, B, max_seq, KV, D) and its slots' positions (B,
+    max_seq): over ``model_axis`` the kv heads of the rank's q heads
+    (``layers.head_plan``), or where the rules cut the cache's
+    ``head_dim``, every kv head over the rank's block of the slots
+    (``layers.cache_block``; the positions stay whole)."""
+    shape = (cfg.num_layers, batch, L.cache_slots(cfg, model_axis, max_seq),
+             len(L.cache_kv(cfg, model_axis)), cfg.resolved_head_dim)
     cache = {
         "pos": torch.full((batch, max_seq), -1, dtype=torch.int32, device=device),
         "length": 0,
@@ -205,24 +217,29 @@ def init_cache(cfg, batch: int, max_seq: int, device="cpu", model_axis=None):
 
 
 def prefill(params, cfg, tokens, *, embeds=None, positions=None,
-            max_seq: Optional[int] = None, model_axis=None, data_axis=None):
+            max_seq: Optional[int] = None, model_axis=None, data_axis=None,
+            seq_axis=None):
     """Run the prompt, return (last-token logits, filled cache).
 
     The cache is allocated once at ``max_seq`` slots, (L, B, max_seq, KV,
     D), filled layer by layer by ``forward``, and ``decode_step`` writes
     it in place; ``length`` is a Python int.  An int8 cache holds the
-    quantised k and v and their scales.  ``data_axis`` as ``forward``'s.
+    quantised k and v and their scales.  ``data_axis`` as ``forward``'s;
+    ``seq_axis`` (a data axis the batch does not divide over): every rank
+    runs the whole prompt and keeps its block of the slots
+    (``layers.prompt_slots``).
     """
     src = tokens if embeds is None else embeds
     b, s = src.shape[:2]
     max_seq = max_seq or s
     if max_seq < s:
         raise ValueError(f"max_seq {max_seq} < prompt length {s}")
-    cache = init_cache(cfg, b, max_seq, src.device, model_axis)
+    slots, first, at = L.prompt_slots(cfg, model_axis, seq_axis, max_seq)
+    cache = init_cache(cfg, b, slots, src.device, model_axis)
     logits, _ = forward(params, cfg, tokens, embeds=embeds,
-                        positions=positions, cache=cache,
+                        positions=positions, cache=cache, cache_at=at,
                         model_axis=model_axis, data_axis=data_axis)
-    cache["pos"][:, :s] = torch.arange(s, dtype=torch.int32, device=src.device)
+    L.prompt_positions(cache["pos"], s, first)
     cache["length"] = s
     return L.gather_vocab(logits[:, -1], cfg, model_axis), cache
 
@@ -243,25 +260,22 @@ def decode_step(params, cfg, cache, token, pos: int, model_axis=None,
     it).  ``seq_axis``: the cache holds the rank's block of the slots
     (every rank the whole batch): the window is the whole cache's, the
     token's k, v and position go to the rank that owns its slot, and each
-    attention is the plain path over the rank's slots, masked by their
-    positions and merged over the axis (``layers.decode_attention``).
+    attention runs over the rank's slots and is merged over the axis
+    (``layers.decode_attention``), as over the model axis where the
+    cache's slots are cut there (``layers.slot_cut``; the positions are
+    whole on it, the k and v its block).
     """
     pos = int(pos)
     x = L.embed(params, cfg, token, model_axis)[:, None, :]  # (B,1,d)
     b = x.shape[0]
-    window = cfg.sliding_window
-    sa = seq_axis if L._split(seq_axis) else None
-    cs = L.cache_slot(pos, cache["k"].shape[2], window > 0, sa)
-    slot = cs.local
+    cut = L.decode_cut(cfg, model_axis, seq_axis, cache["pos"], pos,
+                       cfg.sliding_window > 0)
+    slot, length, kw = cut.slot, cut.length, cut.kw
     posb = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     if cfg.mrope_sections:
         posb = posb.expand(3, b, 1)
     cos, sin = L.rope_cos_sin(posb, cfg.resolved_head_dim, cfg.rope_theta,
                               cfg.mrope_sections)
-    if slot is not None:
-        cache["pos"][:, slot] = pos
-    wpos = cache["pos"] if window > 0 else None
-    length = cs.length
     quant = cfg.kv_cache_dtype == "int8"
     for i in range(cfg.num_layers):
         lp = layer(params["layers"], i)
@@ -275,13 +289,12 @@ def decode_step(params, cfg, cache, token, pos: int, model_axis=None,
                 kc[:, slot], ksc[:, slot] = L.quantize_kv(k[:, 0])
                 vc[:, slot], vsc[:, slot] = L.quantize_kv(v[:, 0])
             attn = L.decode_attention_q(q[:, 0], kc, vc, ksc, vsc, length,
-                                        window_pos=wpos, seq_axis=sa)
+                                        **kw)
         else:
             if slot is not None:
                 kc[:, slot] = k[:, 0].to(kc.dtype)
                 vc[:, slot] = v[:, 0].to(vc.dtype)
-            attn = L.decode_attention(q[:, 0], kc, vc, length,
-                                      window_pos=wpos, seq_axis=sa)
+            attn = L.decode_attention(q[:, 0], kc, vc, length, **kw)
         x = x + L.attn_out(lp["attn"], attn[:, None], x.dtype, cfg,
                            model_axis)
         h2 = L.rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
@@ -289,5 +302,5 @@ def decode_step(params, cfg, cache, token, pos: int, model_axis=None,
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = L.gather_vocab(L.unembed(params, cfg, x, model_axis)[:, 0], cfg,
                             model_axis)
-    cache["length"] = length
+    cache["length"] = cut.token.length
     return logits, cache

@@ -33,12 +33,15 @@ collective and its bytes, so the plan's numbers can be read off a run;
 on a meta tensor a collective is counted and sends nothing, so a model
 run on the meta device counts its own (``launch/roofline.py``).
 
-A ``ModelAxis`` over a mesh's ``data`` group (``launch/mesh.py::
-ClientMesh.data_axis``) carries a serve step's two collectives over the
-data ranks, both outside the gradient: ``merge_softmax`` puts together
-the partial attentions of a cache whose slots are split over the ranks
-(the long_500k ring), and ``counts_before`` gives each rank the per-expert
-counts of the ranks before it in an MoE dispatch group that spans ranks.
+``merge_partials`` and ``merge_softmax`` put together, outside the
+gradient, the partial attentions of a serve cache whose slots are split
+over the ranks of an axis (``combine`` is the merge itself, over a
+stacked dim): over ``model`` where the rules cut the cache's ``head_dim``
+(the port cuts its slots, ``sharding/rules.py::model_slots``), over a
+mesh's ``data`` group (``launch/mesh.py::ClientMesh.data_axis``) where a
+decode's batch does not divide it.  ``counts_before`` gives each data
+rank the per-expert counts of the ranks before it in an MoE dispatch
+group that spans ranks.
 """
 from __future__ import annotations
 
@@ -237,22 +240,36 @@ def agree(x: torch.Tensor, axis: ModelAxis | None) -> bool:
     return all(torch.equal(p, parts[0]) for p in parts[1:])
 
 
+def combine(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor) -> tuple:
+    """Partial softmax attentions stacked on a leading dim put together:
+    ``m`` (P, ...) each part's max of its scores, ``l`` the sum of exp(s -
+    m), ``o`` (P, ..., D) the unnormalised output, all f32 -> the whole's
+    (m, l, o) in the same convention.  A part whose entries are all
+    masked (``m`` = -inf) adds nothing; if every part's are, m = -inf and
+    l = o = 0, with no NaN."""
+    top = m.amax(0)
+    w = torch.where(torch.isfinite(m), torch.exp(m - top), 0.0)
+    return top, (w * l).sum(0), (w[..., None] * o).sum(0)
+
+
+def merge_partials(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                   axis: ModelAxis | None) -> tuple:
+    """The partial attention over every rank's entries from each rank's
+    over its own (``combine``'s convention): one all-gather of the three,
+    then every rank combines them in rank order, so each holds the same
+    (m, l, o)."""
+    if axis is None or axis.size == 1:
+        return m, l, o
+    part = torch.cat([m[..., None], l[..., None], o], dim=-1)
+    got = _all_gather(part[None], axis, 0)
+    return combine(got[..., 0], got[..., 1], got[..., 2:])
+
+
 def merge_softmax(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
                   axis: ModelAxis | None) -> torch.Tensor:
     """The attention over every rank's slots from each rank's partial
-    one over its own: ``m`` (..., ) the running max of its scores, ``l``
-    the sum of exp(s - m), ``o`` (..., D) the unnormalised output, all
-    f32.  One all-gather of the three, then every rank combines them in
-    rank order, so each holds the same result.  A rank whose slots are
-    all empty (``m`` = -inf) adds nothing."""
-    if axis is not None and axis.size > 1:
-        part = torch.cat([m[..., None], l[..., None], o], dim=-1)
-        got = _all_gather(part[None], axis, 0)
-        m, l, o = got[..., 0], got[..., 1], got[..., 2:]
-        top = m.amax(0)
-        w = torch.where(torch.isfinite(m), torch.exp(m - top), 0.0)
-        l = (w * l).sum(0)
-        o = (w[..., None] * o).sum(0)
+    one over its own (``merge_partials``), normalised: o / l."""
+    m, l, o = merge_partials(m, l, o, axis)
     return o / torch.clamp(l[..., None], min=1e-30)
 
 

@@ -31,11 +31,15 @@ a mapping, ``launch.mesh.ClientMesh`` (``axis_sizes``), or an object with
 out of a leaf and ``assemble`` puts the leaf back together from every
 rank's block.  ``serve_split`` and ``data_blocks`` read a serve step's
 ``data`` axis off ``RULES_SERVE``: the batch's rows where they divide,
-else a cache's slots (the long_500k ring), else neither.
+else a cache's slots (long_500k at batch 1), else neither.  ``model_slots``
+is where a serve cache's slots go on ``model``: where the rules cut its
+``head_dim`` there, the port cuts its slots instead (the same bytes a
+card, and each rank's q . k a whole dot product).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Mapping, Optional, Sequence, Tuple
 
@@ -349,6 +353,30 @@ def serve_split(batch: int, seq: Optional[int], mesh) -> Optional[str]:
     return next((n for n, e in zip(dims, spec) if e == "data"), None)
 
 
+@functools.cache  # asked a few times a decode step, on the host
+def model_slots(slots: int, kv_heads: int, head_dim: int, m: int,
+                rank: int) -> Optional[slice]:
+    """The slots of a serve cache of ``slots`` (of ``kv_heads`` heads of
+    ``head_dim``) that rank ``rank`` of a model axis of ``m`` holds, where
+    ``RULES_SERVE`` cuts the cache's ``head_dim`` over ``model`` (its kv
+    heads do not divide): block ``rank`` of blocks of ceil(slots / m), the
+    last shorter (or empty), every kv head and the whole head dim in it;
+    None where the rules leave the cache whole or cut its kv heads (the
+    rank holds every slot of its kv heads).  A departure in layout, not
+    in bytes: a ``head_dim`` block would leave each rank a partial q . k,
+    which no softmax can take, where a block of slots keeps the decode on
+    the ``decode_attn`` kernel, its (m, l, acc) partials merged over the
+    axis (``sharding/collectives.py::merge_partials``)."""
+    if m == 1:
+        return None
+    spec = logical_to_pspec(("kv_heads", "head_dim"), (kv_heads, head_dim),
+                            RULES_SERVE, {"model": m})
+    if spec != (None, "model"):
+        return None
+    per = -(-slots // m)
+    return slice(min(rank * per, slots), min((rank + 1) * per, slots))
+
+
 def serve_block(batch: int, seq: Optional[int], mesh, coords: dict) -> tuple:
     """The rank's (rows, slots) of a serve step's ``batch`` and of ``seq``
     cache slots under ``RULES_SERVE`` (slots None with ``seq`` None)."""
@@ -362,7 +390,7 @@ def data_blocks(axes, shapes, mesh, coords: dict) -> dict:
     """Each leaf's per-dim block slices on the ``data`` axis alone under
     ``RULES_SERVE``: its spec with every other axis's entry dropped (a
     serve cache's ``model`` part is the rank's head plan,
-    ``models/layers.py::head_plan``)."""
+    ``models/layers.py::head_plan``, or its ``model_slots``)."""
     return _map(lambda d, s: block_slices(tuple(s.shape), _data_only(
         logical_to_pspec(tuple(d), tuple(s.shape), RULES_SERVE, mesh)),
         mesh, coords), axes, shapes)

@@ -237,6 +237,43 @@ def test_decode_attn_kernel_matches_plain(cuda, b, h, kv, s, d, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
+    "b,h,kv,s,d", [(2, 8, 2, 1024, 64), (2, 6, 2, 777, 64),
+                   (8, 24, 8, 2080, 128), (4, 20, 20, 188, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_partials_match_plain(cuda, b, h, kv, s, d, dtype):
+    """The partials entry's (m, l, acc) against its plain version at
+    lengths 0 (an empty block: m = -inf, l = acc = 0, no NaN), 1, 63, mid
+    and S, one split and many, within the rounding the two can differ by
+    (``ref.decode_attn_partials_tol``); acc / l is the normalised entry's
+    output, within twice that over l and its output's rounding."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for shape in ((b, h, d), (b, s, kv, d), (b, s, kv, d)))
+    unit = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -23
+    DA.reset_launches()
+    lengths = (0, 1, 63, s // 2 + 5, s)
+    for length in lengths:
+        m, l, acc = DA.decode_attn_partials_cuda(q, k, v, length)
+        wm, wl, wacc = ref.decode_attn_partials_plain(q, k, v, length)
+        torch.cuda.synchronize()
+        assert m.shape == l.shape == (b, h) and acc.shape == (b, h, d)
+        assert torch.equal(torch.isinf(m), torch.isinf(wm))
+        assert not torch.isnan(acc).any() and not torch.isnan(l).any()
+        if length == 0:
+            assert torch.isneginf(m).all() and not l.any() and not acc.any()
+            continue
+        tm, tl, tacc = ref.decode_attn_partials_tol(q, k, v, length)
+        assert ((m - wm).abs() <= tm).all()
+        assert ((l - wl).abs() <= tl).all()
+        assert ((acc - wacc).abs() <= tacc).all()
+        norm = DA.decode_attn_cuda(q, k, v, length).float()
+        assert ((acc / l[..., None] - norm).abs()
+                <= 2 * tacc / l[..., None] + unit * norm.abs()).all()
+    assert DA.LAUNCHES["decode_attn_partials"] == len(lengths)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
     "b,s,h,p,n,q", [(2, 256, 4, 64, 32, 64), (1, 128, 2, 32, 16, 32),
                     (1, 512, 8, 64, 64, 128), (1, 512, 2, 64, 128, 256)])
 def test_ssd_scan_kernel_matches_plain(cuda, b, s, h, p, n, q):

@@ -15,11 +15,14 @@ it computed; this process holds it:
   against the reference's, at ``tests/test_torch_families.py``'s f32
   tolerance (rtol 1e-4, atol 1e-4 x max(1, the largest entry));
 * at (1, 4) the reduced configs' 2 kv heads do not divide over the axis:
-  the rules put ``wk`` / ``wv`` on ``head_dim``, and each rank gathers
-  them and keeps the one kv head its q head reads;
+  the rules put ``wk`` / ``wv`` and the serve cache on ``head_dim``; each
+  rank gathers the leaves and keeps the one kv head its q head reads,
+  and its serve cache holds both kv heads over its block of the slots
+  (``sharding/rules.py::model_slots``);
 * prefill then 3 greedy decode steps against the unsharded port: logits
   at the same tolerance, each rank's KV cache equal to the unsharded
-  cache's kv heads of its q heads;
+  cache's part (``local_cache``: at (1, 2) the kv head of its q heads, at
+  (1, 4) its block of the slots);
 * the distributed step at f32 (N = 2, two rounds) against the port's
   world-1 step: the sampled threshold bit-equal given the same x; bits =
   ``bits_for_k(k)``; the rank's block of w within 1e-6 of its largest
@@ -322,7 +325,9 @@ def test_forward_and_loss_match_reference(spawned, tag, arch):
 @pytest.mark.parametrize("tag,arch", CASES, ids=_ids(CASES))
 def test_prefill_and_decode_match_unsharded(spawned, one, tag, arch):
     """Logits of the prefill and each decode step; each rank's cache is
-    the unsharded cache's kv heads of its q heads."""
+    the unsharded cache's part: the kv heads of its q heads, or at (1, 4)
+    both kv heads over its block of the slots."""
+    from repro_torch.models.registry import local_cache
     from repro_torch.sharding.collectives import ModelAxis
 
     o = one[arch]
@@ -330,16 +335,19 @@ def test_prefill_and_decode_match_unsharded(spawned, one, tag, arch):
     for r in _ranks(tag):
         res = _load(spawned, tag, arch, r)
         _close(res["serve"], o["served"], 1e-4, f"{tag} {arch} rank {r}")
-        plan = TL.head_plan(o["cfg"], ModelAxis(None, r % m, m))
+        want = local_cache(t_build_model(o["cfg"]), o["cache"],
+                           ModelAxis(None, r % m, m))
         for key in ("k", "v"):
-            want = o["cache"][key][:, :, :, list(plan.kv)]
-            _close(res[f"cache_{key}"], want, 1e-4, f"{tag} {arch} {key}")
+            assert res[f"cache_{key}"].shape == want[key].shape
+            _close(res[f"cache_{key}"], want[key], 1e-4,
+                   f"{tag} {arch} {key}")
 
 
 def test_kv_heads_fall_back_at_four():
     """At M = 4 the reduced configs' 2 kv heads fall back to head_dim:
     the layers gather wk and wv (and Qwen3's norms), and each rank's
-    cache holds the one kv head of its q head; at M = 2 they divide."""
+    attention reads the one kv head of its q head (its serve cache holds
+    both over its block of the slots); at M = 2 they divide."""
     from repro_torch.sharding.collectives import ModelAxis
 
     for arch in ARCHS:

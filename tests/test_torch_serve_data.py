@@ -20,7 +20,10 @@ rank's blocks, ``steps.local_args``), on whole inputs drawn with numpy:
 * a reduced Llama long_500k whose new token lands past rank 0's slots, a
   Qwen3-MoE decode whose one dispatch group spans every data rank, a
   Qwen2-MoE prefill of 4 x 192 tokens whose 512-token groups straddle
-  ranks (the last group padded on the last rank), and a Whisper decode.
+  ranks (the last group padded on the last rank), a Whisper decode, and
+  a Llama decode at batch 1 whose cache (no ring) puts its slots on
+  ``data``: each rank attends over its block through ``decode_attn``'s
+  partials entry at its own count of valid slots.
 
 Each rank's logits and cache block are held against the port's one-process
 step on the whole inputs, and that step against the reference's unsharded
@@ -86,6 +89,10 @@ CASES = {
                           InputShape("prefill_32k", 192, 4, "prefill")),
     "whisper-decode": ("whisper-large-v3",
                        InputShape("decode_32k", 64, 8, "decode")),
+    # batch 1 of a cache without a ring: its slots on data, each rank's
+    # block attended through decode_attn's partials and merged
+    "llama-decode-b1": ("llama3.2-3b", InputShape("decode_32k", 64, 1,
+                                                  "decode")),
     # the VLM prefill, the step factory's own code: vision embeddings and
     # M-RoPE positions on the rank's rows; at batch 1 every rank runs the
     # whole prefill and keeps its block of the cache's slots
@@ -406,7 +413,7 @@ def test_rank_matches_one_process(spawned, one, tag, case):
 
 def test_splits_are_the_rules():
     """What each case puts on ``data``: the rows of every case whose
-    batch divides, the ring's slots at batch 1, nothing for Mamba2's
+    batch divides, the cache's slots at batch 1, nothing for Mamba2's
     recurrent long_500k state."""
     for tag in MESHES:
         for case, (arch, shape) in CASES.items():
@@ -421,27 +428,32 @@ def test_splits_are_the_rules():
     assert built["split"] is None and built["args"][2].shape == (1,)
 
 
-def test_split_cache_needs_a_ring():
+def test_cache_slot_gives_each_rank_its_length():
     """A decode whose batch does not divide the data axis puts its
-    cache's slots there: without a ring (no sliding window, as at
-    decode_32k) its step refuses to run, and the decode attentions
-    refuse a cache split over ranks without its slots' positions."""
+    cache's slots there, a ring or not: ``cache_slot`` names the rank
+    that owns the token's slot and each rank's count of valid slots (its
+    ``local_length``: a cache without a ring holds the whole cache's
+    first ``length``), and ``within`` nests the model axis's block."""
     cfg = TC.get_config("llama3.2-3b").reduced()
     built = TS.build_step(cfg, TC.InputShape("decode_32k", 64, 1, "decode"),
                           TDR.plan_mesh(2, 1))
     assert built["split"] == "seq" and built["cfg"].sliding_window == 0
-    with pytest.raises(ValueError, match="must be a ring"):
-        built["step"](*built["args"][:3], 63)
-    axis = ModelAxis(None, 0, 2)
-    assert TL.cache_slot(63, 32, True, axis).local is None  # rank 1's
-    with pytest.raises(ValueError, match="must be a ring"):
-        TL.cache_slot(63, 32, False, axis)
-    q, kv = torch.zeros(1, 2, 8), torch.zeros(1, 4, 1, 8)
-    with pytest.raises(ValueError, match="window_pos"):
-        TL.decode_attention(q, kv, kv, 4, seq_axis=axis)
-    kq, sc = torch.zeros(1, 4, 1, 8, dtype=torch.int8), torch.ones(1, 4, 1)
-    with pytest.raises(ValueError, match="window_pos"):
-        TL.decode_attention_q(q, kq, kq, sc, sc, 4, seq_axis=axis)
+    assert built["args"][1]["k"].shape[2] == 32
+    for pos, lengths in ((63, (32, 32)), (40, (32, 9)), (20, (21, 0))):
+        got = [TL.cache_slot(pos, 32, False, ModelAxis(None, r, 2))
+               for r in range(2)]
+        assert [c.local_length for c in got] == list(lengths), pos
+        assert [c.local for c in got] == [pos if pos < 32 else None,
+                                          pos - 32 if pos >= 32 else None]
+        assert all(c.length == pos + 1 and c.window == 64 for c in got)
+    # a ring's slot wraps; the model axis's block of 32 slots nests in it
+    ring = TL.cache_slot(70, 32, True, ModelAxis(None, 0, 2))
+    assert ring.local == 6 and ring.length == 64
+    inner = ring.within(slice(5, 10))
+    assert (inner.local, inner.start, inner.size) == (1, 5, 5)
+    assert inner.local_length == 5
+    with pytest.raises(IndexError):
+        TL.cache_slot(64, 32, False, ModelAxis(None, 1, 2))
 
 
 def _t_shape(shape):
