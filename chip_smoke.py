@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --time-tree DIR   # time another checkout's kernels
     python3 chip_smoke.py --only 19,20      # phases 1, 2 and those named
-                                            # (of 3c, 19-29) alone
+                                            # (of 3c, 19-30) alone
     python3 chip_smoke.py --mesh 4          # the round over 4 cards
     python3 chip_smoke.py --mesh 4 --only 24  # phases 24b-d alone
     python3 chip_smoke.py --mesh 4 --only 24cd  # phases 24c-d alone
@@ -15,6 +15,7 @@
     python3 chip_smoke.py --mesh 4 --only 27  # phases 27b-c alone
     python3 chip_smoke.py --mesh 4 --only 28  # phases 28b-e alone
     python3 chip_smoke.py --mesh 4 --only 29  # phases 29b-c alone
+    python3 chip_smoke.py --mesh 4 --only 30  # phases 30b-c alone
 
 Phases, each of which raises on failure (a failed phase exits non-zero):
 
@@ -32,7 +33,7 @@ Phases, each of which raises on failure (a failed phase exits non-zero):
    - ``sparsify_ef`` / ``sparsify_quantize_ef`` at the training path's
      shape (N = 20 devices x s = 6,573,130 ResNet-9 parameters) in f32 and
      bf16 and at ragged shapes: uploads and counts bit-equal, errors within
-     1e-6;
+     1e-6; timed in f32 there and at LaneGCN's (20, 247,100) (``*_lanegcn``);
    - the segmented ``sparsify_quantize_ef`` (one threshold, step and
      levels per (device, leaf): the per-layer codec's call) at (20,
      6,573,130) with ResNet-9's 26 leaves and at (20, 247,100) with
@@ -327,6 +328,17 @@ Phases, each of which raises on failure (a failed phase exits non-zero):
    entry, the plain version and SDPA; the 8 blocks of a whole cache
    combined against the normalised kernel on it.  The four-card phases
    29b-c run under ``--mesh 4 --only 29`` (below).
+30. ``dp_client``'s batch split over ``model`` (``core/distributed.py``:
+   each client's rows chunked over the axis, the loss's batch-wide
+   quantities the whole batch's through ``collectives.all_sum`` and
+   ``counts_before``; also ``--only 30``): (a) the plan under
+   ``dp_client`` at M = 2 and 4 for Qwen3-MoE-30B-A3B and Qwen2-MoE-A2.7B
+   x train_4k and ResNet-9's round (a rank's tokens or rows 1/M of its
+   client's, the counted collectives listed); on a (1, 1) axis
+   ``all_sum``, a full-width Qwen3-MoE layer's ``moe_apply`` and
+   ResNet-9's gradient under ``batch_axis`` bit-equal to the unsplit
+   path.  The four-card phases 30b-c run under ``--mesh 4 --only 30``
+   (below).
 
 ``--mesh P`` runs, on each of P cards (one process a card, a file
 store): world 1 against world P for six policies at ResNet-9 width 4;
@@ -405,7 +417,21 @@ its cache's slots on the data axis, each rank's block through the
 partials entry (28b's checks, every partials call held); (c) the model
 axis's slot cut on (1, 4), f32, the reduced Qwen2-7B with 4 and 6 q
 heads, a prompt of 61 and 32 decodes against one card's
-(``slot_cut_run``).
+(``slot_cut_run``).  ``--mesh 4 --only 30`` runs phases 30b-c
+(``dp_axis_mesh``; "30" and some of "bc"): (b) Qwen3-MoE-30B-A3B at full
+width under ``dp_client``, bf16, remat full, on (1, 4) (one client of 4
+x 4,096 tokens) cut in depth to a peak under 75 GiB a card, and on (2,
+2) (one client a data rank of 2 x 4,096) at that depth: round seconds,
+peak, the routes of each rank's rows equal to one card's on the client's
+whole batch, the collectives over ``model`` equal to the plan's, the
+``sparsify_ef`` launch held; before it on (1, 4) an f32 check at 2
+layers on ``conditioned`` weights (640 tokens a rank, dispatch groups
+that span ranks) against one card's rounds on the same whole batch
+(``dp_moe_f32``); (c) ResNet-9 at full width, N = 20, batch 32, f32, 4
+``mads`` rounds under ``dp_client`` on (1, 4) and (2, 2) against one
+card's (26b's hold and f64 witness of k, w besides within 1e-6 of its
+largest entry at 97 % of the coordinates, the batch-norm all-reduces
+counted equal to the plan's).
 
 The last three lines are the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -428,6 +454,11 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager, nullcontext
 from pathlib import Path
+
+# expandable segments, as the mesh's ranks run: phase 19's round peaks at
+# 66.7 GiB of the card's 79.2, and a cache fragmented by the phases before
+# it (12.3 GiB reserved but free) ran out of memory below that peak
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import numpy as np
 import torch
@@ -578,45 +609,56 @@ def check_kernels(K, R, card: str):
                   f"{got[2][:5].tolist()}", flush=True)
             del x, got, want
 
-    # times at the main path's shape and type (f32, as ResNet-9 trains)
-    x, t, steps, levels, seeds = kernel_inputs((N_DEV, S_RESNET9), torch.float32, 1)
-    n_el = x.numel()
-    def kernel_ef():
-        return K.sparsify_ef_cuda(x, t)
-
-    def kernel_qef():
-        return K.sparsify_quantize_ef_cuda(x, t, steps, levels, seeds, base)
-
-    times = {
-        "sparsify_ef": (
-            kernel_ef,
-            median_ms(kernel_ef),
-            median_ms(lambda: R.sparsify_ef_plain(x, t)),
-            # x read, upload + error written; thresholds read, counts written
-            3 * 4 * n_el + 2 * 4 * N_DEV,
-            4 * n_el,  # |x|, compare, two selects per element
-        ),
-        "sparsify_quantize_ef": (
-            kernel_qef,
-            median_ms(kernel_qef),
-            median_ms(lambda: R.sparsify_quantize_ef_plain(x, t, steps, levels,
-                                                           seeds, base)),
-            3 * 4 * n_el + 5 * 4 * N_DEV,
-            22 * n_el,  # the hash (10), divide, add, floor, clamp, mul, sub, ...
-        ),
-    }
+    # times at the main path's shapes and type (f32, as both models
+    # train): ResNet-9's (N_DEV, S_RESNET9) and, as *_lanegcn, LaneGCN's
+    # (N_DEV, S_LANEGCN)
     out = {}
-    for name, (fn, ms, plain_ms, nbytes, ops) in times.items():
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / FP32_OPS_PER_S * 1e3
-        out[name] = dict(ms=ms, ms_per_call=per_call_ms(fn), plain_ms=plain_ms,
-                         max_abs_err=err[name],
-                         bound_ms=max(bytes_ms, ops_ms),
-                         bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-        out[name]["bound_share"] = out[name]["bound_ms"] / ms
-        print(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-              f"{out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']}) "
-              f"at ({N_DEV}, {S_RESNET9}) f32 on {card}", flush=True)
+    for suffix, s in (("", S_RESNET9), ("_lanegcn", S_LANEGCN)):
+        x, t, steps, levels, seeds = kernel_inputs((N_DEV, s), torch.float32,
+                                                   1)
+        n_el = x.numel()
+
+        def kernel_ef():
+            return K.sparsify_ef_cuda(x, t)
+
+        def kernel_qef():
+            return K.sparsify_quantize_ef_cuda(x, t, steps, levels, seeds,
+                                               base)
+
+        times = {
+            "sparsify_ef": (
+                kernel_ef,
+                median_ms(kernel_ef),
+                median_ms(lambda: R.sparsify_ef_plain(x, t)),
+                # x read, upload + error written; thresholds read, counts
+                # written
+                3 * 4 * n_el + 2 * 4 * N_DEV,
+                4 * n_el,  # |x|, compare, two selects per element
+            ),
+            "sparsify_quantize_ef": (
+                kernel_qef,
+                median_ms(kernel_qef),
+                median_ms(lambda: R.sparsify_quantize_ef_plain(
+                    x, t, steps, levels, seeds, base)),
+                3 * 4 * n_el + 5 * 4 * N_DEV,
+                22 * n_el,  # the hash (10), divide, add, floor, clamp, ...
+            ),
+        }
+        for name, (fn, ms, plain_ms, nbytes, ops) in times.items():
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / FP32_OPS_PER_S * 1e3
+            res = dict(ms=ms, ms_per_call=per_call_ms(fn), plain_ms=plain_ms,
+                       bound_ms=max(bytes_ms, ops_ms),
+                       bound_by=("bytes" if bytes_ms >= ops_ms
+                                 else "operations"))
+            res["bound_share"] = res["bound_ms"] / ms
+            entry = out.setdefault(name, dict(max_abs_err=err[name]))
+            entry.update({k + suffix: v for k, v in res.items()})
+            print(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+                  f"{res['bound_ms']:.4f} ms by {res['bound_by']}, share "
+                  f"{res['bound_share']:.3f}) at ({N_DEV}, {s}) f32 on "
+                  f"{card}", flush=True)
+        del x, t
     return out
 
 
@@ -4195,7 +4237,8 @@ def _axis_loss(model, cfg, w, layout, batch, axis) -> float:
 def axis_rounds(K, mesh, dev, tag: str, cfg=None, cond: bool = False,
                 n: int = DIST_N, batch: int = DIST_BATCH,
                 rounds: int = DIST_ROUNDS, capture: dict | None = None,
-                policy: str = "mads", per_layer: bool = False) -> dict:
+                policy: str = "mads", per_layer: bool = False,
+                seq: int = DIST_SEQ, rules=None) -> dict:
     """Phase 24b's rounds: full-width InternLM2-1.8B, bf16 weights and
     states (``cfg``'s ``param_dtype`` for both; with ``cond`` the drawn
     weights ``conditioned``), N = 2 clients, global
@@ -4207,11 +4250,12 @@ def axis_rounds(K, mesh, dev, tag: str, cfg=None, cond: bool = False,
     ``capture["inputs"]`` True the state and batch of round 1's
     ``device_grads``; 27: a codec ``policy`` (``per_layer``: its per-leaf
     budgets), round 1's budget bits and seeds into ``capture``, each
-    round's budget bits and its collectives over ``model``).  Every
-    sparsify call held as it returns; launches (one of
-    ``codec_kernel``'s a round), uploads, k, bits, b, loss before and
-    after, round seconds (each ends at a barrier over a mesh), peak GiB;
-    the final w."""
+    round's budget bits and its collectives over ``model``; 30: ``seq``
+    tokens a row, the parameters placed by ``rules``, ``RULES_TRAIN_DP``
+    for ``dp_client``).  Every sparsify call held as it returns;
+    launches (one of ``codec_kernel``'s a round), uploads, k, bits, b,
+    loss before and after, round seconds (each ends at a barrier over a
+    mesh), peak GiB; the final w."""
     import torch.distributed as dist
 
     from repro_torch.configs import FLConfig
@@ -4235,20 +4279,23 @@ def axis_rounds(K, mesh, dev, tag: str, cfg=None, cond: bool = False,
                       state_dtype=cfg.param_dtype)
     rng = np.random.default_rng(0)
     batches = [{k: torch.as_tensor(v).to(dev) for k, v in
-                demo_batch(cfg, batch, DIST_SEQ, rng).items()}
+                demo_batch(cfg, batch, seq, rng).items()}
                for _ in range(rounds + 1)]
     _reset_peak(dev)
     system = make_afl_train_system(model, cfg, mesh, dcfg=dcfg,
                                    controller=policy.controller,
                                    compressor=policy.compressor,
-                                   staleness=policy.staleness, donate=True)
-    state = init_state(model, dcfg, 0, mesh=mesh, device=dev)
+                                   staleness=policy.staleness, donate=True,
+                                   rules=rules)
+    state = init_state(model, dcfg, 0, mesh=mesh, device=dev, rules=rules)
     pl = system["placement"]
     if cond:  # the flat buffers' leaf views, scaled in place
         for flat in (state.w[None], state.w_n):
             conditioned(model, pl.layout.unflatten(flat))
     axis = pl.model_axis
-    loss0 = _axis_loss(model, cfg, state.w, pl.layout, batches[-1], axis)
+    # under dp_client every rank holds the whole parameters
+    loss_axis = None if pl.dp else axis
+    loss0 = _axis_loss(model, cfg, state.w, pl.layout, batches[-1], loss_axis)
     stats = dict(peak=0, hold_s=0.0, held=0)
     marks, budgets, counts = [], [], []
 
@@ -4316,7 +4363,8 @@ def axis_rounds(K, mesh, dev, tag: str, cfg=None, cond: bool = False,
         budget=budgets, axis_counts=counts,
         x_norm2=[m["x_norm2"].tolist() for m in hist],
         loss_before=loss0,
-        loss=_axis_loss(model, cfg, state.w, pl.layout, batches[-1], axis))
+        loss=_axis_loss(model, cfg, state.w, pl.layout, batches[-1],
+                        loss_axis))
     want = rounds if dev.type == "cuda" else 0
     if (out["launches"].get(kernel) != want or out["held"] != want
             or sum(out["launches"].values()) != want):
@@ -4463,7 +4511,7 @@ def axis_internlm2(K, mesh, dev, store: Path, cfg=None) -> dict:
 
 
 def _rounds_hold(got: dict, one: dict, w, model, mesh, w1_path: Path,
-                 rounds: int) -> dict:
+                 rounds: int, rules=None) -> dict:
     """24b's hold of the mesh's rounds ``got`` (its final blocks ``w``)
     against rank 0's world-1 rounds ``one`` (their final w at
     ``w1_path``): the loss at the start within 1e-2; the same uploads; k
@@ -4473,12 +4521,13 @@ def _rounds_hold(got: dict, one: dict, w, model, mesh, w1_path: Path,
     magnitude) at 90 % of the coordinates or more and within 2^-5 of the
     largest entry everywhere; ``ok`` whether all hold.  The CPU tests'
     standard (k within 2, w within 1e-6 of the largest entry) is printed
-    beside."""
+    beside.  ``rules``: the mesh's placement (``RULES_TRAIN_DP``: whole
+    parameters)."""
     from repro_torch.core.distributed import placement
     from repro_torch.models.registry import local_params
     from repro_torch.utils.tree import tree_unflatten
 
-    pl = placement(model, mesh)
+    pl = placement(model, mesh, rules)
     whole = torch.load(w1_path, mmap=True)
     want = pl.layout.flatten(local_params(
         model, model.layout.unflatten(whole),
@@ -4546,7 +4595,8 @@ def axis_rounds_f32(K, mesh, dev, store: Path, cfg) -> dict:
     return dict(world_1=one, mesh=got, hold=hold, ok=hold["ok"])
 
 
-def axis_train_step(mods, mesh, dev, train=AXIS_TRAIN) -> dict:
+def axis_train_step(mods, mesh, dev, train=AXIS_TRAIN,
+                    variant: str = "default", before=None) -> dict:
     """Phase 24c: Qwen3-32B x train_4k through ``build_step`` on the (1,
     4) mesh: full width, N = 1, batch 2, ``remat="full"``, bf16; the depth
     cut to the deepest whose peak stays 3 GiB under 75 GiB a card: the
@@ -4560,7 +4610,10 @@ def axis_train_step(mods, mesh, dev, train=AXIS_TRAIN) -> dict:
     was zero), w's moved coordinates counted (every coordinate of every
     rank's blocks compared with a host copy), w finite.  Calibration
     depths of None (26d): full depth, two rounds, and a peak past the
-    limit fails."""
+    limit fails; an int: that depth.  ``variant``: ``build_step``'s
+    (30b: ``dp_client``, whose collectives over ``model`` the plan counts
+    with ``dp_rows``); ``before(built, args)``: run on the chosen depth's
+    arguments before its first round, its result kept as ``before``."""
     import torch.distributed as dist
 
     from repro_torch.configs import INPUT_SHAPES, InputShape
@@ -4572,9 +4625,12 @@ def axis_train_step(mods, mesh, dev, train=AXIS_TRAIN) -> dict:
     shape = InputShape(full.name, seq[0] if seq else full.seq_len, batch,
                        full.kind)
 
-    def one(layers: int, rounds: int) -> dict:
+    dp = variant == "dp_client"
+    rows = batch // mesh.data_size  # a client's
+
+    def one(layers: int, rounds: int, check=None) -> dict:
         cfg = axis_cfg(arch, layers)
-        built = build_step(cfg, shape, mesh, donate=True)
+        built = build_step(cfg, shape, mesh, donate=True, variant=variant)
         _free(dev)
         t0 = time.perf_counter()
         args = materialize(built, shape,
@@ -4582,6 +4638,7 @@ def axis_train_step(mods, mesh, dev, train=AXIS_TRAIN) -> dict:
                            mesh=mesh)
         _sync(dev)
         setup_s = time.perf_counter() - t0
+        checked_before = None if check is None else check(built, args)
         runs = []
         for i in range(rounds):
             for mod in mods.values():
@@ -4604,10 +4661,13 @@ def axis_train_step(mods, mesh, dev, train=AXIS_TRAIN) -> dict:
             secs = time.perf_counter() - t0 - stats["hold_s"]
             # the round's collectives over model, as the plan counts them
             counts = {k: v[0] for k, v in axis.counts.items()}
+            s = built["model"].num_params()
             want_counts = RL.step_collectives(
-                "train", 0, mesh.model, 1, model=mesh.model,
-                cfg=built["cfg"], tokens=batch * shape.seq_len
-                // mesh.data_size, seqs=batch // mesh.data_size).count_by_kind
+                "train", s if dp else 0, mesh.model, 1, model=mesh.model,
+                cfg=built["cfg"], tokens=rows * shape.seq_len
+                // (mesh.model if dp else 1), seqs=rows,
+                params_per_card=s if dp else 0,
+                dp_rows=rows if dp else 0).count_by_kind
             if counts != want_counts:
                 fail(f"axis {arch} x train_4k: collectives over model "
                      f"{counts}, the plan's {want_counts}")
@@ -4648,7 +4708,8 @@ def axis_train_step(mods, mesh, dev, train=AXIS_TRAIN) -> dict:
         res = dict(layers=built["cfg"].num_layers,
                    num_params=built["model"].num_params(),
                    s_card=args[0].w.numel(), setup_s=setup_s, runs=runs,
-                   peak_gib=max(r["peak_gib"] for r in runs))
+                   peak_gib=max(r["peak_gib"] for r in runs),
+                   before=checked_before)
         peak = torch.tensor([res["peak_gib"]], device=dev)
         dist.all_reduce(peak, op=dist.ReduceOp.MAX)
         res["peak_gib_max_over_ranks"] = float(peak)
@@ -4657,16 +4718,19 @@ def axis_train_step(mods, mesh, dev, train=AXIS_TRAIN) -> dict:
         return res
 
     def s_card(layers: int) -> int:  # the rank's parameters at a depth
-        built = build_step(axis_cfg(arch, layers), shape, mesh)
+        built = build_step(axis_cfg(arch, layers), shape, mesh,
+                           variant=variant)
         return built["system"]["placement"].layout.size
 
     top = axis_cfg(arch).num_layers
     if depths is None:  # 26d: full depth, cut only past the limit
         layers, cal, per_layer = top, {}, 0.0
+    elif isinstance(depths, int):
+        layers, cal, per_layer = depths, {}, 0.0
     else:
         layers, cal, per_layer = _calibrated(mesh, arch, depths, top, one,
                                              s_card)
-    res = one(layers, 2)
+    res = one(layers, 2, before)
     want = 1 if dev.type == "cuda" else 0
     main = res["runs"][0]
     if main["launches"].get("sparsify_ef") != want or main["held"] != want \
@@ -4677,7 +4741,7 @@ def axis_train_step(mods, mesh, dev, train=AXIS_TRAIN) -> dict:
         fail(f"axis train step: peak {res['peak_gib_max_over_ranks']:.2f} "
              f"GiB over {AXIS_PEAK_GIB}")
     return _train_step_bound(res, mesh, arch, batch, shape, top, layers, cal,
-                             per_layer)
+                             per_layer, dp)
 
 
 def _calibrated(mesh, arch: str, depths: tuple, top: int, one, s_card):
@@ -4716,10 +4780,11 @@ def _calibrated(mesh, arch: str, depths: tuple, top: int, one, s_card):
 
 
 def _train_step_bound(res: dict, mesh, arch: str, batch: int, shape, top: int,
-                      layers: int, cal: dict, per_layer: float) -> dict:
+                      layers: int, cal: dict, per_layer: float,
+                      dp: bool = False) -> dict:
     """``axis_train_step``'s run ``res`` at ``layers`` (of ``top``) with
     the calculator's bound at ``model_parallel`` the mesh's model axis
-    and the collectives the plan counts."""
+    (``dp``: ``dp_client``, 1) and the collectives the plan counts."""
     from repro_torch.launch import roofline as RL
     from repro_torch.launch.calculator import step_analytics
     from repro_torch.launch.dryrun import active_params
@@ -4730,14 +4795,17 @@ def _train_step_bound(res: dict, mesh, arch: str, batch: int, shape, top: int,
     model = build_model(cfg.replace(remat="full"))
     n = model.num_params()
     tokens = batch * shape.seq_len
+    rows = batch // mesh.data_size
     coll = RL.step_collectives("train", n, mesh.world_size, mesh.data_size,
                                model=mesh.model,
                                cfg=cfg.replace(remat="full"),
-                               tokens=tokens // mesh.data_size,
+                               tokens=tokens // mesh.data_size
+                               // (mesh.model if dp else 1),
                                params_per_card=res["s_card"],
-                               seqs=batch // mesh.data_size)
+                               seqs=rows, dp_rows=rows if dp else 0)
     roof = RL.analyze(step_analytics(cfg, shape, mesh.world_size, n,
-                                     model_parallel=mesh.model), coll,
+                                     model_parallel=1 if dp else mesh.model),
+                      coll,
                       model_flops_total=RL.model_flops(
                           n, tokens, active_params(cfg, model), train=True))
     secs = res["runs"][1]["seconds"]
@@ -4749,7 +4817,8 @@ def _train_step_bound(res: dict, mesh, arch: str, batch: int, shape, top: int,
                t_memory=roof.t_memory, t_collective=roof.t_collective,
                bound_over_measured=roof.bound_s / secs,
                cut=(f"layers {top} -> {layers}; " if layers < top else "")
-               + f"global batch 256 -> {batch}; N = 1 client")
+               + f"global batch 256 -> {batch}; N = {mesh.data_size} "
+               f"client{'s' if mesh.data_size > 1 else ''}")
     return res
 
 
@@ -5818,14 +5887,17 @@ def paper_cfg(arch: str):
             else cfg)
 
 
-def paper_rounds(K, mesh, dev, arch: str, tag: str, capture=None) -> tuple:
+def paper_rounds(K, mesh, dev, arch: str, tag: str, capture=None,
+                 rules=None) -> tuple:
     """``axis_rounds`` of a paper model: full width, f32 weights and
     states, N = 20 clients of batch 32, ``PAPER_ROUNDS`` ``mads`` rounds
     (every client in contact in round 2), each ``sparsify_ef`` call held
-    as it returns; over ``mesh`` or on this card alone; round 1's target
-    k (and its inputs) into ``capture``."""
+    as it returns; over ``mesh`` (its parameters placed by ``rules``) or
+    on this card alone; round 1's target k (and its inputs) into
+    ``capture``."""
     return axis_rounds(K, mesh, dev, tag, paper_cfg(arch), n=N_DEV,
-                       batch=32 * N_DEV, rounds=PAPER_ROUNDS, capture=capture)
+                       batch=32 * N_DEV, rounds=PAPER_ROUNDS, capture=capture,
+                       rules=rules)
 
 
 def paper_sparsify_times(K, R, card: str) -> list:
@@ -5943,7 +6015,7 @@ def paper_axis_phase(K, DA, R, smi: str) -> dict:
                 times=dict(times, sparsify_ef=sparsify))
 
 
-def paper_axis(K, mesh, dev, store: Path, arch: str) -> dict:
+def paper_axis(K, mesh, dev, store: Path, arch: str, rules=None) -> dict:
     """Phase 26b for one paper model on ``mesh``: (i) ``axis_same_x`` on
     a random f32 x (N, s), the threshold bit-equal and the count equal;
     (ii) rank 0 runs ``paper_rounds`` on its card alone (world 1, once for
@@ -5954,11 +6026,20 @@ def paper_axis(K, mesh, dev, store: Path, arch: str) -> dict:
     from one state: the same target k on both sides, and for the models
     of ``PAPER_F64`` the mesh's counts no further from the f64 counts of
     the same gradient (``round1_f64_counts``) than 3x one card's, plus 2
-    a client, summed over the clients."""
+    a client, summed over the clients.  30c (``rules`` ``RULES_TRAIN_DP``:
+    whole parameters, each client's batch split over ``model``, its
+    batch-norm statistics the whole batch's): no (i), whose x is whole
+    on every rank; w besides within 1e-6 of its largest entry at 97 % of
+    the coordinates or more (the CPU tests' standard), and each round's
+    collectives over ``model`` equal to the plan's
+    (``step_collectives(dp_rows=)``)."""
     import torch.distributed as dist
 
-    same_x = axis_same_x(K, mesh, dev, paper_cfg(arch), n=N_DEV,
-                         dtype=torch.float32)
+    from repro_torch.launch import roofline as RL
+
+    dp = rules is not None
+    same_x = None if dp else axis_same_x(K, mesh, dev, paper_cfg(arch),
+                                         n=N_DEV, dtype=torch.float32)
     key = f"paper_{arch}"
     if mesh.rank == 0 and not (store / f"{key}_one.json").exists():
         cap = {"inputs": True}
@@ -5976,10 +6057,11 @@ def paper_axis(K, mesh, dev, store: Path, arch: str) -> dict:
     one = json.loads((store / f"{key}_one.json").read_text())
     shape = f"({mesh.data_size}, {mesh.model})"
     cap = {}
-    got, w, model = paper_rounds(K, mesh, dev, arch, f"paper {arch} {shape}",
-                                 cap)
+    got, w, model = paper_rounds(K, mesh, dev, arch,
+                                 f"paper {arch} {shape}" + " dp" * dp, cap,
+                                 rules)
     hold = _rounds_hold(got, one, w, model, mesh, store / f"{key}_w1.pt",
-                        PAPER_ROUNDS)
+                        PAPER_ROUNDS, rules)
     del w
     _free(dev)
     witness = dict(k_target_equal=cap["k"].tolist()
@@ -5997,6 +6079,17 @@ def paper_axis(K, mesh, dev, store: Path, arch: str) -> dict:
     checks = dict(w_f32=hold["w_off_max"] <= PAPER_W_OFF,
                   k_target_equal=witness["k_target_equal"],
                   k_within_f32_spread=witness.get("within_f32_spread", True))
+    if dp:
+        rows = 32
+        s = model.num_params()
+        plan = RL.step_collectives(
+            "train", s, mesh.model, N_DEV // mesh.data_size, model=mesh.model,
+            cfg=model.cfg, tokens=rows // mesh.model, params_per_card=s,
+            dp_rows=rows).count_by_kind
+        witness["plan_counts"] = plan
+        checks.update(w_1e6=hold["w_beyond_1e6_share"] <= 0.03,
+                      counts_equal=all(c == plan for c in got["axis_counts"])
+                      and len(got["axis_counts"]) == PAPER_ROUNDS)
     return dict(mesh_shape=shape, same_x=same_x, world_1=one, mesh=got,
                 hold=hold, witness=witness, checks=checks,
                 ok=hold["ok"] and all(checks.values()))
@@ -6967,6 +7060,7 @@ def data_full(mods, mesh, dev, arch: str, shape_name: str,
             device=dev).manual_seed(0), dev, mesh)
         _sync(dev)
         setup_s = time.perf_counter() - t0
+        checked_before = None if check is None else check(built, args)
         runs = []
         try:
             for i in range(2):
@@ -7447,6 +7541,379 @@ def check_slot_rank(o: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 30: dp_client's batch split over model (an MoE's routing and aux
+# loss, ResNet-9's batch-norm statistics over the whole batch)
+# ---------------------------------------------------------------------------
+
+DP_PLAN_ARCHS = ("qwen3-moe-30b-a3b", "qwen2-moe-a2.7b", RESNET9)
+DP_PLAN_M = (2, 4)  # 30a: the plan's model axes (world = M, one client)
+DP_MOE_ROWS = 4  # 30a: rows of 4,096 tokens through one MoE layer
+# 30b: arch, global batch, depth (or calibration depths), seq: one client
+# of 4 x 4096 tokens on (1, 4), one a data rank of 2 x 4096 on (2, 2).
+# The deepest cut under 75 GiB a card: rounds on (1, 4) peaked at 36.45,
+# 53.23 and 75.17 GiB at 2, 4 and 6 layers (H100 80GB HBM3; the round's
+# passes over the whole parameters take ~18.5 bytes a parameter, past
+# the calibration line's 14.5), so 5
+DP_TRAIN = ("qwen3-moe-30b-a3b", 4, 5, 4096)
+# 30b's f32 check on (1, 4): layers, seq (640 tokens a rank: groups of 512
+# that span ranks), rounds
+DP_F32 = (2, 640, 2)
+DP_MESHES = ((1, 4), (2, 2))  # 30b-c: (data, model)
+
+
+def dp_phase(smi: str, device="cuda") -> dict:
+    """Phase 30a (one card): the plan under ``dp_client`` at M = 2 and 4
+    (world = M, one client) for Qwen3-MoE-30B-A3B and Qwen2-MoE-A2.7B x
+    train_4k on the meta device (``dryrun.plan``), and for ResNet-9's
+    round of 30c (N = 20, batch 32 a client, on (4 / M, M); the
+    calculator has no vision family, so its collectives alone,
+    ``roofline.step_collectives``): a rank's tokens (rows) 1/M of its
+    client's, its counted collectives listed; then on a (1, 1) NCCL mesh
+    the split's entries with an axis of 1, bit-equal to the unsplit path:
+    ``collectives.all_sum`` and its gradient, one full-width Qwen3-MoE
+    layer (``moe_apply``, bf16, 4 x 4,096 tokens) under ``batch_axis``
+    and ResNet-9's loss and gradient at full width (batch 32, f32, cuDNN
+    deterministic) under ``batch_axis`` (``axis_cfg`` and ``paper_cfg``:
+    reduced in a rehearsal on ``device`` "cpu")."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.mesh import make_client_mesh
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.registry import build_model, demo_batch
+    from repro_torch.sharding import collectives as C
+    from repro_torch.utils.tree import tree_flatten
+
+    t0 = time.perf_counter()
+    shape = INPUT_SHAPES["train_4k"]
+    plan = {}
+    for arch in DP_PLAN_ARCHS:
+        for m in DP_PLAN_M:
+            if arch == RESNET9:  # the calculator has no vision family: the
+                # paper's round (30c's), N = 20 clients of 32 on (4 / M, M)
+                s = build_model(get_config(arch)).num_params()
+                client, n = 32, N_DEV // (4 // m)
+                res = dict(rows_per_rank=client // m, client_rows=client,
+                           coll_counts=RL.step_collectives(
+                               "train", s, 4, N_DEV, model=m,
+                               cfg=get_config(arch), tokens=client // m,
+                               params_per_card=s,
+                               dp_rows=client).count_by_kind)
+                mine = res["rows_per_rank"]
+                label = f"N = {N_DEV}, batch 32 a client, on ({4 // m}, {m})"
+            else:
+                rec, built = DR.plan(get_config(arch), shape, world=m,
+                                     model=m, variant="dp_client")
+                del built
+                client = shape.global_batch * shape.seq_len
+                res = dict(tokens_per_rank=rec["tokens_per_rank"],
+                           client_tokens=client,
+                           argument_gb=rec["mem"]["argument_gb"],
+                           flops=rec["roofline"]["flops"],
+                           coll_counts=rec["roofline"]["coll_counts"])
+                mine = rec["tokens_per_rank"]
+                label = f"x train_4k on (1, {m})"
+            if mine * m != client:
+                fail(f"dp plan {arch} at M = {m}: a rank's {mine} are not "
+                     f"1/{m} of its client's {client}")
+            plan[f"{arch} M={m}"] = res
+            print(f"dp plan {arch} {label}: {json.dumps(res)} (sizes of a "
+                  f"plan, no card used)", flush=True)
+    mesh = make_client_mesh(1, model=1, family="moe", device=device)
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        # the mesh's model axis of 1 (``model_axis()`` names none)
+        ma, dev = C.ModelAxis(mesh.group, 0, mesh.model), mesh.device
+        if (mesh.axis_sizes, mesh.coords) != ({"data": 1, "model": 1},
+                                              {"data": 0, "model": 0}):
+            fail(f"dp: a (1, 1) mesh is {mesh.axis_sizes} {mesh.coords}")
+        gen = torch.Generator(device=dev).manual_seed(30)
+        v = torch.randn(128, generator=gen, device=dev, requires_grad=True)
+        c = torch.randn(128, generator=gen, device=dev)
+        g = torch.autograd.grad((C.all_sum(v, ma) * c).sum(), v)[0]
+        same = dict(all_sum=bool(torch.equal(C.all_sum(v, ma), v)
+                                 and torch.equal(g, c)))
+        cfg = axis_cfg("qwen3-moe-30b-a3b")
+        dt = torch.bfloat16
+        d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+        p = {k: (torch.randn(shp, generator=gen, device=dev) * sc).to(dt)
+             for k, shp, sc in (("router", (d, e), 0.02),
+                                ("wi_gate", (e, d, f), d ** -0.5),
+                                ("wi_up", (e, d, f), d ** -0.5),
+                                ("wo", (e, f, d), f ** -0.5))}
+        tokens = (DP_MOE_ROWS, 4096 if dev.type == "cuda" else 64)
+        x = torch.randn(tokens + (d,), generator=gen, device=dev).to(dt)
+        with torch.no_grad():
+            y0, a0 = MOE.moe_apply(p, cfg, x)
+            y1, a1 = MOE.moe_apply(p, cfg, x, batch_axis=ma)
+        same["moe_apply"] = bool(torch.equal(y0, y1) and torch.equal(a0, a1))
+        del p, x, y0, y1
+        rcfg = paper_cfg(RESNET9)
+        model = build_model(rcfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in demo_batch(
+            rcfg, 32, 1, np.random.default_rng(0)).items()}
+        leaves = [t.requires_grad_() for t in tree_flatten(params)[1]]
+        gs = [torch.autograd.grad(model.loss_fn(params, rcfg, batch, **kw),
+                                  leaves)
+              for kw in ({}, {"batch_axis": ma})]
+        same["resnet9"] = all(torch.equal(a, b) for a, b in zip(*gs))
+        del params, leaves, gs
+    finally:
+        mesh.close()
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = det
+    if not all(same.values()):
+        fail(f"dp: the split's entries on a (1, 1) axis differ from the "
+             f"unsplit path: {same}")
+    _free(dev)
+    print(f"dp (1, 1) axis: all_sum, Qwen3-MoE's moe_apply ({tokens[0]} x "
+          f"{tokens[1]} tokens, bf16) and ResNet-9's gradient under "
+          f"batch_axis bit-equal to the unsplit path ({json.dumps(same)}); "
+          f"phase 30a {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(plan=plan, bit_equal=same)
+
+
+def dp_routes(model, cfg, params, tokens, mesh) -> dict:
+    """30b: the routes (``routes_kept``) of the rank's rows of its
+    client's batch (``tokens`` the global batch, the client that of the
+    rank's data index, the rows its model index's chunk, as
+    ``core/distributed.py`` splits them) under ``batch_axis``, against
+    one card's forward of the client's whole batch on this card: each
+    MoE layer's ``keep`` and slots of the rank's tokens bit-equal
+    (``_routes_equal``), and a position-weighted checksum of each side's
+    ``keep`` on those tokens."""
+    rows = tokens.shape[0] // mesh.data_size
+    d, m = mesh.coords["data"], mesh.coords["model"]
+    client = tokens[d * rows:(d + 1) * rows]
+    mine = client.chunk(mesh.model)[m]
+    per = mine.numel()
+    got, want = [], []
+    with torch.no_grad():
+        with routes_kept(want):
+            model.forward(params, cfg, client)
+        with routes_kept(got):
+            model.forward(params, cfg, mine, batch_axis=mesh.model_axis())
+
+    def checksum(keeps) -> int:
+        tot = 0
+        for kp in keeps:
+            w = torch.arange(1, kp.numel() + 1) % 65521 + 1
+            tot += int((kp.reshape(-1).long() * w).sum())
+        return tot
+
+    e = got[0][0].shape[-1] if got else 0
+    mine_keep = [kp.reshape(-1, e)[own.reshape(-1) > 0]
+                 for kp, _, own in got]
+    whole_keep = [wk.reshape(-1, e)[m * per:m * per + len(k)]
+                  for (wk, _, _), k in zip(want, mine_keep)]
+    out = dict(layers=len(got), tokens=per,
+               equal=_routes_equal(got, want, m * per),
+               checksum=checksum(mine_keep),
+               checksum_one_card=checksum(whole_keep),
+               kept=int(sum(k.sum() for k in mine_keep)))
+    del got, want
+    return out
+
+
+def dp_moe_f32(K, mesh, dev, store: Path) -> dict:
+    """30b's f32 check on (1, 4): Qwen3-MoE-30B-A3B at ``DP_F32``'s 2
+    layers of full width, f32 weights and states, ``conditioned``, one
+    client of 4 rows of 640 tokens (a rank's 640 span two groups of 512),
+    ``DP_F32`` ``mads`` rounds; rank 0 alone on its card (world 1) on the
+    whole batch first, then ``dp_client`` over the mesh
+    (``axis_rounds``), held by ``_rounds_hold`` (24b's standard, as 25e's
+    f32 rounds) and w within 1e-6 of its largest entry at 97 % of the
+    coordinates or more and 1e-4 everywhere (the CPU tests' standard);
+    each round's collectives over
+    ``model`` the plan's; the routes of the rank's rows on the seeded
+    weights equal to one card's on the whole batch (``dp_routes``)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.steps import RULES_TRAIN_DP
+    from repro_torch.models.registry import demo_batch
+
+    layers, seq, rounds = DP_F32
+    arch, batch = DP_TRAIN[:2]
+    cfg = axis_cfg(arch, layers).replace(dtype="float32",
+                                         param_dtype="float32")
+    n = mesh.data_size
+    if mesh.rank == 0:
+        one, w, _ = axis_rounds(K, None, dev, "dp f32 world 1", cfg,
+                                cond=True, n=n, batch=batch, rounds=rounds,
+                                seq=seq)
+        torch.save(w.cpu(), store / "dp_w1_f32.pt")
+        (store / "dp_one_f32.json").write_text(json.dumps(one))
+        del w
+        _free(dev)
+    dist.barrier()
+    one = json.loads((store / "dp_one_f32.json").read_text())
+    shape = f"({mesh.data_size}, {mesh.model})"
+    got, w, model = axis_rounds(K, mesh, dev, f"dp f32 {shape}", cfg,
+                                cond=True, n=n, batch=batch, rounds=rounds,
+                                seq=seq, rules=RULES_TRAIN_DP)
+    hold = _rounds_hold(got, one, w, model, mesh, store / "dp_w1_f32.pt",
+                        rounds, RULES_TRAIN_DP)
+    del w
+    _free(dev)
+    s = model.num_params()
+    rows = batch // n
+    plan = RL.step_collectives("train", s, mesh.model, 1, model=mesh.model,
+                               cfg=cfg, tokens=rows // mesh.model * seq,
+                               params_per_card=s,
+                               dp_rows=rows).count_by_kind
+    params = conditioned(model, model.init(
+        torch.Generator(device=dev).manual_seed(0), dev))
+    tokens = torch.as_tensor(demo_batch(cfg, batch, seq, np.random.default_rng(
+        0))["tokens"]).to(dev)
+    routes = dp_routes(model, cfg, params, tokens, mesh)
+    del params
+    _free(dev)
+    # w: the CPU tests' standard; an MoE round parts from one card's at
+    # the coordinates that its k moves (a routing choice that flips at an
+    # f32 near-tie moves a whole expert's gradient: PERF.md §7)
+    checks = dict(hold=hold["ok"], w_1e6=hold["w_beyond_1e6_share"] <= 0.03
+                  and hold["w_off_max"] <= 1e-4,
+                  counts_equal=all(c == plan for c in got["axis_counts"])
+                  and len(got["axis_counts"]) == rounds,
+                  routes_equal=routes["equal"])
+    return dict(mesh_shape=shape, layers=layers, seq=seq, world_1=one,
+                mesh=got, hold=hold, plan_counts=plan, routes=routes,
+                checks=checks, ok=all(checks.values()))
+
+
+def _dp_mesh(data: int, m: int, family: str, device):
+    """A (data, m) client mesh whose groups' communicators are made at
+    once, on an empty card: NCCL makes one at its first collective and
+    takes its buffers outside PyTorch's allocator, and the data group's
+    first all-reduce (the MES aggregation) comes at the round's peak,
+    where on (2, 2) it found no room (an NCCL out-of-memory error)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_client_mesh
+
+    mesh = make_client_mesh(data if family == "moe" else N_DEV, model=m,
+                            family=family, device=device)
+    one = torch.zeros(1, device=mesh.device)
+    for g in (mesh.data, mesh.model_group):
+        dist.all_reduce(one, group=g)
+    _sync(mesh.device)
+    return mesh
+
+
+def _dp_mesh_done(mesh) -> None:
+    """Free a ``_dp_mesh``'s subgroups (and their NCCL buffers)."""
+    import torch.distributed as dist
+
+    for g in (mesh.model_group, mesh.data_group):
+        if g is not None:
+            dist.destroy_process_group(g)
+    _free(mesh.device)
+
+
+def dp_axis_mesh(mods, K, store: Path, device="cuda",
+                 phases: str = "bc") -> dict:
+    """Phases 30b-c on four ranks (``--mesh 4 --only 30``; ``phases`` of
+    "bc").  (b) Qwen3-MoE-30B-A3B at full width under ``dp_client``,
+    bf16, through ``build_step`` (``axis_train_step``, remat full): on
+    (1, 4) one client of 4 x 4,096 tokens, the depth cut to the deepest
+    whose peak stays under 75 GiB a card (``DP_TRAIN``), the routes of
+    the rank's rows against one card's on the whole batch first
+    (``dp_routes``), round 1 counted
+    (collectives over ``model`` the plan's, one ``sparsify_ef`` held),
+    round 2 timed, and before it the f32 check (``dp_moe_f32``); on (2,
+    2) one client a data rank of 2 x 4,096 at the same depth.  (c)
+    ResNet-9 at full width, N = 20, batch 32 a client, f32, 4 ``mads``
+    rounds under ``dp_client`` on (1, 4) (8 rows a rank) and (2, 2) (16)
+    against one card's rounds (``paper_axis`` with ``RULES_TRAIN_DP``)."""
+    from repro_torch.launch.steps import RULES_TRAIN_DP
+
+    out = {}
+    if "b" in phases:
+        train = DP_TRAIN
+        for data, m in DP_MESHES:
+            mesh = _dp_mesh(data, m, "moe", device)
+            dev = mesh.device
+            key = f"moe ({data}, {m})"
+            out[key] = {}
+            if data == 1:
+                t0 = time.perf_counter()
+                out[key]["f32"] = dp_moe_f32(K, mesh, dev, store)
+                out[key]["f32"]["phase_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+
+            def routes(built, args, mesh=mesh):
+                pl = built["system"]["placement"]
+                return dp_routes(built["model"], built["cfg"],
+                                 pl.layout.unflatten(args[0].w),
+                                 args[1]["tokens"], mesh)
+
+            res = axis_train_step(mods, mesh, dev, train, "dp_client", routes)
+            res["phase_s"] = time.perf_counter() - t0
+            out[key]["train"] = res
+            # the (2, 2) mesh holds the same rows a rank: the same depth
+            train = DP_TRAIN[:2] + (res["layers"],) + DP_TRAIN[3:]
+            print("DP " + json.dumps({"rank": mesh.rank, key: res}),
+                  flush=True)
+            _dp_mesh_done(mesh)
+    if "c" in phases:
+        for data, m in DP_MESHES:
+            mesh = _dp_mesh(data, m, "vision", device)
+            t0 = time.perf_counter()
+            res = paper_axis(K, mesh, mesh.device, store, RESNET9,
+                             RULES_TRAIN_DP)
+            res["phase_s"] = time.perf_counter() - t0
+            out[f"{RESNET9} {res['mesh_shape']}"] = res
+            print(f"dp {RESNET9} on {res['mesh_shape']}: round s "
+                  f"{res['mesh']['round_s']}, peak "
+                  f"{res['mesh']['peak_gib']:.2f} GiB, hold "
+                  f"{json.dumps(res['hold'])}", flush=True)
+            _dp_mesh_done(mesh)
+    return out
+
+
+def check_dp_rank(o: dict) -> None:
+    """Phases 30b-c's checks of one rank's results, a line a case."""
+    for key, res in o["dp"].items():
+        if key.startswith(RESNET9):
+            check_paper_rank({"rank": o["rank"], "paper": {key: res}})
+            print(f"dp rank {o['rank']}: {key}: collectives over model a "
+                  f"round {res['mesh']['axis_counts'][0]} (plan "
+                  f"{res['witness']['plan_counts']})", flush=True)
+            continue
+        if "f32" in res:
+            f = res["f32"]
+            if not f["ok"]:
+                fail(f"dp {key} f32 on rank {o['rank']}: {f['checks']}, "
+                     f"{f['hold']}, routes {f['routes']}")
+            print(f"dp rank {o['rank']}: {key} f32, {f['layers']} layers, "
+                  f"seq {f['seq']}: k off at most {f['hold']['k_abs_max']} "
+                  f"({f['hold']['k_rel_max']:.3g}), w off at most "
+                  f"{f['hold']['w_off_max']:.3g}, past 1e-6 "
+                  f"{f['hold']['w_beyond_1e6_share']:.4f}; routes "
+                  f"{json.dumps(f['routes'])}; collectives a round "
+                  f"{f['mesh']['axis_counts'][0]} (plan "
+                  f"{f['plan_counts']})", flush=True)
+        t = res["train"]
+        r = t["before"]
+        if not (r["equal"] and r["checksum"] == r["checksum_one_card"]):
+            fail(f"dp {key} on rank {o['rank']}: the routes of the rank's "
+                 f"rows differ from one card's: {r}")
+        print(f"dp rank {o['rank']}: {key} Qwen3-MoE-30B-A3B x train_4k "
+              f"(bf16, {t['cut']}): {t['seconds']:.6g} s a round, peak "
+              f"{t['peak_gib_max_over_ranks']:.2f} GiB, bound "
+              f"{t['bound_s']:.6g} s ({t['bound_by']}); routes of "
+              f"{r['layers']} layers x {r['tokens']} tokens equal to one "
+              f"card's (checksum {r['checksum']}); collectives over model "
+              f"{json.dumps(t['runs'][0]['axis_counts'])}; launches "
+              f"{t['runs'][0]['launches']}, held {t['runs'][0]['held']}",
+              flush=True)
+
+
+# ---------------------------------------------------------------------------
 # --mesh P: the distributed round over P cards (one process a card)
 # ---------------------------------------------------------------------------
 
@@ -7712,7 +8179,8 @@ def mesh_rank(rank: int, world: int, store_path: str,
     r; ``ONLY`` "24": phases 24b-d alone ("24cd": 24c-d); "25": phases
     25b-e ("25" and some of "bcde": those); "26": phases 26b-d (and some
     of "bcd"); "27": phases 27b-c (and some of "bc"); "28": phases 28b-e
-    (and some of "bcde"); "29": phases 29b-c (and some of "bc")."""
+    (and some of "bcde"); "29": phases 29b-c (and some of "bc"); "30":
+    phases 30b-c (and some of "bc")."""
     import torch.distributed as dist
 
     from repro_torch.kernels import decode_attn as DA
@@ -7747,6 +8215,9 @@ def mesh_rank(rank: int, world: int, store_path: str,
         elif only.startswith("29"):
             out["slot"] = slot_axis_mesh(mods, K, Path(store_path).parent,
                                          phases=only[2:] or "bc")
+        elif only.startswith("30"):
+            out["dp"] = dp_axis_mesh(mods, K, Path(store_path).parent,
+                                     phases=only[2:] or "bc")
         elif world == 4:
             out["axis"] = axis_mesh(mods, K, Path(store_path).parent,
                                     phases="cd" if only == "24cd" else "bcd")
@@ -7858,6 +8329,8 @@ def mesh_main(world: int, only: str = "") -> None:
             check_data_rank(o)
         if "slot" in o:
             check_slot_rank(o)
+        if "dp" in o:
+            check_dp_rank(o)
     for o in outs:
         if only:
             continue
@@ -7935,16 +8408,15 @@ def main() -> None:
         return time_tree(sys.argv[2])
     if sys.argv[1:2] == ["--mesh"]:
         only = sys.argv[4] if sys.argv[3:4] == ["--only"] else ""
+        parts = {"25": "bcdef", "26": "bcd", "27": "bc", "28": "bcde",
+                 "29": "bc", "30": "bc"}  # a phase's four-card parts
         if only not in ("", "24", "24cd") and not (
-                only.startswith("25") and set(only[2:]) <= set("bcdef")) \
-                and not (only.startswith("26") and set(only[2:]) <= set("bcd")) \
-                and not (only.startswith("27") and set(only[2:]) <= set("bc")) \
-                and not (only.startswith("28") and set(only[2:]) <= set("bcde")) \
-                and not (only.startswith("29") and set(only[2:]) <= set("bc")):
+                only[:2] in parts and set(only[2:]) <= set(parts[only[:2]])):
             fail(f"--mesh takes --only 24, 24cd, 25 (25 and some of bcde, "
                  f"or 25f: 25e's f32 rounds alone), 26 (26 and some of "
                  f"bcd), 27 (27 and some of bc), 28 (28 and some of "
-                 f"bcde) or 29 (29 and some of bc), not {only}")
+                 f"bcde), 29 (29 and some of bc) or 30 (30 and some of "
+                 f"bc), not {only}")
         return mesh_main(int(sys.argv[2]), only)
     if sys.argv[1:2] == ["--mesh-rank"]:
         return mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
@@ -7952,9 +8424,10 @@ def main() -> None:
     only = (set(sys.argv[2].split(",")) if sys.argv[1:2] == ["--only"]
             else None)
     if only is not None and not only <= {"3c", "19", "20", "21", "22", "23",
-                                         "24", "25", "26", "27", "28", "29"}:
+                                         "24", "25", "26", "27", "28", "29",
+                                         "30"}:
         fail(f"--only takes phases of 3c, 19, 20, 21, 22, 23, 24, 25, 26, "
-             f"27, 28, 29, not {sys.argv[2]}")
+             f"27, 28, 29, 30, not {sys.argv[2]}")
     from repro_torch.kernels import decode_attn as DA
     from repro_torch.kernels import ref as R
     from repro_torch.kernels import sparsify_ef as K
@@ -7989,9 +8462,11 @@ def main() -> None:
                   "26": lambda: paper_axis_phase(K, DA, R, smi),
                   "27": lambda: codec_axis_phase(K, R, smi),
                   "28": lambda: data_axis_phase(DA, SSD, R, smi),
-                  "29": lambda: slot_axis_phase(DA, R, smi)}
+                  "29": lambda: slot_axis_phase(DA, R, smi),
+                  "30": lambda: dp_phase(smi)}
         done = {p: phases[p]() for p in ("3c", "19", "20", "21", "22", "23",
-                                         "24", "25", "26", "27", "28", "29")
+                                         "24", "25", "26", "27", "28", "29",
+                                         "30")
                 if p in only}
         print(json.dumps(dict(phases=sorted(done), held=HELD), default=str))
         return
@@ -8145,6 +8620,12 @@ def main() -> None:
     # blocks combined against the whole cache (the four-card phases run
     # under --mesh 4 --only 29)
     slot_axis = slot_axis_phase(DA, R, smi)
+    torch.cuda.empty_cache()
+
+    # 30. dp_client's batch split over model: the plan at M = 2, 4 and the
+    # split's entries on a (1, 1) axis (the four-card phases run under
+    # --mesh 4 --only 30)
+    dp_phase(smi)
     torch.cuda.empty_cache()
 
     # 18. device time by kernel, last (the profiler slows later launches)

@@ -165,14 +165,21 @@ def afl_init(model, fl, seed: int, device="cpu", params=None) -> AflState:
     )
 
 
-def device_grads(model, w_n, batch, *, layout=None, model_axis=None):
+def device_grads(model, w_n, batch, *, layout=None, model_axis=None,
+                 batch_axis=None):
     """Per-device gradients (N, s) of the loss at the stacked models w_n.
 
     ``layout``: w_n's (a rank's blocks, ``Model.block_layout``; the
     model's by default); ``model_axis``: the tensor-parallel axis the loss
-    runs over (``sharding/collectives.py``)."""
+    runs over (``sharding/collectives.py``); ``batch_axis``: the axis each
+    client's batch is split over, ``batch`` this rank's rows of it (the
+    parameters whole): the loss's batch-wide quantities are the whole
+    batch's, and the gradient is this rank's part of the whole batch's,
+    which the caller sums over the axis (``core/distributed.py``)."""
     layout = layout or model.layout
     kw = {} if model_axis is None else {"model_axis": model_axis}
+    if batch_axis is not None:
+        kw["batch_axis"] = batch_axis
 
     def loss(p, b):
         return model.loss_fn(p, model.cfg, b, **kw)

@@ -74,12 +74,19 @@ flatten order, and the round runs on them:
 * the aggregation over ``data`` only, the metrics gathered over ``data``.
 
 Under ``RULES_TRAIN_DP`` (``launch/steps.py``'s ``dp_client``) the
-parameters stay whole, each client's batch is split over ``model``, and
-the gradient is all-reduced over ``model`` once (an MoE client's batch
-runs whole on every rank: its routing's capacity and load-balance loss
-are functions of the whole batch; so does a ResNet-9 client's, whose
-batch-norm statistics are, ``batch_whole``); a codec there runs on the
-whole rows on each rank with no ``model`` collective.  With a model axis
+parameters stay whole, each client's batch whose rows divide the model
+axis is split over ``model`` (rank m its m-th chunk of the client's
+rows), and the gradient is all-reduced over ``model`` (one a column
+block of ``CHUNK``) and divided by M.  The loss runs with the model axis
+as its ``batch_axis``, so that what it computes over the whole batch
+stays the whole batch's: an MoE's routing, capacity, slots and
+load-balance loss (``models/moe.py``), ResNet-9's batch-norm statistics
+(``models/resnet.py``), through ``collectives.all_sum`` (all-reduce
+both ways: each rank's loss reads the sums, so their gradient reaches
+every rank's rows) and ``counts_before``.  A batch whose rows do not
+divide runs whole on every rank (the rules leave it unsharded), with no
+gradient all-reduce.  A codec there runs on the whole rows on each rank
+with no ``model`` collective.  With a model axis
 of 1 the blocks are the whole leaves and the round is the one above; a
 codec there runs on the whole rows, as without a mesh.
 ``ingest_shardings`` is the serve path's split of a packed upload batch
@@ -195,14 +202,6 @@ def placement(model, mesh: ClientMesh | None, rules=None) -> Placement:
         owned=tuple(owned),
         model_axis=None if mesh is None else mesh.model_axis(),
         dp=dp, full=model.layout, peers=peers)
-
-
-def batch_whole(cfg) -> bool:
-    """Whether a client's loss is no mean of its samples' losses, so that
-    ``dp_client`` runs its batch whole on every rank of its model group:
-    an MoE's (capacity and the load-balance loss over the batch) or
-    ResNet-9's (batch-norm statistics over the batch)."""
-    return cfg.is_moe or cfg.family == "vision"
 
 
 def state_shardings(model, mesh, dcfg: DistConfig, rules=None) -> DistAflState:
@@ -435,15 +434,15 @@ def make_afl_train_step(model, cfg, dcfg: DistConfig,
         cl = _split_clients(batch, n, rows)
         if not pl.dp:
             return device_grads(model, w_n, cl, layout=layout, model_axis=ma)
-        # dp_client: each client's batch split over model, one all-reduce;
-        # a batch that does not divide runs whole on every rank (the rules
-        # leave it unsharded), and so does one whose loss reads the whole
-        # batch (``batch_whole``)
+        # dp_client: each client's batch split over model, the loss's
+        # batch-wide quantities over the axis, the gradient all-reduced; a
+        # batch that does not divide runs whole on every rank (the rules
+        # leave it unsharded)
         rows_per = next(iter(cl.values())).shape[1]
-        if rows_per % ma.size or batch_whole(model.cfg):
+        if rows_per % ma.size:
             return device_grads(model, w_n, cl, layout=layout)
         part = {k: v.chunk(ma.size, dim=1)[ma.rank] for k, v in cl.items()}
-        g = device_grads(model, w_n, part, layout=layout)
+        g = device_grads(model, w_n, part, layout=layout, batch_axis=ma)
         for c in _columns(g.shape[1]):
             acc = g[:, c].to(torch.float32)
             g[:, c] = div(C.all_reduce_(acc, ma), float(ma.size)).to(g.dtype)

@@ -28,7 +28,9 @@ at batch 1) the whole batch and its block of the cache's slots; over
 ``model`` a cache whose kv heads do not divide holds every kv head over
 the card's block of the slots (``sharding/rules.py::model_slots``, where
 the rules cut its ``head_dim``); ``tokens_per_rank`` counts the tokens
-it computes.
+it computes: under ``--variant dp_client`` (whole parameters on every
+card) its 1/M of each client's rows, or all of them where they do not
+divide the model axis.
 ``--execute`` (the counterpart of compile + ``memory_analysis``) runs
 each planned step whose arguments fit, once, on ``--device`` (the card by
 default; a missing card raises) from random arguments
@@ -55,7 +57,6 @@ import traceback
 import torch
 
 from repro_torch.configs import ASSIGNED_ARCHS, INPUT_SHAPES, get_config
-from repro_torch.core.distributed import batch_whole
 from repro_torch.launch import roofline as RL
 from repro_torch.launch.calculator import step_analytics
 from repro_torch.launch.mesh import ClientMesh, make_client_mesh
@@ -111,25 +112,23 @@ def plan(cfg0, shape, *, world: int = 1, model: int = 1,
                                   else "token"][0]
         rows = r.stop - r.start
         per_rank = tokens * rows // shape.global_batch
-    # dp_client splits a client's batch over model, except one whose loss
-    # reads the whole batch (``batch_whole``) or one that does not divide,
-    # which runs whole on every rank of its model group
+    # dp_client splits a client's batch over model, except one whose rows
+    # do not divide, which runs whole on every rank of its model group
     # (core/distributed.py): a rank's work is then that of a mesh of world
     # / model ranks
     dp = variant == "dp_client" and dcfg is not None and model > 1
-    whole = dp and (batch_whole(cfg)
-                    or shape.global_batch // dcfg.num_clients % model > 0)
+    dp_rows = shape.global_batch // dcfg.num_clients if dp else 0
+    whole = dp and dp_rows % model > 0
     computed = per_rank // model if dp and not whole else per_rank
     analytic = step_analytics(cfg, shape, world // model if whole else world,
                               n_params, model_parallel=mp)
     coll = RL.step_collectives(
         shape.kind, n_params, world, dcfg.num_clients if dcfg else 0,
-        dcfg.upload_dtype if dcfg else "float32",
-        model=1 if variant == "dp_client" else model, cfg=cfg,
-        tokens=per_rank, params_per_card=s_r,
+        dcfg.upload_dtype if dcfg else "float32", model=model, cfg=cfg,
+        tokens=computed, params_per_card=s_r,
         sample=dcfg.sample_size if dcfg else 0, batch=rows,
         seqs=rows // (dcfg.num_clients if dcfg else 1),
-        shape=None if dcfg else shape)
+        shape=None if dcfg else shape, dp_rows=dp_rows)
     roof = RL.analyze(analytic, coll, model_flops_total=mf)
     args_b = arg_bytes(built["args"])
     rec = dict(status="ok", world=world, model=model, cards=world,

@@ -369,6 +369,42 @@ def data_collectives(cfg, shape, data: int, model: int = 1) -> list:
     return ev
 
 
+def dp_collectives(cfg, m: int, tokens: int, clients: int) -> list:
+    """The collectives over ``model`` of a ``dp_client`` training client's
+    loss whose batch is split over the axis (``core/afl.py::
+    device_grads``' ``batch_axis``; ``tokens`` the rank's tokens of a
+    client, ``clients`` the rank's clients, all of them one collective
+    under ``vmap``): (kind, result bytes, count) each.  Each MoE layer
+    adds its load-balance loss's sums over the ranks
+    (``collectives.all_sum`` of (clients, 2E) f32: an all-reduce forward
+    and one backward) and, where a dispatch group spans ranks
+    (``moe.Span``), all-gathers the (groups, E) f32 expert counts
+    (``collectives.counts_before``); a checkpointed layer
+    (``cfg.remat``) runs its forward's again in the backward.  Each
+    ResNet-9 batch-norm layer adds its two sums (``resnet._conv_bn``:
+    the mean's and the variance's, (clients, C) f32), each an all-reduce
+    forward and one backward.  Other families' losses are means over
+    their samples: none."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.resnet import WIDTHS
+    from repro_torch.sharding.collectives import ModelAxis
+
+    ev = []
+    if cfg.is_moe:
+        n = cfg.num_layers
+        fwd = 1 + int(cfg.remat != "none")
+        _add(ev, "all-reduce", clients * 2 * cfg.num_experts * 4,
+             n * (fwd + 1))
+        sp = MOE.Span.of(tokens, ModelAxis(None, 0, m))
+        if sp.spans:
+            _add(ev, "all-gather",
+                 clients * m * sp.groups * cfg.num_experts * 4, n * fwd)
+    elif cfg.family == "vision":
+        for w in WIDTHS.values():
+            _add(ev, "all-reduce", clients * w * cfg.d_model * 4, 4)
+    return ev
+
+
 def step_collectives(kind: str, num_params: int, world: int,
                      num_clients: int = 0,
                      upload_dtype: str = "float32", *, model: int = 1,
@@ -376,7 +412,7 @@ def step_collectives(kind: str, num_params: int, world: int,
                      params_per_card: int = 0,
                      batch: int = 0, seqs: int = 0,
                      codec=None, leaves: int = 0,
-                     shape=None) -> CollectiveStats:
+                     shape=None, dp_rows: int = 0) -> CollectiveStats:
     """The collectives one rank of the port's step issues, on a (world /
     model, model) mesh.
 
@@ -392,7 +428,15 @@ def step_collectives(kind: str, num_params: int, world: int,
     all-reduces and its threshold sample's all-gather; with ``codec`` (a
     ``compression`` codec on the rank's blocks of a model of ``leaves``
     leaves) the two norms' and the codec's own
-    (``Compressor.model_collectives``).  A serve step's ``shape`` (an
+    (``Compressor.model_collectives``).  ``dp_rows``: a ``dp_client``
+    round (the parameters whole on every rank, ``params_per_card`` the
+    whole model's), a client's rows: where they divide ``model`` the
+    round splits them over it, and adds the gradient's all-reduce over
+    ``model`` in f32, one per column block of ``CHUNK``, and the loss's
+    (``dp_collectives``, ``tokens`` the rank's of a client) in place of
+    the tensor-parallel model's; the round's norms, count and sample are
+    as above, and a codec runs on whole rows with none of its own.  A
+    serve step's ``shape`` (an
     ``InputShape``) over a data axis above 1 adds ``data_collectives``
     (``tokens`` and ``batch`` then the rank's).  A world of 1 issues
     none."""
@@ -413,16 +457,24 @@ def step_collectives(kind: str, num_params: int, world: int,
                                      data))
     if model > 1 and cfg is not None:
         n = max((num_clients or data) // data, 1)
-        for k, b, c in axis_collectives(kind, cfg, model, tokens, n, batch,
-                                        seqs):
-            add(k, ring_bytes(k, b, model), c)
+        if dp_rows and dp_rows % model == 0:
+            c = math.ceil(s_r / CHUNK)
+            add("all-reduce", ring_bytes("all-reduce", n * s_r * 4, model) / c,
+                c)
+            for k, b, c in dp_collectives(cfg, model, tokens, n):
+                add(k, ring_bytes(k, b, model), c)
+        elif not dp_rows:
+            for k, b, c in axis_collectives(kind, cfg, model, tokens, n,
+                                            batch, seqs):
+                add(k, ring_bytes(k, b, model), c)
         if kind == "train" and codec is None:
             add("all-reduce", ring_bytes("all-reduce", n * 8, model), 3)
             add("all-gather", ring_bytes("all-gather", n * sample * 4,
                                          model))
         elif kind == "train":
             add("all-reduce", ring_bytes("all-reduce", n * 4, model), 2)
-            for k, b in codec.model_collectives(n, leaves):
+            for k, b in ([] if dp_rows else codec.model_collectives(n,
+                                                                    leaves)):
                 add(k, ring_bytes(k, b, model))
     if kind != "train" and shape is not None and cfg is not None:
         for k, b, c in data_collectives(cfg, shape, data, model):

@@ -148,7 +148,7 @@ def build_step(arch_cfg: ModelConfig, shape: InputShape,
                dist_overrides: dict | None = None,
                variant: str = "default", donate: bool = False):
     """Returns dict(step, args, in_shardings, model, cfg, model_axis,
-    blocks[, system]).
+    blocks[, system, rules]).
 
     ``mesh``: a (data, model) client mesh (N = its data size, one client a
     data rank, as the reference's ``mesh_num_clients``); None is one
@@ -182,6 +182,7 @@ def build_step(arch_cfg: ModelConfig, shape: InputShape,
                  (), (), (), ())
         return dict(step=sys_["step"], args=args, in_shardings=in_sh,
                     model=model, cfg=cfg, system=sys_, model_axis=ma,
+                    rules=rules,
                     blocks=tree_unflatten(model.layout.paths,
                                           list(sys_["placement"].blocks)))
 
@@ -336,7 +337,7 @@ def materialize(built: dict, shape: InputShape, gen: torch.Generator,
         sys_ = built["system"]
         dcfg = sys_["dcfg"]
         state = D.init_state(model, dcfg, mesh=mesh, device=device,
-                             params=params)
+                             params=params, rules=built["rules"])
         del params
         n = dcfg.num_clients
         fl = FLConfig()

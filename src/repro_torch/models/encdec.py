@@ -247,7 +247,9 @@ def forward(params, cfg, tokens, *, frames=None, model_axis=None, **_):
             torch.zeros((), dtype=F32, device=enc.device))
 
 
-def loss_fn(params, cfg, batch, model_axis=None):
+def loss_fn(params, cfg, batch, model_axis=None, batch_axis=None):
+    """Mean next-token cross-entropy: a mean of the samples' losses, so a
+    client's batch split over ``batch_axis`` needs nothing from it."""
     logits, _ = forward(params, cfg, batch["tokens"], frames=batch["frames"],
                         model_axis=model_axis)
     return L.cross_entropy(logits, batch["labels"], cfg, model_axis)

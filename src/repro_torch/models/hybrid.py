@@ -94,7 +94,9 @@ def forward(params, cfg, tokens, *, train=False, model_axis=None, **_):
     return logits, torch.zeros((), dtype=F32, device=x.device)
 
 
-def loss_fn(params, cfg, batch, model_axis=None):
+def loss_fn(params, cfg, batch, model_axis=None, batch_axis=None):
+    """Mean next-token cross-entropy (``batch_axis`` as
+    ``encdec.loss_fn``'s)."""
     logits, _ = forward(params, cfg, batch["tokens"], train=True,
                         model_axis=model_axis)
     return L.cross_entropy(logits, batch["labels"], cfg, model_axis)

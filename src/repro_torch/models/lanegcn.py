@@ -127,7 +127,9 @@ def forward(params, cfg, batch_past, batch_lanes, model_axis=None, **_):
     return out, torch.zeros((), dtype=torch.float32, device=out.device)
 
 
-def loss_fn(params, cfg, batch, model_axis=None):
+def loss_fn(params, cfg, batch, model_axis=None, batch_axis=None):
+    """ADE: a mean over the samples (``batch_axis`` as
+    ``encdec.loss_fn``'s)."""
     pred, _ = forward(params, cfg, batch["past"], batch["lanes"], model_axis)
     return ade(pred, batch["future"])
 

@@ -315,7 +315,9 @@ def layer_stack(layers, cfg, x, which, train: bool, model_axis=None):
     return x
 
 
-def loss_fn(params, cfg, batch, model_axis=None):
+def loss_fn(params, cfg, batch, model_axis=None, batch_axis=None):
+    """Mean next-token cross-entropy (``batch_axis`` as
+    ``encdec.loss_fn``'s)."""
     logits, _ = forward(params, cfg, batch["tokens"], train=True,
                         model_axis=model_axis)
     return L.cross_entropy(logits, batch["labels"], cfg, model_axis)

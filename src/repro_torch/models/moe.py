@@ -116,7 +116,7 @@ def load_balance_loss(probs_mean, dispatch_frac, num_experts: int):
     return num_experts * torch.sum(probs_mean * dispatch_frac)
 
 
-def dispatch(logits, cfg, own=None, before=None, cap=None):
+def dispatch(logits, cfg, own=None, before=None, cap=None, means=None):
     """The routing plan of groups of tokens. logits: (ng, g, E).
 
     Returns (weights, keep, topi, slot, aux): ``keep`` (ng, g, E) f32 is
@@ -127,7 +127,12 @@ def dispatch(logits, cfg, own=None, before=None, cap=None):
     Over a serve step's data ranks (``moe_apply``): ``own`` (ng, g) marks
     the rows that are this rank's tokens, ``before`` maps the rank's
     per-group expert counts (ng, E) to those of the ranks before it in the
-    same groups, and ``cap`` is the whole group's capacity.
+    same groups, and ``cap`` is the whole group's capacity.  ``means``
+    maps the rank's sums of the own rows' probabilities and choices over
+    (ng, g), each (E,), to the whole batch's means (P_e, f_e), as the
+    reference means them over every row of every group, pads too (a
+    training client's batch split over ranks); without it ``aux`` is over
+    the rank's groups.
     """
     weights, mask, topi = route(logits, cfg)
     if own is not None:
@@ -139,8 +144,12 @@ def dispatch(logits, cfg, own=None, before=None, cap=None):
     cap = capacity(logits.shape[1], cfg) if cap is None else cap
     keep = (pos_in_exp < cap).to(F32) * mask
     probs = torch.softmax(logits.to(F32), dim=-1)
-    aux = load_balance_loss(probs.mean(dim=(0, 1)), mask.mean(dim=(0, 1)),
-                            cfg.num_experts)
+    if means is None:
+        p_e, f_e = probs.mean(dim=(0, 1)), mask.mean(dim=(0, 1))
+    else:
+        p_e, f_e = means((probs * own[..., None]).sum(dim=(0, 1)),
+                         mask.sum(dim=(0, 1)))
+    aux = load_balance_loss(p_e, f_e, cfg.num_experts)
     slot = torch.gather(pos_in_exp, -1, topi).long()
     return weights, keep, topi, slot, aux
 
@@ -238,7 +247,7 @@ def _check_routing(topi, keep, axis) -> None:
     axis.checks["routing"] = axis.checks.get("routing", 0) + 1
 
 
-def moe_apply(p, cfg, x, model_axis=None, data_axis=None):
+def moe_apply(p, cfg, x, model_axis=None, data_axis=None, batch_axis=None):
     """x: (B, S, d) -> (B, S, d), aux_loss (scalar f32); over
     ``model_axis`` on the rank's blocks of ``p`` (the module's
     docstring).  ``data_axis``: x is this rank's rows of a serve step's
@@ -248,7 +257,13 @@ def moe_apply(p, cfg, x, model_axis=None, data_axis=None):
     ranks before it (``collectives.counts_before``, one all-gather a
     layer; none where no group spans ranks), so ``keep`` and the slots
     are one process's on the whole batch.  ``aux`` is then over the
-    rank's groups (serving discards it)."""
+    rank's groups (serving discards it).  ``batch_axis``: x is this
+    rank's rows of a training client's batch (tokens [r t, (r + 1) t) of
+    it, ``core/distributed.py``'s chunks), routed as over ``data_axis``,
+    and ``aux`` is the whole batch's: P_e and f_e the means over all of
+    its groups' rows, the rank's sums added over the axis in one
+    ``collectives.all_sum`` of (2E,) f32 (f_e's half carries no
+    gradient), the same scalar on every rank."""
     b, s, d = x.shape
     t = b * s
     dt = x.dtype
@@ -262,17 +277,23 @@ def moe_apply(p, cfg, x, model_axis=None, data_axis=None):
     shared = bool(cfg.num_shared_experts) and split and (
         p["shared"]["wi_gate"].shape[1] != cfg.num_shared_experts * f)
     xc = C.copy_to(x, ma) if routed or shared else x  # the rank's own work
-    own = before = None
-    if L._split(data_axis):
-        sp = Span.of(t, data_axis)
+    own = before = means = None
+    axis = data_axis if L._split(data_axis) else batch_axis
+    if L._split(axis):
+        sp = Span.of(t, axis)
         g, lead, ng = sp.g, sp.lead, sp.ng
         own = sp.own(x.device)
         if sp.spans:
             def before(counts):
-                whole = counts.new_zeros((sp.groups, e))
-                whole[sp.first:sp.first + ng] = counts
-                return C.counts_before(whole, data_axis)[
-                    sp.first:sp.first + ng]
+                # the rank's groups placed among the whole batch's, built
+                # out of place (a batched tensor takes no in-place write)
+                whole = torch.nn.functional.pad(
+                    counts, (0, 0, sp.first, sp.groups - sp.first - ng))
+                return C.counts_before(whole, axis)[sp.first:sp.first + ng]
+        if axis is batch_axis:
+            def means(probs, mask):
+                both = C.all_sum(torch.cat([probs, mask.detach()]), axis)
+                return both[:e] / (sp.groups * g), both[e:] / (sp.groups * g)
     else:
         g, lead = max(min(GROUP, t), 1), 0
         ng = -(-t // g)
@@ -281,7 +302,8 @@ def moe_apply(p, cfg, x, model_axis=None, data_axis=None):
 
     router = L.whole(p["router"], (d, e), ma, "slice")
     logits = dot(xg, router.to(dt))
-    dkw = {} if own is None else dict(own=own, before=before, cap=cap)
+    dkw = {} if own is None else dict(own=own, before=before, cap=cap,
+                                      means=means)
     weights, keep, topi, slot, aux = dispatch(logits, cfg, **dkw)
     _check_routing(topi, keep, ma)
     # every choice's row in the rank's (E/M, ng, cap) buffers; a dropped

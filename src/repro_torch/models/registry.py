@@ -35,7 +35,8 @@ from repro_torch.utils.tree import TreeLayout, tree_flatten, tree_unflatten
 class Model:
     cfg: ModelConfig
     specs: dict
-    loss_fn: Callable  # (params, cfg, batch) -> scalar loss
+    # (params, cfg, batch, model_axis=None, batch_axis=None) -> scalar loss
+    loss_fn: Callable
     forward: Callable
     decode_step: Optional[Callable] = None  # (params, cfg, cache, token, pos)
     prefill: Optional[Callable] = None

@@ -23,6 +23,14 @@ The global max pool stays on the block, and the FC is row-parallel: one
 whose width does not divide the axis is whole on every rank (the rules'
 fallback) and runs whole: its input block is gathered with the gradient
 sliced, its output feeds the next layer through ``copy_to``.
+
+Over a ``batch_axis`` (``dp_client``: whole parameters, each client's
+batch split over the axis's ranks) a rank holds its rows of the batch,
+and each BN layer's statistics are the whole batch's, in the
+reference's two passes (``jnp.mean``, then ``jnp.var``'s mean of the
+squared deviations): the rank's per-channel sums of y, then of (y -
+mu)^2, each added over the axis by ``collectives.all_sum`` (two
+all-reduces forward and two backward a layer, of (C,) f32 a client).
 """
 from __future__ import annotations
 
@@ -63,19 +71,32 @@ def param_specs(cfg) -> dict:
     }
 
 
-def _conv_bn(p, x):
-    """3x3 SAME conv (stride 1) + batch-statistics BN + ReLU on NCHW x."""
+def _conv_bn(p, x, batch_axis=None):
+    """3x3 SAME conv (stride 1) + batch-statistics BN + ReLU on NCHW x
+    (over ``batch_axis``: x the rank's rows, the statistics the whole
+    batch's)."""
     y = F.conv2d(x, p["w"].permute(3, 2, 0, 1), padding=1)
-    mu = y.mean(dim=(0, 2, 3), keepdim=True)
-    var = y.var(dim=(0, 2, 3), keepdim=True, correction=0)
+    if batch_axis is not None and batch_axis.size > 1:
+        n = y.shape[0] * y.shape[2] * y.shape[3] * batch_axis.size
+
+        def total(v):  # the whole batch's per-channel sum, (1, C, 1, 1)
+            return C.all_sum(v.sum(dim=(0, 2, 3)), batch_axis)[None, :,
+                                                                 None, None]
+
+        mu = total(y) / n
+        var = total((y - mu).square()) / n
+    else:
+        mu = y.mean(dim=(0, 2, 3), keepdim=True)
+        var = y.var(dim=(0, 2, 3), keepdim=True, correction=0)
     y = (y - mu) * torch.rsqrt(var + 1e-5)
     y = y * p["scale"][:, None, None] + p["bias"][:, None, None]
     return F.relu(y)
 
 
-def forward(params, cfg, images, model_axis=None):
+def forward(params, cfg, images, model_axis=None, batch_axis=None):
     """images: (B, 32, 32, 3) NHWC -> logits (B, classes), in the
-    weights' dtype (float32; float64 for a witness in f64)."""
+    weights' dtype (float32; float64 for a witness in f64); over
+    ``batch_axis`` the rank's rows of a batch split over it."""
     x = images.to(params["c1"]["w"].dtype).permute(0, 3, 1, 2)
 
     def conv(name, x, block: bool):
@@ -85,7 +106,7 @@ def forward(params, cfg, images, model_axis=None):
         cut = p["scale"].shape[0] != WIDTHS[name] * cfg.d_model
         if name != "c1":  # the images need no gradient
             x = C.feed(x, model_axis, 1, block, cut)
-        return _conv_bn(p, x), cut
+        return _conv_bn(p, x, batch_axis), cut
 
     x, b = conv("c1", x, False)
     y, b = conv("c2", x, b)
@@ -103,9 +124,11 @@ def forward(params, cfg, images, model_axis=None):
     return x @ params["fc"]["w"] + params["fc"]["b"]
 
 
-def loss_fn(params, cfg, batch, model_axis=None):
+def loss_fn(params, cfg, batch, model_axis=None, batch_axis=None):
+    """Mean cross-entropy; over ``batch_axis`` the mean over the rank's
+    rows, with the whole batch's BN statistics."""
     logp = torch.log_softmax(forward(params, cfg, batch["images"],
-                                     model_axis), dim=-1)
+                                     model_axis, batch_axis), dim=-1)
     labels = batch["labels"].to(torch.int64)
     return -torch.gather(logp, -1, labels[:, None])[:, 0].mean()
 

@@ -97,14 +97,16 @@ def param_specs(cfg) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _ffn(lp, cfg, h, model_axis=None, data_axis=None):
+def _ffn(lp, cfg, h, model_axis=None, data_axis=None, batch_axis=None):
     """The block's feed-forward half: (y, aux loss)."""
     if cfg.is_moe:
-        return MOE.moe_apply(lp["moe"], cfg, h, model_axis, data_axis)
+        return MOE.moe_apply(lp["moe"], cfg, h, model_axis, data_axis,
+                             batch_axis)
     return L.mlp_apply(lp["mlp"], h, model_axis, cfg.d_ff), None
 
 
-def _block(lp, cfg, x, cos, sin, model_axis=None, data_axis=None):
+def _block(lp, cfg, x, cos, sin, model_axis=None, data_axis=None,
+           batch_axis=None):
     """One decoder layer: (x, the MoE aux loss or None, its k, v: every
     kv head's where a serve cache's slots are cut, ``layers.slot_cut``)."""
     h = L.rms_norm(x, lp["ln_attn"], cfg.norm_eps)
@@ -115,12 +117,13 @@ def _block(lp, cfg, x, cos, sin, model_axis=None, data_axis=None):
                               sliding_window=cfg.sliding_window)
     x = x + L.attn_out(lp["attn"], attn, x.dtype, cfg, model_axis)
     h2 = L.rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
-    y, a = _ffn(lp, cfg, h2, model_axis, data_axis)
+    y, a = _ffn(lp, cfg, h2, model_axis, data_axis, batch_axis)
     return x + y, a, k, v
 
 
 def forward(params, cfg, tokens=None, *, embeds=None, positions=None,
-            cache=None, cache_at: int = 0, model_axis=None, data_axis=None):
+            cache=None, cache_at: int = 0, model_axis=None, data_axis=None,
+            batch_axis=None):
     """Returns (logits, aux_loss).
 
     ``embeds`` (B, S, d) replaces the token embedding (the VLM's stub
@@ -134,6 +137,9 @@ def forward(params, cfg, tokens=None, *, embeds=None, positions=None,
     ``layers.prompt_slots``).  Over ``model_axis`` the logits are the rank's
     vocabulary block.  ``data_axis``: the batch is the rank's rows of a
     serve step's batch split over it (only the MoE dispatch reads it).
+    ``batch_axis``: the batch is the rank's rows of a training client's
+    batch split over it, and the MoE's routing and aux loss are the
+    whole batch's (``moe.moe_apply``).
     """
     x = (L.embed(params, cfg, tokens, model_axis) if embeds is None
          else embeds.to(cfg.activation_dtype))
@@ -147,7 +153,8 @@ def forward(params, cfg, tokens=None, *, embeds=None, positions=None,
     aux = torch.zeros((), dtype=F32, device=x.device)
 
     def body(lp, x, cos, sin):  # the layer ``cfg.remat`` checkpoints
-        x, a, _, _ = _block(lp, cfg, x, cos, sin, model_axis, data_axis)
+        x, a, _, _ = _block(lp, cfg, x, cos, sin, model_axis, data_axis,
+                            batch_axis)
         return x if a is None else (x, a)
 
     for i in range(cfg.num_layers):
@@ -180,10 +187,13 @@ def _write_kv(cache, cfg, i: int, k, v, at: int = 0):
     L.write_block(cache["v"][i], v, at)
 
 
-def loss_fn(params, cfg, batch, model_axis=None):
+def loss_fn(params, cfg, batch, model_axis=None, batch_axis=None):
     """Mean next-token cross-entropy + the MoE aux loss. batch:
-    tokens/labels (B, S)."""
-    logits, aux = forward(params, cfg, batch["tokens"], model_axis=model_axis)
+    tokens/labels (B, S): over ``batch_axis`` the rank's rows of a
+    client's batch, the aux loss the whole batch's (the same on every
+    rank) and the cross-entropy the mean over the rank's rows."""
+    logits, aux = forward(params, cfg, batch["tokens"], model_axis=model_axis,
+                          batch_axis=batch_axis)
     return (L.cross_entropy(logits, batch["labels"], cfg, model_axis)
             + cfg.router_aux_loss * aux)
 

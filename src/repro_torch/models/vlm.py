@@ -52,11 +52,13 @@ def forward(params, cfg, tokens, *, vision_embeds=None, positions=None,
                      model_axis=model_axis, **kw)
 
 
-def loss_fn(params, cfg, batch, model_axis=None):
-    """Cross-entropy on the text positions only (vision positions unlabeled)."""
+def loss_fn(params, cfg, batch, model_axis=None, batch_axis=None):
+    """Cross-entropy on the text positions only (vision positions
+    unlabeled), plus an MoE's aux loss (``batch_axis``: as
+    ``transformer.loss_fn``'s)."""
     logits, aux = forward(params, cfg, batch["tokens"],
                           vision_embeds=batch.get("vision_embeds"),
-                          model_axis=model_axis)
+                          model_axis=model_axis, batch_axis=batch_axis)
     n_img = batch["vision_embeds"].shape[1] if "vision_embeds" in batch else 0
     return (L.cross_entropy(logits[:, n_img:], batch["labels"], cfg,
                             model_axis)

@@ -10,6 +10,13 @@ unsharded function (Megatron-LM's tensor parallelism):
   rank holds whole and whose gradient each rank has only a part of;
 * ``reduce_from`` (g): an all-reduce forward, the identity backward; it
   ends a row-parallel region, whose partial sums add up to the output;
+* ``all_sum``: an all-reduce forward and an all-reduce backward, for a
+  sum of the ranks' partial sums that every rank goes on to use (the
+  whole batch's statistics where each rank holds its rows of a client's
+  batch, ``core/afl.py::device_grads``' ``batch_axis``): each rank's
+  loss reads the sum, so the sum's gradient is every rank's, and each
+  rank's partial sum must take all of it (``reduce_from``'s identity
+  backward would keep only the rank's own share);
 * ``gather``: the blocks of a leaf put together along ``dim``, for a leaf
   that the rules shard on a dim the layer cannot split its work on; the
   gradient returns to the block, summed over the ranks (``grad="sum"``:
@@ -39,9 +46,10 @@ over the ranks of an axis (``combine`` is the merge itself, over a
 stacked dim): over ``model`` where the rules cut the cache's ``head_dim``
 (the port cuts its slots, ``sharding/rules.py::model_slots``), over a
 mesh's ``data`` group (``launch/mesh.py::ClientMesh.data_axis``) where a
-decode's batch does not divide it.  ``counts_before`` gives each data
-rank the per-expert counts of the ranks before it in an MoE dispatch
-group that spans ranks.
+decode's batch does not divide it.  ``counts_before`` gives each rank
+the per-expert counts of the ranks before it in an MoE dispatch group
+that spans ranks (a serve step's data ranks, or the ranks a training
+client's batch is split over), outside the gradient and under ``vmap``.
 """
 from __future__ import annotations
 
@@ -128,6 +136,44 @@ class _Reduce(torch.autograd.Function):
         return _Reduce.apply(x, axis), in_dims[0]
 
 
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(x, axis):
+        return _all_reduce(x, axis)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.axis = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _Sum.apply(g, ctx.axis), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, axis):
+        return _Sum.apply(x, axis), in_dims[0]
+
+
+class _Before(torch.autograd.Function):
+    @staticmethod
+    def forward(counts, axis):
+        # every rank's counts on a new leading dim (a batched tensor's
+        # clients ride along), those of the ranks before this one summed
+        return _all_gather(counts[None], axis, 0)[:axis.rank].sum(0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None
+
+    @staticmethod
+    def vmap(info, in_dims, counts, axis):
+        return _Before.apply(counts, axis), in_dims[0]
+
+
 class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(x, axis, dim, grad):
@@ -160,6 +206,12 @@ def copy_to(x: torch.Tensor, axis: ModelAxis | None) -> torch.Tensor:
 def reduce_from(x: torch.Tensor, axis: ModelAxis | None) -> torch.Tensor:
     """Megatron's g: all-reduce forward, the identity backward."""
     return x if axis is None or axis.size == 1 else _Reduce.apply(x, axis)
+
+
+def all_sum(x: torch.Tensor, axis: ModelAxis | None) -> torch.Tensor:
+    """The sum of every rank's ``x``: all-reduce forward, all-reduce
+    backward (the module's docstring)."""
+    return x if axis is None or axis.size == 1 else _Sum.apply(x, axis)
 
 
 def gather(x: torch.Tensor, axis: ModelAxis | None, dim: int,
@@ -276,8 +328,8 @@ def merge_softmax(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
 def counts_before(counts: torch.Tensor,
                   axis: ModelAxis | None) -> torch.Tensor:
     """The sum of ``counts`` over the ranks before this one on the axis
-    (zeros on rank 0): one all-gather, outside the gradient."""
+    (zeros on rank 0): one all-gather, outside the gradient; under
+    ``vmap`` one for every client at once."""
     if axis is None or axis.size == 1:
         return torch.zeros_like(counts)
-    got = _all_gather(counts[None], axis, 0)
-    return got[:axis.rank].sum(0)
+    return _Before.apply(counts, axis)

@@ -44,7 +44,16 @@ saves what it computed; this process holds it:
   round: the witness that ``K_NOISE`` is the count's f32 noise;
 * ``ModelAxis.counts`` of one step equal to the collectives the plan
   counts (``launch/roofline.py::step_collectives``);
-* ``dp_client`` against the default variant.
+* ``dp_client`` (whole parameters, each client's batch split over
+  ``model``) against world 1, for Qwen3-MoE and Mamba2: on (1, 2) and (2,
+  2) a client's 2 rows split, one a rank (a Qwen3-MoE client's 32 tokens
+  one dispatch group over both ranks, its slots through
+  ``counts_before``, its load-balance loss the whole batch's); on (1, 4)
+  the 2 rows do not divide and run whole on every rank.  Each step's
+  ``ModelAxis.counts`` equal to the plan's (``step_collectives(dp_rows=)``),
+  and Qwen3-MoE's ``keep``, ``topi`` and slots of the rank's row of a
+  client's batch (``forward(batch_axis=)``) bit-equal to one process's on
+  the whole batch.
 """
 import json
 import os
@@ -132,13 +141,16 @@ F32 = dict(dtype="float32", param_dtype="float32")
 N, B, S, GEN, P, LR, SAMPLE = %d, %d, %d, %d, %d, %r, %d
 ROUNDS, TAU, H2, BUDGET = %r, %r, %r, %r
 ARCHS = %r
-ROUTES = []  # every MoE layer's (topi, keep) while ``routes`` records
+ROUTES = []  # every MoE layer's (topi, keep, slot, own rows) while
+# ``routes`` records
 
 
-def _recording_dispatch(logits, cfg, _orig=MOE.dispatch):
-    out = _orig(logits, cfg)
+def _recording_dispatch(logits, cfg, _orig=MOE.dispatch, **kw):
+    out = _orig(logits, cfg, **kw)
     if ROUTES and ROUTES[0] is None:
-        ROUTES.append((out[2].clone(), out[1].clone()))
+        own = kw.get("own")
+        ROUTES.append((out[2].clone(), out[1].clone(), out[3].clone(),
+                       None if own is None else own.clone()))
     return out
 
 
@@ -273,8 +285,16 @@ for name in names:
     res["w"], res["hist"] = run_steps(model, cfg, data, params, mesh,
                                       counts=res["counts"])
     if data["dp"]:
+        res["counts_dp"] = []
         res["w_dp"], res["hist_dp"] = run_steps(model, cfg, data, params,
-                                                mesh, RULES_TRAIN_DP)
+                                                mesh, RULES_TRAIN_DP,
+                                                counts=res["counts_dp"])
+        if cfg.is_moe and batch["tokens"].shape[0] % m == 0:
+            # the rank's rows of a client's batch, routed as the whole's
+            rows = {k: v.chunk(m)[ma.rank] for k, v in batch.items()}
+            with torch.no_grad():
+                res["routes_dp"] = routes(lambda: model.forward(
+                    params, cfg, rows["tokens"], batch_axis=ma))
     if tag in data["f64_on"]:  # the same rounds in f64 on the mesh
         f64 = cfg.replace(dtype=torch.float64, param_dtype=torch.float64)
         m64 = build_model(f64)
@@ -540,7 +560,7 @@ def test_routing_sets_bit_equal(spawned, one, tag, name):
     for r in _ranks(tag):
         res = _load(spawned, tag, name, r)
         assert len(res["routes"]) == len(o["routes"]) == layers
-        for (ti, kp), (wi, wk) in zip(res["routes"], o["routes"]):
+        for (ti, kp, *_), (wi, wk, *_) in zip(res["routes"], o["routes"]):
             assert torch.equal(ti, wi) and torch.equal(kp, wk), (tag, name, r)
         assert res["routing_checks"] == layers * (3 + GEN), (tag, name, r)
 
@@ -641,7 +661,8 @@ def test_axis_counts_equal_the_plan(spawned, one, tag, name):
 @pytest.mark.parametrize("tag,name", DP_CASES, ids=_ids(DP_CASES))
 def test_dp_client_matches_default(spawned, one, tag, name):
     """``dp_client`` (whole parameters on every rank, each client's batch
-    split over ``model``, one gradient all-reduce) against world 1."""
+    split over ``model`` where its rows divide, the gradient all-reduced)
+    against world 1."""
     o = one[name]
     s = o["model"].num_params()
     for r in _ranks(tag):
@@ -649,6 +670,63 @@ def test_dp_client_matches_default(spawned, one, tag, name):
         assert res["w_dp"].numel() == s
         _hold_step(res["w_dp"], res["hist_dp"], o["w"], o["hist"], s,
                    f"{tag} {name} dp rank {r}", o["hist64"], o["w64"])
+
+
+@pytest.mark.parametrize("tag,name", DP_CASES, ids=_ids(DP_CASES))
+def test_dp_client_counts_equal_the_plan(spawned, one, tag, name):
+    """Each ``dp_client`` round's collectives over ``model`` equal to
+    ``step_collectives(dp_rows=)``'s: where a client's rows divide the
+    axis, the gradient's all-reduce and (Qwen3-MoE) each layer's
+    load-balance sum both ways and its counts' all-gather; the round's
+    norms, count and sample everywhere."""
+    world, m = MESHES[tag]
+    data = world // m
+    cfg = one[name]["cfg"]
+    s = one[name]["model"].num_params()
+    rows = B // N
+    tokens = (rows // m if rows % m == 0 else rows) * S
+    want = TRL.step_collectives("train", s, m, N // data, model=m, cfg=cfg,
+                                tokens=tokens, params_per_card=s,
+                                dp_rows=rows).count_by_kind
+    if rows % m == 0:
+        assert want["all-reduce"] > 3, want
+    for r in _ranks(tag):
+        res = _load(spawned, tag, name, r)
+        assert len(res["counts_dp"]) == len(ROUNDS)
+        for got in res["counts_dp"]:
+            assert got == want, (tag, name, r, got, want)
+
+
+DP_MOE = [(t, a) for t, a in DP_CASES if "moe" in a
+          and (B // N) % MESHES[t][1] == 0]
+
+
+@pytest.mark.parametrize("tag,name", DP_MOE, ids=_ids(DP_MOE))
+def test_dp_client_routes_bit_equal_to_whole_batch(spawned, one, tag, name):
+    """Under ``batch_axis`` the rank's row of a client's 2 (16 tokens of
+    one group of 32 that spans both ranks): each layer's ``topi``,
+    ``keep`` and slots of its own tokens bit-equal to one process's on
+    the whole batch."""
+    o = one[name]
+    m = MESHES[tag][1]
+    per = 2 * S // m
+    for r in _ranks(tag):
+        res = _load(spawned, tag, name, r)
+        start = r % m * per
+        assert len(res["routes_dp"]) == len(o["routes"]) == o["cfg"].num_layers
+        for (ti, kp, sl, own), (wi, wk, ws, _) in zip(res["routes_dp"],
+                                                      o["routes"]):
+            rows = own.reshape(-1) > 0
+            assert int(rows.sum()) == per, (tag, r)
+            e, k = kp.shape[-1], ti.shape[-1]
+            got = (ti.reshape(-1, k)[rows], kp.reshape(-1, e)[rows],
+                   sl.reshape(-1, k)[rows])
+            want = (wi.reshape(-1, k)[start:start + per],
+                    wk.reshape(-1, e)[start:start + per],
+                    ws.reshape(-1, k)[start:start + per])
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (tag, name, r)
+            assert want[1].any()
 
 
 # ---------------------------------------------------------------------------
@@ -726,19 +804,18 @@ def test_plan_builds_every_family_at_four():
     assert fams <= set(TM.MODEL_AXIS_FAMILIES)
 
 
-@pytest.mark.parametrize("arch,whole", [("qwen3-moe-30b-a3b", True),
-                                        ("qwen3-32b", False)])
-def test_dp_client_plan_counts_the_batch_a_rank_runs(arch, whole):
-    """Under ``dp_client`` an MoE client's batch runs whole on every rank
-    of its model group, and the plan says so: the tokens a rank runs and
-    its FLOPs are M times those of a dense client's split batch."""
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "qwen3-32b"])
+def test_dp_client_plan_counts_the_batch_a_rank_runs(arch):
+    """Under ``dp_client`` a client's batch is split over its model group,
+    the MoE's as the dense one's, and the plan says so: a rank runs half
+    its client's tokens at M = 2 (the default variant runs all of them,
+    tensor-parallel), with the FLOPs of the default's rank."""
     from repro_torch.launch import dryrun as DR
 
     cfg = t_get_config(arch)
     shape = INPUT_SHAPES["train_4k"]
     dp, _ = DR.plan(cfg, shape, world=4, model=2, variant="dp_client")
     default, _ = DR.plan(cfg, shape, world=4, model=2)
-    assert dp["tokens_per_rank"] == default["tokens_per_rank"] // (
-        1 if whole else 2)
+    assert dp["tokens_per_rank"] == default["tokens_per_rank"] // 2
     assert dp["roofline"]["flops"] == pytest.approx(
-        default["roofline"]["flops"] * (2 if whole else 1))
+        default["roofline"]["flops"])

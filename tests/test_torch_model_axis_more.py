@@ -45,8 +45,13 @@ and saves what it computed; this process holds it:
 * ``ModelAxis.counts`` of each round equal to the collectives the plan
   counts (``launch/roofline.py::step_collectives``), and of one client's
   gradient equal in bytes too (``axis_collectives``);
-* ``dp_client`` against world 1 (ResNet-9's batch whole on every rank:
-  its batch-norm statistics read the whole batch).
+* ``dp_client`` against world 1 (whole parameters, each client's batch
+  split over ``model`` where its 2 rows divide the axis, on (1, 2) and
+  (2, 2); on (1, 4) they run whole on every rank): ResNet-9's
+  batch-norm statistics the whole batch's over the ranks
+  (``collectives.all_sum``), and each round's ``ModelAxis.counts`` equal
+  to the plan's (``step_collectives(dp_rows=)``: the gradient's
+  all-reduce, ResNet-9's four a batch-norm layer).
 
 In this process: Whisper-large-v3's three pairs sized by the plan at
 M = 2, 4 and 8 on the meta device, and each family's build on a (1, 2)
@@ -243,8 +248,10 @@ for name in names:
     res["w"], res["hist"] = run_steps(model, cfg, data, params, mesh,
                                       counts=res["counts"])
     if data["dp"]:
+        res["counts_dp"] = []
         res["w_dp"], res["hist_dp"] = run_steps(model, cfg, data, params,
-                                                mesh, RULES_TRAIN_DP)
+                                                mesh, RULES_TRAIN_DP,
+                                                counts=res["counts_dp"])
     torch.save(res, f"{tmp}/{tag}_{name}_{rank}.pt")
 mesh.close()
 print("RESULT " + json.dumps({"coords": mesh.coords}))
@@ -682,8 +689,9 @@ def test_gradient_collectives_equal_the_plan_in_bytes(spawned, one, tag,
 @pytest.mark.parametrize("tag,name", DP_CASES, ids=_ids(DP_CASES))
 def test_dp_client_matches_default(spawned, one, tag, name):
     """``dp_client`` (whole parameters on every rank, each client's batch
-    split over ``model``, one gradient all-reduce; ResNet-9's whole on
-    every rank) against world 1."""
+    split over ``model`` where its rows divide, the gradient all-reduced;
+    ResNet-9's batch-norm statistics the whole batch's) against world
+    1."""
     o = one[name]
     s = o["model"].num_params()
     for r in _ranks(tag):
@@ -691,6 +699,29 @@ def test_dp_client_matches_default(spawned, one, tag, name):
         assert res["w_dp"].numel() == s
         _hold_step(res["w_dp"], res["hist_dp"], o["w"], o["hist"], s,
                    f"{tag} {name} dp rank {r}", o["hist64"], o["w64"])
+
+
+@pytest.mark.parametrize("tag,name", DP_CASES, ids=_ids(DP_CASES))
+def test_dp_client_counts_equal_the_plan(spawned, one, tag, name):
+    """Each ``dp_client`` round's collectives over ``model`` equal to
+    ``step_collectives(dp_rows=)``'s: where a client's rows divide the
+    axis, the gradient's all-reduce and ResNet-9's two sums a batch-norm
+    layer both ways; the round's norms, count and sample everywhere."""
+    world, m = MESHES[tag]
+    data = world // m
+    cfg = one[name]["cfg"]
+    s = one[name]["model"].num_params()
+    rows = B // N
+    per = rows // m if rows % m == 0 else rows
+    tokens = per * (S if cfg.family == "audio" else 1)
+    want = TRL.step_collectives("train", s, m, N // data, model=m, cfg=cfg,
+                                tokens=tokens, params_per_card=s,
+                                dp_rows=rows).count_by_kind
+    for r in _ranks(tag):
+        res = _load(spawned, tag, name, r)
+        assert len(res["counts_dp"]) == len(ROUNDS)
+        for got in res["counts_dp"]:
+            assert got == want, (tag, name, r, got, want)
 
 
 # ---------------------------------------------------------------------------
