@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --time-tree DIR   # time another checkout's kernels
     python3 chip_smoke.py --only 19,20      # phases 1, 2 and those named
-                                            # (of 3c, 19-30) alone
+                                            # (of 3, 3c, 19-30) alone
     python3 chip_smoke.py --mesh 4          # the round over 4 cards
     python3 chip_smoke.py --mesh 4 --only 24  # phases 24b-d alone
     python3 chip_smoke.py --mesh 4 --only 24cd  # phases 24c-d alone
@@ -33,7 +33,13 @@ Phases, each of which raises on failure (a failed phase exits non-zero):
    - ``sparsify_ef`` / ``sparsify_quantize_ef`` at the training path's
      shape (N = 20 devices x s = 6,573,130 ResNet-9 parameters) in f32 and
      bf16 and at ragged shapes: uploads and counts bit-equal, errors within
-     1e-6; timed in f32 there and at LaneGCN's (20, 247,100) (``*_lanegcn``);
+     1e-6; timed in f32 there and at LaneGCN's (20, 247,100) (``*_lanegcn``),
+     warm (one x, ``ms``) and cold (``cold_ms``: copies of x in rotation
+     over 100 MB, twice the L2), each call checked to be one device
+     operation in a ``torch.profiler`` trace (``ops_per_call``; ``None``
+     where the trace read none); ``--only 3`` adds every other shape the
+     main paths give the pair (``sparsify_phase``: phases 19b, 23c, 26a
+     and 27a's timings, which carry the same keys);
    - the segmented ``sparsify_quantize_ef`` (one threshold, step and
      levels per (device, leaf): the per-layer codec's call) at (20,
      6,573,130) with ResNet-9's 26 leaves and at (20, 247,100) with
@@ -550,9 +556,9 @@ def rotation(fn, items):
     return lambda: fn(next(it))
 
 
-def device_times(fn, runs: int = 5) -> dict:
-    """Device milliseconds per call of fn by kernel name, from a
-    torch.profiler trace of ``runs`` calls ({} if it shows none)."""
+def traced(fn, runs: int) -> list:
+    """The events with device time of a torch.profiler trace of ``runs``
+    calls of fn (after one outside it), averaged by name."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -561,12 +567,99 @@ def device_times(fn, runs: int = 5) -> dict:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0) or 0
-        if us > 0:
-            out[e.key[:60]] = us / runs / 1e3
-    return out
+    return [e for e in prof.key_averages()
+            if (getattr(e, "self_device_time_total", 0) or 0) > 0]
+
+
+def device_times(fn, runs: int = 5) -> dict:
+    """Device milliseconds per call of fn by kernel name, from a
+    torch.profiler trace of ``runs`` calls ({} if it shows none)."""
+    return {e.key[:60]: e.self_device_time_total / runs / 1e3
+            for e in traced(fn, runs)}
+
+
+COLD_BYTES = 100e6  # inputs in rotation for a cold time: twice the 50 MB L2
+
+
+def device_ops(fn, label: str, symbol: str, runs: int = 5):
+    """Device operations a call of fn, from a torch.profiler trace of
+    ``runs`` calls (after one outside it): all the trace's device events
+    over those of the kernel named ``symbol`` (a trace may drop events, so
+    not over ``runs``); fails past one.  Where the trace shows none of the
+    kernel's, says so and returns None (not counted as one)."""
+    seen = {e.key: e.count for e in traced(fn, runs)}
+    kernel = sum(c for k, c in seen.items() if symbol in k)
+    if not kernel:
+        print(f"{label}: the profiler trace read no {symbol} event "
+              f"({len(seen)} device operations)", flush=True)
+        return None
+    per_call = sum(seen.values()) / kernel
+    if per_call > 1:
+        fail(f"{label}: {per_call} device operations a call, not one: "
+             f"{ {k[:60]: c for k, c in seen.items()} }")
+    return per_call
+
+
+def sparsify_times(call, x, label: str, runs: int = TIMED_RUNS,
+                   batch: int = 10, symbol: str = "row_pass") -> dict:
+    """A sparsify entry ``call(x)`` timed warm (``median_ms`` on the same
+    x, as the rows of PERF.md), cold (x and copies of it in rotation, over
+    COLD_BYTES; where x alone passes it, every call reads it from HBM and
+    the warm time is the cold one) and checked for one device operation a
+    call (``device_ops``; ``symbol``: the kernel's name)."""
+    ms = median_ms(lambda: call(x), runs=runs, batch=batch)
+    copies = max(1, math.ceil(COLD_BYTES / (x.numel() * x.element_size())))
+    if copies > 1:
+        xs = [x] + [x.clone() for _ in range(copies - 1)]
+        cold_ms = median_ms(rotation(call, xs), runs=runs, batch=batch)
+        del xs
+    else:
+        cold_ms = ms
+    return dict(ms=ms, cold_ms=cold_ms, cold_inputs=copies,
+                ops_per_call=device_ops(lambda: call(x), label, symbol))
+
+
+def floor_ms(K, x, offsets=None) -> float:
+    """Device ms of a sparsify launch on x's grid that moves no element:
+    ``sparsify_ef``'s (or with ``offsets`` the segmented kernel's) blocks
+    for x, given no columns (no pieces), so that each block only takes
+    the ticket and the last one writes the zero counts.  What a call
+    takes beyond it is its elements' time."""
+    lib, rows, dt = K.library(), x.shape[0], K._DTYPES[x.dtype]
+    nl = 1 if offsets is None else len(offsets) - 1
+    work = K.workspace(x.device, rows * nl)
+    cnt = torch.empty(rows * nl, dtype=torch.float32, device=x.device)
+    t = torch.zeros(rows * nl, device=x.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    if offsets is None:
+        blocks = K.row_blocks(rows, x.shape[1], 16 // x.element_size(),
+                              K.resident_blocks("sparsify_ef", x.dtype,
+                                                x.device.index))
+
+        def call():
+            return lib.sparsify_ef_launch(
+                x.data_ptr(), x.data_ptr(), x.data_ptr(), cnt.data_ptr(),
+                t.data_ptr(), blocks, work.data_ptr(), rows, 0, dt, stream)
+    else:
+        table, blocks, _ = K._table(x, offsets)
+        seeds = torch.zeros(rows, dtype=torch.int32, device=x.device)
+
+        def call():  # no pieces: the map and the op's tables are not read
+            return lib.sparsify_quantize_ef_segmented_launch(
+                x.data_ptr(), x.data_ptr(), x.data_ptr(), cnt.data_ptr(), 1,
+                t.data_ptr(), t.data_ptr(), t.data_ptr(), seeds.data_ptr(),
+                table.data_ptr(), blocks, 0, table.data_ptr(), nl,
+                work.data_ptr(), rows, x.shape[1], dt, stream)
+    if call() != 0:
+        fail(f"the empty sparsify launch on {tuple(x.shape)} failed")
+    return median_ms(call)
+
+
+def one_launch_ms() -> float:
+    """Device ms of a one-block kernel (a one-element fill) by
+    ``median_ms``: what any launch costs of a ``floor_ms``."""
+    z = torch.zeros(1, device="cuda")
+    return median_ms(lambda: z.fill_(1.0))
 
 
 def kernel_inputs(shape, dtype, seed: int):
@@ -617,48 +710,63 @@ def check_kernels(K, R, card: str):
         x, t, steps, levels, seeds = kernel_inputs((N_DEV, s), torch.float32,
                                                    1)
         n_el = x.numel()
-
-        def kernel_ef():
-            return K.sparsify_ef_cuda(x, t)
-
-        def kernel_qef():
-            return K.sparsify_quantize_ef_cuda(x, t, steps, levels, seeds,
-                                               base)
-
         times = {
             "sparsify_ef": (
-                kernel_ef,
-                median_ms(kernel_ef),
-                median_ms(lambda: R.sparsify_ef_plain(x, t)),
+                lambda x: K.sparsify_ef_cuda(x, t),
+                lambda: R.sparsify_ef_plain(x, t),
                 # x read, upload + error written; thresholds read, counts
                 # written
                 3 * 4 * n_el + 2 * 4 * N_DEV,
                 4 * n_el,  # |x|, compare, two selects per element
             ),
             "sparsify_quantize_ef": (
-                kernel_qef,
-                median_ms(kernel_qef),
-                median_ms(lambda: R.sparsify_quantize_ef_plain(
-                    x, t, steps, levels, seeds, base)),
+                lambda x: K.sparsify_quantize_ef_cuda(x, t, steps, levels,
+                                                      seeds, base),
+                lambda: R.sparsify_quantize_ef_plain(x, t, steps, levels,
+                                                     seeds, base),
                 3 * 4 * n_el + 5 * 4 * N_DEV,
                 22 * n_el,  # the hash (10), divide, add, floor, clamp, ...
             ),
         }
-        for name, (fn, ms, plain_ms, nbytes, ops) in times.items():
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = ops / FP32_OPS_PER_S * 1e3
-            res = dict(ms=ms, ms_per_call=per_call_ms(fn), plain_ms=plain_ms,
-                       bound_ms=max(bytes_ms, ops_ms),
-                       bound_by=("bytes" if bytes_ms >= ops_ms
-                                 else "operations"))
-            res["bound_share"] = res["bound_ms"] / ms
+        for name, (call, plain, nbytes, ops) in times.items():
+            res = sparsify_times(call, x, f"{name} at ({N_DEV}, {s})")
+            res.update(ms_per_call=per_call_ms(lambda: call(x)),
+                       plain_ms=median_ms(plain),
+                       **bound(nbytes, ops, torch.float32))
+            res["bound_share"] = res["bound_ms"] / res["ms"]
             entry = out.setdefault(name, dict(max_abs_err=err[name]))
             entry.update({k + suffix: v for k, v in res.items()})
-            print(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+            print(f"{name}: {res['ms']:.4f} ms warm, {res['cold_ms']:.4f} ms "
+                  f"cold (plain {res['plain_ms']:.4f} ms, bound "
                   f"{res['bound_ms']:.4f} ms by {res['bound_by']}, share "
-                  f"{res['bound_share']:.3f}) at ({N_DEV}, {s}) f32 on "
-                  f"{card}", flush=True)
+                  f"{res['bound_share']:.3f}, {res['ops_per_call']} device "
+                  f"operations a call) at ({N_DEV}, {s}) f32 on {card}",
+                  flush=True)
         del x, t
+    return out
+
+
+def sparsify_phase(K, R, card: str) -> dict:
+    """``--only 3``: phase 3's sparsify checks and times (both entries at
+    the main shapes, the segmented entry at both layouts) and the same
+    kernels at every other shape the main paths give them, timed as phases
+    19b, 23c, 26a and 27a time them: (2, 1,889,110,016) bf16 (both
+    entries), (1, 3,212,749,824) bf16, the paper models' per-rank rows and
+    the counter map's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    out = dict(main=check_kernels(K, R, card),
+               segmented=check_segmented(K, R, card))
+    torch.cuda.empty_cache()
+    out["internlm2"] = dist_kernel_times(
+        K, build_model(get_config(DIST_ARCH)).num_params(), card)
+    out["llama"] = dist_kernel_times(
+        K, build_model(get_config("llama3.2-3b")).num_params(), card, n=1,
+        names=("sparsify_ef",))
+    out["paper_rank_shapes"] = paper_sparsify_times(K, R, card)
+    out["counter_map_rank_shapes"] = blocks_times(K, R, card)
+    print(f"sparsify phase: {json.dumps(out, default=str)}", flush=True)
     return out
 
 
@@ -722,27 +830,30 @@ def check_segmented(K, R, card: str) -> dict:
 
         x, t, steps, levels, seeds = segmented_inputs(offsets, torch.float32, 3)
         n_el, nl = x.numel(), len(offsets) - 1
-        ntiles = K.tiles(offsets, x.dtype, x.device).shape[0]
+        table = K.plan_table(x, offsets).numel()
 
-        def kernel():
+        def kernel(x):
             return K.sparsify_quantize_ef_segmented_cuda(x, t, steps, levels,
                                                          seeds, offsets)
 
-        res = dict(
-            ms=median_ms(kernel), ms_per_call=per_call_ms(kernel),
+        res = sparsify_times(kernel, x, f"segmented at {tuple(x.shape)}",
+                             symbol="segmented_pass")
+        res.update(
+            ms_per_call=per_call_ms(lambda: kernel(x)),
             plain_ms=median_ms(lambda: R.sparsify_quantize_ef_segmented_plain(
                 x, t, steps, levels, seeds, offsets)),
-            max_abs_err=0.0, library_ms=None, tiles=ntiles,
+            max_abs_err=0.0, library_ms=None, plan_entries=table,
             # x read, upload + error written; the three (N, L) tables, the
-            # seeds and the tile table read; the (N, L) counts written
-            **bound(3 * 4 * n_el + 4 * 4 * N_DEV * nl + 4 * N_DEV + 24 * ntiles,
+            # seeds and the partition table read; the (N, L) counts written
+            **bound(3 * 4 * n_el + 4 * 4 * N_DEV * nl + 4 * N_DEV + 8 * table,
                     22 * n_el, torch.float32))
         res["bound_share"] = res["bound_ms"] / res["ms"]
         print(f"sparsify_quantize_ef_segmented ({arch}, {tuple(x.shape)}, {nl} "
-              f"leaves, {ntiles} tiles, f32): {res['ms']:.4f} ms (plain "
-              f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms by "
-              f"{res['bound_by']}, {100 * res['bound_share']:.1f} % of it) on "
-              f"{card}; unrounded {json.dumps(res)}", flush=True)
+              f"leaves, f32): {res['ms']:.4f} ms warm, {res['cold_ms']:.4f} "
+              f"ms cold (plain {res['plain_ms']:.4f} ms, bound "
+              f"{res['bound_ms']:.4f} ms by {res['bound_by']}, "
+              f"{100 * res['bound_share']:.1f} % of it) on {card}; "
+              f"unrounded {json.dumps(res)}", flush=True)
         out[arch] = res
         del x
     return out
@@ -3056,6 +3167,29 @@ def dist_full_width(K, mesh, policy_name: str, kernel: str, smi: str,
     return out
 
 
+def bf16_rows(n: int, s: int, seed: int) -> torch.Tensor:
+    """Random (n, s) bf16 rows, drawn HOLD_BLOCK columns at a time (no f32
+    copy of a whole row)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.empty((n, s), dtype=torch.bfloat16, device="cuda")
+    for c0 in range(0, s, HOLD_BLOCK):
+        c1 = min(c0 + HOLD_BLOCK, s)
+        x[:, c0:c1] = torch.randn((n, c1 - c0), generator=g, device="cuda")
+    return x
+
+
+def bf16_inputs(n: int, s: int) -> tuple:
+    """Phase 19b's sparsify arguments for n <= 2 bf16 rows of s columns:
+    (x, thresholds keeping ~1 % and ~13 % of a row, steps, levels,
+    seeds)."""
+    x = bf16_rows(n, s, seed=5)
+    t = torch.tensor([2.5, 1.5], device="cuda")[:n]
+    steps = torch.tensor([0.01, 0.02], device="cuda")[:n]
+    levels = torch.tensor([7.0, 2047.0], device="cuda")[:n]
+    seeds = torch.tensor([11, 7930], dtype=torch.int32, device="cuda")[:n]
+    return x, t, steps, levels, seeds
+
+
 def dist_kernel_times(K, s: int, card: str, n: int = DIST_N,
                       names=("sparsify_ef", "sparsify_quantize_ef")) -> dict:
     """Phase 19b: both sparsify kernels timed at the run's shape, (2,
@@ -3063,30 +3197,25 @@ def dist_kernel_times(K, s: int, card: str, n: int = DIST_N,
     of a row); bound: bytes over the HBM rate (x read, upload and error
     written) against phase 3's operation counts at the f32 rate.  Phase
     23c: ``sparsify_ef`` alone on one row (``n``, ``names``)."""
-    g = torch.Generator(device="cuda").manual_seed(5)
-    x = torch.empty((n, s), dtype=torch.bfloat16, device="cuda")
-    for c0 in range(0, s, HOLD_BLOCK):
-        c1 = min(c0 + HOLD_BLOCK, s)
-        x[:, c0:c1] = torch.randn((n, c1 - c0), generator=g, device="cuda")
-    t = torch.tensor([2.5, 1.5], device="cuda")[:n]
-    steps = torch.tensor([0.01, 0.02], device="cuda")[:n]
-    levels = torch.tensor([7.0, 2047.0], device="cuda")[:n]
-    seeds = torch.tensor([11, 7930], dtype=torch.int32, device="cuda")[:n]
+    x, t, steps, levels, seeds = bf16_inputs(n, s)
     n_el = x.numel()
     calls = {
-        "sparsify_ef": (lambda: K.sparsify_ef_cuda(x, t), 4 * n_el),
-        "sparsify_quantize_ef": (lambda: K.sparsify_quantize_ef_cuda(
+        "sparsify_ef": (lambda x: K.sparsify_ef_cuda(x, t), 4 * n_el),
+        "sparsify_quantize_ef": (lambda x: K.sparsify_quantize_ef_cuda(
             x, t, steps, levels, seeds, 0), 22 * n_el),
     }
     out = {}
     for name in names:
-        fn, ops = calls[name]
-        ms = median_ms(fn, runs=9, batch=3)
+        call, ops = calls[name]
+        res = sparsify_times(call, x, f"{name} at ({n}, {s})", runs=9,
+                             batch=3)
         b = bound(3 * 2 * n_el + 5 * 4 * n, ops, torch.float32)
-        out[name] = dict(ms=ms, shape=[n, s], dtype="bfloat16", **b,
-                         bound_share=b["bound_ms"] / ms)
-        print(f"{name}: {ms:.4f} ms at ({n}, {s}) bf16 (bound "
-              f"{b['bound_ms']:.4f} ms by {b['bound_by']}) on {card}",
+        out[name] = dict(shape=[n, s], dtype="bfloat16", **res, **b,
+                         bound_share=b["bound_ms"] / res["ms"])
+        print(f"{name}: {res['ms']:.4f} ms at ({n}, {s}) bf16 (bound "
+              f"{b['bound_ms']:.4f} ms by {b['bound_by']}, "
+              f"{100 * b['bound_ms'] / res['ms']:.1f} %; "
+              f"{res['ops_per_call']} device operations a call) on {card}",
               flush=True)
     del x
     torch.cuda.empty_cache()
@@ -5905,8 +6034,10 @@ def paper_sparsify_times(K, R, card: str) -> list:
     paper models' (N / D, s_r) f32 on (1, 4) and (2, 2)) and of 26d's
     Whisper round ((1, s_r) bf16 on (1, 4)), the rank of model index 0
     (the one that owns the whole leaves), each held against its plain
-    version (bit-equal uploads and counts) and timed beside it; the bound
-    is the bytes read and written over the HBM rate."""
+    version (bit-equal uploads and counts) and timed beside it, warm and
+    cold, with one device operation a call (``sparsify_times``), and
+    beside the same grid's launch with no elements (``floor_ms``); the
+    bound is the bytes read and written over the HBM rate."""
     from repro_torch.configs import get_config
     from repro_torch.core.distributed import placement
     from repro_torch.launch.dryrun import plan_mesh
@@ -5932,9 +6063,11 @@ def paper_sparsify_times(K, R, card: str) -> list:
                                  K.sparsify_ef_cuda(x, t), "paper shapes")
         elt = x.element_size()
         res = dict(label=label, shape=[n, s_r], dtype=str(dt)[6:],
-                   ms=median_ms(lambda: K.sparsify_ef_cuda(x, t)),
+                   **sparsify_times(lambda x: K.sparsify_ef_cuda(x, t), x,
+                                    f"sparsify_ef at {label}"),
                    plain_ms=median_ms(lambda: R.sparsify_ef_plain(x, t),
                                       runs=9, batch=3),
+                   floor_ms=floor_ms(K, x), one_launch_ms=one_launch_ms(),
                    library_ms=None, max_abs_err=err,
                    **bound(3 * elt * x.numel() + 5 * 4 * n, 4 * x.numel(),
                            torch.float32))
@@ -6296,19 +6429,9 @@ def _rank_mesh(world: int, m: int, rank: int):
                       device=torch.device("meta"), model=m)
 
 
-def blocks_times(K, R, card: str) -> list:
-    """27a: the segmented ``sparsify_quantize_ef`` under a counter map
-    (``sparsify_quantize_ef_blocks``) at the per-rank shapes of 27b-c's
-    rounds, with the map of model index 1 (its blocks start past a cut
-    leaf's first run; index 0 would own the whole leaves too): ResNet-9's
-    and LaneGCN's (N / D, s_r) f32 on (1, 4) and (2, 2) and
-    InternLM2-1.8B's (1, s_r) bf16 on (2, 2).  Each held against its
-    plain version leaf by leaf (``hold_segmented``), timed beside the
-    plain version and the segmented entry without a map (world 1's
-    draws, the flat column) on the same inputs; the bound is the bytes
-    read and written over the HBM rate (each element read once and
-    written twice, the (N, L) tables, seeds, map and tiles read and the
-    (N, L) counts written)."""
+def blocks_shapes() -> list:
+    """27a's per-rank shapes: (label, N / D, the rank's ``Placement``,
+    dtype), the map of model index 1."""
     from repro_torch.core.distributed import placement
     from repro_torch.models.registry import build_model
 
@@ -6323,36 +6446,65 @@ def blocks_times(K, R, card: str) -> list:
     lm = build_model(axis_cfg(DIST_ARCH))
     shapes.append((f"{DIST_ARCH} (2, 2)", 1,
                    placement(lm, _rank_mesh(4, 2, 1)), torch.bfloat16))
+    return shapes
+
+
+def blocks_inputs(n: int, pl, dt, gen) -> tuple:
+    """Random arguments of ``sparsify_quantize_ef_blocks`` on a rank's
+    (n, s_r) blocks under ``pl``'s counter map."""
+    lay = pl.layout
+    offsets, nl, s_r = lay.offsets + (lay.size,), len(lay.sizes), lay.size
+    x = torch.randn((n, s_r), generator=gen, device="cuda", dtype=dt)
+    t = torch.rand((n, nl), generator=gen, device="cuda") * 2.0
+    steps = torch.rand((n, nl), generator=gen, device="cuda") * 0.05 + 0.004
+    levels = torch.tensor([1.0, 7.0, 127.0, 32767.0], device="cuda")[
+        torch.randint(0, 4, (n, nl), generator=gen, device="cuda")]
+    seeds = torch.arange(n, device="cuda", dtype=torch.int32) * 7919 + 11
+    return (x, t, steps, levels, seeds, offsets, pl.counters)
+
+
+def blocks_times(K, R, card: str) -> list:
+    """27a: the segmented ``sparsify_quantize_ef`` under a counter map
+    (``sparsify_quantize_ef_blocks``) at the per-rank shapes of 27b-c's
+    rounds, with the map of model index 1 (its blocks start past a cut
+    leaf's first run; index 0 would own the whole leaves too): ResNet-9's
+    and LaneGCN's (N / D, s_r) f32 on (1, 4) and (2, 2) and
+    InternLM2-1.8B's (1, s_r) bf16 on (2, 2).  Each held against its
+    plain version leaf by leaf (``hold_segmented``), timed beside the
+    plain version and the segmented entry without a map (world 1's
+    draws, the flat column) on the same inputs; the bound is the bytes
+    read and written over the HBM rate (each element read once and
+    written twice, the (N, L) tables, seeds, map and partition table read
+    and the (N, L) counts written); warm and cold times and one device
+    operation a call (``sparsify_times``); the same grid's launch with no
+    elements (``floor_ms``)."""
     gen = torch.Generator(device="cuda").manual_seed(27)
     out = []
-    for label, n, pl, dt in shapes:
-        lay = pl.layout
-        offsets, nl, s_r = lay.offsets + (lay.size,), len(lay.sizes), lay.size
-        x = torch.randn((n, s_r), generator=gen, device="cuda", dtype=dt)
-        t = torch.rand((n, nl), generator=gen, device="cuda") * 2.0
-        steps = torch.rand((n, nl), generator=gen, device="cuda") * 0.05 + 0.004
-        levels = torch.tensor([1.0, 7.0, 127.0, 32767.0], device="cuda")[
-            torch.randint(0, 4, (n, nl), generator=gen, device="cuda")]
-        seeds = torch.arange(n, device="cuda", dtype=torch.int32) * 7919 + 11
-        args = (x, t, steps, levels, seeds, offsets, pl.counters)
+    for label, n, pl, dt in blocks_shapes():
+        args = blocks_inputs(n, pl, dt, gen)
+        x, offsets = args[0], args[5]
+        nl, s_r = len(pl.layout.sizes), pl.layout.size
         err = hold_segmented("sparsify_quantize_ef_blocks", args,
                              K.sparsify_quantize_ef_blocks_cuda(*args),
                              f"blocks {label}")
         big = x.numel() > 1 << 28
         elt = x.element_size()
-        ntiles = K.tiles(offsets, x.dtype, x.device).shape[0]
+        table = K.plan_table(x, offsets).numel()
         res = dict(
             label=label, shape=[n, s_r], dtype=str(dt)[6:], leaves=nl,
             cut_leaves=sum(run != stride for _, run, stride, _ in pl.counters),
-            ms=median_ms(lambda: K.sparsify_quantize_ef_blocks_cuda(*args)),
+            **sparsify_times(lambda x: K.sparsify_quantize_ef_blocks_cuda(
+                x, *args[1:]), x, f"sparsify_quantize_ef_blocks at {label}",
+                symbol="segmented_pass"),
             unmapped_ms=median_ms(lambda: K.sparsify_quantize_ef_segmented_cuda(
                 *args[:6])),
+            floor_ms=floor_ms(K, x, offsets), one_launch_ms=one_launch_ms(),
             plain_ms=median_ms(
                 lambda: R.sparsify_quantize_ef_blocks_plain(*args),
                 runs=3 if big else 9, batch=1 if big else 3),
             library_ms=None, max_abs_err=err,
             **bound(3 * elt * x.numel() + (3 * 4 + 8) * n * nl + 4 * n
-                    + 40 * nl + 24 * ntiles, 26 * x.numel(), torch.float32))
+                    + 40 * nl + 8 * table, 26 * x.numel(), torch.float32))
         res["bound_share"] = res["bound_ms"] / res["ms"]
         out.append(res)
         print(f"sparsify_quantize_ef_blocks at {label}'s per-rank (N/D, s_r) "
@@ -8363,19 +8515,75 @@ def mesh_main(world: int, only: str = "") -> None:
     print(f"mesh of {world}: every check passed", flush=True)
 
 
+# the sparsify pair's rows of PERF.md: sparsify_ef at the one-card and
+# per-rank f32 shapes, the unsegmented sparsify_quantize_ef at the one-card
+# ones; the bf16 rows, the segmented entry and the counter map beside them
+TREE_EF_ROWS = ((N_DEV, S_RESNET9), (N_DEV, S_LANEGCN), (20, 1_643_290),
+                (10, 3_286_570), (20, 61_775), (10, 123_550))
+TREE_BF16_ROWS = (("sparsify_ef", 1, 3_212_749_824),
+                  ("sparsify_ef", 2, 1_889_110_016),
+                  ("sparsify_quantize_ef", 2, 1_889_110_016))
+
+
+def time_sparsify_tree(K) -> dict:
+    """The sparsify entries of K (another checkout's wrappers: the same
+    signatures) at every shape of PERF.md's rows 1-2, warm (``median_ms``,
+    as phase 3), on the inputs phase 3 builds."""
+    out = {}
+    for n, s in TREE_EF_ROWS:
+        x, t, steps, levels, seeds = kernel_inputs((n, s), torch.float32, 1)
+        out[f"sparsify_ef ({n}, {s}) f32"] = median_ms(
+            lambda: K.sparsify_ef_cuda(x, t))
+        if s in (S_RESNET9, S_LANEGCN):
+            out[f"sparsify_quantize_ef ({n}, {s}) f32"] = median_ms(
+                lambda: K.sparsify_quantize_ef_cuda(x, t, steps, levels,
+                                                    seeds, 12345))
+        del x
+    for arch in (RESNET9, LANEGCN):
+        offsets = leaf_offsets(arch)
+        x, t, steps, levels, seeds = segmented_inputs(offsets, torch.float32,
+                                                      3)
+        out[f"segmented {arch} {tuple(x.shape)} f32"] = median_ms(
+            lambda: K.sparsify_quantize_ef_segmented_cuda(
+                x, t, steps, levels, seeds, offsets))
+        del x
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    for label, n, pl, dt in blocks_shapes():
+        args = blocks_inputs(n, pl, dt, gen)
+        out[f"counter map {label} {tuple(args[0].shape)} {str(dt)[6:]}"] = (
+            median_ms(lambda: K.sparsify_quantize_ef_blocks_cuda(*args)))
+        del args
+    torch.cuda.empty_cache()
+    for name, n, s in TREE_BF16_ROWS:
+        x, t, steps, levels, seeds = bf16_inputs(n, s)
+        fn = ((lambda: K.sparsify_ef_cuda(x, t)) if name == "sparsify_ef"
+              else (lambda: K.sparsify_quantize_ef_cuda(x, t, steps, levels,
+                                                        seeds, 0)))
+        out[f"{name} ({n}, {s}) bf16"] = median_ms(fn, runs=9, batch=3)
+        del x, fn
+        torch.cuda.empty_cache()
+    return out
+
+
 def time_tree(tree: str) -> None:
-    """``--time-tree DIR``: device times of the LLM kernels from the port
-    in DIR/src (another checkout, say a parent commit's), by this script's
-    method, as one JSON line; so that two commits' kernels are timed alike
-    in one call."""
+    """``--time-tree DIR``: device times of the LLM kernels and of the
+    sparsify pair (``time_sparsify_tree``) from the port in DIR/src
+    (another checkout, say a parent commit's), by this script's method,
+    as one JSON line; so that two commits' kernels are timed alike in one
+    call."""
     sys.path.insert(0, str(Path(tree).resolve() / "src"))
     from repro_torch.kernels import decode_attn as DA
+    from repro_torch.kernels import sparsify_ef as K
     from repro_torch.kernels import ssd_scan as SSD
 
-    calls = llm_kernel_calls(DA, SSD)
     out = {"tree": tree, "card": torch.cuda.get_device_name(0)}
+    calls = llm_kernel_calls(DA, SSD)
     out.update({f"{label}_ms": median_ms(fn) for label, fn in calls.items()})
     out["ssd_scan_device_ms_by_kernel"] = device_times(calls["ssd_scan"])
+    del calls
+    torch.cuda.empty_cache()
+    out.update({f"{label} ms": ms
+                for label, ms in time_sparsify_tree(K).items()})
     print(json.dumps(out), flush=True)
 
 
@@ -8423,10 +8631,10 @@ def main() -> None:
                          *sys.argv[5:6])
     only = (set(sys.argv[2].split(",")) if sys.argv[1:2] == ["--only"]
             else None)
-    if only is not None and not only <= {"3c", "19", "20", "21", "22", "23",
-                                         "24", "25", "26", "27", "28", "29",
-                                         "30"}:
-        fail(f"--only takes phases of 3c, 19, 20, 21, 22, 23, 24, 25, 26, "
+    if only is not None and not only <= {"3", "3c", "19", "20", "21", "22",
+                                         "23", "24", "25", "26", "27", "28",
+                                         "29", "30"}:
+        fail(f"--only takes phases of 3, 3c, 19, 20, 21, 22, 23, 24, 25, 26, "
              f"27, 28, 29, 30, not {sys.argv[2]}")
     from repro_torch.kernels import decode_attn as DA
     from repro_torch.kernels import ref as R
@@ -8451,7 +8659,8 @@ def main() -> None:
     if only is not None:  # phases 1, 2 and the named ones; no kernels line
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-        phases = {"3c": lambda: check_wide_row(K, smi),
+        phases = {"3": lambda: sparsify_phase(K, R, smi),
+                  "3c": lambda: check_wide_row(K, smi),
                   "19": lambda: dist_phase(K, smi),
                   "20": lambda: mesh_phase(smi),
                   "21": lambda: remat_phase(smi),
@@ -8464,9 +8673,9 @@ def main() -> None:
                   "28": lambda: data_axis_phase(DA, SSD, R, smi),
                   "29": lambda: slot_axis_phase(DA, R, smi),
                   "30": lambda: dp_phase(smi)}
-        done = {p: phases[p]() for p in ("3c", "19", "20", "21", "22", "23",
-                                         "24", "25", "26", "27", "28", "29",
-                                         "30")
+        done = {p: phases[p]() for p in ("3", "3c", "19", "20", "21", "22",
+                                         "23", "24", "25", "26", "27", "28",
+                                         "29", "30")
                 if p in only}
         print(json.dumps(dict(phases=sorted(done), held=HELD), default=str))
         return
@@ -8721,8 +8930,8 @@ def main() -> None:
                  whole_run, profiled, f"{LANEGCN} mads-joint per-layer"),
              **segmented[RESNET9],
              **{f"{key}_lanegcn": segmented[LANEGCN][key] for key in
-                ("ms", "ms_per_call", "plain_ms", "bound_ms", "bound_share",
-                 "tiles")},
+                ("ms", "cold_ms", "cold_inputs", "ops_per_call", "ms_per_call",
+                 "plain_ms", "bound_ms", "bound_share", "plan_entries")},
              # phase 27a: the per-layer codec's rounds through a (1, 1)
              # mesh; the kernel under a counter map (a model-axis rank's
              # blocks, ``sparsify_quantize_ef_blocks``) held and timed at

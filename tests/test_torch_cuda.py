@@ -110,15 +110,17 @@ def _leaf_offsets(arch_or_sizes):
 @pytest.mark.cuda
 @pytest.mark.parametrize("leaves", [(7, 1, 0, 33, 130, 5, 64),
                                     (4099, 3, 70001, 1, 12, 8191),
-                                    "lanegcn-argoverse"],
-                         ids=["tiny", "ragged", "lanegcn"])
+                                    "lanegcn-argoverse",
+                                    tuple(range(1, 80))],
+                         ids=["tiny", "ragged", "lanegcn", "many"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_segmented_kernel_matches_plain(cuda, leaves, dtype):
     """The segmented sparsify_quantize_ef against its plain version, bit
     for bit: leaf starts off the 16-byte boundary, leaves shorter than a
-    vector, an empty leaf, rows whose start is unaligned, thresholds that
-    keep all or nothing; and against the unsegmented kernel called leaf by
-    leaf with base = the leaf's offset."""
+    vector, an empty leaf, rows whose start is unaligned, 79 leaves of 1
+    to 79 columns (most 16-byte vectors straddling a leaf edge: "many"),
+    thresholds that keep all or nothing; and against the unsegmented
+    kernel called leaf by leaf with base = the leaf's offset."""
     offsets = _leaf_offsets(leaves)
     rows, n, nl = 5, offsets[-1], len(offsets) - 1
     g = torch.Generator(device=cuda).manual_seed(8)
@@ -162,6 +164,132 @@ def test_segmented_kernel_refuses_bad_tables(cuda):
         K.sparsify_quantize_ef_segmented_cuda(x, tab, tab, tab[:, :1], seeds,
                                               (0, 60, 100))
     assert K.LAUNCHES["sparsify_quantize_ef_segmented"] == 0
+
+
+def _entry_inputs(cuda, shape, offsets, seed):
+    """Random inputs of every sparsify entry at ``shape`` over leaf
+    boundaries ``offsets``."""
+    n, s = shape
+    nl = len(offsets) - 1
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return dict(
+        x=torch.randn(shape, generator=g, device=cuda),
+        t=torch.rand(n, generator=g, device=cuda) * 1.5,
+        steps=torch.rand(n, generator=g, device=cuda) * 0.05 + 0.005,
+        levels=torch.full((n,), 127.0, device=cuda),
+        seeds=torch.arange(n, dtype=torch.int32, device=cuda) * 7919 + seed,
+        tl=torch.rand(n, nl, generator=g, device=cuda) * 1.5,
+        sl=torch.rand(n, nl, generator=g, device=cuda) * 0.05 + 0.005,
+        ll=torch.full((n, nl), 7.0, device=cuda))
+
+
+def _entries(inp, offsets):
+    """Each sparsify entry as (name, call(module), reading ``inp``): the
+    kernel's with K, the plain version's with ref."""
+    counters = tuple((a, b - a, b - a, i % 2 == 0)
+                     for i, (a, b) in enumerate(zip(offsets, offsets[1:])))
+
+    def seg():
+        return (inp["x"], inp["tl"], inp["sl"], inp["ll"], inp["seeds"],
+                offsets)
+
+    return [
+        ("sparsify_ef", lambda M: (K.sparsify_ef_cuda if M is K
+                                   else ref.sparsify_ef_plain)(
+            inp["x"], inp["t"])),
+        ("sparsify_quantize_ef", lambda M: (
+            K.sparsify_quantize_ef_cuda if M is K
+            else ref.sparsify_quantize_ef_plain)(
+            inp["x"], inp["t"], inp["steps"], inp["levels"], inp["seeds"], 5)),
+        ("segmented", lambda M: (
+            K.sparsify_quantize_ef_segmented_cuda if M is K
+            else ref.sparsify_quantize_ef_segmented_plain)(*seg())),
+        ("blocks", lambda M: (
+            K.sparsify_quantize_ef_blocks_cuda if M is K
+            else ref.sparsify_quantize_ef_blocks_plain)(*seg(), counters)),
+    ]
+
+
+@pytest.mark.cuda
+def test_back_to_back_calls_reset_the_ticket_and_accumulator(cuda):
+    """200 calls in a row at alternating shapes and entries, with no sync
+    between them: each gets the plain counts, so the last block of each
+    left the workspace's ticket and counts at zero for the next."""
+    calls = []
+    for i, (shape, offsets) in enumerate([((5, 4099), (0, 3, 4000, 4099)),
+                                          ((20, 1001), (0, 1001)),
+                                          ((3, 300001), (0, 7, 70008, 300001))]):
+        calls += _entries(_entry_inputs(cuda, shape, offsets, i), offsets)
+    want = [call(ref)[2] for _, call in calls]
+    got = [(i % len(calls), calls[i % len(calls)][1](K)[2])
+           for i in range(200)]
+    torch.cuda.synchronize()
+    for i, cnt in got:
+        assert cnt.dtype == want[i].dtype, calls[i][0]
+        assert torch.equal(cnt, want[i]), calls[i][0]
+
+
+@pytest.mark.cuda
+def test_captured_call_replays_with_the_plain_counts(cuda):
+    """One call of each entry captured in a CUDA graph (after an eager
+    call made its tables and the workspace) and replayed three times on
+    new inputs copied into the captured ones: each replay's uploads and
+    counts are the plain version's."""
+    shape, offsets = (6, 5003), (0, 11, 4000, 5003)
+    inp = _entry_inputs(cuda, shape, offsets, 0)
+    calls = _entries(inp, offsets)
+    for _, call in calls:
+        call(K)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    K.reset_launches()
+    with torch.cuda.graph(graph):
+        outs = [call(K) for _, call in calls]
+    for seed in (1, 2, 3):
+        for k, v in _entry_inputs(cuda, shape, offsets, seed).items():
+            inp[k].copy_(v)
+        graph.replay()
+        torch.cuda.synchronize()
+        for (name, call), out in zip(calls, outs):
+            want = call(ref)
+            assert torch.equal(out[0], want[0]), name
+            assert torch.equal(out[2], want[2]), name
+
+
+@pytest.mark.cuda
+def test_row_entries_first_call_at_a_new_shape_is_captured(cuda):
+    """The row entries read no host table: once the device's workspace
+    exists, each one's first call at a shape never called before may be
+    made during CUDA graph capture, and the replay gives the plain
+    version's uploads and counts."""
+    w = torch.randn(2, 100, device=cuda)
+    K.sparsify_ef_cuda(w, torch.full((2,), 0.5, device=cuda))  # workspace
+    inp = _entry_inputs(cuda, (3, 7777), (0, 7777), 4)
+    calls = _entries(inp, (0, 7777))[:2]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [call(K) for _, call in calls]
+    graph.replay()
+    torch.cuda.synchronize()
+    for (name, call), out in zip(calls, outs):
+        want = call(ref)
+        assert torch.equal(out[0], want[0]), name
+        assert torch.equal(out[2], want[2]), name
+
+
+@pytest.mark.cuda
+def test_call_during_capture_without_a_workspace_raises(cuda, monkeypatch):
+    x = torch.randn(4, 1000, device=cuda)
+    t = torch.full((4,), 0.5, device=cuda)
+    K.sparsify_ef_cuda(x, t)  # the workspace is made
+    monkeypatch.setattr(K, "_WORK", {})
+    graph = torch.cuda.CUDAGraph()
+    K.reset_launches()
+    with pytest.raises(RuntimeError, match="workspace"):
+        with torch.cuda.graph(graph):
+            K.sparsify_ef_cuda(x, t)
+    assert K.LAUNCHES["sparsify_ef"] == 0
 
 
 @pytest.mark.cuda
